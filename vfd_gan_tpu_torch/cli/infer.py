@@ -1,0 +1,147 @@
+"""Stream a video through a MyGAN generator (port of ``vfd_gan_tpu.cli.infer``).
+
+Windows the video into ``nfr``-frame clips, runs the generator over them,
+and writes
+
+* ``<out>/mask.mp4``    -- the predicted per-pixel forgery-mask video
+* ``<out>/overlay.mp4`` -- the input with the thresholded and opened mask
+  burned in red (threshold 0.5 + 5x5 opening, the reference's
+  post-processing, lib/utils.py:139-152)
+* ``<out>/scores.csv``  -- per-frame mean mask score
+
+Usage::
+
+    python -m vfd_gan_tpu_torch.cli.infer --video clip.mp4 \\
+        --ckpt run_netG.pth --out out/ [--device cuda]
+
+The checkpoint is a reference-format ``.pth``; an Orbax run directory of
+the JAX package converts to one with ``python -m
+vfd_gan_tpu.cli.export_torch --ckpt <dir>``.  Video decode and encode use
+cv2 through ``vfd_gan_tpu.data.video_io``, imported only by :func:`main`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import os
+
+import numpy as np
+import torch
+
+from vfd_gan_tpu_torch.models.mygan import Generator
+from vfd_gan_tpu_torch.ops.image import (
+    threshold,
+    to_channel_first,
+    to_channel_last,
+)
+from vfd_gan_tpu_torch.ops.morphology import video_open
+from vfd_gan_tpu_torch.utils.checkpoint import load_state_dict
+from vfd_gan_tpu_torch.utils.runtime import resolve_device
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description="stream a video into mask output")
+    p.add_argument("--video", required=True)
+    p.add_argument("--ckpt", required=True,
+                   help="reference-format .pth (e.g. <run>_netG.pth)")
+    p.add_argument("--out", required=True)
+    p.add_argument("--isize", type=int, default=128)
+    p.add_argument("--morph_plane", choices=("th", "hw"), default="th",
+                   help="opening plane: th = reference cv2 quirk "
+                        "(PARITY.md), hw = per-frame")
+    p.add_argument("--nfr", type=int, default=16)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
+    return p
+
+
+def _load(ckpt: str, device: torch.device):
+    """Model for a ``.pth`` by the reference's filename rule
+    (test.py:115-144), in eval mode on ``device``."""
+    if os.path.isdir(ckpt):
+        raise SystemExit(
+            f"{ckpt} is a directory: Orbax checkpoints need jax; convert it "
+            f"with `python -m vfd_gan_tpu.cli.export_torch --ckpt {ckpt}` "
+            "and pass the *_netG.pth it writes")
+    if "netG" in ckpt or "ganbase" in ckpt or "mygan" in ckpt:
+        sd = load_state_dict(ckpt)
+        # the width is the checkpoint's (the reference's is ngf=32)
+        model = Generator(ngf=sd["conv_last.weight"].shape[1], device=device)
+        model.load_state_dict(sd, strict=True)
+        return model.eval(), "Propose model[GAN]"
+    if any(s in ckpt for s in ("c2plus1d", "xception", "clstm")):
+        raise SystemExit(
+            f"{ckpt}: only the MyGAN generator is ported to PyTorch so far; "
+            "the other families are listed in ROADMAP.md under "
+            "'Modules still to port'")
+    raise SystemExit(f"cannot infer model type from path: {ckpt}")
+
+
+def postprocess(pred: torch.Tensor, plane: str = "th") -> torch.Tensor:
+    """The reference's mask post-processing: threshold 0.5, then the 5x5
+    opening, of a channel-last ``(B, T, H, W, 1)`` prediction."""
+    return video_open(threshold(pred), plane)
+
+
+@torch.inference_mode()
+def predict_clips(model: torch.nn.Module, clips_uint8: np.ndarray,
+                  plane: str = "th"):
+    """Decode-free core of :func:`main`.
+
+    ``clips_uint8``: ``(k, T, H, W, 3)`` uint8 frames.  Returns, on the
+    model's device, ``pred`` ``(k, T, H, W, 1)`` float32, ``opened`` (its
+    post-processed mask, same shape) and ``frame_scores`` ``(k, T)``, the
+    mean mask score of each frame."""
+    device = next(model.parameters()).device
+    x = torch.from_numpy(np.ascontiguousarray(clips_uint8)).to(device)
+    x = x.to(torch.float32) / 255.0 * 2.0 - 1.0
+    pred = to_channel_last(model(to_channel_first(x)))
+    opened = postprocess(pred, plane)
+    frame_scores = pred[..., 0].flatten(2).mean(dim=2)
+    return pred, opened, frame_scores
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+    from vfd_gan_tpu.data.video_io import count_frames, read_clip, write_video
+
+    device = resolve_device(args.device)
+    os.makedirs(args.out, exist_ok=True)
+    model, name = _load(args.ckpt, device)
+    print(f"model: {name} on {device}")
+
+    n_frames = count_frames(args.video)
+    n_clips = n_frames // args.nfr
+    if n_clips == 0:
+        raise SystemExit(f"video too short: {n_frames} < {args.nfr} frames")
+
+    masks, overlays, scores = [], [], []
+    for c in range(n_clips):
+        frames = read_clip(args.video, c * args.nfr, args.nfr,
+                           resize_to=(args.isize, args.isize))
+        pred, opened, frame_scores = predict_clips(model, frames[None],
+                                                   args.morph_plane)
+        p = pred[0, ..., 0].cpu().numpy()                   # (T, H, W)
+        m = opened[0, ..., 0].cpu().numpy()
+        masks.append((p * 255).astype(np.uint8))
+        overlay = frames.copy()
+        overlay[..., 0] = np.where(m > 0.5, 255, overlay[..., 0])
+        overlays.append(overlay)
+        scores.extend(frame_scores[0].cpu().tolist())
+
+    mask_video = np.concatenate(masks)[..., None].repeat(3, axis=-1)
+    write_video(os.path.join(args.out, "mask.mp4"), mask_video)
+    write_video(os.path.join(args.out, "overlay.mp4"),
+                np.concatenate(overlays))
+    with open(os.path.join(args.out, "scores.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["frame", "mean_mask_score"])
+        for i, s in enumerate(scores):
+            w.writerow([i, f"{s:.6f}"])
+    print(f"wrote {args.out}/mask.mp4, overlay.mp4, scores.csv "
+          f"({n_clips} clips, {len(scores)} frames)")
+
+
+if __name__ == "__main__":
+    main()

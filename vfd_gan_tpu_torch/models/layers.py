@@ -1,0 +1,82 @@
+"""Building blocks of the port's models (port of ``vfd_gan_tpu.models.layers``).
+
+NCDHW ``(B, C, T, H, W)`` input.  Submodule names are the reference's, so
+``state_dict`` keys match the ``.pth`` files the reference and
+``vfd_gan_tpu.utils.torch_export`` write:
+
+* ``STConv``       <- models/spatiotempconv.py:7-65 (R(2+1)D factored conv):
+  ``spatial_conv``, ``bn`` (the mid BN), ``temporal_conv``
+* ``GenConvBlock`` <- models/mygannet.py:13-28: ``conv`` (STConv), ``bn``
+* ``VideoBatchNorm``: ``nn.BatchNorm3d`` with torch's eps 1e-5 and
+  momentum 0.1, whose running statistics the eval forward uses.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from vfd_gan_tpu_torch.ops.convs import r2plus1d_mid_channels
+from vfd_gan_tpu_torch.utils.init import bn_scale_, dcgan_normal_, torch_default_
+
+
+class VideoBatchNorm(nn.BatchNorm3d):
+    """BatchNorm over (B, T, H, W) per channel, scale ~ N(1, 0.02)."""
+
+    def __init__(self, features: int, *, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__(features, eps=1e-5, momentum=0.1, device=device)
+        if generator is not None:
+            bn_scale_(self.weight, generator)
+
+
+def _conv(cin: int, cout: int, kernel, padding, device,
+          generator: torch.Generator | None) -> nn.Conv3d:
+    conv = nn.Conv3d(cin, cout, tuple(kernel), padding=tuple(padding),
+                     device=device)
+    if generator is not None:
+        dcgan_normal_(conv.weight, generator)
+        fan_in = cin * kernel[0] * kernel[1] * kernel[2]
+        torch_default_(conv.bias, fan_in, generator)
+    return conv
+
+
+class STConv(nn.Module):
+    """Factored (2+1)D convolution, stride 1 with biases: spatial (1,kh,kw)
+    conv -> BN -> ReLU -> temporal (kt,1,1) conv, intermediate width from
+    the R(2+1)D formula."""
+
+    def __init__(self, cin: int, cout: int,
+                 kernel_size: Sequence[int] = (3, 3, 3),
+                 padding: Sequence[int] = (0, 0, 0), *, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        kt, kh, kw = kernel_size
+        pt, ph, pw = padding
+        mid = r2plus1d_mid_channels(kt, kh, kw, cin, cout)
+        self.spatial_conv = _conv(cin, mid, (1, kh, kw), (0, ph, pw), device,
+                                  generator)
+        self.bn = VideoBatchNorm(mid, device=device, generator=generator)
+        self.temporal_conv = _conv(mid, cout, (kt, 1, 1), (pt, 0, 0), device,
+                                   generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.temporal_conv(F.relu(self.bn(self.spatial_conv(x))))
+
+
+class GenConvBlock(nn.Module):
+    """STConv -> BN -> LeakyReLU(0.2): the generator's conv block
+    (models/mygannet.py:13-28, 3x3x3 with SAME padding)."""
+
+    def __init__(self, cin: int, cout: int, *, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.conv = STConv(cin, cout, (3, 3, 3), padding=(1, 1, 1),
+                           device=device, generator=generator)
+        self.bn = VideoBatchNorm(cout, device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.leaky_relu(self.bn(self.conv(x)), negative_slope=0.2)
