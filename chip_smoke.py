@@ -1,35 +1,57 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA card.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA
+card.
 
 Run from the root of a checkout, with one card and no arguments::
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernel from this checkout's sources and runs
-the port (``vfd_gan_tpu_torch``, never jax) in phases, one line each:
+It builds the hand-written CUDA kernels from this checkout's sources and
+runs the port (``vfd_gan_tpu_torch``, never jax nor the JAX package) in
+phases, one line each (or a few):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the kernel library, timed;
+2. build: the kernel library (one nvcc per source, in parallel), timed;
 3. kernel vs plain: the opening kernel against its plain PyTorch version
    at the infer shapes in both planes, k = 3 and 5, binary and float
    masks, and a 512 x 512 plane (the tiled branch): bit-equal, then timed
    with CUDA events (20 repetitions of 10 back-to-back calls);
-4. generator: ``Generator(ngf=32)`` with random weights from a seed,
+4. flow kernels vs plain: the warp, refine and fused kernels at the train
+   step's shapes (240 fields at 64^2, 32^2 and 16^2, and 128^2 for
+   flow_scale 1.0) on polynomial planes of smooth frames with a planted
+   (1, 2) px shift, against their plain versions (warp <= 1e-5 x max|field|,
+   refine and fused q99 <= 1e-3 px), the fused flow recovering the shift;
+   then timed as in phase 3;
+5. video_to_flow_rgb: the three ``impl``s on one (16, 16, 128, 128, 3)
+   mask batch with streams=2, held against each other;
+6. generator: ``Generator(ngf=32)`` with random weights from a seed,
    written as a reference-format ``*_netG.pth`` and loaded back by the
    entry points' loader; its CUDA forward on a (1, 16, 128, 128, 3) clip
    against the CPU (max-abs <= 1e-4, TF32 off), and its b8 forward time;
-5. serving: ``cli.serve.serve`` on port 0 at ``--max_batch 8 --nfr 16
+7. serving: ``cli.serve.serve`` on port 0 at ``--max_batch 8 --nfr 16
    --isize 128 --device cuda``, answering HTTP requests (1 clip; 3 clips
    with ``?mask=1``; a 2-clip ``/predict_stream``; 8 concurrent clips;
    rounds of 8-clip requests for the b8 batch latency);
-6. infer: ``cli.infer.predict_clips`` on two uint8 clips, which must go
-   through the kernel and match the plain opening of the same prediction.
+8. infer: ``cli.infer.predict_clips`` on two uint8 clips, which must go
+   through the opening kernel and match the plain opening;
+9. train step CUDA vs CPU: one ``MyGanEngine._gan_core`` step at a small
+   size from the same weights and the same injected flows, TF32 off:
+   losses, updated G and D parameters and D BatchNorm statistics;
+10. training: ``cli.trainer.main`` at the reference width (b8, T16, 128^2,
+    ngf = ndf = 32, flow_scale 0.5, float32, synthetic data) for a few
+    steps and one test sweep; finite losses, ROC/PR/F1, the best
+    ``*_netG.pth``/``*_netD.pth`` loaded back with strict=True, step time
+    and peak memory;
+11. two-kernel path: one train step of that engine with
+    ``flow_impl="two_kernel"`` (``--flow_impl two_kernel``), which runs
+    the warp and refine kernels.
 
-The kernel's launch count is set to 0 before phases 5-6 (the main path)
-and read after them.  Then come one JSON line of kernel results and, last,
-``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
-non-zero and prints no last line.  It does the same without a card, and
-outside a checkout of the repo.
+Each main path (serve + infer; training; the two-kernel step) starts with
+the launch counts of its kernels set to 0 and reads them after.  Then come
+one JSON line of kernel results and, last, ``{"ok": true, "device":
+{...}}``.  Any failure raises: the script exits non-zero and prints no
+last line.  It does the same without a card, and outside a checkout of the
+repo.
 """
 
 from __future__ import annotations
@@ -51,8 +73,22 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 NFR, ISIZE, BATCH = 16, 128, 8
-KERNEL_SOURCE = "vfd_gan_tpu_torch/ops/cuda/morphology_open.cu"
-KERNEL_REPLACES = "vfd_gan_tpu/ops/pallas/morphology.py:24"
+# name -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "morphology_open": ("vfd_gan_tpu_torch/ops/cuda/morphology_open.cu",
+                        "vfd_gan_tpu/ops/pallas/morphology.py:24"),
+    "flow_fused": ("vfd_gan_tpu_torch/ops/cuda/flow_fused.cu",
+                   "vfd_gan_tpu/ops/pallas/flow_fused.py:68"),
+    "flow_warp": ("vfd_gan_tpu_torch/ops/cuda/flow_warp.cu",
+                  "vfd_gan_tpu/ops/pallas/warp.py:193"),
+    "flow_refine": ("vfd_gan_tpu_torch/ops/cuda/flow_refine.cu",
+                    "vfd_gan_tpu/ops/pallas/flow_refine.py:41"),
+}
+# the train step's flow fields: 2 streams x B x (T - 1)
+FIELDS = 2 * BATCH * (NFR - 1)
+# flow levels at flow_scale 0.5 (64, 32, 16) and the top one at 1.0 (128)
+FLOW_SIZES = (64, 32, 16, 128)
+TRAIN_STEPS = 24
 
 
 def say(phase: str, msg: str) -> None:
@@ -172,6 +208,142 @@ def phase_kernel(device) -> dict:
                   f"{copy_ms:.4f} ms")
     return {"max_abs_err": worst, "ms": times["th"][0],
             "plain_ms": times["th"][1]}
+
+
+def _flow_case(device, n: int, h: int, w: int):
+    """Polynomial planes (N, 5, H, W) of smooth frames and of copies moved
+    by a planted (1, 2) px shift, and a random flow of ~1 px."""
+    from vfd_gan_tpu_torch.ops.flow import _poly_planes
+
+    g = torch.Generator(device=device).manual_seed(h)
+    yy = torch.arange(h, device=device, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=device, dtype=torch.float32)[None, :]
+    phase = torch.rand(n, 1, 1, generator=g, device=device) * 6.28
+    freq = 0.1 + 0.1 * torch.rand(n, 1, 1, generator=g, device=device)
+
+    def frame(dx, dy):
+        return 128 + 60 * torch.sin(freq * (xx - dx) + phase) * torch.cos(
+            0.8 * freq * (yy - dy)) + 30 * torch.sin(
+            0.11 * (xx + yy - dx - dy))
+
+    planes = _poly_planes(torch.cat([frame(0, 0), frame(1, 2)]))
+    flow = torch.randn(n, 2, h, w, generator=g, device=device)
+    return planes[:n].contiguous(), planes[n:].contiguous(), flow
+
+
+def _q(err: torch.Tensor, q: float) -> float:
+    flat = err.flatten()
+    if flat.numel() > 1 << 24:     # torch.quantile's input limit
+        flat = flat[torch.randperm(flat.numel(), device=flat.device)
+                    [:1 << 24]]
+    return torch.quantile(flat, q).item()
+
+
+def _time_pair(kernel, plain) -> tuple[float, float, str]:
+    """Kernel and plain ms, run as plain, kernel, kernel, plain."""
+    for _ in range(20):
+        kernel()
+        plain()
+    p1, k1, k2, p2 = (event_ms(fn) for fn in (plain, kernel, kernel, plain))
+    return (statistics.median((k1, k2)), statistics.median((p1, p2)),
+            f"{p1:.4f} {k1:.4f} {k2:.4f} {p2:.4f}")
+
+
+def phase_flow_kernels(device) -> dict:
+    """Each flow kernel against its plain version at the train step's
+    shapes; returns the per-kernel results at the 64^2 level."""
+    from vfd_gan_tpu_torch.ops import flow_fused, flow_refine, warp
+
+    results = {}
+    for size in FLOW_SIZES:
+        p1, p2, f = _flow_case(device, FIELDS, size, size)
+        zero = torch.zeros_like(f)
+        w2 = warp.bilinear_warp_plain(p2, f)
+        cases = {
+            "flow_warp": (lambda: warp.bilinear_warp_cuda(p2, f),
+                          lambda: warp.bilinear_warp_plain(p2, f)),
+            "flow_refine": (
+                lambda: flow_refine.flow_refine_step_cuda(p1, w2, f, 15),
+                lambda: flow_refine.flow_refine_step_plain(p1, w2, f, 15)),
+            "flow_fused": (
+                lambda: flow_fused.flow_refine_fused_cuda(p1, p2, zero, 15,
+                                                          3),
+                lambda: flow_fused.flow_refine_fused_plain(p1, p2, zero, 15,
+                                                           3)),
+        }
+        for name, (kernel, plain) in cases.items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            worst, q99 = err.max().item(), _q(err, 0.99)
+            check(bool(torch.isfinite(got).all()), f"{name} {size}: finite")
+            if name == "flow_warp":
+                limit = 1e-5 * p2.abs().max().item()
+                check(worst <= limit, f"{name} {size}: max-abs {worst} <= "
+                                      f"{limit}")
+                tol = f"max-abs <= {limit:.3g}"
+            else:
+                check(q99 <= 1e-3, f"{name} {size}: q99 {q99} <= 1e-3 px")
+                tol = "q99 <= 1e-3 px"
+            extra = ""
+            if name == "flow_fused" and size >= 32:
+                inner = got[:, :, 8:-8, 8:-8]
+                mx, my = (inner[:, i].median().item() for i in (0, 1))
+                check(abs(mx - 1) < 0.3 and abs(my - 2) < 0.3,
+                      f"fused flow recovers the (1, 2) shift: ({mx}, {my})")
+                extra = f"; planted (1, 2) px -> median ({mx:.3f}, {my:.3f})"
+            k_ms, p_ms, order = _time_pair(kernel, plain)
+            say("flow", f"{name} {FIELDS}x{size}^2: max-abs {worst:.3g}, "
+                        f"q99 {q99:.3g} ({tol}){extra}; kernel {k_ms:.4f} "
+                        f"ms, plain {p_ms:.4f} ms (plain/kernel/kernel/plain "
+                        f"{order})")
+            if size == 64:
+                results[name] = {"max_abs_err": worst, "ms": k_ms,
+                                 "plain_ms": p_ms}
+    return results
+
+
+def _mask_batch(device, b: int, seed: int) -> torch.Tensor:
+    """A streams=2 batch of RGB mask videos (b, 16, 128, 128, 3) in
+    [-1, 1]: moving binary squares (gt), then soft copies (predictions)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    half = b // 2
+    t = torch.arange(NFR, device=device)[None, :, None, None]
+    yy = torch.arange(ISIZE, device=device)[None, None, :, None]
+    xx = torch.arange(ISIZE, device=device)[None, None, None, :]
+    y0 = torch.randint(10, 60, (half, 1, 1, 1), generator=g, device=device)
+    x0 = torch.randint(10, 60, (half, 1, 1, 1), generator=g, device=device)
+    gt = ((yy >= y0 + t) & (yy < y0 + t + 40) & (xx >= x0 + 2 * t)
+          & (xx < x0 + 2 * t + 40)).float()
+    pred = 0.2 + 0.6 * gt + 0.05 * torch.rand(gt.shape, generator=g,
+                                              device=device)
+    video = torch.cat([gt, pred])[..., None].expand(-1, -1, -1, -1, 3)
+    return video * 2 - 1
+
+
+def phase_flow_video(device) -> None:
+    from vfd_gan_tpu_torch.ops.flow import IMPLS, video_to_flow_rgb
+
+    video = _mask_batch(device, 16, 1)
+    out = {impl: video_to_flow_rgb(video, 0.5, 2, impl) for impl in IMPLS}
+    torch.cuda.synchronize()
+    ref = out["fused"]
+    check(ref.shape == video.shape and bool(torch.isfinite(ref).all()),
+          "flow video shape and finite")
+    check(ref.min().item() >= -1 - 1e-5 and ref.max().item() <= 1 + 1e-5,
+          "flow video in [-1, 1]")
+    parts = []
+    for impl in ("two_kernel", "warp"):
+        err = (out[impl] - ref).abs()
+        q99 = _q(err, 0.99)
+        check(q99 <= 0.05, f"video_to_flow_rgb {impl} vs fused: q99 {q99}")
+        parts.append(f"{impl} vs fused max-abs {err.max().item():.3g} "
+                     f"q50 {_q(err, 0.5):.3g} q99 {q99:.3g}")
+    ms = event_ms(lambda: video_to_flow_rgb(video, 0.5, 2), reps=5, calls=2,
+                  warmup=2)
+    say("flowvideo", f"{tuple(video.shape)} streams=2 scale=0.5: "
+                     f"{'; '.join(parts)} (bound q99 <= 0.05); fused "
+                     f"{ms:.3f} ms per call")
 
 
 def make_checkpoint(tmp: Path) -> Path:
@@ -343,6 +515,163 @@ def phase_infer(model: torch.nn.Module) -> None:
                  "the CPU tests, not run here")
 
 
+def _reset_flow_counts() -> None:
+    from vfd_gan_tpu_torch.ops import flow_fused, flow_refine, warp
+    from vfd_gan_tpu_torch.ops.morphology import open_planes_cuda
+
+    for fn in (open_planes_cuda, warp.bilinear_warp_cuda,
+               flow_refine.flow_refine_step_cuda,
+               flow_fused.flow_refine_fused_cuda):
+        fn.launches = 0
+
+
+def _flow_counts() -> dict:
+    from vfd_gan_tpu_torch.ops import flow_fused, flow_refine, warp
+    from vfd_gan_tpu_torch.ops.morphology import open_planes_cuda
+
+    return {"morphology_open": open_planes_cuda.launches,
+            "flow_fused": flow_fused.flow_refine_fused_cuda.launches,
+            "flow_warp": warp.bilinear_warp_cuda.launches,
+            "flow_refine": flow_refine.flow_refine_step_cuda.launches}
+
+
+def phase_step_parity(tmp: Path) -> None:
+    """One _gan_core step on the card and on the CPU from the same weights
+    and injected flows.  Tolerances: losses 1e-5, except the train-mode
+    spatial D's, 5e-4 relative (float32 sums of its BatchNorms in another
+    order, amplified through its deep BN chain, as in
+    tests/test_torch_port_train.py); updated parameters within Adam's
+    first-step sign-flip envelope of 2.5 lr (a conv bias under a BN has a
+    true gradient of 0); BN statistics 1e-5 (spatial D: 5e-4 relative)."""
+    from vfd_gan_tpu_torch.config import Config
+    from vfd_gan_tpu_torch.train.gan_engine import MyGanEngine
+
+    b, s = 2, 64
+    cfg = Config(model="mygan", isize=s, nfr=NFR, batchsize=b, ngf=8, ndf=8,
+                 ep=1, compute_dtype="float32", result_root=str(tmp))
+    rng = np.random.default_rng(4)
+    data = rng.uniform(-1, 1, (b, NFR, s, s, 3)).astype(np.float32)
+    gt = (rng.uniform(size=(b, NFR, s, s, 1)) > 0.85).astype(np.float32)
+    flows = rng.uniform(-1, 1, (2 * b, NFR, s, s, 3)).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        device = torch.device(dev)
+        eng = MyGanEngine(cfg, None, None, device=device)
+        eng.netg.drop_rate = 0.0
+        fl = torch.from_numpy(flows).to(device)
+        eng._flow = lambda v, streams=1, fl=fl: fl  # noqa: E731
+        metrics = eng._gan_core(torch.from_numpy(data).to(device),
+                                torch.from_numpy(gt).to(device))
+        out[dev] = ({k: float(v) for k, v in metrics.items()},
+                    {k: v.cpu() for k, v in eng.netg.state_dict().items()},
+                    {k: v.cpu() for k, v in eng.netd.state_dict().items()})
+    (m_cpu, g_cpu, d_cpu), (m_gpu, g_gpu, d_gpu) = out["cpu"], out["cuda"]
+    worst_loss = 0.0
+    for k, v in m_cpu.items():
+        rel = 5e-4 if ("_s/" in k or k in ("d/err_d_real/train",
+                                           "d/err_d_fake/train",
+                                           "d/err_d/train", "g/err_g/train",
+                                           "g/err_g_adv/train")) else 0.0
+        diff = abs(m_gpu[k] - v)
+        check(np.isfinite(m_gpu[k]) and diff <= 1e-5 + rel * abs(v),
+              f"step loss {k}: cuda {m_gpu[k]} vs cpu {v}")
+        worst_loss = max(worst_loss, diff)
+    lr = cfg.lr
+    worst_param = worst_stat = 0.0
+    for sd_cpu, sd_gpu in ((g_cpu, g_gpu), (d_cpu, d_gpu)):
+        for k, v in sd_cpu.items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            diff = (sd_gpu[k] - v).abs().max().item()
+            if "running" in k:
+                bound = 1e-5 + (5e-4 * v.abs().max().item()
+                                if k.startswith("spatdisc") else 0.0)
+                check(diff <= bound, f"BN stat {k}: {diff} <= {bound}")
+                worst_stat = max(worst_stat, diff)
+            else:
+                check(diff <= 2.5 * lr, f"param {k}: {diff} <= 2.5 lr")
+                worst_param = max(worst_param, diff)
+    say("stepparity", f"_gan_core b{b} T{NFR} {s}^2 ngf=ndf=8, CUDA vs CPU "
+                      f"(TF32 off): losses max-abs {worst_loss:.3g}, params "
+                      f"{worst_param:.3g} (<= 2.5 lr = {2.5 * lr:.3g}), BN "
+                      f"stats {worst_stat:.3g}")
+
+
+def phase_train(tmp: Path):
+    """The training main path at the reference width; returns the engine
+    and the kernels' launch counts on it."""
+    from vfd_gan_tpu_torch.cli.trainer import main as train_main
+    from vfd_gan_tpu_torch.models.mygan import DualDisc, Generator
+    from vfd_gan_tpu_torch.utils.checkpoint import load_state_dict
+
+    argv = ["--model", "mygan", "--batchsize", str(BATCH), "--nfr", str(NFR),
+            "--isize", str(ISIZE), "--ngf", "32", "--ndf", "32",
+            "--flow_scale", "0.5", "--compute_dtype", "float32",
+            "--synthetic_data", str(TRAIN_STEPS),
+            "--synthetic_test_batches", "2", "--ep", "1",
+            "--freq", str(TRAIN_STEPS), "--device", "cuda",
+            "--result_root", str(tmp / "runs")]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_flow_counts()                 # the training main path starts
+    t0 = time.perf_counter()
+    engine = train_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _flow_counts()              # ... and ends
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    check(engine.global_step == TRAIN_STEPS, "all train steps ran")
+    losses = {k: v for k, v in engine.errors.items() if "/" in k}
+    check(len(losses) > 20 and all(np.isfinite(v) for v in losses.values()),
+          f"finite losses: {losses}")
+    roc, pr, f1 = (engine.scores[f"score/{k}"] for k in ("roc", "pr", "f1"))
+    check(all(np.isfinite(v) for v in (roc, pr, f1)), "sweep scores")
+    g_pth = sorted((tmp / "runs").rglob("*_netG.pth"))
+    d_pth = sorted((tmp / "runs").rglob("*_netD.pth"))
+    check(len(g_pth) == len(d_pth) == 1, f"one best pair: {g_pth} {d_pth}")
+    Generator(32).load_state_dict(load_state_dict(str(g_pth[0])),
+                                  strict=True)
+    DualDisc(32, NFR, ISIZE).load_state_dict(load_state_dict(str(d_pth[0])),
+                                             strict=True)
+    check(counts["flow_fused"] > 0, "training launched the fused kernel")
+    check(counts["morphology_open"] > 0,
+          "the test sweep launched the opening kernel")
+    steady = engine.step_seconds[4:]
+    say("train", f"trainer.main b{BATCH} T{NFR} {ISIZE}^2 ngf=ndf=32 "
+                 f"flow_scale 0.5 float32: {TRAIN_STEPS} steps + sweep in "
+                 f"{wall:.1f} s; step median {1e3 * statistics.median(steady):.1f}"
+                 f" ms (min {1e3 * min(steady):.1f}, max "
+                 f"{1e3 * max(steady):.1f}, steps 5-{TRAIN_STEPS}); first "
+                 f"step {1e3 * engine.step_seconds[0]:.0f} ms; peak memory "
+                 f"{peak:.0f} MiB")
+    say("train", "losses at the last step: " + ", ".join(
+        f"{k} {v:.5g}" for k, v in sorted(losses.items())
+        if k.endswith("/train")))
+    say("train", f"sweep: roc {roc:.6g} pr {pr:.6g} f1 {f1:.6g}; saved "
+                 f"{g_pth[0].name}, {d_pth[0].name} (loaded strict); "
+                 f"launches {json.dumps(counts)}")
+    return engine, counts
+
+
+def phase_two_kernel(engine) -> dict:
+    """One train step of the trained engine with the two-kernel flow."""
+    batch = next(iter(engine.train_iter))
+    engine.flow_impl = "two_kernel"
+    _reset_flow_counts()                 # the two-kernel path starts
+    t0 = time.perf_counter()
+    metrics = engine._train_step_impl(batch)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = _flow_counts()              # ... and ends
+    check(all(np.isfinite(float(v)) for v in metrics.values()),
+          "two-kernel step losses finite")
+    check(counts["flow_warp"] > 0 and counts["flow_refine"] > 0,
+          f"the two-kernel step launched warp and refine: {counts}")
+    check(counts["flow_fused"] == 0, "and not the fused kernel")
+    say("twokernel", f"one train step with flow_impl=two_kernel in {ms:.1f}"
+                     f" ms: launches {json.dumps(counts)}")
+    return counts
+
+
 def main() -> None:
     name = phase_device()
     import_port()
@@ -350,18 +679,34 @@ def main() -> None:
 
     device = torch.device("cuda")
     phase_build()
-    kernel = phase_kernel(device)
+    results = {"morphology_open": phase_kernel(device)}
+    results.update(phase_flow_kernels(device))
+    phase_flow_video(device)
     with tempfile.TemporaryDirectory() as tmp:
         path = make_checkpoint(Path(tmp))
         model = phase_generator(path, device)
-        open_planes_cuda.launches = 0            # the main path starts here
+        open_planes_cuda.launches = 0            # the serving path starts
         phase_serve(path, model)
         phase_infer(model)
-        launches = open_planes_cuda.launches
-    check(launches > 0, "the main path launched the morphology kernel")
+        serve_launches = open_planes_cuda.launches
+        check(serve_launches > 0, "serve + infer launched the opening kernel")
+        say("serve", f"serve + infer path: morphology_open launches "
+                     f"{serve_launches}")
+        del model
+        phase_step_parity(Path(tmp))
+        engine, train_counts = phase_train(Path(tmp))
+        two_counts = phase_two_kernel(engine)
+    # launches: each kernel's count on the main path that runs it (the
+    # trainer for the fused and opening kernels, its --flow_impl
+    # two_kernel step for warp and refine)
+    launches = {"morphology_open": train_counts["morphology_open"],
+                "flow_fused": train_counts["flow_fused"],
+                "flow_warp": two_counts["flow_warp"],
+                "flow_refine": two_counts["flow_refine"]}
     print(json.dumps({"kernels": [{
-        "name": "morphology_open", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches, **kernel}]}))
+        "name": k, "route": "cuda", "source": KERNELS[k][0],
+        "replaces": KERNELS[k][1], "launches": launches[k], **results[k]}
+        for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,5 +1,6 @@
-"""Every port module imports where jax, flax, orbax, cv2, sklearn and
-matplotlib are absent (a PyTorch-only serving machine)."""
+"""Every port module, and chip_smoke.py, imports where jax, flax, orbax,
+cv2, sklearn, matplotlib and the JAX package itself are absent (a
+PyTorch-only machine)."""
 
 import os
 import subprocess
@@ -11,7 +12,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _GUARDED_IMPORT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
     BLOCKED = {"jax", "jaxlib", "flax", "orbax", "cv2", "sklearn",
-               "matplotlib"}
+               "matplotlib", "vfd_gan_tpu"}
     for name in list(sys.modules):
         if name.split(".")[0] in BLOCKED:
             del sys.modules[name]
@@ -39,7 +40,12 @@ def test_port_imports_without_jax_or_cv2():
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
     assert {f"vfd_gan_tpu_torch.{m}" for m in (
-        "ops.convs", "ops.resize", "ops.image", "ops.morphology", "ops.cuda",
+        "config", "ops.convs", "ops.resize", "ops.image", "ops.morphology", "ops.cuda",
+        "ops.augment", "ops.losses", "ops.corr", "ops.warp",
+        "ops.flow_refine", "ops.flow_fused", "ops.flow",
         "models.layers", "models.mygan", "utils.init", "utils.weights",
         "utils.checkpoint", "utils.runtime", "cli.infer", "cli.serve",
+        "cli.trainer", "eval.metrics", "data.device_synthetic",
+        "train.state", "train.checkpoints", "train.engine_base",
+        "train.gan_engine",
     )} <= names

@@ -7,6 +7,11 @@ NCDHW ``(B, C, T, H, W)`` input.  Submodule names are the reference's, so
 * ``STConv``       <- models/spatiotempconv.py:7-65 (R(2+1)D factored conv):
   ``spatial_conv``, ``bn`` (the mid BN), ``temporal_conv``
 * ``GenConvBlock`` <- models/mygannet.py:13-28: ``conv`` (STConv), ``bn``
+* ``DiscConvBlock``<- models/mygannet.py:104-116 (NetdConv): the same
+  submodules, any kernel, LeakyReLU at torch's default slope 0.01
+* ``TorchLinear``: ``nn.Linear`` with the reference's init (the
+  reference's ``weights_init`` skips Linear layers, so PyTorch's default
+  U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and bias)
 * ``VideoBatchNorm``: ``nn.BatchNorm3d`` with torch's eps 1e-5 and
   momentum 0.1, whose running statistics the eval forward uses.
 """
@@ -80,3 +85,30 @@ class GenConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.leaky_relu(self.bn(self.conv(x)), negative_slope=0.2)
+
+
+class DiscConvBlock(nn.Module):
+    """STConv -> BN -> LeakyReLU(0.01): the discriminator's conv block
+    (models/mygannet.py:104-116; note the default slope, not 0.2)."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: Sequence[int],
+                 padding: Sequence[int], *, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.conv = STConv(cin, cout, kernel_size, padding=padding,
+                           device=device, generator=generator)
+        self.bn = VideoBatchNorm(cout, device=device, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.leaky_relu(self.bn(self.conv(x)), negative_slope=0.01)
+
+
+class TorchLinear(nn.Linear):
+    """``nn.Linear`` with PyTorch's default init drawn from ``generator``."""
+
+    def __init__(self, fan_in: int, features: int, *, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__(fan_in, features, device=device)
+        if generator is not None:
+            torch_default_(self.weight, fan_in, generator)
+            torch_default_(self.bias, fan_in, generator)

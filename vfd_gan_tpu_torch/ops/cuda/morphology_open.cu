@@ -31,6 +31,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -118,6 +120,8 @@ open_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
 }
 
+vfd::SmemOptin g_optin;
+
 }  // namespace
 
 // Opening of n contiguous float32 planes of p x q with a k x k square
@@ -130,12 +134,10 @@ extern "C" int vfd_morphology_open_f32(const float* x, float* out,
   if (n <= 0 || p <= 0 || q <= 0 || k < 1 || k % 2 == 0 || n > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   const int r = k / 2;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
+  // the device's opt-in limit, queried and granted to the kernel once per
+  // device (launch_common.cuh), not on every call
   int smem_limit = 0;
-  err = cudaDeviceGetAttribute(
-      &smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  const cudaError_t err = g_optin.limit(open_kernel, &smem_limit);
   if (err != cudaSuccess) return err;
 
   int tile_h = p;
@@ -152,12 +154,6 @@ extern "C" int vfd_morphology_open_f32(const float* x, float* out,
   const long long tiles_x = (q + tile_w - 1) / tile_w;
   if (tiles_y > 65535 || tiles_x > 65535) return cudaErrorInvalidValue;
 
-  // Above 48 KB a block gets dynamic shared memory only after this opt-in;
-  // without it the launch is refused.
-  err = cudaFuncSetAttribute(open_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>(n), static_cast<unsigned>(tiles_y),
                   static_cast<unsigned>(tiles_x));
   open_kernel<<<grid, kThreads, static_cast<size_t>(smem),

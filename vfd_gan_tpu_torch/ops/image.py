@@ -19,3 +19,21 @@ def to_channel_last(x: torch.Tensor) -> torch.Tensor:
 def to_channel_first(x: torch.Tensor) -> torch.Tensor:
     """Framework layout ``(B, T, H, W, C)`` -> torch layout ``(B, C, T, H, W)``."""
     return x.permute(0, 4, 1, 2, 3)
+
+
+def minmax_normalize(x: torch.Tensor, dims=None) -> torch.Tensor:
+    """Shift/scale to [0, 1) by the global (or per-``dims``) min and max,
+    with the reference's +1e-5 in the denominator (lib/utils.py:81-89), so
+    a constant input maps to 0, not NaN."""
+    if dims is None:
+        mn, mx = x.min(), x.max()
+    else:
+        mn = x.amin(dim=dims, keepdim=True)
+        mx = x.amax(dim=dims, keepdim=True)
+    return (x - mn) / (mx - mn + 1e-5)
+
+
+def gray2rgb(video: torch.Tensor) -> torch.Tensor:
+    """Repeat a channel-last single channel ``(..., 1)`` to ``(..., 3)``
+    (reference lib/utils.py:91-92)."""
+    return torch.cat([video, video, video], dim=-1)
