@@ -44,12 +44,27 @@ phases, one line each (or a few):
     and peak memory;
 11. two-kernel path: one train step of that engine with
     ``flow_impl="two_kernel"`` (``--flow_impl two_kernel``), which runs
-    the warp and refine kernels.
+    the warp and refine kernels;
+12. supervised training: ``cli.trainer.main --model clstm`` (8 steps, the
+    slice's main path: the augment kernel every step, the 3x3 conv kernel
+    forward and dx in the ConvLSTM), then ``--model c2plus1d`` and
+    ``--model xception --xwidth 1.0`` (4 steps each), each at b8, T16,
+    128^2, float32, with a one-batch sweep; finite losses, ROC/PR/F1, the
+    best ``{roc|pr}-*.pth`` loaded back with strict=True, step time, peak
+    memory and launch counts.
 
-Each main path (serve + infer; training; the two-kernel step) starts with
-the launch counts of its kernels set to 0 and reads them after.  Then come
-one JSON line of kernel results and, last, ``{"ok": true, "device":
-{...}}``.  Any failure raises: the script exits non-zero and prints no
+Before the serving phase come two more kernel phases: the augment gather
+kernel against its plain version (bit-equal on all three outputs at the
+train shape, a ragged clip and a 45 degree draw) and the 3x3 conv kernel
+(forward, dx, dw) against ``F.conv2d`` and its autograd at the ConvLSTM's
+shapes (forward 1e-5, dx and dw 1e-4), each timed; and after the MyGAN
+step parity, a CUDA-vs-CPU supervised step for each family at a small
+size.
+
+Each main path (serve + infer; MyGAN training; the two-kernel step; each
+supervised training run) starts with the launch counts of the kernels set
+to 0 and reads them after.  Then come one JSON line of kernel results
+and, last, ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits non-zero and prints no
 last line.  It does the same without a card, and outside a checkout of the
 repo.
 """
@@ -58,6 +73,7 @@ from __future__ import annotations
 
 import base64
 import json
+import math
 import socket
 import statistics
 import subprocess
@@ -83,12 +99,19 @@ KERNELS = {
                   "vfd_gan_tpu/ops/pallas/warp.py:193"),
     "flow_refine": ("vfd_gan_tpu_torch/ops/cuda/flow_refine.cu",
                     "vfd_gan_tpu/ops/pallas/flow_refine.py:41"),
+    "augment_gather": ("vfd_gan_tpu_torch/ops/cuda/augment_gather.cu",
+                       "vfd_gan_tpu/ops/pallas/augment.py:54"),
+    "conv3x3": ("vfd_gan_tpu_torch/ops/cuda/conv3x3.cu",
+                "vfd_gan_tpu/ops/pallas/spatial_conv.py:42"),
 }
 # the train step's flow fields: 2 streams x B x (T - 1)
 FIELDS = 2 * BATCH * (NFR - 1)
 # flow levels at flow_scale 0.5 (64, 32, 16) and the top one at 1.0 (128)
 FLOW_SIZES = (64, 32, 16, 128)
 TRAIN_STEPS = 24
+# the supervised families' training phases: model -> (steps, extra flags)
+SUPERVISED_RUNS = {"clstm": (8, []), "c2plus1d": (4, []),
+                   "xception": (4, ["--xwidth", "1.0"])}
 
 
 def say(phase: str, msg: str) -> None:
@@ -346,6 +369,104 @@ def phase_flow_video(device) -> None:
                      f"{ms:.3f} ms per call")
 
 
+def phase_augment_kernel(device) -> dict:
+    """The augment gather kernel against its plain version, bit-equal on
+    all three outputs: the train shape, a ragged clip and a 45 degree draw
+    that zero-fills heavily; then timed at the train shape."""
+    from vfd_gan_tpu_torch.ops import augment
+
+    cases = {"train": (BATCH, NFR, augment.staging_size(ISIZE), ISIZE, None),
+             "ragged": (3, 5, 37, 33, None),
+             "rot45": (BATCH, NFR, augment.staging_size(ISIZE), ISIZE,
+                       math.pi / 4)}
+    timed = None
+    for label, (b, t, s, isize, angle) in cases.items():
+        g = torch.Generator(device=device).manual_seed(b + s)
+        streams = [torch.randint(0, 256, (b, t, s, s, c), generator=g,
+                                 device=device, dtype=torch.uint8)
+                   for c in (3, 3, 1)]
+        streams[2] = (streams[2] > 127).to(torch.uint8) * 255
+        params = augment.sample_clip_params(g, b, s, isize)
+        if angle is not None:
+            params = (torch.full_like(params[0], angle),) + params[1:]
+        src_x, src_y = (c.contiguous() for c in augment._src_coords(
+            *params, s, isize))
+        got = augment.augment_gather_cuda(*streams, src_x, src_y)
+        want = augment.augment_gather_plain(*streams, src_x, src_y)
+        torch.cuda.synchronize()
+        for name, a, w in zip(("data", "real", "mask"), got, want):
+            check(a.shape == w.shape and torch.equal(a, w),
+                  f"augment kernel == plain at {label} ({name})")
+        outside = (src_x < 0) | (src_x >= s) | (src_y < 0) | (src_y >= s)
+        say("augment", f"{label} b{b} T{t} {s}^2 -> {isize}^2, C 3+3+1: "
+                       f"bit-equal on data, real and mask; "
+                       f"{outside.float().mean().item():.3f} of the pixels "
+                       "zero-filled")
+        if timed is None:
+            timed = (streams, src_x, src_y)
+    streams, src_x, src_y = timed
+    k_ms, p_ms, order = _time_pair(
+        lambda: augment.augment_gather_cuda(*streams, src_x, src_y),
+        lambda: augment.augment_gather_plain(*streams, src_x, src_y))
+    say("augment", f"train shape: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms"
+                   f" (plain/kernel/kernel/plain {order})")
+    return {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms}
+
+
+# the ConvLSTM's gate convs at b8, T16, 128^2 (input half: B*T frames;
+# hidden halves: B frames) and a ragged one: (N, H, W, Cin, Cout)
+CONV_CASES = {"input 3->64": (BATCH * NFR, ISIZE, ISIZE, 3, 64),
+              "hidden 16->64": (BATCH, ISIZE, ISIZE, 16, 64),
+              "hidden 12->48": (BATCH, ISIZE, ISIZE, 12, 48),
+              "ragged 7->9": (5, 24, 40, 7, 9)}
+
+
+def phase_conv_kernel(device) -> dict:
+    """conv3x3 (forward and dx on the kernel, dw as tap matmuls) against
+    ``F.conv2d`` and its autograd, TF32 off: forward rtol = atol = 1e-5,
+    dx and dw 1e-4 (unit-normal x, w x 0.1, dy unit-normal over
+    sqrt(N*H*W)); then the forward timed."""
+    from vfd_gan_tpu_torch.ops import spatial_conv
+
+    results = {}
+    for label, (n, h, w, cin, cout) in CONV_CASES.items():
+        g = torch.Generator(device=device).manual_seed(cin)
+        x = torch.randn((n, h, w, cin), generator=g, device=device)
+        k = torch.randn((3, 3, cin, cout), generator=g, device=device) * 0.1
+        # scaled so that dw, a sum over every pixel, stays O(1)
+        dy = torch.randn((n, h, w, cout), generator=g, device=device) / (
+            n * h * w) ** 0.5
+        grads = []
+        outs = []
+        for fn in (spatial_conv.conv3x3, spatial_conv.conv3x3_plain):
+            xa, ka = x.clone().requires_grad_(), k.clone().requires_grad_()
+            y = fn(xa, ka)
+            y.backward(dy)
+            outs.append(y.detach())
+            grads.append((xa.grad, ka.grad))
+        torch.cuda.synchronize()
+        errs = []
+        for what, a, b, tol in (("forward", outs[0], outs[1], 1e-5),
+                                ("dx", grads[0][0], grads[1][0], 1e-4),
+                                ("dw", grads[0][1], grads[1][1], 1e-4)):
+            err = (a - b).abs()
+            bound = tol + tol * b.abs()
+            check(bool((err <= bound).all()),
+                  f"conv3x3 {what} at {label}: max-abs {err.max().item()}")
+            errs.append(err.max().item())
+        k_ms, p_ms, order = _time_pair(
+            lambda: spatial_conv.conv3x3_cuda(x, k),
+            lambda: spatial_conv.conv3x3_plain(x, k))
+        say("conv3x3", f"{label} ({n}, {h}, {w}): max-abs forward "
+                       f"{errs[0]:.3g}, dx {errs[1]:.3g}, dw {errs[2]:.3g} "
+                       f"(<= 1e-5 / 1e-4 / 1e-4 abs + rel); forward kernel "
+                       f"{k_ms:.4f} ms, plain {p_ms:.4f} ms "
+                       f"(plain/kernel/kernel/plain {order})")
+        results[label] = {"max_abs_err": errs[0], "ms": k_ms,
+                          "plain_ms": p_ms}
+    return results["hidden 16->64"]
+
+
 def make_checkpoint(tmp: Path) -> Path:
     """A full-width Generator with random weights from a seed, saved as a
     reference-format .pth.  The head is drawn wider than the reference init
@@ -515,24 +636,32 @@ def phase_infer(model: torch.nn.Module) -> None:
                  "the CPU tests, not run here")
 
 
-def _reset_flow_counts() -> None:
-    from vfd_gan_tpu_torch.ops import flow_fused, flow_refine, warp
+def _wrappers() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from vfd_gan_tpu_torch.ops import (
+        augment,
+        flow_fused,
+        flow_refine,
+        spatial_conv,
+        warp,
+    )
     from vfd_gan_tpu_torch.ops.morphology import open_planes_cuda
 
-    for fn in (open_planes_cuda, warp.bilinear_warp_cuda,
-               flow_refine.flow_refine_step_cuda,
-               flow_fused.flow_refine_fused_cuda):
+    return {"morphology_open": open_planes_cuda,
+            "flow_fused": flow_fused.flow_refine_fused_cuda,
+            "flow_warp": warp.bilinear_warp_cuda,
+            "flow_refine": flow_refine.flow_refine_step_cuda,
+            "augment_gather": augment.augment_gather_cuda,
+            "conv3x3": spatial_conv.conv3x3_cuda}
+
+
+def _reset_counts() -> None:
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
-def _flow_counts() -> dict:
-    from vfd_gan_tpu_torch.ops import flow_fused, flow_refine, warp
-    from vfd_gan_tpu_torch.ops.morphology import open_planes_cuda
-
-    return {"morphology_open": open_planes_cuda.launches,
-            "flow_fused": flow_fused.flow_refine_fused_cuda.launches,
-            "flow_warp": warp.bilinear_warp_cuda.launches,
-            "flow_refine": flow_refine.flow_refine_step_cuda.launches}
+def _counts() -> dict:
+    return {k: fn.launches for k, fn in _wrappers().items()}
 
 
 def phase_step_parity(tmp: Path) -> None:
@@ -597,6 +726,146 @@ def phase_step_parity(tmp: Path) -> None:
                       f"stats {worst_stat:.3g}")
 
 
+# the supervised families' CUDA-vs-CPU step sizes (the CPU tests' own):
+# model -> (batch, nfr, isize, extra Config fields)
+SUPERVISED_PARITY = {"clstm": (2, 8, 16, {}), "c2plus1d": (2, 16, 16, {}),
+                     "xception": (2, 8, 32, {"xwidth": 1 / 16})}
+
+
+def phase_supervised_parity(tmp: Path) -> None:
+    """One SupervisedEngine step per family on the card and on the CPU,
+    from the same seeded weights and the same injected augment draws
+    (gathered by the kernel on the card, by the plain version on the CPU),
+    dropout at rate 0.  Tolerances as the CPU tests hold the port to JAX:
+    the loss 1e-5, BN statistics 1e-5, updated parameters within Adam's
+    first-step envelope of 2.5 lr with at most 2% beyond 5e-6."""
+    from vfd_gan_tpu_torch.config import Config
+    from vfd_gan_tpu_torch.ops.augment import (
+        _src_coords,
+        augment_gather,
+        staging_size,
+    )
+    from vfd_gan_tpu_torch.train.supervised_engine import SupervisedEngine
+
+    for family, (b, t, isize, extra) in SUPERVISED_PARITY.items():
+        cfg = Config(model=family, batchsize=b, nfr=t, isize=isize, ep=1,
+                     compute_dtype="float32", result_root=str(tmp), **extra)
+        s = staging_size(isize)
+        rng = np.random.default_rng(5)
+        data = rng.integers(0, 256, (b, t, s, s, 3), dtype=np.uint8)
+        mask = np.zeros((b, t, s, s, 1), np.uint8)
+        mask[:, :, 4:s - 4, 5:s - 6] = 255
+        draws = (np.linspace(-0.17, 0.15, b).astype(np.float32),
+                 np.arange(b) % 2, np.ones(b, np.int64), np.arange(b) % 2 == 0)
+        # the source coordinates once, on the CPU: cos and sin on the card
+        # may differ by an ulp and flip a floor
+        src_x, src_y = (c.contiguous() for c in _src_coords(
+            *(torch.from_numpy(np.asarray(v)) for v in draws), s, isize))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            device = torch.device(dev)
+            eng = SupervisedEngine(cfg, None, None, device=device)
+            for m in eng.model.modules():
+                if hasattr(m, "drop_rate"):
+                    m.drop_rate = 0.0
+            batch = [torch.from_numpy(v).to(device)
+                     for v in (data, data, mask)]
+            x, _, gt = augment_gather(*batch, src_x.to(device),
+                                      src_y.to(device))
+            loss = float(eng._step(x, gt)["loss/err/train"])
+            out[dev] = (loss, {k: v.cpu() for k, v in
+                               eng.model.state_dict().items()})
+        (l_cpu, sd_cpu), (l_gpu, sd_gpu) = out["cpu"], out["cuda"]
+        check(np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= 1e-5,
+              f"{family} step loss: cuda {l_gpu} vs cpu {l_cpu}")
+        lr = cfg.lr
+        worst_param = worst_stat = 0.0
+        total = loose = 0
+        for k, v in sd_cpu.items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            d = (sd_gpu[k] - v).abs()
+            if "running" in k:
+                check(d.max().item() <= 1e-5, f"{family} BN stat {k}")
+                worst_stat = max(worst_stat, d.max().item())
+            else:
+                check(d.max().item() <= 2.5 * lr, f"{family} param {k}")
+                worst_param = max(worst_param, d.max().item())
+                total += d.numel()
+                loose += int((d > 5e-6).sum())
+        check(loose / total < 0.02, f"{family}: {loose} of {total} params "
+                                    "beyond 5e-6")
+        say("stepparity", f"{family} b{b} T{t} {isize}^2 {extra}: CUDA vs "
+                          f"CPU (TF32 off) loss {abs(l_gpu - l_cpu):.3g}, "
+                          f"params max {worst_param:.3g} (<= 2.5 lr), "
+                          f"{loose}/{total} beyond 5e-6, BN stats "
+                          f"{worst_stat:.3g}")
+
+
+def phase_supervised_train(tmp: Path, family: str) -> dict:
+    """``cli.trainer.main --model family`` at the reference width, b8, T16,
+    128^2, float32, with a one-batch test sweep; returns the kernels'
+    launch counts on it."""
+    from vfd_gan_tpu_torch.cli.trainer import main as train_main
+    from vfd_gan_tpu_torch.models import build_mask_model
+    from vfd_gan_tpu_torch.utils.checkpoint import load_state_dict
+
+    steps, extra = SUPERVISED_RUNS[family]
+    root = tmp / f"runs_{family}"
+    argv = ["--model", family, "--batchsize", str(BATCH), "--nfr", str(NFR),
+            "--isize", str(ISIZE), "--compute_dtype", "float32",
+            "--synthetic_data", str(steps), "--synthetic_test_batches", "1",
+            "--ep", "1", "--freq", str(steps), "--device", "cuda",
+            "--result_root", str(root), *extra]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()                      # this training path starts
+    t0 = time.perf_counter()
+    engine = train_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()                   # ... and ends
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    check(engine.global_step == steps, f"{family}: all train steps ran")
+    losses = {k: engine.errors[k] for k in ("loss/err/train",
+                                            "loss/err/test")}
+    check(all(np.isfinite(v) for v in losses.values()),
+          f"{family}: finite losses {losses}")
+    roc, pr, f1 = (engine.scores[f"score/{k}"] for k in ("roc", "pr", "f1"))
+    check(all(np.isfinite(v) for v in (roc, pr, f1)),
+          f"{family}: sweep scores")
+    pth = sorted(root.rglob("*.pth"))
+    check(len(pth) == 1 and pth[0].name.startswith("roc-"),
+          f"{family}: one best .pth: {pth}")
+    build_mask_model(family, engine.cfg).load_state_dict(
+        load_state_dict(str(pth[0])), strict=True)
+    check(counts["augment_gather"] == steps,
+          f"{family}: every step launched the augment kernel: {counts}")
+    check(counts["morphology_open"] > 0,
+          f"{family}: the sweep launched the opening kernel")
+    if family == "clstm":
+        # per forward 3 input halves + 3 x T hidden halves; the backward
+        # launches dx for each but the first layer's input half and each
+        # layer's first hidden half (their inputs need no gradient)
+        fwd = 3 * (1 + NFR)
+        want = steps * (2 * fwd - 4) + fwd
+        check(counts["conv3x3"] == want,
+              f"clstm launched the conv kernel {counts['conv3x3']} times, "
+              f"expected {want} (forward and dx)")
+    steady = engine.step_seconds[2:] if steps > 4 else engine.step_seconds[1:]
+    say(f"train-{family}",
+        f"trainer.main --model {family} b{BATCH} T{NFR} {ISIZE}^2 float32 "
+        f"{' '.join(extra)}: {steps} steps + sweep in {wall:.1f} s; step "
+        f"median {1e3 * statistics.median(steady):.1f} ms (min "
+        f"{1e3 * min(steady):.1f}, max {1e3 * max(steady):.1f}, after "
+        f"{steps - len(steady)} warm-up); first step "
+        f"{1e3 * engine.step_seconds[0]:.0f} ms; peak memory {peak:.0f} "
+        f"MiB; losses {json.dumps(losses)}")
+    say(f"train-{family}", f"sweep: roc {roc:.6g} pr {pr:.6g} f1 {f1:.6g}; "
+                           f"saved {pth[0].name} (loaded strict); launches "
+                           f"{json.dumps(counts)}")
+    return counts
+
+
 def phase_train(tmp: Path):
     """The training main path at the reference width; returns the engine
     and the kernels' launch counts on it."""
@@ -612,12 +881,12 @@ def phase_train(tmp: Path):
             "--freq", str(TRAIN_STEPS), "--device", "cuda",
             "--result_root", str(tmp / "runs")]
     torch.cuda.reset_peak_memory_stats()
-    _reset_flow_counts()                 # the training main path starts
+    _reset_counts()                      # the training main path starts
     t0 = time.perf_counter()
     engine = train_main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = _flow_counts()              # ... and ends
+    counts = _counts()                   # ... and ends
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     check(engine.global_step == TRAIN_STEPS, "all train steps ran")
     losses = {k: v for k, v in engine.errors.items() if "/" in k}
@@ -633,6 +902,8 @@ def phase_train(tmp: Path):
     DualDisc(32, NFR, ISIZE).load_state_dict(load_state_dict(str(d_pth[0])),
                                              strict=True)
     check(counts["flow_fused"] > 0, "training launched the fused kernel")
+    check(counts["augment_gather"] > 0,
+          "training launched the augment kernel")
     check(counts["morphology_open"] > 0,
           "the test sweep launched the opening kernel")
     steady = engine.step_seconds[4:]
@@ -656,12 +927,12 @@ def phase_two_kernel(engine) -> dict:
     """One train step of the trained engine with the two-kernel flow."""
     batch = next(iter(engine.train_iter))
     engine.flow_impl = "two_kernel"
-    _reset_flow_counts()                 # the two-kernel path starts
+    _reset_counts()                      # the two-kernel path starts
     t0 = time.perf_counter()
     metrics = engine._train_step_impl(batch)
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0)
-    counts = _flow_counts()              # ... and ends
+    counts = _counts()                   # ... and ends
     check(all(np.isfinite(float(v)) for v in metrics.values()),
           "two-kernel step losses finite")
     check(counts["flow_warp"] > 0 and counts["flow_refine"] > 0,
@@ -676,11 +947,15 @@ def main() -> None:
     name = phase_device()
     import_port()
     from vfd_gan_tpu_torch.ops.morphology import open_planes_cuda
+    from vfd_gan_tpu_torch.utils.runtime import resolve_device
 
     device = torch.device("cuda")
+    resolve_device("cuda")               # TF32 off, as the entry points do
     phase_build()
     results = {"morphology_open": phase_kernel(device)}
     results.update(phase_flow_kernels(device))
+    results["augment_gather"] = phase_augment_kernel(device)
+    results["conv3x3"] = phase_conv_kernel(device)
     phase_flow_video(device)
     with tempfile.TemporaryDirectory() as tmp:
         path = make_checkpoint(Path(tmp))
@@ -694,15 +969,22 @@ def main() -> None:
                      f"{serve_launches}")
         del model
         phase_step_parity(Path(tmp))
+        phase_supervised_parity(Path(tmp))
         engine, train_counts = phase_train(Path(tmp))
         two_counts = phase_two_kernel(engine)
-    # launches: each kernel's count on the main path that runs it (the
+        del engine
+        supervised = {family: phase_supervised_train(Path(tmp), family)
+                      for family in SUPERVISED_RUNS}
+    # launches: each kernel's count on the main path that runs it (MyGAN's
     # trainer for the fused and opening kernels, its --flow_impl
-    # two_kernel step for warp and refine)
+    # two_kernel step for warp and refine, the clstm trainer for the
+    # augment and conv kernels)
     launches = {"morphology_open": train_counts["morphology_open"],
                 "flow_fused": train_counts["flow_fused"],
                 "flow_warp": two_counts["flow_warp"],
-                "flow_refine": two_counts["flow_refine"]}
+                "flow_refine": two_counts["flow_refine"],
+                "augment_gather": supervised["clstm"]["augment_gather"],
+                "conv3x3": supervised["clstm"]["conv3x3"]}
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": KERNELS[k][0],
         "replaces": KERNELS[k][1], "launches": launches[k], **results[k]}

@@ -13,8 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from vfd_gan_tpu_torch.ops import corr, cuda, flow, flow_fused, flow_refine
-from vfd_gan_tpu_torch.ops import morphology, warp
+from vfd_gan_tpu_torch.ops import augment, corr, cuda, flow, flow_fused
+from vfd_gan_tpu_torch.ops import flow_refine, morphology, spatial_conv, warp
 
 
 @pytest.fixture
@@ -25,6 +25,7 @@ def card():
 
 
 @pytest.mark.parametrize("edited", ["morphology_open.cu", "flow_fused.cu",
+                                    "augment_gather.cu", "conv3x3.cu",
                                     "flow_common.cuh", "launch_common.cuh"])
 def test_library_name_follows_the_sources_and_headers(tmp_path, monkeypatch,
                                                       edited):
@@ -42,7 +43,8 @@ def test_library_name_follows_the_sources_and_headers(tmp_path, monkeypatch,
 def test_every_entry_point_is_bound():
     names = {"vfd_morphology_open_f32", "vfd_flow_warp_f32",
              "vfd_flow_refine_f32", "vfd_flow_fused_f32",
-             "vfd_flow_workspace_bytes"}
+             "vfd_flow_workspace_bytes", "vfd_augment_gather_u8",
+             "vfd_conv3x3_f32"}
     assert set(cuda.ENTRIES) == names
     text = "".join(src.read_text() for src in cuda.sources())
     for name in names:
@@ -214,3 +216,134 @@ def test_video_to_flow_rgb_impls_agree_on_card(card):
         err = (out[impl] - out["fused"]).abs().flatten()
         assert torch.quantile(err, 0.99).item() <= 0.05, impl
     assert torch.isfinite(out["fused"]).all()
+
+
+# -- the augment gather ---------------------------------------------------------
+
+# (B, T, S, isize, max angle in degrees): the train step, a ragged clip, and
+# a 45 degree draw that leaves much of each clip to the zero fill
+AUGMENT_CASES = {"train": (8, 16, 140, 128, 10.0), "ragged": (3, 5, 37, 33,
+                                                              10.0),
+                 "rot45": (4, 4, 140, 128, 45.0)}
+
+
+def _augment_inputs(card, b, t, s, isize, degrees, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    data = torch.randint(0, 256, (b, t, s, s, 3), generator=g, device=card,
+                         dtype=torch.uint8)
+    real = torch.randint(0, 256, (b, t, s, s, 3), generator=g, device=card,
+                         dtype=torch.uint8)
+    mask = (torch.rand((b, t, s, s, 1), generator=g, device=card) > 0.5
+            ).to(torch.uint8) * 255
+    params = augment.sample_clip_params(g, b, s, isize, degrees)
+    if degrees == 45.0:
+        params = (torch.full_like(params[0], 0.785398),) + params[1:]
+    src_x, src_y = augment._src_coords(*params, s, isize)
+    return (data, real, mask), params, src_x.contiguous(), src_y.contiguous()
+
+
+@pytest.mark.parametrize("case", list(AUGMENT_CASES))
+@pytest.mark.gpu
+def test_augment_kernel_equals_plain_on_card(card, case):
+    streams, _, src_x, src_y = _augment_inputs(card, *AUGMENT_CASES[case])
+    before = augment.augment_gather_cuda.launches
+    got = augment.augment_gather(*streams, src_x, src_y)
+    torch.cuda.synchronize()
+    assert augment.augment_gather_cuda.launches == before + 1
+    want = augment.augment_gather_plain(*streams, src_x, src_y)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_augment_gather_on_card_is_the_cpu_function(card):
+    """From the same coordinates, the card's gather equals the CPU's to
+    float32 rounding: PyTorch's CUDA division by a Python scalar multiplies
+    by the reciprocal, so the scaled values may differ in the last bit."""
+    streams, params, _, _ = _augment_inputs(card, 2, 3, 37, 33, 10.0, 1)
+    src_x, src_y = (c.contiguous() for c in augment._src_coords(
+        *(p.cpu() for p in params), 37, 33))
+    got = augment.augment_gather(*streams, src_x.to(card), src_y.to(card))
+    want = augment.augment_gather(*(v.cpu() for v in streams), src_x, src_y)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=2.4e-7)
+
+
+@pytest.mark.gpu
+def test_augment_kernel_refuses_what_it_does_not_take(card):
+    streams, _, src_x, src_y = _augment_inputs(card, 2, 2, 17, 16, 10.0)
+    data, real, mask = streams
+    with pytest.raises(ValueError):
+        augment.augment_gather_cuda(data.cpu(), real, mask, src_x, src_y)
+    with pytest.raises(ValueError):
+        augment.augment_gather_cuda(data, real, mask, src_x.cpu(), src_y)
+    with pytest.raises(TypeError):
+        augment.augment_gather_cuda(data.float(), real, mask, src_x, src_y)
+    with pytest.raises(TypeError):
+        augment.augment_gather_cuda(data, real, mask, src_x.double(), src_y)
+    with pytest.raises(ValueError):
+        augment.augment_gather_cuda(data, real[:, :1].contiguous(), mask,
+                                    src_x, src_y)
+    with pytest.raises(ValueError):
+        augment.augment_gather_cuda(data, real, mask,
+                                    src_x.transpose(1, 2), src_y)
+
+
+# -- the 3x3 conv -----------------------------------------------------------------
+
+# (N, H, W, Cin, Cout): the ConvLSTM's input half (B*T frames, 3 -> 64),
+# its hidden halves (B frames, 16 -> 64 and 12 -> 48), a ragged one
+CONV_CASES = {"input": (128, 128, 128, 3, 64), "hidden16": (8, 128, 128, 16,
+                                                              64),
+              "hidden12": (8, 128, 128, 12, 48), "ragged": (5, 24, 40, 7, 9)}
+
+
+def _conv_inputs(card, n, h, w, cin, cout, seed=0):
+    """Unit-normal x, w x 0.1, and dy scaled by 1 / sqrt(N*H*W) so that dw,
+    a sum over every pixel, stays O(1) (as for the models' mean losses)."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = torch.randn((n, h, w, cin), generator=g, device=card)
+    k = torch.randn((3, 3, cin, cout), generator=g, device=card) * 0.1
+    dy = torch.randn((n, h, w, cout), generator=g, device=card) / (
+        n * h * w) ** 0.5
+    return x, k, dy
+
+
+@pytest.mark.parametrize("case", list(CONV_CASES))
+@pytest.mark.gpu
+def test_conv3x3_kernel_matches_plain_on_card(card, case):
+    """Forward within 1e-5, dx and dw within 1e-4 of ``F.conv2d`` and its
+    autograd (TF32 off)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, k, dy = _conv_inputs(card, *CONV_CASES[case])
+    before = spatial_conv.conv3x3_cuda.launches
+    xa, ka = x.clone().requires_grad_(), k.clone().requires_grad_()
+    got = spatial_conv.conv3x3(xa, ka)
+    got.backward(dy)
+    torch.cuda.synchronize()
+    assert spatial_conv.conv3x3_cuda.launches == before + 2    # fwd, dx
+    xb, kb = x.clone().requires_grad_(), k.clone().requires_grad_()
+    want = spatial_conv.conv3x3_plain(xb, kb)
+    want.backward(dy)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(xa.grad, xb.grad, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ka.grad, kb.grad, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_conv3x3_kernel_refuses_what_it_does_not_take(card):
+    x, k, _ = _conv_inputs(card, 2, 8, 8, 4, 5)
+    with pytest.raises(ValueError):
+        spatial_conv.conv3x3_cuda(x, k.cpu())
+    with pytest.raises(ValueError):
+        spatial_conv.conv3x3_cuda(x.cpu(), k)
+    with pytest.raises(TypeError):
+        spatial_conv.conv3x3_cuda(x.double(), k)
+    with pytest.raises(TypeError):
+        spatial_conv.conv3x3_cuda(x, k.half())
+    with pytest.raises(ValueError):
+        spatial_conv.conv3x3_cuda(x.transpose(1, 2), k)
+    with pytest.raises(ValueError):
+        spatial_conv.conv3x3_cuda(x, k[:, :, :3].contiguous())

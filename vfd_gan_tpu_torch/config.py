@@ -5,7 +5,7 @@ field).  This module restates its ``Config`` fields, defaults, checks and
 argparse front end so that the port's trainer takes the same command lines
 without importing the JAX package; ``tests/test_torch_port_train.py`` pins
 the two equal.  Flags that the port does not run yet parse here and are
-refused by the engine (``train/gan_engine.py::UNPORTED``).
+refused by the engines (``train/engine_base.py::UNPORTED``).
 """
 
 from __future__ import annotations

@@ -14,6 +14,8 @@ NCDHW ``(B, C, T, H, W)`` input.  Submodule names are the reference's, so
   U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and bias)
 * ``VideoBatchNorm``: ``nn.BatchNorm3d`` with torch's eps 1e-5 and
   momentum 0.1, whose running statistics the eval forward uses.
+* ``dropout``: flax ``nn.Dropout``'s function with masks drawn from a
+  ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -38,14 +40,18 @@ class VideoBatchNorm(nn.BatchNorm3d):
             bn_scale_(self.weight, generator)
 
 
-def _conv(cin: int, cout: int, kernel, padding, device,
-          generator: torch.Generator | None) -> nn.Conv3d:
-    conv = nn.Conv3d(cin, cout, tuple(kernel), padding=tuple(padding),
-                     device=device)
+def make_conv3d(cin: int, cout: int, kernel, padding=(0, 0, 0), *,
+                stride=(1, 1, 1), bias: bool = True, device=None,
+                generator: torch.Generator | None = None) -> nn.Conv3d:
+    """``nn.Conv3d`` with the reference init drawn from ``generator``:
+    kernel ~ N(0, 0.02), bias PyTorch's default over the kernel's fan-in."""
+    conv = nn.Conv3d(cin, cout, tuple(kernel), stride=tuple(stride),
+                     padding=tuple(padding), bias=bias, device=device)
     if generator is not None:
         dcgan_normal_(conv.weight, generator)
-        fan_in = cin * kernel[0] * kernel[1] * kernel[2]
-        torch_default_(conv.bias, fan_in, generator)
+        if bias:
+            fan_in = cin * kernel[0] * kernel[1] * kernel[2]
+            torch_default_(conv.bias, fan_in, generator)
     return conv
 
 
@@ -62,11 +68,11 @@ class STConv(nn.Module):
         kt, kh, kw = kernel_size
         pt, ph, pw = padding
         mid = r2plus1d_mid_channels(kt, kh, kw, cin, cout)
-        self.spatial_conv = _conv(cin, mid, (1, kh, kw), (0, ph, pw), device,
-                                  generator)
+        self.spatial_conv = make_conv3d(cin, mid, (1, kh, kw), (0, ph, pw),
+                                        device=device, generator=generator)
         self.bn = VideoBatchNorm(mid, device=device, generator=generator)
-        self.temporal_conv = _conv(mid, cout, (kt, 1, 1), (pt, 0, 0), device,
-                                   generator)
+        self.temporal_conv = make_conv3d(mid, cout, (kt, 1, 1), (pt, 0, 0),
+                                         device=device, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.temporal_conv(F.relu(self.bn(self.spatial_conv(x))))
@@ -101,6 +107,18 @@ class DiscConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.leaky_relu(self.bn(self.conv(x)), negative_slope=0.01)
+
+
+def dropout(y: torch.Tensor, rate: float, training: bool,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax ``nn.Dropout``'s function: keep with probability 1 - rate and
+    scale kept values by 1 / (1 - rate), the mask drawn from ``generator``;
+    inert out of training mode or at rate 0."""
+    if not training or rate == 0.0:
+        return y
+    keep = torch.rand(y.shape, generator=generator, device=y.device) >= rate
+    return torch.where(keep, y / (1.0 - rate),
+                       torch.zeros((), dtype=y.dtype, device=y.device))
 
 
 class TorchLinear(nn.Linear):

@@ -34,6 +34,7 @@ from vfd_gan_tpu_torch.models.layers import (
     DiscConvBlock,
     GenConvBlock,
     TorchLinear,
+    dropout,
 )
 from vfd_gan_tpu_torch.ops.resize import upsample_ncdhw
 from vfd_gan_tpu_torch.utils.init import dcgan_normal_
@@ -68,12 +69,7 @@ class Generator(nn.Module):
         """Decoder dropout (flax ``nn.Dropout``'s function: keep with
         probability 1 - rate, scale kept values by 1 / (1 - rate)), drawn
         from ``generator``; inert in eval mode or at rate 0."""
-        if not self.training or self.drop_rate == 0.0:
-            return y
-        keep = torch.rand(y.shape, generator=generator,
-                          device=y.device) >= self.drop_rate
-        return torch.where(keep, y / (1.0 - self.drop_rate),
-                           torch.zeros((), dtype=y.dtype, device=y.device))
+        return dropout(y, self.drop_rate, self.training, generator)
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:

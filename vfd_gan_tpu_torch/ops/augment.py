@@ -1,4 +1,5 @@
-"""Clip augmentation on the device (port of ``vfd_gan_tpu.ops.augment``).
+"""Clip augmentation on the device (port of ``vfd_gan_tpu.ops.augment`` and
+of the TPU kernel ``vfd_gan_tpu/ops/pallas/augment.py``).
 
 The reference's host pipeline (lib/data.py:123-135) is Resize(1.1*isize)
 -> RandomRotation(10) -> RandomCrop(isize) -> RandomHorizontalFlip.  The
@@ -8,15 +9,21 @@ to every frame of the (data, real, mask) triple.  The rotation is
 ``PIL.Image.rotate``'s (counter-clockwise, nearest, zero fill, centre
 (S/2, S/2)): ``src = floor(R(-theta) @ (p + .5 - c) + c)``.
 
-The gather is plain PyTorch indexing, as the JAX default is the XLA gather
-(``vfd_gan_tpu/ops/augment.py:112-116``); the opt-in TPU kernel for it is
-not on this path.  The draws are arguments of :func:`augment_clips`, so a
-test can hand both frameworks the same ones.
+The floored source coordinates are computed here in PyTorch
+(:func:`_src_coords`, the JAX float32 arithmetic in its order) and handed
+to :func:`augment_gather`, which gathers the three uint8 streams and
+scales them to float32 (video to [-1, 1], the mask to [0, 1]): the
+hand-written CUDA kernel (``ops/cuda/augment_gather.cu``) for CUDA
+tensors, the plain PyTorch version below for CPU tensors.  The kernel
+scales through 256-entry tables computed with the plain version's own
+expression, so the two are bit-equal.  The draws are arguments of
+:func:`augment_clips`, so a test can hand both frameworks the same ones.
 """
 
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 
 import torch
 
@@ -62,11 +69,12 @@ def _src_coords(angle, crop_y, crop_x, flip, s: int, isize: int):
     return src_x.expand(shape), src_y.expand(shape)
 
 
-def warp_clips(frames: torch.Tensor, params, isize: int) -> torch.Tensor:
-    """Rotate+crop+flip ``(B, T, S, S, C)`` clips by per-clip ``params``
-    through one gather; zero outside the source."""
+def warp_clips(frames: torch.Tensor, src_x: torch.Tensor,
+               src_y: torch.Tensor) -> torch.Tensor:
+    """Nearest gather of ``(B, T, S, S, C)`` clips at the floored source
+    coordinates ``(B, isize, isize)``; zero outside the source."""
     b, t, s, _, c = frames.shape
-    src_x, src_y = _src_coords(*params, s, isize)
+    isize = src_x.shape[-1]
     src_x = src_x.to(torch.int64)
     src_y = src_y.to(torch.int64)
     valid = (src_x >= 0) & (src_x < s) & (src_y >= 0) & (src_y < s)
@@ -79,14 +87,102 @@ def warp_clips(frames: torch.Tensor, params, isize: int) -> torch.Tensor:
                        torch.zeros((), dtype=out.dtype, device=out.device))
 
 
+def scale_video(x: torch.Tensor) -> torch.Tensor:
+    """uint8 video -> float32 in [-1, 1] (lib/data.py:68)."""
+    return x.to(torch.float32) / 255.0 * 2.0 - 1.0
+
+
+def scale_mask(x: torch.Tensor) -> torch.Tensor:
+    """uint8 mask -> float32 in [0, 1] (lib/data.py:78)."""
+    return x.to(torch.float32) / 255.0
+
+
 def normalize_clips(data: torch.Tensor, real: torch.Tensor,
                     mask: torch.Tensor):
-    """uint8 -> float32: data and real to [-1, 1], the mask to [0, 1]
-    (lib/data.py:68,78)."""
-    d = data.to(torch.float32) / 255.0 * 2.0 - 1.0
-    r = real.to(torch.float32) / 255.0 * 2.0 - 1.0
-    m = mask.to(torch.float32) / 255.0
-    return d, r, m
+    """uint8 -> float32: data and real to [-1, 1], the mask to [0, 1]."""
+    return scale_video(data), scale_video(real), scale_mask(mask)
+
+
+def augment_gather_plain(data: torch.Tensor, real: torch.Tensor,
+                         mask: torch.Tensor, src_x: torch.Tensor,
+                         src_y: torch.Tensor):
+    """The gather and the scaling in plain PyTorch."""
+    return normalize_clips(*(warp_clips(v, src_x, src_y)
+                             for v in (data, real, mask)))
+
+
+@lru_cache(maxsize=None)
+def _tables(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The 256 scaled values of each stream kind, computed on ``device`` by
+    the plain version's own expressions (so the kernel rounds as it does),
+    once per device."""
+    v = torch.arange(256, dtype=torch.uint8, device=device)
+    return scale_video(v).contiguous(), scale_mask(v).contiguous()
+
+
+def augment_gather_cuda(data: torch.Tensor, real: torch.Tensor,
+                        mask: torch.Tensor, src_x: torch.Tensor,
+                        src_y: torch.Tensor):
+    """The gather and the scaling by the hand-written kernel: contiguous
+    uint8 ``(B, T, S, S, C*)`` streams and float32 ``(B, isize, isize)``
+    coordinates on one CUDA device.  Raises on anything it does not take."""
+    from vfd_gan_tpu_torch.ops import cuda
+
+    name = "augment_gather_cuda"
+    streams = {"data": data, "real": real, "mask": mask}
+    coords = {"src_x": src_x, "src_y": src_y}
+    devices = {t.device for t in (*streams.values(), *coords.values())}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors on one device, got "
+                         f"{sorted(map(str, devices))}")
+    b, t, s = data.shape[:3]
+    for key, v in streams.items():
+        if v.dtype != torch.uint8:
+            raise TypeError(f"{name}: {key} must be uint8, got {v.dtype}")
+        if v.dim() != 5 or tuple(v.shape[:4]) != (b, t, s, s):
+            raise ValueError(f"{name}: {key} has shape {tuple(v.shape)}, "
+                             f"expected ({b}, {t}, {s}, {s}, C)")
+    isize = src_x.shape[-1]
+    for key, v in coords.items():
+        if v.dtype != torch.float32:
+            raise TypeError(f"{name}: {key} must be float32, got {v.dtype}")
+        if tuple(v.shape) != (b, isize, isize):
+            raise ValueError(f"{name}: {key} has shape {tuple(v.shape)}, "
+                             f"expected ({b}, {isize}, {isize})")
+    for key, v in (*streams.items(), *coords.items()):
+        if not v.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+    outs = tuple(torch.empty((b, t, isize, isize, v.shape[-1]),
+                             dtype=torch.float32, device=v.device)
+                 for v in streams.values())
+    if not outs[0].numel():
+        return outs
+    video_table, mask_table = _tables(data.device)
+    cuda.launch("vfd_augment_gather_u8", data, data.data_ptr(),
+                real.data_ptr(), mask.data_ptr(), src_x.data_ptr(),
+                src_y.data_ptr(), video_table.data_ptr(),
+                mask_table.data_ptr(), *(o.data_ptr() for o in outs), b, t, s,
+                isize, data.shape[-1], real.shape[-1], mask.shape[-1])
+    augment_gather_cuda.launches += 1
+    return outs
+
+
+# Kernel launches since the last reset; read by chip_smoke.py to show that
+# a training path went through the kernel.
+augment_gather_cuda.launches = 0
+
+
+def augment_gather(data: torch.Tensor, real: torch.Tensor,
+                   mask: torch.Tensor, src_x: torch.Tensor,
+                   src_y: torch.Tensor):
+    """Gather the uint8 ``(B, T, S, S, C*)`` streams at the floored source
+    coordinates ``(B, isize, isize)`` and scale them to float32 ``(B, T,
+    isize, isize, C*)``, on the tensors' device."""
+    if data.device.type == "cuda":
+        return augment_gather_cuda(data, real, mask, src_x, src_y)
+    if data.device.type == "cpu":
+        return augment_gather_plain(data, real, mask, src_x, src_y)
+    raise ValueError(f"no augment gather for device {data.device}")
 
 
 def augment_clips(params, data: torch.Tensor, real: torch.Tensor,
@@ -95,7 +191,7 @@ def augment_clips(params, data: torch.Tensor, real: torch.Tensor,
     draws ``params = (angle, crop_y, crop_x, flip)`` (see
     :func:`sample_clip_params`); returns float32 ``(data, real, mask)`` of
     ``(B, T, isize, isize, C)``, data and real in [-1, 1], mask in [0, 1]."""
-    cd, cr = data.shape[-1], real.shape[-1]
-    joint = warp_clips(torch.cat([data, real, mask], dim=-1), params, isize)
-    return normalize_clips(joint[..., :cd], joint[..., cd:cd + cr],
-                           joint[..., cd + cr:])
+    src_x, src_y = _src_coords(*params, data.shape[2], isize)
+    return augment_gather(data.contiguous(), real.contiguous(),
+                          mask.contiguous(), src_x.contiguous(),
+                          src_y.contiguous())

@@ -91,6 +91,18 @@ def avg_pool3d(x: torch.Tensor, window: tuple[int, int, int],
     return to_channel_last(y)
 
 
+def max_pool3d(x: torch.Tensor, window: tuple[int, int, int],
+               stride: tuple[int, int, int],
+               padding: tuple[int, int, int] = (0, 0, 0)) -> torch.Tensor:
+    """``nn.MaxPool3d`` with -inf padding over (T, H, W) of a ``(B, T, H,
+    W, C)`` video (Xception, xception.py:59).  A tie in a window sends the
+    whole gradient to one input here, where the JAX chain of maxima splits
+    it."""
+    y = F.max_pool3d(to_channel_first(x), tuple(window), tuple(stride),
+                     tuple(padding))
+    return to_channel_last(y)
+
+
 def r2plus1d_mid_channels(kt: int, kh: int, kw: int, cin: int, cout: int) -> int:
     """Intermediate width M of a factored (2+1)D conv, from the R(2+1)D paper
     formula the reference uses (models/spatiotempconv.py:44-45)."""

@@ -49,6 +49,9 @@ ENTRIES = {
     "vfd_flow_fused_f32": ([_P] * 7 + [_L, _I, _I, _I, _I, _P],
                            ctypes.c_int),
     "vfd_flow_workspace_bytes": ([_I, _I, _I], ctypes.c_longlong),
+    "vfd_augment_gather_u8": ([_P] * 10 + [_L] + [_I] * 6 + [_P],
+                              ctypes.c_int),
+    "vfd_conv3x3_f32": ([_P, _P, _P, _L, _I, _I, _I, _I, _P], ctypes.c_int),
 }
 
 

@@ -1,9 +1,13 @@
 """Run directories, the training loop and the best-checkpoint rule (port of
 ``vfd_gan_tpu.train.engine_base``).
 
-* Run dir ``result_root/model/b{B}xd{nfr}xwh{isize}_lr-{lr}_w-a{w_adv}c
-  {w_con}/{timestamp}`` with ``weights/`` and ``runs/`` and an ``args.txt``
-  JSON dump of the config (lib/train_gan.py:33-50, ``obs/summary``).
+* Run dir ``result_root/model/{comment}/{timestamp}`` with ``weights/``
+  and ``runs/`` and an ``args.txt`` JSON dump of the config; the comment
+  is ``b{B}xd{nfr}xwh{isize}_lr-{lr}_w-a{w_adv}c{w_con}`` for a GAN run
+  (lib/train_gan.py:33-50), ``b{B}xd{nfr}xwh{isize}_lr{lr}`` for a
+  supervised one (lib/train_stcnn.py:37; ``obs/summary.run_comment``).
+* ``refuse_unported``: the options the port does not run yet exit with
+  the ``ROADMAP.md`` item that holds them.
 * The epoch/step loop: every ``freq`` steps the step's scalars are
   fetched, the periodic test sweep runs, and the scalars and scores are
   printed and appended to ``metrics.jsonl`` in the run dir.
@@ -47,11 +51,51 @@ def make_run_dirs(result_root: str, model: str, comment: str) -> RunDirs:
     return dirs
 
 
-def run_comment(cfg) -> str:
-    """The reference's run-dir comment of a GAN run (lib/train_gan.py:
-    35-36)."""
-    return (f"b{cfg.batchsize}xd{cfg.nfr}xwh{cfg.isize}_lr-{cfg.lr}"
-            f"_w-a{cfg.w_adv}c{cfg.w_con}")
+def run_comment(cfg, gan: bool) -> str:
+    """The reference's run-dir comment (lib/train_gan.py:35-36 for a GAN
+    run, lib/train_stcnn.py:37 for a supervised one)."""
+    base = f"b{cfg.batchsize}xd{cfg.nfr}xwh{cfg.isize}"
+    if gan:
+        return f"{base}_lr-{cfg.lr}_w-a{cfg.w_adv}c{cfg.w_con}"
+    return f"{base}_lr{cfg.lr}"
+
+
+# JAX-engine options the port does not run yet: (is it set?, ROADMAP
+# item); ``GAN_ONLY`` are MyGAN's, which the supervised engine ignores as
+# the JAX one does
+UNPORTED = {
+    "accum": (lambda c: c.accum > 1, "queue 1 item 13 (--accum)"),
+    "remat": (lambda c: c.remat, "queue 1 item 13 (--remat)"),
+    "ae": (lambda c: c.ae, "queue 1 item 9 (the AutoEncoder as G)"),
+    "int8_disc": (lambda c: c.int8_disc, "queue 1 item 15 (quant)"),
+    "host_flow": (lambda c: c.host_flow,
+                  "queue 1 item 12 (train/host_flow.py)"),
+    "cache_gt_flow": (lambda c: c.cache_gt_flow,
+                      "queue 1 item 7 (gt-flow cache)"),
+    "ref_mode_quirks": (lambda c: c.ref_mode_quirks,
+                        "queue 1 item 7 (train-mode test sweep)"),
+    "device_scoring": (lambda c: c.device_scoring,
+                       "queue 1 item 12 (eval/device_metrics.py)"),
+    "resume": (lambda c: bool(c.resume),
+               "queue 1 item 7 (exact resume)"),
+    "autosave_every": (lambda c: c.autosave_every > 0,
+                       "queue 1 item 7 (autosave)"),
+    "dp/sp/tp/pp": (lambda c: c.dp > 1 or c.sp > 1 or c.tp > 1 or c.pp > 1,
+                    "queue 1 item 13 (parallelism)"),
+    "moe_experts": (lambda c: c.moe_experts > 0,
+                    "queue 1 item 13 (the MoE block)"),
+}
+GAN_ONLY = ("ae", "int8_disc", "host_flow", "cache_gt_flow")
+
+
+def refuse_unported(cfg, gan: bool) -> None:
+    """Exit with the ROADMAP item of the first option set that the port
+    does not run."""
+    for flag, (is_set, item) in UNPORTED.items():
+        if (gan or flag not in GAN_ONLY) and is_set(cfg):
+            raise SystemExit(f"--{flag}: not ported to vfd_gan_tpu_torch "
+                             f"yet (ROADMAP.md {item}); use the JAX "
+                             "trainer (python trainer.py)")
 
 
 class SweepAccumulator:
@@ -81,14 +125,15 @@ class EngineBase:
     ``_train_step_impl(batch) -> metrics``, ``test()`` and
     ``_save_weights(head)``."""
 
-    def __init__(self, cfg, train_iter, test_iter, *,
-                 device: torch.device):
+    def __init__(self, cfg, train_iter, test_iter, *, device: torch.device,
+                 gan: bool):
+        refuse_unported(cfg, gan)
         self.cfg = cfg
         self.train_iter = train_iter
         self.test_iter = test_iter
         self.device = device
         self.dirs = make_run_dirs(cfg.result_root, cfg.model,
-                                  run_comment(cfg))
+                                  run_comment(cfg, gan))
         with open(os.path.join(self.dirs.root, "args.txt"), "w") as f:
             json.dump(dataclasses.asdict(cfg), f, indent=4)
         self.global_step = 0

@@ -51,42 +51,10 @@ from vfd_gan_tpu_torch.train.checkpoints import best_ckpt_name, save_pth
 from vfd_gan_tpu_torch.train.engine_base import EngineBase, SweepAccumulator
 from vfd_gan_tpu_torch.train.state import NetState
 
-# JAX-engine options the port does not run yet: (is it set?, ROADMAP item)
-UNPORTED = {
-    "accum": (lambda c: c.accum > 1, "queue 1 item 13 (--accum)"),
-    "remat": (lambda c: c.remat, "queue 1 item 13 (--remat)"),
-    "ae": (lambda c: c.ae, "queue 1 item 9 (the AutoEncoder as G)"),
-    "int8_disc": (lambda c: c.int8_disc, "queue 1 item 15 (quant)"),
-    "host_flow": (lambda c: c.host_flow,
-                  "queue 1 item 12 (train/host_flow.py)"),
-    "cache_gt_flow": (lambda c: c.cache_gt_flow,
-                      "queue 1 item 7 (gt-flow cache)"),
-    "ref_mode_quirks": (lambda c: c.ref_mode_quirks,
-                        "queue 1 item 7 (train-mode test sweep)"),
-    "device_scoring": (lambda c: c.device_scoring,
-                       "queue 1 item 12 (eval/device_metrics.py)"),
-    "resume": (lambda c: bool(c.resume),
-               "queue 1 item 7 (exact resume)"),
-    "autosave_every": (lambda c: c.autosave_every > 0,
-                       "queue 1 item 7 (autosave)"),
-    "dp/sp/tp/pp": (lambda c: c.dp > 1 or c.sp > 1 or c.tp > 1 or c.pp > 1,
-                    "queue 1 item 13 (parallelism)"),
-}
-
-
-def refuse_unported(cfg) -> None:
-    for flag, (is_set, item) in UNPORTED.items():
-        if is_set(cfg):
-            raise SystemExit(f"--{flag}: not ported to vfd_gan_tpu_torch "
-                             f"yet (ROADMAP.md {item}); use the JAX "
-                             "trainer (python trainer.py)")
-
-
 class MyGanEngine(EngineBase):
     def __init__(self, cfg, train_iter, test_iter, *, device: torch.device,
                  flow_impl: str = "fused"):
-        refuse_unported(cfg)
-        super().__init__(cfg, train_iter, test_iter, device=device)
+        super().__init__(cfg, train_iter, test_iter, device=device, gan=True)
         init = torch.Generator().manual_seed(cfg.seed)
         self.g = NetState.create(
             Generator(cfg.ngf, generator=init).to(device), cfg.lr, cfg.beta1)
