@@ -56,17 +56,31 @@ phases, one line each (or a few):
 Before the serving phase come two more kernel phases: the augment gather
 kernel against its plain version (bit-equal on all three outputs at the
 train shape, a ragged clip and a 45 degree draw) and the 3x3 conv kernel
-(forward, dx, dw) against ``F.conv2d`` and its autograd at the ConvLSTM's
-shapes (forward 1e-5, dx and dw 1e-4), each timed; and after the MyGAN
-step parity, a CUDA-vs-CPU supervised step for each family at a small
-size.
+against ``F.conv2d`` and its autograd (TF32 off; forward 1e-5, dx and dw
+1e-4) at the nine distinct launches of one ConvLSTM step (forward F1-F5,
+dx D1-D4), a ragged and a wide case, each timed in turns with ``F.conv2d``
+(library, kernel, kernel, library); and after the MyGAN step parity, a
+CUDA-vs-CPU supervised step for each family at a small size.
 
 Each main path (serve + infer; MyGAN training; the two-kernel step; each
 supervised training run) starts with the launch counts of the kernels set
 to 0 and reads them after.  Then come one JSON line of kernel results
-and, last, ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits non-zero and prints no
-last line.  It does the same without a card, and outside a checkout of the
-repo.
+and, last, ``{"ok": true, "device": {...}}``.  Per kernel the JSON line
+holds its time (``ms``), its plain version's (``plain_ms``), the time of
+one PyTorch call that computes the same function where there is one
+(``library_ms``, else null; the port never calls it), the least time the
+card could take (``bound_ms``: the larger of the bytes of the timed shape,
+each input read and each output written once, over 3.35 TB/s and its
+operations over the peak rate of the pipes that do them, the published
+peaks of the H100 SXM: 67 TFLOP/s for float32 operations outside the tensor
+cores, and for the conv kernel, whose products run as three tf32 passes on
+the tensor cores, three times its float32 operations over 495 TFLOP/s;
+``bound_by`` says which), its launches on its main path (``launches``) and
+per train step of that path (``launches_per_step``; the opening kernel: per
+batch of the test sweep, which alone runs it), both read from the run's
+counters; the conv kernel also one entry per shape.  Any failure raises:
+the script exits non-zero and prints no last line.  It does the same
+without a card, and outside a checkout of the repo.
 """
 
 from __future__ import annotations
@@ -125,16 +139,22 @@ def check(cond: bool, what: str) -> None:
 
 def event_ms(fn, reps: int = 20, calls: int = 10, warmup: int = 5) -> float:
     """Median over ``reps`` of the time per call of ``fn``, in ms, from one
-    CUDA event pair around ``calls`` back-to-back calls.  Back to back, the
-    host enqueues the next launch while the card runs this one, so a call
-    whose host side is shorter than its device side is timed by the card;
-    one pair per call would also count the host's time before the launch."""
+    CUDA event pair around ``calls`` back-to-back calls.  Before each pair
+    the card is given ~3 ms of other work (a 4096^2 float32 matmul), so the
+    host enqueues the timed
+    calls while the card is still busy and the pair spans the card's time
+    for them: a wrapper's host side (checks, allocation, the launch: 20-35
+    us) is longer than the device side of a small kernel, and without the
+    lead the pair would time the host.  In a train step the host runs
+    ahead of the card in the same way."""
+    lead = torch.ones((4096, 4096), device="cuda")
     for _ in range(warmup):
         fn()
     pairs = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.mm(lead, lead)
         start.record()
         for _ in range(calls):
             fn()
@@ -142,6 +162,23 @@ def event_ms(fn, reps: int = 20, calls: int = 10, warmup: int = 5) -> float:
         pairs.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) / calls for s, e in pairs)
+
+
+# published peaks of the H100 SXM (dense): device memory rate, float32 rate
+# outside the tensor cores, tf32 rate on them
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12
+
+
+def bound(nbytes: float, flop: float,
+          flop_per_s: float = PEAK_F32_FLOP_PER_S) -> dict:
+    """The least time the card could take for ``nbytes`` moved and ``flop``
+    operations on pipes of ``flop_per_s``, and which of the two sets it."""
+    by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    by_flop = 1e3 * flop / flop_per_s
+    return {"bound_ms": max(by_bytes, by_flop),
+            "bound_by": "bytes" if by_bytes >= by_flop else "operations"}
 
 
 def phase_device() -> str:
@@ -229,8 +266,12 @@ def phase_kernel(device) -> dict:
     copy_ms = event_ms(lambda: pred.permute(0, 3, 4, 1, 2).contiguous())
     say("kernel", f"th plane permute copy of a {tuple(pred.shape)} pred: "
                   f"{copy_ms:.4f} ms")
+    # th planes in and out once; per pixel 2 x 2 x (k - 1) comparisons
+    # (erosion and dilation, each separable)
+    px = math.prod(cases["th"])
     return {"max_abs_err": worst, "ms": times["th"][0],
-            "plain_ms": times["th"][1]}
+            "plain_ms": times["th"][1], "library_ms": None,
+            **bound(8 * px, 4 * (5 - 1) * px)}
 
 
 def _flow_case(device, n: int, h: int, w: int):
@@ -322,8 +363,46 @@ def phase_flow_kernels(device) -> dict:
                         f"{order})")
             if size == 64:
                 results[name] = {"max_abs_err": worst, "ms": k_ms,
-                                 "plain_ms": p_ms}
+                                 "plain_ms": p_ms, "library_ms": None,
+                                 **_flow_bound(name, FIELDS * size * size)}
+        if size == 64:
+            results["flow_warp"]["library_ms"] = _grid_sample_ms(p2, f)
     return results
+
+
+def _flow_bound(name: str, px: int) -> dict:
+    """Bounds of the flow kernels over ``px`` pixels, float32 planes: the
+    warp reads 5 planes and a 2-plane flow and writes 5; refine and fused
+    read 2 x 5 planes and the flow and write a flow.  Operations per pixel:
+    a warp ~50 (4 taps x 5 planes, weights), one solve round ~45 for the
+    normal equations and the 2 x 2 solve plus the separable 15-tap box
+    blur of 5 sums (2 x 15 x 2 each); the fused kernel runs 3 rounds of
+    warp + solve."""
+    solve = 45 + 5 * 2 * 15 * 2
+    flop = {"flow_warp": 50, "flow_refine": solve,
+            "flow_fused": 3 * (50 + solve)}[name]
+    planes = {"flow_warp": 12, "flow_refine": 14, "flow_fused": 14}[name]
+    return bound(4 * planes * px, flop * px)
+
+
+def _grid_sample_ms(fields: torch.Tensor, flow: torch.Tensor) -> float:
+    """``F.grid_sample`` (bilinear, border padding, align_corners) on a
+    grid normalised from the flow ahead of the timing: the one PyTorch
+    call that computes the warp.  Only timed here."""
+    n, _, h, w = fields.shape
+    ys = torch.arange(h, device=flow.device)[None, :, None] + flow[:, 1]
+    xs = torch.arange(w, device=flow.device)[None, None, :] + flow[:, 0]
+    grid = torch.stack([2 * xs / (w - 1) - 1, 2 * ys / (h - 1) - 1], dim=-1)
+    sample = lambda: torch.nn.functional.grid_sample(  # noqa: E731
+        fields, grid, mode="bilinear", padding_mode="border",
+        align_corners=True)
+    ms = event_ms(sample)
+    from vfd_gan_tpu_torch.ops.warp import bilinear_warp_cuda
+    diff = (sample() - bilinear_warp_cuda(fields, flow)).abs().max().item()
+    say("flow", f"flow_warp {n}x{h}^2: F.grid_sample on a precomputed grid "
+                f"{ms:.4f} ms (max-abs vs the kernel {diff:.3g} on fields "
+                f"of max {fields.abs().max().item():.3g})")
+    return ms
 
 
 def _mask_batch(device, b: int, seed: int) -> torch.Tensor:
@@ -410,26 +489,66 @@ def phase_augment_kernel(device) -> dict:
         lambda: augment.augment_gather_plain(*streams, src_x, src_y))
     say("augment", f"train shape: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms"
                    f" (plain/kernel/kernel/plain {order})")
-    return {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms}
+    # the three uint8 streams and the two coordinate maps in, three
+    # float32 clips out; per output value one scaling
+    nbytes = sum(t.numel() * t.element_size() for t in (
+        *streams, src_x, src_y)) + 4 * 7 * BATCH * NFR * ISIZE * ISIZE
+    return {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
+            "library_ms": None,
+            **bound(nbytes, 7 * BATCH * NFR * ISIZE * ISIZE)}
 
 
-# the ConvLSTM's gate convs at b8, T16, 128^2 (input half: B*T frames;
-# hidden halves: B frames) and a ragged one: (N, H, W, Cin, Cout)
-CONV_CASES = {"input 3->64": (BATCH * NFR, ISIZE, ISIZE, 3, 64),
-              "hidden 16->64": (BATCH, ISIZE, ISIZE, 16, 64),
-              "hidden 12->48": (BATCH, ISIZE, ISIZE, 12, 48),
-              "ragged 7->9": (5, 24, 40, 7, 9)}
+# The 3x3 conv kernel's cases: id -> (N, H, W, Cin, Cout, flip, launches per
+# clstm step, what).  F1-D4 are the nine distinct launches of one ConvLSTM
+# step at b8, T16, 128^2 (hidden widths 16/12/12, gate widths 64/48/48):
+# the input halves over B*T frames, the hidden halves over B frames once
+# per time step, and their input gradients (flip: the kernel reads the
+# forward's weights flipped and transposed in place).  The first layer's
+# input and each layer's first hidden state need no gradient.
+CONV_CASES = {
+    "F1": (BATCH * NFR, ISIZE, ISIZE, 3, 64, False, 1, "input half, layer 1"),
+    "F2": (BATCH * NFR, ISIZE, ISIZE, 16, 48, False, 1,
+           "input half, layer 2"),
+    "F3": (BATCH * NFR, ISIZE, ISIZE, 12, 48, False, 1,
+           "input half, layer 3"),
+    "F4": (BATCH, ISIZE, ISIZE, 16, 64, False, NFR, "hidden half, layer 1"),
+    "F5": (BATCH, ISIZE, ISIZE, 12, 48, False, 2 * NFR,
+           "hidden half, layers 2-3"),
+    "D1": (BATCH, ISIZE, ISIZE, 64, 16, True, NFR - 1, "dx of F4"),
+    "D2": (BATCH, ISIZE, ISIZE, 48, 12, True, 2 * (NFR - 1), "dx of F5"),
+    "D3": (BATCH * NFR, ISIZE, ISIZE, 48, 16, True, 1, "dx of F2"),
+    "D4": (BATCH * NFR, ISIZE, ISIZE, 48, 12, True, 1, "dx of F3"),
+    "ragged": (5, 24, 40, 7, 9, False, 0, "ragged 7->9"),
+    "wide": (BATCH, ISIZE, ISIZE, 64, 64, False, 0, "wide 64->64"),
+}
+CONV_LAUNCHES_PER_STEP = sum(c[6] for c in CONV_CASES.values())
+# the entry of the kernels line: the first layer's hidden half
+CONV_MAIN_CASE = "F4"
+
+
+def _conv_close(what: str, label: str, got, want, tol: float) -> float:
+    err = (got - want).abs()
+    check(bool((err <= tol + tol * want.abs()).all()),
+          f"conv3x3 {what} at {label}: max-abs {err.max().item()}")
+    return err.max().item()
 
 
 def phase_conv_kernel(device) -> dict:
-    """conv3x3 (forward and dx on the kernel, dw as tap matmuls) against
-    ``F.conv2d`` and its autograd, TF32 off: forward rtol = atol = 1e-5,
-    dx and dw 1e-4 (unit-normal x, w x 0.1, dy unit-normal over
-    sqrt(N*H*W)); then the forward timed."""
+    """The conv kernel against ``F.conv2d`` and its autograd, TF32 off, at
+    every case: through ``conv3x3``, forward rtol = atol = 1e-5 against
+    ``F.conv2d`` in float32, dx (the kernel with ``flip``) and dw (tap
+    matmuls) 1e-4 against its autograd in float64 (at 64 -> 64 the
+    library's own float32 weight gradient is 2e-4 from the float64 one);
+    the case's own launch (with ``flip`` for a dx case) 1e-5 against
+    ``F.conv2d`` in float32; unit-normal x, w x 0.1, dy unit-normal over
+    sqrt(N*H*W).  Then the case's launch timed in turns with ``F.conv2d``
+    on the same (for dx: ready flipped) weights.  Returns the kernels-line
+    entry, with one entry per case under ``shapes``."""
     from vfd_gan_tpu_torch.ops import spatial_conv
 
-    results = {}
-    for label, (n, h, w, cin, cout) in CONV_CASES.items():
+    shapes = []
+    for label, (n, h, w, cin, cout, flip, per_step, what) in \
+            CONV_CASES.items():
         g = torch.Generator(device=device).manual_seed(cin)
         x = torch.randn((n, h, w, cin), generator=g, device=device)
         k = torch.randn((3, 3, cin, cout), generator=g, device=device) * 0.1
@@ -437,34 +556,70 @@ def phase_conv_kernel(device) -> dict:
         dy = torch.randn((n, h, w, cout), generator=g, device=device) / (
             n * h * w) ** 0.5
         grads = []
-        outs = []
-        for fn in (spatial_conv.conv3x3, spatial_conv.conv3x3_plain):
-            xa, ka = x.clone().requires_grad_(), k.clone().requires_grad_()
+        for fn, dtype in ((spatial_conv.conv3x3, torch.float32),
+                          (spatial_conv.conv3x3_plain, torch.float64)):
+            xa = x.to(dtype, copy=True).requires_grad_()
+            ka = k.to(dtype, copy=True).requires_grad_()
             y = fn(xa, ka)
-            y.backward(dy)
-            outs.append(y.detach())
-            grads.append((xa.grad, ka.grad))
+            y.backward(dy.to(dtype))
+            grads.append((xa.grad.float(), ka.grad.float()))
+            if fn is spatial_conv.conv3x3:
+                got = y.detach()
+            del xa, ka, y
         torch.cuda.synchronize()
-        errs = []
-        for what, a, b, tol in (("forward", outs[0], outs[1], 1e-5),
-                                ("dx", grads[0][0], grads[1][0], 1e-4),
-                                ("dw", grads[0][1], grads[1][1], 1e-4)):
-            err = (a - b).abs()
-            bound = tol + tol * b.abs()
-            check(bool((err <= bound).all()),
-                  f"conv3x3 {what} at {label}: max-abs {err.max().item()}")
-            errs.append(err.max().item())
-        k_ms, p_ms, order = _time_pair(
-            lambda: spatial_conv.conv3x3_cuda(x, k),
-            lambda: spatial_conv.conv3x3_plain(x, k))
-        say("conv3x3", f"{label} ({n}, {h}, {w}): max-abs forward "
-                       f"{errs[0]:.3g}, dx {errs[1]:.3g}, dw {errs[2]:.3g} "
-                       f"(<= 1e-5 / 1e-4 / 1e-4 abs + rel); forward kernel "
-                       f"{k_ms:.4f} ms, plain {p_ms:.4f} ms "
-                       f"(plain/kernel/kernel/plain {order})")
-        results[label] = {"max_abs_err": errs[0], "ms": k_ms,
-                          "plain_ms": p_ms}
-    return results["hidden 16->64"]
+        errs = [_conv_close("forward", label, got,
+                            spatial_conv.conv3x3_plain(x, k), 1e-5),
+                _conv_close("dx", label, grads[0][0], grads[1][0], 1e-4),
+                _conv_close("dw", label, grads[0][1], grads[1][1], 1e-4)]
+        del grads, got, dy
+        if flip:
+            # the launch the backward makes: w (3, 3, Cout, Cin) as it is
+            kt = torch.randn((3, 3, cout, cin), generator=g,
+                             device=device) * 0.1
+            k = kt.flip(0, 1).transpose(2, 3).contiguous()
+            kernel = lambda: spatial_conv.conv3x3_cuda(  # noqa: E731
+                x, kt, flip=True)
+        else:
+            kernel = lambda: spatial_conv.conv3x3_cuda(x, k)  # noqa: E731
+        library = lambda: spatial_conv.conv3x3_plain(x, k)  # noqa: E731
+        own = _conv_close("launch", label, kernel(), library(), 1e-5)
+        k_ms, p_ms, order = _time_pair(kernel, library)
+        px = n * h * w
+        # the products run as three tf32 passes on the tensor cores
+        flop = 2 * px * 9 * cin * cout
+        limit = bound(4 * (px * (cin + cout) + 9 * cin * cout), 3 * flop,
+                      PEAK_TF32_FLOP_PER_S)
+        f32_pipes_ms = 1e3 * flop / PEAK_F32_FLOP_PER_S
+        say("conv3x3", f"{label} ({what}) N{n} {h}x{w} {cin}->{cout}"
+                       f"{' flip' if flip else ''}: max-abs forward "
+                       f"{errs[0]:.3g}, dx {errs[1]:.3g}, dw {errs[2]:.3g}, "
+                       f"this launch {own:.3g} (<= 1e-5 / 1e-4 / 1e-4 / 1e-5 "
+                       f"abs + rel; forward and launch vs F.conv2d float32, "
+                       f"dx and dw vs its float64 autograd); kernel {k_ms:.4f} ms, F.conv2d "
+                       f"{p_ms:.4f} ms (library/kernel/kernel/library "
+                       f"{order}); bound {limit['bound_ms']:.4f} ms by "
+                       f"{limit['bound_by']} (its float32 operations on the "
+                       f"float32 pipes: {f32_pipes_ms:.4f} ms); x{per_step} "
+                       f"per step")
+        shapes.append({"id": label, "what": what, "n": n, "h": h, "w": w,
+                       "cin": cin, "cout": cout, "flip": flip,
+                       "launches_per_step": per_step, "max_abs_err": own,
+                       "ms": k_ms, "plain_ms": p_ms, "library_ms": p_ms,
+                       **limit, "f32_pipes_ms": f32_pipes_ms})
+        del x, k
+    step = {key: sum(c["launches_per_step"] * c[key] for c in shapes)
+            for key in ("ms", "library_ms", "bound_ms")}
+    say("conv3x3", f"times x launches over one clstm step "
+                   f"({CONV_LAUNCHES_PER_STEP} launches): kernel "
+                   f"{step['ms']:.3f} ms, F.conv2d {step['library_ms']:.3f} "
+                   f"ms, bound {step['bound_ms']:.3f} ms")
+    main_case = next(c for c in shapes if c["id"] == CONV_MAIN_CASE)
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
+    return {**{key: main_case[key] for key in keys},
+            "shape": CONV_MAIN_CASE, "shapes": shapes,
+            "step_ms_sum": step["ms"], "step_library_ms_sum":
+            step["library_ms"], "step_bound_ms_sum": step["bound_ms"]}
 
 
 def make_checkpoint(tmp: Path) -> Path:
@@ -664,6 +819,37 @@ def _counts() -> dict:
     return {k: fn.launches for k, fn in _wrappers().items()}
 
 
+def run_trainer(argv, engine_cls):
+    """``cli.trainer.main(argv)`` as one main path: the kernels' launch
+    counts are set to 0 just before it and read just after.  Returns the
+    engine, those counts, the part of them made inside the test sweep
+    (``engine_cls.test`` is wrapped for the run to read the counters around
+    it) and the wall seconds."""
+    from vfd_gan_tpu_torch.cli.trainer import main as train_main
+
+    sweep = dict.fromkeys(_wrappers(), 0)
+    test = engine_cls.test
+
+    def counted_test(self):
+        before = _counts()
+        out = test(self)
+        for k, n in _counts().items():
+            sweep[k] += n - before[k]
+        return out
+
+    engine_cls.test = counted_test
+    try:
+        _reset_counts()                  # the main path starts
+        t0 = time.perf_counter()
+        engine = train_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()               # ... and ends
+    finally:
+        engine_cls.test = test
+    return engine, counts, sweep, wall
+
+
 def phase_step_parity(tmp: Path) -> None:
     """One _gan_core step on the card and on the CPU from the same weights
     and injected flows.  Tolerances: losses 1e-5, except the train-mode
@@ -804,10 +990,10 @@ def phase_supervised_parity(tmp: Path) -> None:
 
 def phase_supervised_train(tmp: Path, family: str) -> dict:
     """``cli.trainer.main --model family`` at the reference width, b8, T16,
-    128^2, float32, with a one-batch test sweep; returns the kernels'
-    launch counts on it."""
-    from vfd_gan_tpu_torch.cli.trainer import main as train_main
+    128^2, float32, with a one-batch test sweep; returns the engine, the
+    kernels' launch counts on the run and those of its sweep."""
     from vfd_gan_tpu_torch.models import build_mask_model
+    from vfd_gan_tpu_torch.train.supervised_engine import SupervisedEngine
     from vfd_gan_tpu_torch.utils.checkpoint import load_state_dict
 
     steps, extra = SUPERVISED_RUNS[family]
@@ -818,12 +1004,7 @@ def phase_supervised_train(tmp: Path, family: str) -> dict:
             "--ep", "1", "--freq", str(steps), "--device", "cuda",
             "--result_root", str(root), *extra]
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts()                      # this training path starts
-    t0 = time.perf_counter()
-    engine = train_main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = _counts()                   # ... and ends
+    engine, counts, sweep, wall = run_trainer(argv, SupervisedEngine)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     check(engine.global_step == steps, f"{family}: all train steps ran")
     losses = {k: engine.errors[k] for k in ("loss/err/train",
@@ -847,10 +1028,14 @@ def phase_supervised_train(tmp: Path, family: str) -> dict:
         # launches dx for each but the first layer's input half and each
         # layer's first hidden half (their inputs need no gradient)
         fwd = 3 * (1 + NFR)
-        want = steps * (2 * fwd - 4) + fwd
-        check(counts["conv3x3"] == want,
+        check(counts["conv3x3"] - sweep["conv3x3"] == steps * (2 * fwd - 4)
+              and sweep["conv3x3"] == fwd * engine.test_iter.n_batches,
               f"clstm launched the conv kernel {counts['conv3x3']} times, "
-              f"expected {want} (forward and dx)")
+              f"{sweep['conv3x3']} of them in the sweep; expected "
+              f"{2 * fwd - 4} per step (forward and dx) and {fwd} per sweep "
+              "batch")
+        check(2 * fwd - 4 == CONV_LAUNCHES_PER_STEP,
+              "the conv phase's cases are one step's launches")
     steady = engine.step_seconds[2:] if steps > 4 else engine.step_seconds[1:]
     say(f"train-{family}",
         f"trainer.main --model {family} b{BATCH} T{NFR} {ISIZE}^2 float32 "
@@ -862,15 +1047,16 @@ def phase_supervised_train(tmp: Path, family: str) -> dict:
         f"MiB; losses {json.dumps(losses)}")
     say(f"train-{family}", f"sweep: roc {roc:.6g} pr {pr:.6g} f1 {f1:.6g}; "
                            f"saved {pth[0].name} (loaded strict); launches "
-                           f"{json.dumps(counts)}")
-    return counts
+                           f"{json.dumps(counts)}, of them in the sweep "
+                           f"{json.dumps(sweep)}")
+    return engine, counts, sweep
 
 
 def phase_train(tmp: Path):
-    """The training main path at the reference width; returns the engine
-    and the kernels' launch counts on it."""
-    from vfd_gan_tpu_torch.cli.trainer import main as train_main
+    """The training main path at the reference width; returns the engine,
+    the kernels' launch counts on it and those of its sweep."""
     from vfd_gan_tpu_torch.models.mygan import DualDisc, Generator
+    from vfd_gan_tpu_torch.train.gan_engine import MyGanEngine
     from vfd_gan_tpu_torch.utils.checkpoint import load_state_dict
 
     argv = ["--model", "mygan", "--batchsize", str(BATCH), "--nfr", str(NFR),
@@ -881,12 +1067,7 @@ def phase_train(tmp: Path):
             "--freq", str(TRAIN_STEPS), "--device", "cuda",
             "--result_root", str(tmp / "runs")]
     torch.cuda.reset_peak_memory_stats()
-    _reset_counts()                      # the training main path starts
-    t0 = time.perf_counter()
-    engine = train_main(argv)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = _counts()                   # ... and ends
+    engine, counts, sweep, wall = run_trainer(argv, MyGanEngine)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     check(engine.global_step == TRAIN_STEPS, "all train steps ran")
     losses = {k: v for k, v in engine.errors.items() if "/" in k}
@@ -919,8 +1100,9 @@ def phase_train(tmp: Path):
         if k.endswith("/train")))
     say("train", f"sweep: roc {roc:.6g} pr {pr:.6g} f1 {f1:.6g}; saved "
                  f"{g_pth[0].name}, {d_pth[0].name} (loaded strict); "
-                 f"launches {json.dumps(counts)}")
-    return engine, counts
+                 f"launches {json.dumps(counts)}, of them in the sweep "
+                 f"{json.dumps(sweep)}")
+    return engine, counts, sweep
 
 
 def phase_two_kernel(engine) -> dict:
@@ -970,24 +1152,42 @@ def main() -> None:
         del model
         phase_step_parity(Path(tmp))
         phase_supervised_parity(Path(tmp))
-        engine, train_counts = phase_train(Path(tmp))
+        engine, gan_counts, gan_sweep = phase_train(Path(tmp))
+        gan_steps = engine.global_step
+        gan_sweep_batches = engine.test_iter.n_batches
         two_counts = phase_two_kernel(engine)
         del engine
-        supervised = {family: phase_supervised_train(Path(tmp), family)
-                      for family in SUPERVISED_RUNS}
+        for family in SUPERVISED_RUNS:
+            engine, counts, sweep = phase_supervised_train(Path(tmp), family)
+            if family == "clstm":
+                clstm_counts, clstm_sweep = counts, sweep
+                clstm_steps = engine.global_step
+            del engine
     # launches: each kernel's count on the main path that runs it (MyGAN's
     # trainer for the fused and opening kernels, its --flow_impl
     # two_kernel step for warp and refine, the clstm trainer for the
-    # augment and conv kernels)
-    launches = {"morphology_open": train_counts["morphology_open"],
-                "flow_fused": train_counts["flow_fused"],
-                "flow_warp": two_counts["flow_warp"],
-                "flow_refine": two_counts["flow_refine"],
-                "augment_gather": supervised["clstm"]["augment_gather"],
-                "conv3x3": supervised["clstm"]["conv3x3"]}
+    # augment and conv kernels); per step: the launches made outside the
+    # test sweep over the train steps the engine counted (the opening: the
+    # sweep's launches per sweep batch)
+    launches = {"morphology_open": gan_counts, "flow_fused": gan_counts,
+                "flow_warp": two_counts, "flow_refine": two_counts,
+                "augment_gather": clstm_counts, "conv3x3": clstm_counts}
+    per_step = {
+        "morphology_open": gan_sweep["morphology_open"] / gan_sweep_batches,
+        "flow_fused": (gan_counts["flow_fused"] - gan_sweep["flow_fused"])
+        / gan_steps,
+        "flow_warp": float(two_counts["flow_warp"]),
+        "flow_refine": float(two_counts["flow_refine"]),
+        "augment_gather": (clstm_counts["augment_gather"]
+                           - clstm_sweep["augment_gather"]) / clstm_steps,
+        "conv3x3": (clstm_counts["conv3x3"] - clstm_sweep["conv3x3"])
+        / clstm_steps}
+    check(gan_counts["morphology_open"] == gan_sweep["morphology_open"],
+          "only the sweep runs the opening kernel")
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": KERNELS[k][0],
-        "replaces": KERNELS[k][1], "launches": launches[k], **results[k]}
+        "replaces": KERNELS[k][1], "launches": launches[k][k],
+        "launches_per_step": per_step[k], **results[k]}
         for k in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -292,11 +292,24 @@ def test_augment_kernel_refuses_what_it_does_not_take(card):
 
 # -- the 3x3 conv -----------------------------------------------------------------
 
-# (N, H, W, Cin, Cout): the ConvLSTM's input half (B*T frames, 3 -> 64),
-# its hidden halves (B frames, 16 -> 64 and 12 -> 48), a ragged one
-CONV_CASES = {"input": (128, 128, 128, 3, 64), "hidden16": (8, 128, 128, 16,
-                                                              64),
-              "hidden12": (8, 128, 128, 12, 48), "ragged": (5, 24, 40, 7, 9)}
+# (N, H, W, Cin, Cout).  The nine distinct launches of one ConvLSTM step at
+# b8, T16, 128^2 (forward F1-F5: the three layers' input halves over B*T
+# frames and hidden halves over B frames; dx D1-D4 with the channels
+# swapped), a wide case, and a ragged case for each dimension the kernel
+# pads: H and W off its 8 x 32 tile, Cin off 8 (and off 4: scalar loads),
+# Cout off 16 (and off 4: scalar stores), Cin <= 4 with K = 9 Cin off 8,
+# Cout beyond one block's 64 channels.
+CONV_CASES = {"F1": (128, 128, 128, 3, 64), "F2": (128, 128, 128, 16, 48),
+              "F3": (128, 128, 128, 12, 48), "F4": (8, 128, 128, 16, 64),
+              "F5": (8, 128, 128, 12, 48), "D1": (8, 128, 128, 64, 16),
+              "D2": (8, 128, 128, 48, 12), "D3": (128, 128, 128, 48, 16),
+              "D4": (128, 128, 128, 48, 12), "wide": (8, 128, 128, 64, 64),
+              "ragged": (5, 24, 40, 7, 9), "ragged_hw": (3, 13, 37, 16, 16),
+              "ragged_cin": (2, 16, 32, 10, 16),
+              "ragged_cout": (2, 16, 32, 8, 22),
+              "ragged_packed": (3, 9, 35, 4, 5), "one_channel": (2, 17, 33, 1,
+                                                                 3),
+              "two_slices": (2, 40, 40, 20, 96)}
 
 
 def _conv_inputs(card, n, h, w, cin, cout, seed=0):
@@ -313,8 +326,9 @@ def _conv_inputs(card, n, h, w, cin, cout, seed=0):
 @pytest.mark.parametrize("case", list(CONV_CASES))
 @pytest.mark.gpu
 def test_conv3x3_kernel_matches_plain_on_card(card, case):
-    """Forward within 1e-5, dx and dw within 1e-4 of ``F.conv2d`` and its
-    autograd (TF32 off)."""
+    """Forward within 1e-5 of ``F.conv2d`` in float32 (TF32 off), dx and
+    dw within 1e-4 of its autograd in float64: at 64 -> 64 the library's
+    own float32 weight gradient is 2e-4 from the float64 one."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     x, k, dy = _conv_inputs(card, *CONV_CASES[case])
@@ -324,12 +338,28 @@ def test_conv3x3_kernel_matches_plain_on_card(card, case):
     got.backward(dy)
     torch.cuda.synchronize()
     assert spatial_conv.conv3x3_cuda.launches == before + 2    # fwd, dx
-    xb, kb = x.clone().requires_grad_(), k.clone().requires_grad_()
-    want = spatial_conv.conv3x3_plain(xb, kb)
-    want.backward(dy)
+    xb = x.double().requires_grad_()
+    kb = k.double().requires_grad_()
+    spatial_conv.conv3x3_plain(xb, kb).backward(dy.double())
+    torch.testing.assert_close(got, spatial_conv.conv3x3_plain(x, k),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(xa.grad, xb.grad.float(), rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ka.grad, kb.grad.float(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["F4", "D2", "ragged", "ragged_packed"])
+@pytest.mark.gpu
+def test_conv3x3_kernel_reads_flipped_weights_in_place(card, case):
+    """``flip`` convolves by ``w.flip(0, 1).transpose(2, 3)`` without the
+    copy: held to the plain version on that copy."""
+    torch.backends.cudnn.allow_tf32 = False
+    n, h, w, cin, cout = CONV_CASES[case]
+    x, _, _ = _conv_inputs(card, n, h, w, cin, cout)
+    g = torch.Generator(device=card).manual_seed(1)
+    k = torch.randn((3, 3, cout, cin), generator=g, device=card) * 0.1
+    got = spatial_conv.conv3x3_cuda(x, k, flip=True)
+    want = spatial_conv.conv3x3_plain(x, k.flip(0, 1).transpose(2, 3))
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(xa.grad, xb.grad, rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(ka.grad, kb.grad, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.gpu
@@ -347,3 +377,5 @@ def test_conv3x3_kernel_refuses_what_it_does_not_take(card):
         spatial_conv.conv3x3_cuda(x.transpose(1, 2), k)
     with pytest.raises(ValueError):
         spatial_conv.conv3x3_cuda(x, k[:, :, :3].contiguous())
+    with pytest.raises(ValueError):        # flip wants (3, 3, Cout, Cin)
+        spatial_conv.conv3x3_cuda(x, k, flip=True)

@@ -7,7 +7,14 @@ the JAX package's Pallas kernels (in interpret mode) on the CPU.
   against ``lax.conv_general_dilated``.  Unit-normal x, w x 0.1, as
   ``tests/test_pallas_spatial_conv.py`` uses; forward within 1e-5, x and w
   gradients within 1e-4 (float32 sums in another order).  W is a multiple
-  of 8, as the Mosaic kernel needs.
+  of 8, as the Mosaic kernel needs.  The cases are the nine channel pairs
+  of one ConvLSTM step (forward F1-F5, dx D1-D4) and a ragged one.
+* the card kernel's arithmetic and indexing, which cannot run here: an
+  emulation of its 3xTF32 split (operands split into a rounded and a cut
+  tf32 part by integer arithmetic, three products per K step of 8, the
+  running sum in float32)
+  against a float64 convolution, and its dx weight index map against
+  ``w.flip(0, 1).transpose(2, 3)``.
 * the augment gather: bit-exact against ``augment_gather_pallas`` (scaled
   as the JAX function scales) and against ``augment_clips(use_pallas=True,
   interpret=True)`` with the same draws injected into both.
@@ -29,10 +36,14 @@ from vfd_gan_tpu_torch.ops.spatial_conv import conv3x3, conv3x3_plain
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4
 
-# (N, H, W, Cin, Cout): the ConvLSTM's gate convs at a small size (input
-# half 3 -> 64, hidden halves 16 -> 64 and 12 -> 48), a ragged one
-CONV_SHAPES = [(4, 16, 16, 3, 64), (2, 16, 16, 16, 64), (2, 8, 16, 12, 48),
-               (3, 16, 24, 10, 7)]
+# (N, H, W, Cin, Cout): the nine distinct launches of one ConvLSTM step
+# (hidden widths 16/12/12) at a small size, the input halves with more
+# frames than the hidden ones, dx with the channels swapped; a ragged one
+CONV_SHAPES = {"F1": (4, 16, 16, 3, 64), "F2": (4, 8, 16, 16, 48),
+               "F3": (4, 8, 16, 12, 48), "F4": (2, 16, 16, 16, 64),
+               "F5": (2, 8, 16, 12, 48), "D1": (2, 8, 16, 64, 16),
+               "D2": (2, 8, 16, 48, 12), "D3": (4, 8, 16, 48, 16),
+               "D4": (4, 8, 8, 48, 12), "ragged": (3, 16, 24, 10, 7)}
 
 
 def _conv_inputs(shape, seed=0):
@@ -44,9 +55,9 @@ def _conv_inputs(shape, seed=0):
     return x, k, dy
 
 
-@pytest.mark.parametrize("shape", CONV_SHAPES, ids=str)
-def test_conv3x3_matches_pallas_kernel_and_vjp(shape):
-    x, k, dy = _conv_inputs(shape)
+@pytest.mark.parametrize("case", list(CONV_SHAPES))
+def test_conv3x3_matches_pallas_kernel_and_vjp(case):
+    x, k, dy = _conv_inputs(CONV_SHAPES[case])
     want, vjp = jax.vjp(lambda a, b: conv3x3_pallas(a, b, True),
                         jnp.asarray(x), jnp.asarray(k))
     want_dx, want_dk = vjp(jnp.asarray(dy))
@@ -63,9 +74,12 @@ def test_conv3x3_matches_pallas_kernel_and_vjp(shape):
                                rtol=GRAD_TOL, atol=GRAD_TOL)
 
 
-def test_conv3x3_plain_matches_lax_conv_at_odd_sizes():
-    """Any H and W (the card kernel takes them too)."""
-    x, k, _ = _conv_inputs((2, 7, 13, 5, 9), seed=1)
+@pytest.mark.parametrize("shape", [(2, 7, 13, 5, 9), (1, 9, 35, 4, 5),
+                                   (2, 5, 33, 1, 3), (1, 6, 10, 20, 70)],
+                         ids=str)
+def test_conv3x3_plain_matches_lax_conv_at_odd_sizes(shape):
+    """Any H and W, any channel counts (the card kernel takes them too)."""
+    x, k, _ = _conv_inputs(shape, seed=1)
     want = lax.conv_general_dilated(
         jnp.asarray(x), jnp.asarray(k), (1, 1), "SAME",
         dimension_numbers=("NHWC", "HWIO", "NHWC"))
@@ -74,10 +88,12 @@ def test_conv3x3_plain_matches_lax_conv_at_odd_sizes():
                                atol=FWD_TOL)
 
 
-def test_conv3x3_backward_matches_autograd_of_plain():
+@pytest.mark.parametrize("shape", [(2, 9, 11, 6, 5), (1, 5, 7, 3, 8),
+                                   (2, 4, 6, 12, 4)], ids=str)
+def test_conv3x3_backward_matches_autograd_of_plain(shape):
     """dx through the forward with flipped weights and dw as tap products
     are the gradients of ``F.conv2d``."""
-    x, k, dy = _conv_inputs((2, 9, 11, 6, 5), seed=2)
+    x, k, dy = _conv_inputs(shape, seed=2)
     grads = []
     for fn in (conv3x3, conv3x3_plain):
         xt = torch.from_numpy(x).requires_grad_()
@@ -87,6 +103,124 @@ def test_conv3x3_backward_matches_autograd_of_plain():
     for a, b in zip(*grads):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=GRAD_TOL,
                                    atol=GRAD_TOL)
+
+
+# -- the card kernel's arithmetic and indexing, emulated ---------------------------
+
+def _tf32(v: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to tf32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds: add half of the last
+    kept bit to the bit pattern, clear the 13 dropped bits."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(v):
+    """hi: ``v`` rounded to tf32; lo: the rest, exact in float32, cut to
+    tf32 as the tensor cores read a float32 operand (its low 13 bits
+    dropped)."""
+    hi = _tf32(v)
+    lo = (v - hi).contiguous().view(torch.int32) & ~0x1FFF
+    return hi, lo.view(torch.float32)
+
+
+def _patches(x: torch.Tensor) -> torch.Tensor:
+    """(N*H*W, 9*Cin) rows of the implicit GEMM, K ordered (tap, channel)."""
+    n, h, w, cin = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    return torch.cat([xp[:, i:i + h, j:j + w].reshape(-1, cin)
+                      for i in range(3) for j in range(3)], dim=1)
+
+
+def conv3x3_split_emulation(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The card kernel's sum in plain PyTorch: per K step of 8, a_lo b_hi +
+    a_hi b_lo + a_hi b_hi (products of tf32 values, exact in float32), added
+    to a float32 running sum."""
+    a = _patches(x)
+    b = w.reshape(-1, w.shape[-1])
+    pad = -a.shape[1] % 8
+    a = torch.nn.functional.pad(a, (0, pad))
+    b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    (a_hi, a_lo), (b_hi, b_lo) = _split(a), _split(b)
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for k in range(0, a.shape[1], 8):
+        s = slice(k, k + 8)
+        acc += (a_lo[:, s] @ b_hi[s] + a_hi[:, s] @ b_lo[s]) + (
+            a_hi[:, s] @ b_hi[s])
+    return acc.reshape(*x.shape[:3], -1)
+
+
+def test_tf32_rounding_by_integer_arithmetic():
+    v = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10,
+                      -(1.0 + 2.0 ** -11), 3.0e-5, 0.0])
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10,
+                         -(1.0 + 2.0 ** -10), 0.0, 0.0])
+    got = _tf32(v)
+    assert torch.equal(got[:4], want[:4]) and got[5] == 0
+    assert abs(got[4] - v[4]) <= 2.0 ** -11 * v[4]
+    hi, lo = _split(torch.randn(1000, generator=torch.Generator()
+                                .manual_seed(0)))
+    assert torch.equal(_tf32(hi), hi) and torch.equal(_tf32(lo), lo)
+    v = torch.randn(1000, generator=torch.Generator().manual_seed(0))
+    assert ((hi + lo) - v).abs().max() <= 2.0 ** -21 * v.abs().max()
+
+
+@pytest.mark.parametrize("decades", [0, 6], ids=["unit", "six_decades"])
+@pytest.mark.parametrize("cin", [3, 16, 64], ids=["K27", "K144", "K576"])
+def test_split_emulation_is_as_close_to_float64_as_float32_conv(cin, decades):
+    """max-abs error against a float64 convolution: the split's no more
+    than twice ``conv3x3_plain``'s in float32, on unit-normal inputs and on
+    inputs whose magnitudes span six decades (the weights keep their one
+    scale, as a layer's do).  Where a few products dominate a sum, the
+    split's own error shows: each operand is kept to 2^-22 and a_lo b_lo
+    is dropped, against float32's 2^-24 per rounding."""
+    rng = np.random.default_rng(cin + decades)
+    x = rng.normal(size=(2, 12, 16, cin))
+    k = rng.normal(size=(3, 3, cin, 24)) * 0.1
+    if decades:
+        x *= 10.0 ** rng.uniform(-decades / 2, decades / 2, size=x.shape)
+    x32 = torch.from_numpy(x.astype(np.float32))
+    k32 = torch.from_numpy(k.astype(np.float32))
+    exact = conv3x3_plain(x32.double(), k32.double())
+    err_plain = (conv3x3_plain(x32, k32).double() - exact).abs().max().item()
+    err_split = (conv3x3_split_emulation(x32, k32).double()
+                 - exact).abs().max().item()
+    assert err_split <= 2 * err_plain, (err_split, err_plain)
+    # and a single tf32 pass is far outside: the split is what holds 1e-5
+    a, b = _patches(x32), k32.reshape(-1, 24)
+    one_pass = (_tf32(a) @ _tf32(b)).reshape(exact.shape)
+    assert (one_pass.double() - exact).abs().max().item() > 20 * err_plain
+
+
+@pytest.mark.parametrize("cin,cout", [(16, 64), (12, 48), (3, 5), (7, 9)],
+                         ids=str)
+def test_flipped_weight_index_is_flip_and_transpose(cin, cout):
+    """The dx launch (cin_l = the forward's Cout, cout_l = its Cin) reads
+    the forward's ``w (3, 3, Cin, Cout)`` in place."""
+    from vfd_gan_tpu_torch.ops.spatial_conv import flipped_weight_index
+
+    w = torch.arange(9 * cin * cout, dtype=torch.float32).reshape(
+        3, 3, cin, cout)
+    want = w.flip(0, 1).transpose(2, 3)          # (3, 3, cin_l, cout_l)
+    cin_l, cout_l = cout, cin
+    flat = w.flatten()
+    got = torch.tensor([[[flat[flipped_weight_index(tap, ci, co, cin_l,
+                                                    cout_l)]
+                          for co in range(cout_l)] for ci in range(cin_l)]
+                        for tap in range(9)]).reshape(3, 3, cin_l, cout_l)
+    assert torch.equal(got, want)
+
+
+def test_conv3x3_forward_flip_is_the_input_gradient():
+    x, k, dy = _conv_inputs((2, 6, 8, 5, 7), seed=3)
+    from vfd_gan_tpu_torch.ops.spatial_conv import conv3x3_forward
+
+    xt = torch.from_numpy(x).requires_grad_()
+    conv3x3_plain(xt, torch.from_numpy(k)).backward(torch.from_numpy(dy))
+    got = conv3x3_forward(torch.from_numpy(dy), torch.from_numpy(k),
+                          flip=True)
+    np.testing.assert_allclose(got.numpy(), xt.grad.numpy(), rtol=GRAD_TOL,
+                               atol=GRAD_TOL)
 
 
 # -- the augment gather ---------------------------------------------------------

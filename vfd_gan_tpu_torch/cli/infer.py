@@ -17,7 +17,7 @@ Usage::
 The checkpoint is a reference-format ``.pth``; an Orbax run directory of
 the JAX package converts to one with ``python -m
 vfd_gan_tpu.cli.export_torch --ckpt <dir>``.  Video decode and encode use
-cv2 through ``vfd_gan_tpu.data.video_io``, imported only by :func:`main`.
+cv2 through ``vfd_gan_tpu_torch.data.video_io``, which imports it on use.
 """
 
 from __future__ import annotations
@@ -104,7 +104,11 @@ def predict_clips(model: torch.nn.Module, clips_uint8: np.ndarray,
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    from vfd_gan_tpu.data.video_io import count_frames, read_clip, write_video
+    from vfd_gan_tpu_torch.data.video_io import (
+        count_frames,
+        read_clip,
+        write_video,
+    )
 
     device = resolve_device(args.device)
     os.makedirs(args.out, exist_ok=True)

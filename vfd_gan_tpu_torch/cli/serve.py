@@ -428,7 +428,7 @@ def make_handler(server: InferenceServer, video_root: str = "",
                 self._json(403, {"error": "/predict_video disabled: start "
                                           "the server with --video_root"})
                 return
-            from vfd_gan_tpu.data.video_io import count_frames, read_clip
+            from vfd_gan_tpu_torch.data.video_io import count_frames, read_clip
 
             n = int(self.headers.get("Content-Length", "0"))
             try:

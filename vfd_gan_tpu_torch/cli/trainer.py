@@ -71,17 +71,20 @@ def parse(argv):
     return cfg, ns.device, ns.flow_impl
 
 
-def main(argv=None):
-    """Train; returns the engine (its step times and scores) when done."""
-    cfg, device_name, flow_impl = parse(
-        sys.argv[1:] if argv is None else list(argv))
+def build_engine(argv):
+    """The engine for a command line, its iterators attached, not yet run."""
+    cfg, device_name, flow_impl = parse(argv)
     device = resolve_device(device_name)
     train_iter, test_iter = build_iterators(cfg, device)
     if cfg.model == "mygan":
-        engine = MyGanEngine(cfg, train_iter, test_iter, device=device,
-                             flow_impl=flow_impl)
-    else:
-        engine = SupervisedEngine(cfg, train_iter, test_iter, device=device)
+        return MyGanEngine(cfg, train_iter, test_iter, device=device,
+                           flow_impl=flow_impl)
+    return SupervisedEngine(cfg, train_iter, test_iter, device=device)
+
+
+def main(argv=None):
+    """Train; returns the engine (its step times and scores) when done."""
+    engine = build_engine(sys.argv[1:] if argv is None else list(argv))
     engine.train()
     return engine
 

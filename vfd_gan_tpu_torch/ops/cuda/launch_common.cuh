@@ -19,9 +19,11 @@ constexpr int kMaxDevices = 64;
 class SmemOptin {
  public:
   // The current device's opt-in shared-memory limit per block, with
-  // `kernel` allowed to use all of it.  Returns a cudaError_t.
+  // `kernel` allowed to use all of it.  `prefer_shared` also asks for the
+  // largest shared-memory carveout, for a kernel that wants several blocks
+  // of tens of KB on one SM.  Returns a cudaError_t.
   template <typename Kernel>
-  cudaError_t limit(Kernel kernel, int* out) {
+  cudaError_t limit(Kernel kernel, int* out, bool prefer_shared = false) {
     int device = 0;
     cudaError_t err = cudaGetDevice(&device);
     if (err != cudaSuccess) return err;
@@ -35,6 +37,12 @@ class SmemOptin {
       err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
       if (err != cudaSuccess) return err;
+      if (prefer_shared) {
+        err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+            cudaSharedmemCarveoutMaxShared);
+        if (err != cudaSuccess) return err;
+      }
       limit_[device] = bytes;
     }
     *out = limit_[device];
