@@ -78,7 +78,11 @@ the tensor cores, three times its float32 operations over 495 TFLOP/s;
 ``bound_by`` says which), its launches on its main path (``launches``) and
 per train step of that path (``launches_per_step``; the opening kernel: per
 batch of the test sweep, which alone runs it), both read from the run's
-counters; the conv kernel also one entry per shape.  Any failure raises:
+counters; the conv kernel also one entry per shape, and the three flow
+kernels one per plane size (``shapes``), the refine and fused kernels' with
+the launches per step at that size and, as the conv kernel, their times x
+launches summed over one step of their path (``step_ms_sum``,
+``step_bound_ms_sum``).  Any failure raises:
 the script exits non-zero and prints no last line.  It does the same
 without a card, and outside a checkout of the repo.
 """
@@ -86,6 +90,7 @@ without a card, and outside a checkout of the repo.
 from __future__ import annotations
 
 import base64
+import collections
 import json
 import math
 import socket
@@ -315,10 +320,11 @@ def _time_pair(kernel, plain) -> tuple[float, float, str]:
 
 def phase_flow_kernels(device) -> dict:
     """Each flow kernel against its plain version at the train step's
-    shapes; returns the per-kernel results at the 64^2 level."""
+    shapes; returns the per-kernel results at the 64^2 level, with one
+    entry per size under ``shapes``."""
     from vfd_gan_tpu_torch.ops import flow_fused, flow_refine, warp
 
-    results = {}
+    shapes = {name: [] for name in ("flow_warp", "flow_refine", "flow_fused")}
     for size in FLOW_SIZES:
         p1, p2, f = _flow_case(device, FIELDS, size, size)
         zero = torch.zeros_like(f)
@@ -361,12 +367,19 @@ def phase_flow_kernels(device) -> dict:
                         f"q99 {q99:.3g} ({tol}){extra}; kernel {k_ms:.4f} "
                         f"ms, plain {p_ms:.4f} ms (plain/kernel/kernel/plain "
                         f"{order})")
-            if size == 64:
-                results[name] = {"max_abs_err": worst, "ms": k_ms,
-                                 "plain_ms": p_ms, "library_ms": None,
-                                 **_flow_bound(name, FIELDS * size * size)}
+            shapes[name].append({
+                "size": size, "max_abs_err": worst, "q99": q99, "ms": k_ms,
+                "plain_ms": p_ms, "library_ms": None,
+                **_flow_bound(name, FIELDS * size * size)})
         if size == 64:
-            results["flow_warp"]["library_ms"] = _grid_sample_ms(p2, f)
+            shapes["flow_warp"][-1]["library_ms"] = _grid_sample_ms(p2, f)
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
+    results = {}
+    for name, cases in shapes.items():
+        main_case = next(c for c in cases if c["size"] == 64)
+        results[name] = {**{key: main_case[key] for key in keys},
+                         "shape": 64, "shapes": cases}
     return results
 
 
@@ -813,10 +826,18 @@ def _wrappers() -> dict:
 def _reset_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_plane"):
+            fn.launches_by_plane.clear()
 
 
 def _counts() -> dict:
-    return {k: fn.launches for k, fn in _wrappers().items()}
+    """Launches per kernel, and for the solver kernels, which count them by
+    plane as well, per ``"kernel@HxW"``."""
+    counts = {k: fn.launches for k, fn in _wrappers().items()}
+    for k, fn in _wrappers().items():
+        for (h, w), n in getattr(fn, "launches_by_plane", {}).items():
+            counts[f"{k}@{h}x{w}"] = n
+    return counts
 
 
 def run_trainer(argv, engine_cls):
@@ -827,14 +848,14 @@ def run_trainer(argv, engine_cls):
     it) and the wall seconds."""
     from vfd_gan_tpu_torch.cli.trainer import main as train_main
 
-    sweep = dict.fromkeys(_wrappers(), 0)
+    sweep = collections.Counter(dict.fromkeys(_wrappers(), 0))
     test = engine_cls.test
 
     def counted_test(self):
         before = _counts()
         out = test(self)
         for k, n in _counts().items():
-            sweep[k] += n - before[k]
+            sweep[k] += n - before.get(k, 0)
         return out
 
     engine_cls.test = counted_test
@@ -847,7 +868,7 @@ def run_trainer(argv, engine_cls):
         counts = _counts()               # ... and ends
     finally:
         engine_cls.test = test
-    return engine, counts, sweep, wall
+    return engine, counts, dict(sweep), wall
 
 
 def phase_step_parity(tmp: Path) -> None:
@@ -1184,6 +1205,25 @@ def main() -> None:
         / clstm_steps}
     check(gan_counts["morphology_open"] == gan_sweep["morphology_open"],
           "only the sweep runs the opening kernel")
+    # the solver kernels by plane size: launches per step from the same
+    # counters, and times x launches over one step of the kernel's path
+    for k, counts, sweep, steps in (
+            ("flow_fused", gan_counts, gan_sweep, gan_steps),
+            ("flow_refine", two_counts, {}, 1)):
+        for case in results[k]["shapes"]:
+            plane = f"{k}@{case['size']}x{case['size']}"
+            case["launches_per_step"] = (
+                counts.get(plane, 0) - sweep.get(plane, 0)) / steps
+        for key in ("ms", "bound_ms"):
+            results[k][f"step_{key}_sum"] = sum(
+                case["launches_per_step"] * case[key]
+                for case in results[k]["shapes"])
+        check(sum(c["launches_per_step"] for c in results[k]["shapes"])
+              == per_step[k], f"{k}: every launch of a step is at a timed "
+                              f"size: {counts}")
+        say("flow", f"{k} times x launches over one step ({per_step[k]:g} "
+                    f"launches): kernel {results[k]['step_ms_sum']:.4f} ms, "
+                    f"bound {results[k]['step_bound_ms_sum']:.4f} ms")
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": KERNELS[k][0],
         "replaces": KERNELS[k][1], "launches": launches[k][k],

@@ -52,6 +52,23 @@ def test_every_entry_point_is_bound():
             or f"extern \"C\" long long {name}(" in text, name
 
 
+def test_stage_clock_tool_matches_the_solver_sources():
+    """``tools/flow_stages.py`` builds the solver sources a second time with
+    ``-DVFD_STAGE_CLOCKS`` and with stage A's gathers taken out by a text
+    substitution: the sources still hold what it looks for."""
+    from vfd_gan_tpu_torch.tools import flow_stages
+
+    common = (cuda.SOURCE_DIR / "flow_common.cuh").read_text()
+    assert flow_stages._substitute(common, flow_stages.NO_GATHER) != common
+    assert f"kClockedBlocks = {flow_stages.CLOCKED_BLOCKS};" in common
+    assert f"kClockSlots = {flow_stages.CLOCK_SLOTS};" in common
+    for src, kernel in zip(flow_stages.SOLVER_SOURCES, ("fused", "refine")):
+        text = (cuda.SOURCE_DIR / src).read_text()
+        assert f"int vfd_flow_{kernel}_stage_clocks(void* dst)" in text
+    with pytest.raises(SystemExit, match="expected 1 x"):
+        flow_stages._substitute("nothing to find", flow_stages.NO_GATHER)
+
+
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     if shutil.which("nvcc"):
         pytest.skip("nvcc is on PATH here")
@@ -129,11 +146,17 @@ def _flow_inputs(card, n, h, w, flow_scale, seed=0):
     return p1, p2, f0
 
 
-# the train step's levels at flow_scale 0.5 and 1.0, a ragged plane, and a
-# flow far outside the TPU warp's |fy| <= 3 px band at 64 rows
+# the train step's levels at flow_scale 0.5 and 1.0, a ragged plane, a
+# flow far outside the TPU warp's |fy| <= 3 px band at 64 rows, and what the
+# solver kernels' tiling can get wrong: the smallest legal level (narrower
+# and lower than the 15-tap window), a width that is no multiple of the
+# W-pass run of 8 nor of 2 over a height that is no multiple of the H-pass
+# item, a plane taller than wide, and a single field
 FLOW_CASES = {"64": (16, 64, 64, 1.0), "32": (16, 32, 32, 1.0),
               "16": (16, 16, 16, 1.0), "128": (4, 128, 128, 1.0),
-              "ragged": (3, 24, 40, 1.0), "large_flow": (4, 64, 64, 12.0)}
+              "ragged": (3, 24, 40, 1.0), "large_flow": (4, 64, 64, 12.0),
+              "8x8": (3, 8, 8, 1.0), "17x33": (2, 17, 33, 1.0),
+              "tall": (2, 40, 24, 1.0), "one_field": (1, 64, 64, 1.0)}
 
 
 @pytest.mark.parametrize("case", list(FLOW_CASES))
@@ -163,19 +186,24 @@ def test_refine_kernel_matches_plain_on_card(card, case):
     assert torch.quantile(err.flatten()[:1 << 24], 0.99).item() <= 1e-3
 
 
+@pytest.mark.parametrize("iterations", [3, 1, 2])
 @pytest.mark.parametrize("case", list(FLOW_CASES))
 @pytest.mark.gpu
-def test_fused_kernel_matches_plain_on_card(card, case):
+def test_fused_kernel_matches_plain_on_card(card, case, iterations):
     n, h, w, scale = FLOW_CASES[case]
     p1, p2, _ = _flow_inputs(card, n, h, w, scale)
     f0 = torch.zeros(n, 2, h, w, device=card)
     before = flow_fused.flow_refine_fused_cuda.launches
-    got = flow_fused.flow_refine_fused(p1, p2, f0, 15, 3)
+    by_plane = flow_fused.flow_refine_fused_cuda.launches_by_plane[(h, w)]
+    got = flow_fused.flow_refine_fused(p1, p2, f0, 15, iterations)
     torch.cuda.synchronize()
     assert flow_fused.flow_refine_fused_cuda.launches == before + 1
-    err = (got - flow_fused.flow_refine_fused_plain(p1, p2, f0, 15, 3)).abs()
+    assert flow_fused.flow_refine_fused_cuda.launches_by_plane[(h, w)] \
+        == by_plane + 1
+    err = (got - flow_fused.flow_refine_fused_plain(p1, p2, f0, 15,
+                                                    iterations)).abs()
     assert torch.quantile(err.flatten(), 0.99).item() <= 1e-3
-    if h >= 32:
+    if min(h, w) >= 32 and iterations == 3:
         inner = got[:, :, 8:-8, 8:-8]
         assert abs(inner[:, 0].median().item() - 1) < 0.3
         assert abs(inner[:, 1].median().item() - 2) < 0.3
@@ -192,6 +220,8 @@ def test_flow_kernels_refuse_what_they_do_not_take(card):
         flow_refine.flow_refine_step_cuda(p1.transpose(2, 3), p2, f0, 15)
     with pytest.raises(ValueError):
         flow_fused.flow_refine_fused_cuda(p1, p2, f0, 14, 3)
+    with pytest.raises(ValueError, match="winsize"):
+        flow_refine.flow_refine_step_cuda(p1, p2, f0, 13)
     with pytest.raises(ValueError):
         flow_fused.flow_refine_fused_cuda(p1, p2.cpu(), f0, 15, 3)
     with pytest.raises(ValueError, match="forward-only"):

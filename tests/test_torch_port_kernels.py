@@ -15,6 +15,13 @@ the JAX package's Pallas kernels (in interpret mode) on the CPU.
   running sum in float32)
   against a float64 convolution, and its dx weight index map against
   ``w.flip(0, 1).transpose(2, 3)``.
+* the solver kernels' tiling (``flow_fused.cu``, ``flow_refine.cu``): the
+  index maps that ``ops/flow_refine.py`` restates, walked item by item in
+  PyTorch with the kernels' arithmetic (bfloat16 maps, float32 sums in
+  the tap order d = 0 .. 14, the interior weight a constant), against
+  ``flow_refine_step_plain``: every output once, no load outside its row's
+  data and zeros, the blurred maps within 1e-6 (the sums' order) and the
+  flow's q99 within 1e-3 px, at ragged sizes and every item height.
 * the augment gather: bit-exact against ``augment_gather_pallas`` (scaled
   as the JAX function scales) and against ``augment_clips(use_pallas=True,
   interpret=True)`` with the same draws injected into both.
@@ -221,6 +228,152 @@ def test_conv3x3_forward_flip_is_the_input_gradient():
                           flip=True)
     np.testing.assert_allclose(got.numpy(), xt.grad.numpy(), rtol=GRAD_TOL,
                                atol=GRAD_TOL)
+
+
+# -- the solver kernels' tiling, walked on the CPU -------------------------------
+
+# (H, W): the smallest legal level (narrower and lower than the window), a
+# width that is no multiple of the run nor of 2, taller than wide, and the
+# two small levels of a train step
+TILE_PLANES = [(8, 8), (17, 33), (40, 24), (16, 16), (32, 32)]
+
+
+def _solver_inputs(n, h, w, seed=0):
+    rng = np.random.default_rng(seed)
+    p1, w2 = (torch.from_numpy(rng.normal(size=(n, 5, h, w))
+                               .astype(np.float32)) for _ in range(2))
+    flow = torch.from_numpy(rng.normal(size=(n, 2, h, w)).astype(np.float32))
+    return p1, w2, flow
+
+
+def tiled_solve_emulation(p1, w2, flow, rows):
+    """One field at a time through the kernels' scratch layout and items.
+    Returns the blurred maps, the flow, and how often each pixel's flow was
+    stored.  T starts as NaN except where the kernel zeroes it, so a read
+    of anything unwritten shows in the result."""
+    from vfd_gan_tpu_torch.ops import corr, flow_refine as fr
+
+    n, _, h, w = p1.shape
+    pitch, q_elems, t_elems = fr.scratch_layout(h, w)
+    taps = corr.box_taps(fr.WINSIZE)
+    band_h = corr.band_table(h, taps, "cpu")
+    band_w = corr.band_table(w, taps, "cpu")
+    quant = corr.bf16_round(fr.normal_quantities(p1, w2, flow))
+    blurred = torch.full((n, 5, h, w), float("nan"))
+    stores = torch.zeros((n, h, w), dtype=torch.int64)
+    cs, ys, xs = torch.meshgrid(torch.arange(5), torch.arange(h),
+                                torch.arange(w), indexing="ij")
+    is_data = torch.zeros(q_elems, dtype=torch.bool)
+    is_data[fr.q_index(cs, ys, xs, h, pitch)] = True
+    for f in range(n):
+        q = torch.zeros(q_elems)
+        q[fr.q_index(cs, ys, xs, h, pitch)] = quant[f]
+        t = torch.full((t_elems,), float("nan"))
+        t2 = t.view(-1, pitch)
+        for c in range(6):                     # the halo rows
+            t2[c * (h + fr.RADIUS):c * (h + fr.RADIUS) + fr.RADIUS] = 0
+        for row in range(5 * h):               # the W pass
+            c, y = divmod(row, h)
+            for run in range(pitch // fr.RUN - 1):
+                x0, loads, outs = fr.w_run(run, row, pitch)
+                loads = torch.tensor(list(loads))
+                assert loads.min() >= 0 and loads.max() < q_elems
+                data = loads[is_data[loads]]   # only this row's data
+                assert ((data >= fr.q_index(c, y, 0, h, pitch))
+                        & (data <= fr.q_index(c, y, w - 1, h, pitch))).all()
+                v = q[loads]
+                acc = torch.zeros(fr.RUN)
+                const = fr.interior(x0, fr.RUN, w)
+                wt = band_w[[min(x, w - 1) for x in outs]]
+                if const:
+                    wt = band_w[x0, fr.RADIUS].expand(fr.RUN, fr.WINSIZE)
+                for d in range(fr.WINSIZE):
+                    acc = acc + wt[:, d] * v[d + 1:d + 1 + fr.RUN]
+                first = fr.t_index(c, y, x0, h, pitch)
+                t[first:first + fr.RUN] = corr.bf16_round(acc)
+        plane = (h + fr.RADIUS) * pitch
+        for group in range(-(-h // rows)):     # the H pass, all columns
+            out_rows, t_rows = fr.h_item(group, rows)
+            assert max(t_rows) * pitch + 4 * plane + w - 1 < t_elems
+            const = fr.interior(out_rows[0], rows, h)
+            for c in range(5):
+                tile = t2[c * (h + fr.RADIUS) + t_rows[0]:
+                          c * (h + fr.RADIUS) + t_rows[-1] + 1, :w]
+                for o, y in enumerate(out_rows):
+                    if y >= h:
+                        break
+                    wt = band_h[y]
+                    if const:
+                        wt = band_h[out_rows[0], fr.RADIUS].expand(fr.WINSIZE)
+                    acc = torch.zeros(w)
+                    for d in range(fr.WINSIZE):
+                        acc = acc + wt[d] * tile[o + d]
+                    blurred[f, c, y] = acc
+                    stores[f, y] += c == 0
+    return blurred, fr.solve(blurred), stores
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4])
+@pytest.mark.parametrize("plane", TILE_PLANES, ids=str)
+def test_solver_tiling_covers_the_plane_and_matches_plain(plane, rows):
+    from vfd_gan_tpu_torch.ops import corr, flow_refine as fr
+
+    h, w = plane
+    p1, w2, flow = _solver_inputs(2, h, w, seed=h * w + rows)
+    blurred, got, stores = tiled_solve_emulation(p1, w2, flow, rows)
+    assert (stores == 1).all()                   # every output, once
+    taps = corr.box_taps(fr.WINSIZE)
+    want_blur = corr.sep_corr(fr.normal_quantities(p1, w2, flow), taps, taps)
+    # the same bfloat16 operands; only the order of the float32 sums differs
+    np.testing.assert_allclose(blurred.numpy(), want_blur.numpy(), rtol=1e-6,
+                               atol=1e-6)
+    err = (got - fr.flow_refine_step_plain(p1, w2, flow, fr.WINSIZE)).abs()
+    assert torch.quantile(err.flatten(), 0.99).item() <= 1e-3
+
+
+@pytest.mark.parametrize("size", [8, 15, 16, 22, 23, 33, 64])
+def test_interior_runs_have_one_weight(size):
+    """Where ``interior`` says so, the band rows of a run hold one value
+    15 times, so the kernels may keep it in a register; and it says so for
+    every run that has."""
+    from vfd_gan_tpu_torch.ops import corr, flow_refine as fr
+
+    band = corr.band_table(size, corr.box_taps(fr.WINSIZE), "cpu")
+    for count in (1, 2, 4, fr.RUN):
+        for first in range(0, size, count):
+            rows = band[first:first + count]
+            same = bool((rows == rows[0, fr.RADIUS]).all()) \
+                and first + count <= size
+            assert fr.interior(first, count, size) == same, (first, count)
+
+
+@pytest.mark.parametrize("plane,rows,threads", [
+    ((64, 64), 4, 256), ((32, 32), 4, 256), ((16, 16), 2, 160),
+    ((8, 8), 1, 64), ((128, 128), 4, 256)], ids=str)
+def test_plan_block_at_the_train_steps_levels(plane, rows, threads):
+    from vfd_gan_tpu_torch.ops import flow_refine as fr
+
+    assert fr.plan_block(*plane, in_shared=plane != (128, 128)) == (
+        rows, threads)
+
+
+def test_scratch_layout_keeps_16_byte_words_aligned():
+    """Q rows and T rows start on 16 bytes, T follows Q on 16 bytes, and two
+    fields of 64^2 fit in one SM's 227 KB of shared memory beside their
+    band tables (two blocks per SM: all 240 fields of a level at once)."""
+    from vfd_gan_tpu_torch.ops import flow_refine as fr
+
+    for h, w in TILE_PLANES + [(64, 64), (128, 128)]:
+        pitch, q_elems, t_elems = fr.scratch_layout(h, w)
+        assert pitch % fr.RUN == 0 and q_elems % fr.RUN == 0
+        assert t_elems % fr.RUN == 0 and pitch >= w + fr.RUN
+    pitch, q_elems, t_elems = fr.scratch_layout(64, 64)
+    per_block = 2 * (q_elems + t_elems) + 4 * 16 * (64 + 64) + 1024
+    assert 2 * per_block <= 227 * 1024
+    # 16-byte loads of 32 lanes on 32 consecutive rows: 8 lanes fill the
+    # 32 banks when the pitch in 4-byte words is an odd multiple of 4
+    for w in (16, 32, 64, 128):
+        assert (fr.scratch_layout(w, w)[0] // 2) % 8 == 4
 
 
 # -- the augment gather ---------------------------------------------------------

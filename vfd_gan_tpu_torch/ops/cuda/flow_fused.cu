@@ -8,18 +8,33 @@
 // shared with flow_refine.cu; unlike the TPU kernel, fy is not clamped to
 // a warp band.
 //
-// What bounds it on an H100: latency and block-level parallelism.  The
-// arithmetic is small (about 200 FLOP per pixel per round) and every byte
-// after the first round's reads stays on chip, so the cost is the three
-// dependent stages per round and the gathers of the warp.  As the TPU
-// kernel kept a field in VMEM, one block here takes one field for all
-// rounds: the warped values go straight into the quantity build, the
-// bfloat16 quantity and W-pass maps sit in shared memory (80 KB at 64^2,
-// so two fields per SM and all 240 fields of a train step's level
-// resident at once), the flow carry is the block's own slice of `out`,
-// and HBM sees p1, p2 and the first flow once.  128^2 planes
-// (flow_scale 1.0) keep the maps in a global workspace instead.  Faster
-// forms (row tiles over a cluster, TMA loads) are later work.
+// What bounds it on an H100: instruction issue and the loads of stage A,
+// then latency.  Every byte after the first round's reads stays on chip
+// (frame planes in L2, maps in shared memory), and the function's
+// arithmetic (about 400 operations per pixel and round, three quarters of
+// them the blur's multiply-adds) is a few microseconds of the float32 pipes
+// at the train step's 240 fields of 64^2; what costs is everything issued
+// around those multiply-adds.  So, as the TPU kernel kept a field in VMEM,
+// one block keeps one field for all rounds with its bfloat16 quantity and
+// W-pass maps in shared memory (107 KB at 64^2: two blocks per SM, all 240
+// fields of a level resident in one wave), and the blur is tiled in
+// registers: a thread loads the 22 inputs of 8 neighbouring outputs once,
+// as three 16-byte words, or the 18 rows under 4 output pixels of a column
+// in all five planes, and runs its 8 (or 20) sums side by side, each in the
+// plain version's tap order.  Away from the borders the weight is one
+// register; the zero rows and columns that frame the maps stand in for
+// bounds tests; a thread walks its items by adding digits, with no division
+// and no 64-bit index inside a field; and the flow stays in registers from
+// one round's solve to the next round's warp.  What is left
+// (vfd_gan_tpu_torch/tools/flow_stages.py times the stages): the two blur
+// passes with the solve are about a third of the launch at 64^2; the warp
+// and the quantities, 27 loads per pixel that go to L2 because the maps
+// take the SM's shared memory, are the rest, the first round's, which reads
+// the planes from device memory, a third of the launch alone.  Small planes
+// (16^2) take fewer rows per thread, so that the chain of dependent stages
+// a round consists of is spread over more threads; 128^2 planes (flow_scale
+// 1.0) keep the maps in a global workspace (L2 and device memory).  Only
+// winsize 15 is built.
 //
 // Built by vfd_gan_tpu_torch/ops/cuda/__init__.py; the Python wrapper is
 // vfd_gan_tpu_torch/ops/flow_fused.py::flow_refine_fused_cuda.
@@ -27,34 +42,19 @@
 #include <cuda_runtime.h>
 
 #include "flow_common.cuh"
-#include "launch_common.cuh"
-
-namespace {
-
-__global__ void __launch_bounds__(512)
-fused_kernel(const float* __restrict__ p1, const float* __restrict__ p2,
-             const float* __restrict__ flow, const float* __restrict__ band_h,
-             const float* __restrict__ band_w, float* out,
-             __nv_bfloat16* workspace, int h, int w, int k, int iters) {
-  vfd::refine_field<true>(p1, p2, flow, band_h, band_w, out, workspace, h, w,
-                          k, iters);
-}
-
-vfd::SmemOptin g_optin;
-
-}  // namespace
 
 // Bytes of global workspace one field needs for planes of h x w and a
 // k-tap blur on the current device: 0 when the scratch fits in shared
 // memory.  Negative (a cudaError_t, negated) on failure.  Both the refine
 // and the fused kernel use this layout.
 extern "C" long long vfd_flow_workspace_bytes(int h, int w, int k) {
-  if (h <= 0 || w <= 0 || k < 1) return -static_cast<long long>(
-      cudaErrorInvalidValue);
+  if (h <= 0 || w <= 0 || k != vfd::kWin ||
+      static_cast<long long>(h) * w > (1LL << 27))
+    return -static_cast<long long>(cudaErrorInvalidValue);
   int limit = 0;
-  const cudaError_t err = g_optin.limit(fused_kernel, &limit);
+  const cudaError_t err = vfd::smem_limit(&limit);
   if (err != cudaSuccess) return -static_cast<long long>(err);
-  const vfd::FieldPlan plan = vfd::plan_field(h, w, k, limit);
+  const vfd::FieldPlan plan = vfd::plan_field(h, w, limit);
   if (plan.smem > static_cast<size_t>(limit))
     return -static_cast<long long>(cudaErrorInvalidValue);
   return static_cast<long long>(plan.workspace);
@@ -67,17 +67,16 @@ extern "C" int vfd_flow_fused_f32(const float* p1, const float* p2,
                                   const float* band_w, float* out,
                                   void* workspace, long long n, int h, int w,
                                   int k, int iters, void* stream) {
-  if (iters < 1) return cudaErrorInvalidValue;
-  int limit = 0;
-  cudaError_t err = g_optin.limit(fused_kernel, &limit);
-  if (err != cudaSuccess) return err;
-  const vfd::FieldPlan plan = vfd::plan_field(h, w, k, limit);
-  err = vfd::check_field_args(n, h, w, k, workspace != nullptr, plan, limit);
-  if (err != cudaSuccess) return err;
-  fused_kernel<<<static_cast<unsigned>(n), vfd::field_threads(h, w),
-                 plan.smem, static_cast<cudaStream_t>(stream)>>>(
-      p1, p2, flow, band_h, band_w, out,
-      plan.workspace ? static_cast<__nv_bfloat16*>(workspace) : nullptr, h, w,
-      k, iters);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(vfd::launch_solver<true>(
+      p1, p2, flow, band_h, band_w, out, workspace, n, h, w, k, iters,
+      stream));
 }
+
+#ifdef VFD_STAGE_CLOCKS
+// Copies this kernel's stage clocks (flow_common.cuh) to `dst`:
+// 1024 blocks x 16 slots of 8 bytes.  Synchronises.
+extern "C" int vfd_flow_fused_stage_clocks(void* dst) {
+  return static_cast<int>(cudaMemcpyFromSymbol(
+      dst, vfd::g_stage_clock, sizeof(vfd::g_stage_clock)));
+}
+#endif

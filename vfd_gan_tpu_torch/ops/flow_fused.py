@@ -14,6 +14,8 @@ in one launch) for a CUDA tensor.  Forward-only.
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from vfd_gan_tpu_torch.ops.flow_refine import (
@@ -42,14 +44,13 @@ def flow_refine_fused_cuda(p1: torch.Tensor, p2: torch.Tensor,
         raise ValueError(f"iterations must be >= 0, got {iterations}")
     if iterations == 0:
         return flow.clone()
-    out = _launch_solver("flow_refine_fused_cuda", "vfd_flow_fused_f32",
-                         p1, p2, flow, winsize, iterations)
-    if p1.shape[0]:
-        flow_refine_fused_cuda.launches += 1
-    return out
+    return _launch_solver(flow_refine_fused_cuda, "vfd_flow_fused_f32",
+                          p1, p2, flow, winsize, iterations)
 
 
+# Kernel launches since the last reset, in all and by plane size (h, w).
 flow_refine_fused_cuda.launches = 0
+flow_refine_fused_cuda.launches_by_plane = Counter()
 
 
 def flow_refine_fused(p1: torch.Tensor, p2: torch.Tensor, flow: torch.Tensor,
