@@ -12,10 +12,13 @@ phases, one line each (or a few):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the kernel library (one nvcc per source, in parallel), timed;
-3. kernel vs plain: the opening kernel against its plain PyTorch version
-   at the infer shapes in both planes, k = 3 and 5, binary and float
-   masks, and a 512 x 512 plane (the tiled branch): bit-equal, then timed
-   with CUDA events (20 repetitions of 10 back-to-back calls);
+3. kernel vs plain: the opening kernel, which reads a tensor where it
+   lies, against its plain PyTorch version: the serve batch's video in
+   both planes of ``video_open``, a channel-3 and a ragged video, ragged
+   planes, a 512 x 512 plane (tiled in both window axes) and a permuted
+   view, k = 3 and 5, binary and float masks: bit-equal and contiguous;
+   then both planes of the video timed with CUDA events (20 repetitions of
+   10 back-to-back calls);
 4. flow kernels vs plain: the warp, refine and fused kernels at the train
    step's shapes (240 fields at 64^2, 32^2 and 16^2, and 128^2 for
    flow_scale 1.0) on polynomial planes of smooth frames with a planted
@@ -24,16 +27,26 @@ phases, one line each (or a few):
    then timed as in phase 3;
 5. video_to_flow_rgb: the three ``impl``s on one (16, 16, 128, 128, 3)
    mask batch with streams=2, held against each other;
-6. generator: ``Generator(ngf=32)`` with random weights from a seed,
-   written as a reference-format ``*_netG.pth`` and loaded back by the
-   entry points' loader; its CUDA forward on a (1, 16, 128, 128, 3) clip
-   against the CPU (max-abs <= 1e-4, TF32 off), and its b8 forward time;
+6. checkpoints and generator: a full-width model of each served family
+   (MyGAN ``Generator(ngf=32)``, ConvLSTM, the "c2plus1d" AutoEncoder,
+   Xception-3D) with random weights from a seed, written as
+   reference-format ``.pth`` files and loaded back by the entry points'
+   loader from the file names; the Generator's CUDA forward on a (1, 16,
+   128, 128, 3) clip against the CPU (max-abs <= 1e-4, TF32 off), and its
+   b8 forward time;
 7. serving: ``cli.serve.serve`` on port 0 at ``--max_batch 8 --nfr 16
-   --isize 128 --device cuda``, answering HTTP requests (1 clip; 3 clips
-   with ``?mask=1``; a 2-clip ``/predict_stream``; 8 concurrent clips;
-   rounds of 8-clip requests for the b8 batch latency);
-8. infer: ``cli.infer.predict_clips`` on two uint8 clips, which must go
-   through the opening kernel and match the plain opening;
+   --isize 128 --device cuda``, answering HTTP requests for the MyGAN
+   checkpoint (1 clip; 3 clips with ``?mask=1``; a 2-clip
+   ``/predict_stream``; 8 concurrent clips; rounds of 8-clip requests for
+   the b8 batch latency), then for each supervised family's checkpoint (1
+   clip against a direct forward, <= 1e-5; a masked request; four full
+   batches); the ConvLSTM's forward must go through the conv3x3 kernel;
+8. infer: ``cli.infer.predict_clips`` on eight uint8 clips for each of the
+   four families, the card against the CPU from the same checkpoint
+   (prediction <= 1e-4; the opened mask equal wherever no prediction
+   within the opening's reach is within 1e-4 of 0.5), each through one
+   launch of the opening kernel, equal to the plain opening; and each
+   family's b8 forward time;
 9. train step CUDA vs CPU: one ``MyGanEngine._gan_core`` step at a small
    size from the same weights and the same injected flows, TF32 off:
    losses, updated G and D parameters and D BatchNorm statistics;
@@ -55,15 +68,16 @@ phases, one line each (or a few):
 
 Before the serving phase come two more kernel phases: the augment gather
 kernel against its plain version (bit-equal on all three outputs at the
-train shape, a ragged clip and a 45 degree draw) and the 3x3 conv kernel
+train shape, a ragged clip, a 45 degree draw, coordinates all outside the
+source and channel counts other than 3 + 3 + 1) and the 3x3 conv kernel
 against ``F.conv2d`` and its autograd (TF32 off; forward 1e-5, dx and dw
 1e-4) at the nine distinct launches of one ConvLSTM step (forward F1-F5,
 dx D1-D4), a ragged and a wide case, each timed in turns with ``F.conv2d``
 (library, kernel, kernel, library); and after the MyGAN step parity, a
 CUDA-vs-CPU supervised step for each family at a small size.
 
-Each main path (serve + infer; MyGAN training; the two-kernel step; each
-supervised training run) starts with the launch counts of the kernels set
+Each main path (serve + infer of the four families; MyGAN training; the
+two-kernel step; each supervised training run) starts with the launch counts of the kernels set
 to 0 and reads them after.  Then come one JSON line of kernel results
 and, last, ``{"ok": true, "device": {...}}``.  Per kernel the JSON line
 holds its time (``ms``), its plain version's (``plain_ms``), the time of
@@ -78,8 +92,9 @@ the tensor cores, three times its float32 operations over 495 TFLOP/s;
 ``bound_by`` says which), its launches on its main path (``launches``) and
 per train step of that path (``launches_per_step``; the opening kernel: per
 batch of the test sweep, which alone runs it), both read from the run's
-counters; the conv kernel also one entry per shape, and the three flow
-kernels one per plane size (``shapes``), the refine and fused kernels' with
+counters; the conv kernel also one entry per shape, the opening kernel
+one per plane of the serve batch's video, and the three flow kernels one
+per plane size (``shapes``), the refine and fused kernels' with
 the launches per step at that size and, as the conv kernel, their times x
 launches summed over one step of their path (``step_ms_sum``,
 ``step_bound_ms_sum``).  Any failure raises:
@@ -91,6 +106,7 @@ from __future__ import annotations
 
 import base64
 import collections
+import contextlib
 import json
 import math
 import socket
@@ -220,63 +236,95 @@ def phase_build() -> None:
                  f"in {time.perf_counter() - t0:.2f} s")
 
 
+# The opening kernel's cases: label -> (tensor shape, window axes).  The
+# serve batch's video in both planes of ``video_open``, a channel-3 and a
+# ragged video, and contiguous planes: a ragged one and one of 512 x 512
+# (tiled in both window axes).
+OPEN_CASES = {
+    "th": ((BATCH, NFR, ISIZE, ISIZE, 1), (1, 2)),
+    "hw": ((BATCH, NFR, ISIZE, ISIZE, 1), (2, 3)),
+    "th_c3": ((2, NFR, 32, 24, 3), (1, 2)),
+    "hw_c3": ((2, NFR, 32, 24, 3), (2, 3)),
+    "ragged_th": ((1, 13, 37, 3, 1), (1, 2)),
+    "ragged_planes": ((3, 13, 37), (1, 2)),
+    "tiled512": ((2, 512, 512), (1, 2)),
+}
+
+
+def _open_plain(x: torch.Tensor, axes, k: int) -> torch.Tensor:
+    """The plain opening over ``axes`` of ``x``: the plane moved to the
+    trailing axes (a copy), ``open_planes_plain``, and moved back."""
+    from vfd_gan_tpu_torch.ops.morphology import open_planes_plain
+
+    moved = x.movedim(axes, (-2, -1)).contiguous()
+    out = open_planes_plain(moved.reshape(-1, *moved.shape[-2:]), k)
+    return out.reshape(moved.shape).movedim((-2, -1), axes)
+
+
 def phase_kernel(device) -> dict:
+    """The opening kernel, reading each tensor where it lies, against the
+    plain version: bit-equal and contiguous in every case; then the serve
+    batch's video timed in both planes against the plain version on ready
+    contiguous planes (the copy that makes them is not in its time)."""
     from vfd_gan_tpu_torch.ops.morphology import (
         open_planes_cuda,
         open_planes_plain,
     )
 
     g = torch.Generator(device=device).manual_seed(0)
-    cases = {"th": (BATCH * ISIZE, NFR, ISIZE),      # B*W planes of (T, H)
-             "hw": (BATCH * NFR, ISIZE, ISIZE),      # B*T planes of (H, W)
-             "tiled512": (2, 512, 512)}
     worst = 0.0
-    for label, shape in cases.items():
+    for label, (shape, axes) in OPEN_CASES.items():
         for k in (3, 5):
             for binary in (True, False):
                 x = torch.rand(shape, generator=g, device=device)
                 if binary:
                     x = (x > 0.5).float()
-                got = open_planes_cuda(x, k)
-                want = open_planes_plain(x, k)
+                got = open_planes_cuda(x, k, axes)
+                want = _open_plain(x, axes, k)
                 torch.cuda.synchronize()
                 worst = max(worst, (got - want).abs().max().item())
-                check(torch.equal(got, want),
+                check(got.is_contiguous() and torch.equal(got, want),
                       f"kernel == plain at {label} {shape} k={k} "
                       f"binary={binary}")
-    say("kernel", f"bit-equal to the plain version in all "
-                  f"{len(cases) * 4} cases (max_abs_err {worst})")
+    # a model's NCDHW mask seen channel-last: read by its strides
+    view = torch.rand((BATCH, 1, NFR, 64, 48), generator=g,
+                      device=device).permute(0, 2, 3, 4, 1)
+    got = open_planes_cuda(view, 5, (1, 2))
+    check(got.is_contiguous() and torch.equal(got, _open_plain(view, (1, 2),
+                                                               5)),
+          "kernel == plain on a permuted view")
+    say("kernel", f"bit-equal to the plain version and contiguous in all "
+                  f"{len(OPEN_CASES) * 4 + 1} cases (max_abs_err {worst})")
 
-    times = {}
+    shapes = []
     for label in ("th", "hw"):
-        x = (torch.rand(cases[label], generator=g, device=device) > 0.5).float()
-        kernel = lambda: open_planes_cuda(x, 5)  # noqa: E731
-        plain = lambda: open_planes_plain(x, 5)  # noqa: E731
+        shape, axes = OPEN_CASES[label]
+        x = (torch.rand(shape, generator=g, device=device) > 0.5).float()
+        moved = x.movedim(axes, (-2, -1)).contiguous()
+        planes = moved.reshape(-1, *moved.shape[-2:])
+        kernel = lambda: open_planes_cuda(x, 5, axes)  # noqa: E731
+        plain = lambda: open_planes_plain(planes, 5)  # noqa: E731
         # ~0.2 s of work first: an idle card runs at a low clock
         for _ in range(1000):
             kernel()
             plain()
-        # plain, kernel, kernel, plain
-        p1, k1, k2, p2 = (event_ms(fn) for fn in (plain, kernel, kernel,
-                                                  plain))
-        times[label] = (statistics.median((k1, k2)),
-                        statistics.median((p1, p2)))
-        say("kernel", f"{label} {cases[label]} k=5: kernel "
-                      f"{times[label][0]:.4f} ms, plain "
-                      f"{times[label][1]:.4f} ms (medians of 20x10, L2-warm, "
-                      f"run as plain/kernel/kernel/plain: {p1:.4f} "
-                      f"{k1:.4f} {k2:.4f} {p2:.4f})")
-    pred = torch.rand((BATCH, NFR, ISIZE, ISIZE, 1), generator=g,
-                      device=device)
-    copy_ms = event_ms(lambda: pred.permute(0, 3, 4, 1, 2).contiguous())
-    say("kernel", f"th plane permute copy of a {tuple(pred.shape)} pred: "
-                  f"{copy_ms:.4f} ms")
-    # th planes in and out once; per pixel 2 x 2 x (k - 1) comparisons
-    # (erosion and dilation, each separable)
-    px = math.prod(cases["th"])
-    return {"max_abs_err": worst, "ms": times["th"][0],
-            "plain_ms": times["th"][1], "library_ms": None,
-            **bound(8 * px, 4 * (5 - 1) * px)}
+        k_ms, p_ms, order = _time_pair(kernel, plain)
+        # the video in and out once; per element 2 x 2 x (k - 1)
+        # comparisons (erosion and dilation, each separable)
+        limit = bound(8 * x.numel(), 4 * (5 - 1) * x.numel())
+        say("kernel", f"{label} plane of a {shape} video, k=5, in place: "
+                      f"kernel {k_ms:.4f} ms, plain on ready "
+                      f"{tuple(planes.shape)} planes {p_ms:.4f} ms, bound "
+                      f"{limit['bound_ms']:.4f} ms by {limit['bound_by']} "
+                      f"(medians of 20x10, L2-warm, run as "
+                      f"plain/kernel/kernel/plain: {order})")
+        shapes.append({"plane": label, "shape": list(shape),
+                       "max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms,
+                       "library_ms": None, **limit})
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
+    return {**{key: shapes[0][key] for key in keys}, "shape": "th",
+            "shapes": shapes}
 
 
 def _flow_case(device, n: int, h: int, w: int):
@@ -463,26 +511,34 @@ def phase_flow_video(device) -> None:
 
 def phase_augment_kernel(device) -> dict:
     """The augment gather kernel against its plain version, bit-equal on
-    all three outputs: the train shape, a ragged clip and a 45 degree draw
-    that zero-fills heavily; then timed at the train shape."""
+    all three outputs: the train shape, a ragged clip (no 16-byte aligned
+    rows, T off the kernel's frame groups), a 45 degree draw that zero-fills
+    heavily, coordinates that all lie outside the source, and channel counts
+    other than 3 + 3 + 1 (the kernel's runtime-count form); then timed at
+    the train shape."""
     from vfd_gan_tpu_torch.ops import augment
 
-    cases = {"train": (BATCH, NFR, augment.staging_size(ISIZE), ISIZE, None),
-             "ragged": (3, 5, 37, 33, None),
-             "rot45": (BATCH, NFR, augment.staging_size(ISIZE), ISIZE,
-                       math.pi / 4)}
+    stage = augment.staging_size(ISIZE)
+    # label -> (B, T, S, isize, angle or None for the draw, shift, channels)
+    cases = {"train": (BATCH, NFR, stage, ISIZE, None, 0.0, (3, 3, 1)),
+             "ragged": (3, 5, 37, 33, None, 0.0, (3, 3, 1)),
+             "rot45": (BATCH, NFR, stage, ISIZE, math.pi / 4, 0.0, (3, 3, 1)),
+             "outside": (2, 6, 37, 32, None, 1000.0, (3, 3, 1)),
+             "c1+2+1": (2, 5, 37, 33, None, 0.0, (1, 2, 1)),
+             "c4+3+4": (2, 5, 40, 36, 0.5, 0.0, (4, 3, 4))}
     timed = None
-    for label, (b, t, s, isize, angle) in cases.items():
+    for label, (b, t, s, isize, angle, shift, channels) in cases.items():
         g = torch.Generator(device=device).manual_seed(b + s)
         streams = [torch.randint(0, 256, (b, t, s, s, c), generator=g,
                                  device=device, dtype=torch.uint8)
-                   for c in (3, 3, 1)]
+                   for c in channels]
         streams[2] = (streams[2] > 127).to(torch.uint8) * 255
         params = augment.sample_clip_params(g, b, s, isize)
         if angle is not None:
             params = (torch.full_like(params[0], angle),) + params[1:]
         src_x, src_y = (c.contiguous() for c in augment._src_coords(
             *params, s, isize))
+        src_x = src_x + shift
         got = augment.augment_gather_cuda(*streams, src_x, src_y)
         want = augment.augment_gather_plain(*streams, src_x, src_y)
         torch.cuda.synchronize()
@@ -490,8 +546,9 @@ def phase_augment_kernel(device) -> dict:
             check(a.shape == w.shape and torch.equal(a, w),
                   f"augment kernel == plain at {label} ({name})")
         outside = (src_x < 0) | (src_x >= s) | (src_y < 0) | (src_y >= s)
-        say("augment", f"{label} b{b} T{t} {s}^2 -> {isize}^2, C 3+3+1: "
-                       f"bit-equal on data, real and mask; "
+        say("augment", f"{label} b{b} T{t} {s}^2 -> {isize}^2, C "
+                       f"{'+'.join(map(str, channels))}: bit-equal on data, "
+                       f"real and mask; "
                        f"{outside.float().mean().item():.3f} of the pixels "
                        "zero-filled")
         if timed is None:
@@ -635,23 +692,50 @@ def phase_conv_kernel(device) -> dict:
             step["library_ms"], "step_bound_ms_sum": step["bound_ms"]}
 
 
-def make_checkpoint(tmp: Path) -> Path:
-    """A full-width Generator with random weights from a seed, saved as a
-    reference-format .pth.  The head is drawn wider than the reference init
-    and zero-mean over each input channel's 27 taps, so that the mask
-    follows local structure, crosses the 0.5 threshold and gives the
-    opening work to do (at init it sits just above 0.5 everywhere)."""
-    from vfd_gan_tpu_torch.models.mygan import Generator
+# The served families: name -> the substring of a checkpoint's file name
+# that ``cli.infer._load`` dispatches on.
+SERVED = {"mygan": "netG", "clstm": "clstm", "c2plus1d": "c2plus1d",
+          "xception": "xception"}
 
-    seed = torch.Generator().manual_seed(0)
-    model = Generator(ngf=32, generator=seed)
-    with torch.no_grad():
-        head = 0.5 * torch.randn(model.conv_last.weight.shape, generator=seed)
-        model.conv_last.weight.copy_(
-            head - head.mean(dim=(2, 3, 4), keepdim=True))
-    path = tmp / "smoke_netG.pth"
-    torch.save({"epoch": 0, "state_dict": model.state_dict()}, path)
-    return path
+
+def make_checkpoints(tmp: Path) -> dict:
+    """A full-width model of every served family with random weights from
+    seed 0, saved as reference-format .pth files; family -> path.  Each head
+    is drawn wider than the reference init and zero-mean over each input
+    channel's taps, so that the mask follows local structure, crosses the
+    0.5 threshold and gives the opening work to do (a Generator at init
+    sits just above 0.5 everywhere).  The supervised families' heads are
+    then scaled (Xception's, which has a bias, also shifted) so that the
+    logits of a small probe clip have unit spread."""
+    from vfd_gan_tpu_torch.models.convlstm import ConvLSTMModel
+    from vfd_gan_tpu_torch.models.mygan import Generator
+    from vfd_gan_tpu_torch.models.stcnn import AutoEncoder
+    from vfd_gan_tpu_torch.models.xception3d import Xception3D
+
+    build = {"mygan": lambda g: Generator(ngf=32, generator=g),
+             "clstm": lambda g: ConvLSTMModel(generator=g),
+             "c2plus1d": lambda g: AutoEncoder(generator=g),
+             "xception": lambda g: Xception3D(3, 1.0, generator=g)}
+    paths = {}
+    for family, substring in SERVED.items():
+        seed = torch.Generator().manual_seed(0)
+        model = build[family](seed).eval()
+        with torch.no_grad():
+            weight = model.conv_last.weight
+            head = 0.5 * torch.randn(weight.shape, generator=seed)
+            weight.copy_(head - head.mean(dim=(2, 3, 4), keepdim=True))
+            if family != "mygan":
+                probe = torch.rand((1, 3, NFR, 32, 32), generator=seed) * 2 - 1
+                p = model(probe).clamp(1e-6, 1 - 1e-6)
+                logit = torch.log(p / (1 - p))
+                weight.div_(logit.std())
+                if model.conv_last.bias is not None:
+                    model.conv_last.bias.copy_(
+                        (model.conv_last.bias - logit.mean()) / logit.std())
+        paths[family] = tmp / f"smoke_{substring}.pth"
+        torch.save({"epoch": 0, "state_dict": model.state_dict()},
+                   paths[family])
+    return paths
 
 
 def phase_generator(path: Path, device) -> torch.nn.Module:
@@ -695,30 +779,66 @@ def _scores_ok(scores, k: int) -> None:
     check(bool(np.all((s >= 0) & (s <= 1))), "frame scores in [0, 1]")
 
 
-def phase_serve(path: Path, model: torch.nn.Module) -> None:
+@contextlib.contextmanager
+def _serving(path: Path):
+    """``cli.serve.serve`` for ``path`` on port 0 at the serving shape, its
+    HTTP loop on a thread; yields (server, base URL, httpd) and stops
+    both."""
     from vfd_gan_tpu_torch.cli.serve import build_parser, serve
-    from vfd_gan_tpu_torch.ops.image import to_channel_first
 
     args = build_parser().parse_args(
         ["--ckpt", str(path), "--port", "0", "--max_batch", str(BATCH),
          "--nfr", str(NFR), "--isize", str(ISIZE), "--device", "cuda"])
     httpd = serve(args)
-    srv = httpd.inference
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
-    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        yield (httpd.inference, f"http://127.0.0.1:{httpd.server_address[1]}",
+               httpd)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.inference.close()
+    thread.join(timeout=10)
+    check(not thread.is_alive(), "server thread stopped")
+
+
+def _served_vs_direct(base: str, model: torch.nn.Module,
+                      one: np.ndarray) -> float:
+    """One served clip's frame scores against a direct forward of the
+    same weights (<= 1e-5)."""
+    from vfd_gan_tpu_torch.ops.image import to_channel_first
+
+    out = _post(base, "/predict", one)
+    _scores_ok(out["frame_scores"], 1)
+    with torch.inference_mode():
+        direct = model(to_channel_first(torch.from_numpy(one)).cuda())
+    want = direct[:, 0].flatten(2).mean(dim=2).cpu().numpy()
+    err = float(np.abs(np.asarray(out["frame_scores"]) - want).max())
+    check(err <= 1e-5, f"served frame scores vs direct forward {err}")
+    return err
+
+
+def _b8_rounds(srv, base: str, clips, rounds: int) -> tuple[list, list]:
+    """``rounds`` requests of a full batch: the server's batch times and
+    the requests' wall times, in ms."""
+    n_before = len(srv.latencies_ms)
+    request_ms = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        out = _post(base, "/predict", clips(BATCH),
+                    {"X-Clip-Count": str(BATCH)})
+        request_ms.append((time.perf_counter() - t0) * 1000)
+        _scores_ok(out["frame_scores"], BATCH)
+    return sorted(srv.latencies_ms[n_before:]), request_ms
+
+
+def phase_serve(path: Path, model: torch.nn.Module) -> None:
     rng = np.random.default_rng(2)
     clips = lambda k: rng.uniform(  # noqa: E731
         -1, 1, (k, NFR, ISIZE, ISIZE, 3)).astype(np.float32)
-    try:
-        one = clips(1)
-        out = _post(base, "/predict", one)
-        _scores_ok(out["frame_scores"], 1)
-        with torch.inference_mode():
-            direct = model(to_channel_first(torch.from_numpy(one)).cuda())
-        want = direct[:, 0].flatten(2).mean(dim=2).cpu().numpy()
-        err = float(np.abs(np.asarray(out["frame_scores"]) - want).max())
-        check(err <= 1e-5, f"served frame scores vs direct forward {err}")
+    with _serving(path) as (srv, base, httpd):
+        err = _served_vs_direct(base, model, clips(1))
 
         out = _post(base, "/predict?mask=1", clips(3), {"X-Clip-Count": "3"})
         _scores_ok(out["frame_scores"], 3)
@@ -754,15 +874,7 @@ def phase_serve(path: Path, model: torch.nn.Module) -> None:
         for r in results.values():
             _scores_ok(r["frame_scores"], 1)
 
-        n_before = len(srv.latencies_ms)
-        request_ms = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            out = _post(base, "/predict", clips(BATCH),
-                        {"X-Clip-Count": str(BATCH)})
-            request_ms.append((time.perf_counter() - t0) * 1000)
-            _scores_ok(out["frame_scores"], BATCH)
-        b8 = sorted(srv.latencies_ms[n_before:])
+        b8, request_ms = _b8_rounds(srv, base, clips, 10)
         with urllib.request.urlopen(f"{base}/stats", timeout=60) as r:
             stats = json.loads(r.read())
         say("serve", f"4 request kinds answered; served vs direct frame "
@@ -771,37 +883,92 @@ def phase_serve(path: Path, model: torch.nn.Module) -> None:
                      f"{statistics.median(b8):.2f} ms, max {b8[-1]:.2f} ms; "
                      f"HTTP request p50 {statistics.median(request_ms):.2f} ms"
                      f", max {max(request_ms):.2f} ms (25 MB body each)")
-    finally:
-        httpd.shutdown()
-        httpd.server_close()
-        srv.close()
-    thread.join(timeout=10)
-    check(not thread.is_alive(), "server thread stopped")
 
 
-def phase_infer(model: torch.nn.Module) -> None:
-    from vfd_gan_tpu_torch.cli.infer import predict_clips
+def phase_serve_family(family: str, path: Path,
+                       model: torch.nn.Module) -> None:
+    """A supervised family's checkpoint served over HTTP: one clip against
+    a direct forward, a masked request, and a few full batches for the
+    batch time."""
+    rng = np.random.default_rng(6)
+    clips = lambda k: rng.uniform(  # noqa: E731
+        -1, 1, (k, NFR, ISIZE, ISIZE, 3)).astype(np.float32)
+    before = _counts()
+    with _serving(path) as (srv, base, _):
+        err = _served_vs_direct(base, model, clips(1))
+        out = _post(base, "/predict?mask=1", clips(2), {"X-Clip-Count": "2"})
+        _scores_ok(out["frame_scores"], 2)
+        check(out["mask_shape"] == [2, NFR, ISIZE, ISIZE], "mask shape")
+        b8, request_ms = _b8_rounds(srv, base, clips, 4)
+        name = srv.name
+    conv = _counts()["conv3x3"] - before["conv3x3"]
+    if family == "clstm":
+        check(conv > 0, "serving clstm launched the conv3x3 kernel")
+    say(f"serve-{family}", f"{name} from {path.name}: served vs direct frame "
+                           f"scores max-abs {err:.3g}; b{BATCH} batches over "
+                           f"4 requests: median {statistics.median(b8):.2f} "
+                           f"ms, max {b8[-1]:.2f} ms; HTTP request p50 "
+                           f"{statistics.median(request_ms):.2f} ms; conv3x3 "
+                           f"launches {conv}")
+
+
+def phase_infer(family: str, path: Path, model: torch.nn.Module) -> None:
+    """``predict_clips`` on a full batch of uint8 clips, the card against
+    the CPU from the same checkpoint: the prediction within 1e-4; the
+    opened mask equal wherever no CPU prediction within the opening's reach
+    (2r = 4 along T and H) is within 1e-4 of 0.5; one launch of the
+    opening kernel (and the ConvLSTM's forward on the conv kernel); then
+    the b8 forward timed."""
+    from vfd_gan_tpu_torch.cli.infer import _load, predict_clips
     from vfd_gan_tpu_torch.ops.image import threshold
-    from vfd_gan_tpu_torch.ops.morphology import open_planes_cuda, video_open
+    from vfd_gan_tpu_torch.ops.morphology import video_open
 
     frames = np.random.default_rng(3).integers(
-        0, 256, (2, NFR, ISIZE, ISIZE, 3), dtype=np.uint8)
-    before = open_planes_cuda.launches
+        0, 256, (BATCH, NFR, ISIZE, ISIZE, 3), dtype=np.uint8)
+    cpu_model, name = _load(str(path), torch.device("cpu"))
+    t0 = time.perf_counter()
+    pred_cpu, opened_cpu, _ = predict_clips(cpu_model, frames, "th")
+    cpu_s = time.perf_counter() - t0
+    del cpu_model
+    before = _counts()
     pred, opened, scores = predict_clips(model, frames, "th")
     torch.cuda.synchronize()
-    check(open_planes_cuda.launches > before, "predict_clips launched the "
-                                              "opening kernel")
-    check(pred.shape == opened.shape == (2, NFR, ISIZE, ISIZE, 1),
-          "infer shapes")
-    check(tuple(scores.shape) == (2, NFR), "infer frame scores shape")
-    # a CPU tensor takes the plain version
-    want = video_open(threshold(pred).cpu(), "th")
-    check(torch.equal(opened.cpu(), want), "opened == plain opening of pred")
+    counts = {k: n - before.get(k, 0) for k, n in _counts().items()}
+    check(counts["morphology_open"] == 1,
+          f"predict_clips launched the opening kernel once: {counts}")
+    if family == "clstm":
+        # 3 input halves + 3 x T hidden halves
+        check(counts["conv3x3"] == 3 * (1 + NFR),
+              f"the ConvLSTM's forward ran on the conv kernel: {counts}")
+    check(pred.shape == opened.shape == (BATCH, NFR, ISIZE, ISIZE, 1)
+          and opened.is_contiguous(), "infer shapes")
+    check(tuple(scores.shape) == (BATCH, NFR), "infer frame scores shape")
+    check(bool(torch.isfinite(pred).all()), "finite prediction")
+    err = (pred.cpu() - pred_cpu).abs().max().item()
+    check(err <= 1e-4, f"{family} predict_clips CUDA vs CPU max-abs {err}")
+    # the kernel against the plain version on the card's own prediction
+    # (a CPU tensor takes the plain version)
+    check(torch.equal(opened.cpu(), video_open(threshold(pred).cpu(), "th")),
+          "opened == plain opening of pred")
+    close = ((pred_cpu - 0.5).abs() <= 1e-4).float()[..., 0]   # (B, T, H, W)
+    reach = torch.nn.functional.max_pool2d(
+        close.permute(0, 3, 1, 2), 9, 1, 4).permute(0, 2, 3, 1)[..., None] > 0
+    check(torch.equal(opened.cpu()[~reach], opened_cpu[~reach]),
+          f"{family} opened mask CUDA vs CPU")
+    x8 = torch.rand((BATCH, 3, NFR, ISIZE, ISIZE), device="cuda") * 2 - 1
+    with torch.inference_mode():
+        b8_ms = event_ms(lambda: model(x8), reps=5, calls=1, warmup=2)
     on = threshold(pred).mean().item()
-    say("infer", f"predict_clips on 2 uint8 clips: mask on {on:.3f} -> "
-                 f"{opened.mean().item():.3f} after the th opening, equal to "
-                 "the plain version; mp4 decode/encode (cv2) is covered by "
-                 "the CPU tests, not run here")
+    say(f"infer-{family}",
+        f"{name}: predict_clips on {BATCH} uint8 clips, CUDA vs CPU max-abs "
+        f"{err:.3g} (<= 1e-4), mask on {on:.3f} -> "
+        f"{opened.mean().item():.3f} after the th opening, equal to the "
+        f"plain version, and to the CPU's mask outside the "
+        f"{reach.float().mean():.4f} of the pixels within the opening's "
+        f"reach of a prediction that close to 0.5; launches "
+        f"{json.dumps(counts)}; b{BATCH} "
+        f"forward {b8_ms:.3f} ms (median of 5); the CPU took {cpu_s:.1f} s; "
+        "mp4 decode/encode (cv2) is covered by the CPU tests, not run here")
 
 
 def _wrappers() -> dict:
@@ -1149,7 +1316,6 @@ def phase_two_kernel(engine) -> dict:
 def main() -> None:
     name = phase_device()
     import_port()
-    from vfd_gan_tpu_torch.ops.morphology import open_planes_cuda
     from vfd_gan_tpu_torch.utils.runtime import resolve_device
 
     device = torch.device("cuda")
@@ -1161,16 +1327,27 @@ def main() -> None:
     results["conv3x3"] = phase_conv_kernel(device)
     phase_flow_video(device)
     with tempfile.TemporaryDirectory() as tmp:
-        path = make_checkpoint(Path(tmp))
-        model = phase_generator(path, device)
-        open_planes_cuda.launches = 0            # the serving path starts
-        phase_serve(path, model)
-        phase_infer(model)
-        serve_launches = open_planes_cuda.launches
-        check(serve_launches > 0, "serve + infer launched the opening kernel")
-        say("serve", f"serve + infer path: morphology_open launches "
-                     f"{serve_launches}")
+        from vfd_gan_tpu_torch.cli.infer import _load
+
+        paths = make_checkpoints(Path(tmp))
+        model = phase_generator(paths["mygan"], device)
+        _reset_counts()                          # the serving path starts
+        phase_serve(paths["mygan"], model)
+        phase_infer("mygan", paths["mygan"], model)
         del model
+        for family in ("clstm", "c2plus1d", "xception"):
+            model, _ = _load(str(paths[family]), device)
+            phase_serve_family(family, paths[family], model)
+            phase_infer(family, paths[family], model)
+            del model
+        serve_counts = _counts()                 # ... and ends
+        check(serve_counts["morphology_open"] == len(SERVED),
+              f"serve + infer launched the opening kernel once per family: "
+              f"{serve_counts}")
+        check(serve_counts["conv3x3"] > 0,
+              "serving clstm launched the conv3x3 kernel")
+        say("serve", f"serve + infer path, four families: launches "
+                     f"{json.dumps(serve_counts)}")
         phase_step_parity(Path(tmp))
         phase_supervised_parity(Path(tmp))
         engine, gan_counts, gan_sweep = phase_train(Path(tmp))

@@ -109,11 +109,53 @@ def test_kernel_refuses_what_it_does_not_take(card):
     with pytest.raises(TypeError):
         morphology.open_planes_cuda(x.half(), 5)
     with pytest.raises(ValueError):
-        morphology.open_planes_cuda(x.transpose(1, 2), 5)
-    with pytest.raises(ValueError):
         morphology.open_planes_cuda(x, 4)
     with pytest.raises(ValueError):
-        morphology.open_planes_cuda(x[0], 5)
+        morphology.open_planes_cuda(x[0, 0], 5)
+    with pytest.raises(ValueError):
+        morphology.open_planes_cuda(x.cpu(), 5)
+    video = torch.zeros(2, 4, 6, 8, 3, device=card)
+    with pytest.raises(ValueError, match="neighbours"):
+        morphology.open_planes_cuda(video, 5, (1, 3))
+    with pytest.raises(ValueError, match="in place"):
+        morphology.open_planes_cuda(video[:, :, :, ::2], 5, (1, 2))
+    with pytest.raises(RuntimeError, match="cudaError"):   # no such tile
+        morphology.open_planes_cuda(video, 5, (1, 2), (-1, 0, 0))
+
+
+# A channel-last video as the entry points hold it, a channel-3 video, ragged
+# sizes in every axis, and a model's NCDHW mask seen channel-last.
+VIDEO_CASES = {"serve": (8, 16, 128, 128, 1), "c3": (2, 16, 32, 24, 3),
+               "ragged": (1, 13, 37, 3, 1), "ragged_c2": (2, 5, 7, 9, 2),
+               "wide_lanes": (1, 16, 40, 160, 1), "tall": (1, 40, 70, 33, 1)}
+
+
+@pytest.mark.parametrize("k", [3, 5, 7])
+@pytest.mark.parametrize("plane", ["th", "hw"])
+@pytest.mark.parametrize("case", list(VIDEO_CASES))
+@pytest.mark.gpu
+def test_video_open_on_card_is_one_launch_in_place(card, case, plane, k):
+    """Bit-equal to the plain version (the CPU route), contiguous, from one
+    launch and no other kernel's work on the video: the allocator sees the
+    result and nothing of a copy's size."""
+    g = torch.Generator(device=card).manual_seed(1)
+    video = torch.rand(VIDEO_CASES[case], generator=g, device=card)
+    if k == 5:
+        video = (video > 0.4).float()
+    want = morphology.video_open(video.cpu(), plane, k)
+    before = morphology.open_planes_cuda.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    got = morphology.video_open(video, plane, k)
+    torch.cuda.synchronize()
+    assert morphology.open_planes_cuda.launches == before + 1
+    assert got.is_contiguous() and got.shape == video.shape
+    assert torch.equal(got.cpu(), want)
+    # the result (rounded up by the allocator) and no second tensor
+    size = video.numel() * 4
+    assert torch.cuda.max_memory_allocated() - held < size + max(
+        size // 2, 1 << 20)
 
 
 @pytest.mark.gpu
@@ -123,6 +165,45 @@ def test_video_open_on_card_equals_cpu(card):
     for plane in ("th", "hw"):
         got = morphology.video_open(video.to(card), plane).cpu()
         assert torch.equal(got, morphology.video_open(video, plane))
+    half = morphology.video_open(video.to(card).half(), "hw")
+    assert half.dtype == torch.float16
+    assert torch.equal(half.float().cpu(), morphology.video_open(video, "hw"))
+
+
+@pytest.mark.parametrize("view", ["ncdhw", "transposed", "sliced",
+                                  "swapped_axes"])
+@pytest.mark.gpu
+def test_strided_kernel_equals_plain_on_a_view(card, view):
+    g = torch.Generator(device=card).manual_seed(2)
+    if view == "ncdhw":           # a model's (B, 1, T, H, W) mask
+        x = torch.rand((4, 1, 16, 64, 48), generator=g,
+                       device=card).permute(0, 2, 3, 4, 1)
+        axes = (1, 2)
+    elif view == "swapped_axes":
+        x = torch.rand((2, 6, 20, 30, 3), generator=g, device=card)
+        axes = (3, 2)
+    else:
+        x = torch.rand((3, 40, 60), generator=g, device=card)
+        x = x.transpose(1, 2) if view == "transposed" else x[:, ::2, 1::3]
+        axes = (1, 2)
+    before = morphology.open_planes_cuda.launches
+    got = morphology.open_planes_cuda(x, 5, axes)
+    torch.cuda.synchronize()
+    assert morphology.open_planes_cuda.launches == before + 1
+    assert got.is_contiguous()
+    assert torch.equal(got.cpu(), morphology.morphology_open(x.cpu(), 5,
+                                                             axes))
+
+
+@pytest.mark.parametrize("tile", [(16, 8, 32), (8, 16, 32), (4, 7, 16),
+                                  (16, 4, 128), (3, 5, 1)])
+@pytest.mark.gpu
+def test_any_tile_gives_the_same_opening(card, tile):
+    g = torch.Generator(device=card).manual_seed(3)
+    video = (torch.rand((2, 16, 40, 96, 1), generator=g, device=card)
+             > 0.5).float()
+    got = morphology.open_planes_cuda(video, 5, (1, 2), tile)
+    assert torch.equal(got.cpu(), morphology.video_open(video.cpu(), "th"))
 
 
 # -- the flow kernels ---------------------------------------------------------
@@ -254,16 +335,19 @@ def test_video_to_flow_rgb_impls_agree_on_card(card):
 # a 45 degree draw that leaves much of each clip to the zero fill
 AUGMENT_CASES = {"train": (8, 16, 140, 128, 10.0), "ragged": (3, 5, 37, 33,
                                                               10.0),
-                 "rot45": (4, 4, 140, 128, 45.0)}
+                 "rot45": (4, 4, 140, 128, 45.0),
+                 # T off the kernel's group of frames, pixels off its chunk
+                 "t18": (2, 18, 37, 32, 10.0)}
 
 
-def _augment_inputs(card, b, t, s, isize, degrees, seed=0):
+def _augment_inputs(card, b, t, s, isize, degrees, seed=0, channels=(3, 3, 1)):
     g = torch.Generator(device=card).manual_seed(seed)
-    data = torch.randint(0, 256, (b, t, s, s, 3), generator=g, device=card,
+    cd, cr, cm = channels
+    data = torch.randint(0, 256, (b, t, s, s, cd), generator=g, device=card,
                          dtype=torch.uint8)
-    real = torch.randint(0, 256, (b, t, s, s, 3), generator=g, device=card,
+    real = torch.randint(0, 256, (b, t, s, s, cr), generator=g, device=card,
                          dtype=torch.uint8)
-    mask = (torch.rand((b, t, s, s, 1), generator=g, device=card) > 0.5
+    mask = (torch.rand((b, t, s, s, cm), generator=g, device=card) > 0.5
             ).to(torch.uint8) * 255
     params = augment.sample_clip_params(g, b, s, isize, degrees)
     if degrees == 45.0:
@@ -284,6 +368,35 @@ def test_augment_kernel_equals_plain_on_card(card, case):
     for g, w in zip(got, want):
         assert g.dtype == torch.float32 and g.shape == w.shape
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("channels", [(1, 1, 1), (1, 2, 1), (4, 3, 4),
+                                      (3, 3, 3), (2, 5, 1)])
+@pytest.mark.gpu
+def test_augment_kernel_takes_other_channel_counts(card, channels):
+    streams, _, src_x, src_y = _augment_inputs(card, 2, 5, 37, 33, 10.0,
+                                               channels=channels)
+    before = augment.augment_gather_cuda.launches
+    got = augment.augment_gather(*streams, src_x, src_y)
+    torch.cuda.synchronize()
+    assert augment.augment_gather_cuda.launches == before + 1
+    want = augment.augment_gather_plain(*streams, src_x, src_y)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_augment_kernel_fills_pixels_outside_the_source(card):
+    """Every coordinate outside the source: the tables' entry 0 everywhere
+    (-1 for video, 0 for the mask), and no read of the streams."""
+    streams, _, src_x, src_y = _augment_inputs(card, 2, 4, 35, 32, 10.0)
+    for shift in (1000.0, -1000.0):
+        got = augment.augment_gather(*streams, src_x + shift, src_y)
+        want = augment.augment_gather_plain(*streams, src_x + shift, src_y)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert (got[0] == -1).all() and (got[2] == 0).all()
 
 
 @pytest.mark.gpu

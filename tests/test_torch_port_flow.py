@@ -239,6 +239,41 @@ def test_flow_wrappers_refuse_grad_and_cuda_versions_refuse_cpu():
         flow_fused.flow_refine_fused_cuda(p1, p2, f0, 15, 3)
 
 
+def test_plain_versions_take_another_winsize_and_match_jax():
+    """winsize is a free parameter of the plain versions (and of the JAX
+    functions); held at 9 against JAX's XLA body."""
+    p1, p2, f0 = _level_inputs(2, 24, 32, seed=13)
+    want = np.asarray(jflow._flow_level(jnp.asarray(p1), jnp.asarray(p2),
+                                        jnp.asarray(f0), 9, 2))
+    planar = [_planar(a) for a in (p1, p2, f0)]
+    fused = flow_fused.flow_refine_fused(*planar, 9, 2)
+    stepped = planar[2]
+    for _ in range(2):
+        stepped = flow_refine.flow_refine_step(
+            planar[0], warp.bilinear_warp(planar[1], stepped), stepped, 9)
+    assert torch.equal(fused, stepped)
+    q50, q90, q99, worst = _quantiles(fused.permute(0, 2, 3, 1).numpy(), want)
+    assert q90 < 1e-3 and q99 < 1e-2, (q50, q90, q99, worst)
+    # and winsize changes the answer: 15 is not silently used
+    assert not torch.equal(fused, flow_fused.flow_refine_fused(*planar, 15, 2))
+
+
+@pytest.mark.parametrize("wrapper, extra", [
+    (flow_refine.flow_refine_step_cuda, ()),
+    (flow_fused.flow_refine_fused_cuda, (3,)),
+], ids=["refine", "fused"])
+def test_cuda_solver_wrappers_name_the_winsize_they_refuse(wrapper, extra):
+    """The kernels are built for winsize 15: another value is refused
+    before anything else, and the message names it."""
+    p1, p2, f0 = (_planar(a) for a in _level_inputs(1, 16, 16, seed=14))
+    with pytest.raises(ValueError, match=r"winsize 15, got 9"):
+        wrapper(p1, p2, f0, 9, *extra)
+    for fn in (flow.farneback_flow, flow_refine.flow_refine_step,
+               flow_fused.flow_refine_fused, wrapper):
+        doc = " ".join(fn.__doc__.split())
+        assert "CUDA: 15 only" in doc and "any odd value" in doc, fn.__name__
+
+
 @pytest.mark.parametrize("size", [(32, 40), (24, 24)])
 def test_farneback_flow_matches_jax_and_recovers_translation(size):
     h, w = size

@@ -141,6 +141,95 @@ def test_morphology_open_keeps_input_dtype():
     torch.testing.assert_close(got.float(), want, atol=0, rtol=0)
 
 
+# The route a CUDA video takes, as far as the CPU reaches it: the result is
+# contiguous in the video's own layout, for channels, ragged sizes and
+# float16 alike, and equals JAX (min and max are exact in either dtype).
+@pytest.mark.parametrize("dtype", [np.float32, np.float16],
+                         ids=["float32", "float16"])
+@pytest.mark.parametrize("k", [3, 5])
+@pytest.mark.parametrize("plane", ["th", "hw"])
+@pytest.mark.parametrize("shape", [(2, 8, 12, 10, 3), (1, 13, 37, 5, 3),
+                                   (1, 7, 9, 11, 1)],
+                         ids=["c3", "ragged_c3", "ragged_c1"])
+def test_video_open_is_contiguous_and_equals_jax(shape, plane, k, dtype):
+    x = _mask_video(12, shape, binary=False).astype(dtype)
+    got = morphology.video_open(torch.from_numpy(x), plane, k)
+    assert got.is_contiguous() and tuple(got.shape) == shape
+    assert got.numpy().dtype == dtype
+    want = jvideo_open(jnp.asarray(x), plane, k, use_pallas=False)
+    assert want.dtype == dtype
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if dtype == np.float32:
+        pallas = jmorphology_open(jnp.asarray(x), k, jVIDEO_PLANES[plane],
+                                  use_pallas=True, interpret=True)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(pallas))
+    # a view in another memory order (NCDHW, as a model returns it) opens
+    # to the same contiguous channel-last result
+    view = torch.from_numpy(x).permute(0, 4, 1, 2, 3).contiguous().permute(
+        0, 2, 3, 4, 1)
+    again = morphology.video_open(view, plane, k)
+    assert again.is_contiguous() and torch.equal(again, got)
+
+
+def _open_by_layout(x, axes, k):
+    """What the kernel is asked to do, in plain PyTorch: open the (O, P, Q,
+    L) view that ``_layout`` describes and write it through the contiguous
+    result's own layout."""
+    sizes, strides = morphology._layout(x, axes)
+    out = torch.empty(x.shape, dtype=x.dtype)
+    _, out_strides = morphology._layout(out, axes)
+    view = x.as_strided(sizes, strides, x.storage_offset())
+    o, p, q, lanes = sizes
+    planes = view.permute(0, 3, 1, 2).reshape(o * lanes, p, q)
+    opened = morphology.open_planes_plain(planes, k).reshape(
+        o, lanes, p, q).permute(0, 2, 3, 1)
+    out.as_strided(sizes, out_strides).copy_(opened)
+    return out
+
+
+@pytest.mark.parametrize("case", ["th", "hw", "hw_c3", "planes", "ncdhw_view",
+                                  "transposed", "sliced", "swapped_axes"])
+def test_layout_walks_the_video_in_place(case):
+    """The strides handed to the kernel describe the video's own memory:
+    opening the strided four-axis view and writing through the result's
+    strides equals ``morphology_open``."""
+    x5 = torch.from_numpy(_mask_video(13, (2, 6, 9, 7, 3), binary=False))
+    x3 = torch.from_numpy(_mask_video(14, (3, 8, 10), binary=False))
+    x, axes = {
+        "th": (x5[..., :1].contiguous(), (1, 2)),
+        "hw": (x5[..., :1].contiguous(), (2, 3)),
+        "hw_c3": (x5, (2, 3)),
+        "planes": (x3, (1, 2)),
+        # a model's (B, 1, T, H, W) mask seen channel-last
+        "ncdhw_view": (x5[..., :1].permute(0, 4, 1, 2, 3).contiguous()
+                       .permute(0, 2, 3, 4, 1), (1, 2)),
+        "transposed": (x3.transpose(1, 2), (1, 2)),
+        "sliced": (x3[:, ::2, 1::3], (1, 2)),
+        "swapped_axes": (x5, (3, 2)),
+    }[case]
+    got = _open_by_layout(x, axes, 5)
+    assert got.is_contiguous()
+    assert torch.equal(got, morphology.morphology_open(x, 5, axes))
+
+
+def test_layout_refuses_what_no_four_strides_describe():
+    x = torch.zeros(2, 4, 6, 8, 3)
+    assert morphology._layout(x, (1, 3)) is None        # not neighbours
+    assert morphology._layout(x[:, :, :, ::2], (1, 2)) is None   # lanes
+    assert morphology._layout(x.permute(1, 0, 2, 3, 4)[:, :, ::2],
+                              (3, 4)) is None           # outer axes
+    # axes of size 1 carry any stride
+    sizes, strides = morphology._layout(x[:, :1, :, :, :1], (2, 3))
+    assert sizes == (2, 6, 8, 1) and strides[1:3] == (24, 3)
+    # and the CPU route still opens a plane of axes that are no neighbours
+    y = torch.from_numpy(_mask_video(15, (2, 5, 6, 7, 1), binary=True))
+    want = np.asarray(jmorphology_open(jnp.asarray(y.numpy()), 3, (1, 3),
+                                       use_pallas=False))
+    got = morphology.morphology_open(y, 3, (1, 3))
+    assert got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_video_planes_match_jax():
     assert morphology.VIDEO_PLANES == jVIDEO_PLANES
 
@@ -155,3 +244,5 @@ def test_open_planes_dispatches_on_device_and_never_falls_back():
     # the CUDA wrapper refuses a CPU tensor instead of computing it
     with pytest.raises(ValueError, match="CUDA tensor"):
         morphology.open_planes_cuda(x, 5)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        morphology.open_planes_cuda(x[None, ..., None], 5, (1, 2))

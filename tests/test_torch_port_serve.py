@@ -336,13 +336,24 @@ def test_cuda_device_never_falls_back_to_cpu(tmp_path):
 
 
 def test_load_dispatch_rules(tmp_path):
+    from vfd_gan_tpu_torch.models.stcnn import AutoEncoder
+
     cpu = torch.device("cpu")
     model, name = infer._load(_save_pth(tmp_path, "x_ganbase.pth"), cpu)
     assert isinstance(model, Generator) and not model.training
+    assert name == "Propose model[GAN]"
     with pytest.raises(SystemExit, match="export_torch"):
         infer._load(str(tmp_path), cpu)
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        infer._load(str(tmp_path / "run_c2plus1d.pth"), cpu)
+    # a supervised family's name loads that family (strict: a Generator's
+    # weights under it are refused, an AutoEncoder's load)
+    with pytest.raises(RuntimeError, match="Missing key"):
+        infer._load(_save_pth(tmp_path, "run_c2plus1d.pth"), cpu)
+    path = str(tmp_path / "roc_c2plus1d.pth")
+    torch.save({"epoch": 0, "state_dict": AutoEncoder(
+        generator=torch.Generator().manual_seed(0)).state_dict()}, path)
+    model, name = infer._load(path, cpu)
+    assert isinstance(model, AutoEncoder) and not model.training
+    assert name == "(2+1)DCNN"
     with pytest.raises(SystemExit, match="cannot infer model type"):
         infer._load(str(tmp_path / "weights.pth"), cpu)
 

@@ -1,7 +1,8 @@
-"""Stream a video through a MyGAN generator (port of ``vfd_gan_tpu.cli.infer``).
+"""Stream a video through a mask model (port of ``vfd_gan_tpu.cli.infer``).
 
-Windows the video into ``nfr``-frame clips, runs the generator over them,
-and writes
+Windows the video into ``nfr``-frame clips, runs the model over them (the
+MyGAN generator, the "c2plus1d" AutoEncoder, Xception-3D or the ConvLSTM,
+picked by the checkpoint's file name as the reference does), and writes
 
 * ``<out>/mask.mp4``    -- the predicted per-pixel forgery-mask video
 * ``<out>/overlay.mp4`` -- the input with the thresholded and opened mask
@@ -29,7 +30,10 @@ import os
 import numpy as np
 import torch
 
+from vfd_gan_tpu_torch.models.convlstm import ConvLSTMModel
 from vfd_gan_tpu_torch.models.mygan import Generator
+from vfd_gan_tpu_torch.models.stcnn import AutoEncoder
+from vfd_gan_tpu_torch.models.xception3d import Xception3D
 from vfd_gan_tpu_torch.ops.image import (
     threshold,
     to_channel_first,
@@ -44,7 +48,8 @@ def build_parser():
     p = argparse.ArgumentParser(description="stream a video into mask output")
     p.add_argument("--video", required=True)
     p.add_argument("--ckpt", required=True,
-                   help="reference-format .pth (e.g. <run>_netG.pth)")
+                   help="reference-format .pth whose name holds netG, "
+                        "ganbase, mygan, c2plus1d, xception or clstm")
     p.add_argument("--out", required=True)
     p.add_argument("--isize", type=int, default=128)
     p.add_argument("--morph_plane", choices=("th", "hw"), default="th",
@@ -56,25 +61,46 @@ def build_parser():
     return p
 
 
+# The reference's path-substring dispatch (test.py:115-144) in its if/elif
+# order, with "netG" and "mygan" as synonyms of "ganbase" as in the JAX
+# package: (substrings, family, display name).
+DISPATCH = (
+    (("netG", "ganbase", "mygan"), "mygan", "Propose model[GAN]"),
+    (("c2plus1d",), "c2plus1d", "(2+1)DCNN"),
+    (("xception",), "xception", "XceptionNet"),
+    (("clstm",), "clstm", "ConvLSTM"),
+)
+
+
+def _build(family: str, sd: dict, device: torch.device) -> torch.nn.Module:
+    """The family's model at the checkpoint's width (the reference's is
+    ngf = 32 and Xception's full width)."""
+    if family == "mygan":
+        return Generator(ngf=sd["conv_last.weight"].shape[1], device=device)
+    if family == "c2plus1d":
+        return AutoEncoder(device=device)
+    if family == "xception":
+        # bn4 normalises the trunk's widest layer, 2048 x width_mult
+        return Xception3D(sd["conv1.weight"].shape[1],
+                          sd["bn4.weight"].shape[0] / 2048, device=device)
+    return ConvLSTMModel(device=device)
+
+
 def _load(ckpt: str, device: torch.device):
     """Model for a ``.pth`` by the reference's filename rule
-    (test.py:115-144), in eval mode on ``device``."""
+    (test.py:115-144), loaded ``strict=True``, in eval mode on ``device``,
+    and its display name."""
     if os.path.isdir(ckpt):
         raise SystemExit(
             f"{ckpt} is a directory: Orbax checkpoints need jax; convert it "
             f"with `python -m vfd_gan_tpu.cli.export_torch --ckpt {ckpt}` "
-            "and pass the *_netG.pth it writes")
-    if "netG" in ckpt or "ganbase" in ckpt or "mygan" in ckpt:
-        sd = load_state_dict(ckpt)
-        # the width is the checkpoint's (the reference's is ngf=32)
-        model = Generator(ngf=sd["conv_last.weight"].shape[1], device=device)
-        model.load_state_dict(sd, strict=True)
-        return model.eval(), "Propose model[GAN]"
-    if any(s in ckpt for s in ("c2plus1d", "xception", "clstm")):
-        raise SystemExit(
-            f"{ckpt}: only the MyGAN generator is ported to PyTorch so far; "
-            "the other families are listed in ROADMAP.md under "
-            "'Modules still to port'")
+            "and pass the .pth it writes")
+    for substrings, family, name in DISPATCH:
+        if any(sub in ckpt for sub in substrings):
+            sd = load_state_dict(ckpt)
+            model = _build(family, sd, device)
+            model.load_state_dict(sd, strict=True)
+            return model.eval(), name
     raise SystemExit(f"cannot infer model type from path: {ckpt}")
 
 

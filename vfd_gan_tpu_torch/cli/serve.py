@@ -1,7 +1,9 @@
-"""Batch-inference server for the MyGAN generator (port of
+"""Batch-inference server for a mask model (port of
 ``vfd_gan_tpu.cli.serve``).
 
-A long-lived process that loads one ``.pth`` generator once, keeps it in
+A long-lived process that loads one ``.pth`` model once (the MyGAN
+generator, the "c2plus1d" AutoEncoder, Xception-3D or the ConvLSTM, picked
+by the file name as ``cli.infer`` does), keeps it in
 eval mode on one device, and **micro-batches concurrent requests**: a
 batcher thread drains a queue, packs up to ``--max_batch`` clips (padding
 the tail with zero clips so every forward has the same shape), runs the
@@ -51,7 +53,8 @@ from vfd_gan_tpu_torch.ops.image import to_channel_first, to_channel_last
 def build_parser():
     p = argparse.ArgumentParser(description="mask-model inference server")
     p.add_argument("--ckpt", required=True,
-                   help="reference-format .pth (e.g. <run>_netG.pth)")
+                   help="reference-format .pth whose name holds netG, "
+                        "ganbase, mygan, c2plus1d, xception or clstm")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8790)
     p.add_argument("--isize", type=int, default=128)
@@ -117,7 +120,7 @@ class InferenceServer:
         self.latencies_ms: list[float] = []
 
         # warm-up at the serving shape, so the first request does not pay
-        # for cuDNN's first-call setup
+        # for cuDNN's first-call setup or a kernel library's build
         self.forward(np.zeros((max_batch, nfr, isize, isize, 3), np.float32))
 
         self._stop = threading.Event()

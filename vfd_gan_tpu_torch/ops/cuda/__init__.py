@@ -43,7 +43,8 @@ _library: ctypes.CDLL | None = None
 # Python ints as 32-bit C ints and cuts pointers.
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 ENTRIES = {
-    "vfd_morphology_open_f32": ([_P, _P, _L, _I, _I, _I, _P], ctypes.c_int),
+    "vfd_morphology_open_f32": ([_P, _P, _L, _I, _I, _I] + [_L] * 8
+                                + [_I] * 4 + [_P], ctypes.c_int),
     "vfd_flow_warp_f32": ([_P, _P, _P, _L, _I, _I, _I, _P], ctypes.c_int),
     "vfd_flow_refine_f32": ([_P] * 7 + [_L, _I, _I, _I, _P], ctypes.c_int),
     "vfd_flow_fused_f32": ([_P] * 7 + [_L, _I, _I, _I, _I, _P],

@@ -143,7 +143,8 @@ def _flow_level(p1: torch.Tensor, p2: torch.Tensor, flow: torch.Tensor,
     """Iterative displacement refinement at one pyramid level.
 
     p1/p2: polynomial expansions ``(N, H, W, 5)``; flow ``(N, H, W, 2)``
-    in (x, y) order.  Returns the refined ``(N, H, W, 2)`` flow."""
+    in (x, y) order.  Returns the refined ``(N, H, W, 2)`` flow.
+    ``winsize``: CUDA: 15 only; CPU plain version: any odd value."""
     planar = [t.permute(0, 3, 1, 2).contiguous() for t in (p1, p2, flow)]
     return _flow_level_planar(*planar, winsize, iterations,
                               impl).permute(0, 2, 3, 1)
@@ -161,7 +162,12 @@ def farneback_flow(prev: torch.Tensor, cur: torch.Tensor, *,
                    poly_sigma: float = 1.2,
                    impl: str = "fused") -> torch.Tensor:
     """Dense flow for grayscale batches ``(N, H, W)`` -> ``(N, H, W, 2)``
-    in (x, y) displacement order (cv2 convention)."""
+    in (x, y) displacement order (cv2 convention).
+
+    ``winsize``: CUDA: 15 only (the ``fused`` and ``two_kernel`` solver
+    kernels are built for it and raise for another value; ``impl="warp"``
+    solves in plain PyTorch and takes any odd value); CPU plain version:
+    any odd value."""
     prev = prev.to(torch.float32)
     cur = cur.to(torch.float32)
     # prev and cur ride one batch through the blur + resize chain

@@ -39,7 +39,8 @@ def flow_refine_fused_cuda(p1: torch.Tensor, p2: torch.Tensor,
                            flow: torch.Tensor, winsize: int,
                            iterations: int) -> torch.Tensor:
     """All rounds by the hand-written kernel in one launch; raises on
-    anything it does not take."""
+    anything it does not take.  ``winsize``: CUDA: 15 only; CPU plain
+    version: any odd value."""
     if iterations < 0:
         raise ValueError(f"iterations must be >= 0, got {iterations}")
     if iterations == 0:
@@ -55,7 +56,9 @@ flow_refine_fused_cuda.launches_by_plane = Counter()
 
 def flow_refine_fused(p1: torch.Tensor, p2: torch.Tensor, flow: torch.Tensor,
                       winsize: int, iterations: int) -> torch.Tensor:
-    """The refinement loop of one level on the tensors' device."""
+    """The refinement loop of one level on the tensors' device.
+    ``winsize``: CUDA: 15 only (the kernel raises for another value); CPU
+    plain version: any odd value."""
     refuse_grad("flow_refine_fused", p1, p2, flow)
     if p1.device.type == "cuda":
         return flow_refine_fused_cuda(p1, p2, flow, winsize, iterations)

@@ -145,12 +145,13 @@ def _launch_solver(wrapper, entry: str, p1, p2, flow, winsize: int,
     from vfd_gan_tpu_torch.ops import cuda
 
     name = wrapper.__name__
+    if winsize != WINSIZE:
+        raise ValueError(f"{name}: the kernel is built for winsize "
+                         f"{WINSIZE}, got {winsize} (the plain version on "
+                         "a CPU tensor takes any odd value)")
     n, _, h, w = p1.shape
     _check(name, {"p1": p1, "p2": p2, "flow": flow},
            {"p1": (n, 5, h, w), "p2": (n, 5, h, w), "flow": (n, 2, h, w)})
-    if winsize != WINSIZE:
-        raise ValueError(f"{name}: the kernel is built for winsize "
-                         f"{WINSIZE}, got {winsize}")
     out = torch.empty_like(flow)
     if not n:
         return out
@@ -175,7 +176,7 @@ def _launch_solver(wrapper, entry: str, p1, p2, flow, winsize: int,
 def flow_refine_step_cuda(p1: torch.Tensor, w2: torch.Tensor,
                           flow: torch.Tensor, winsize: int) -> torch.Tensor:
     """The solve by the hand-written kernel; raises on anything it does not
-    take."""
+    take.  ``winsize``: CUDA: 15 only; CPU plain version: any odd value."""
     return _launch_solver(flow_refine_step_cuda, "vfd_flow_refine_f32",
                           p1, w2, flow, winsize)
 
@@ -187,7 +188,9 @@ flow_refine_step_cuda.launches_by_plane = Counter()
 
 def flow_refine_step(p1: torch.Tensor, w2: torch.Tensor, flow: torch.Tensor,
                      winsize: int) -> torch.Tensor:
-    """One refinement solve on the tensors' device."""
+    """One refinement solve on the tensors' device.  ``winsize``: CUDA: 15
+    only (the kernel raises for another value); CPU plain version: any odd
+    value."""
     refuse_grad("flow_refine_step", p1, w2, flow)
     if p1.device.type == "cuda":
         return flow_refine_step_cuda(p1, w2, flow, winsize)
