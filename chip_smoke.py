@@ -66,6 +66,28 @@ phases, one line each (or a few):
     best ``{roc|pr}-*.pth`` loaded back with strict=True, step time, peak
     memory and launch counts.
 
+13. host data: clips in memory (a stand-in for the mp4 dataset, which
+    needs cv2: staged at 140^2 for train, 128^2 for test) through the
+    port's ``ClipBatchIterator`` and ``device_prefetch`` (pinned buffers, a
+    side stream) into ``MyGanEngine`` and ``SupervisedEngine(clstm)`` for a
+    few steps and a sweep: the prefetched batches equal the iterator's bit
+    for bit, the kernels launch as with synthetic data; step median, the
+    wait for a batch and the host-to-device copy's time;
+14. resume: for mygan and clstm a run with ``--autosave_every`` that is
+    sent a SIGTERM after step k parks ``latest.pt`` and returns; a new
+    engine with ``--resume`` holds the saved state bit for bit at the cursor
+    ``(epoch, k)`` and runs on to N; whether two unbroken runs are
+    bit-equal: if so the resumed run's losses must equal theirs, else lie
+    within 1e-5 + 1% of them; the file's size and the cost of a synchronous and an
+    asynchronous autosave as the step loop sees them;
+15. sweep options: ``--cache_gt_flow`` (the second sweep solves half the
+    flow fields of the first, scores equal to an uncached engine's),
+    ``--ref_mode_quirks`` (G's and D's BatchNorm running statistics move
+    over a sweep) and one ``--ae`` step CUDA vs CPU;
+16. tensorboard: one short trainer run with the logger on; says whether a
+    writer existed, and then finds its event file.  The other trainer
+    phases pass ``--no-tensorboard``.
+
 Before the serving phase come two more kernel phases: the augment gather
 kernel against its plain version (bit-equal on all three outputs at the
 train shape, a ragged clip, a 45 degree draw, coordinates all outside the
@@ -107,8 +129,10 @@ from __future__ import annotations
 import base64
 import collections
 import contextlib
+import gc
 import json
 import math
+import signal
 import socket
 import statistics
 import subprocess
@@ -143,7 +167,7 @@ KERNELS = {
 FIELDS = 2 * BATCH * (NFR - 1)
 # flow levels at flow_scale 0.5 (64, 32, 16) and the top one at 1.0 (128)
 FLOW_SIZES = (64, 32, 16, 128)
-TRAIN_STEPS = 24
+TRAIN_STEPS = 16
 # the supervised families' training phases: model -> (steps, extra flags)
 SUPERVISED_RUNS = {"clstm": (8, []), "c2plus1d": (4, []),
                    "xception": (4, ["--xwidth", "1.0"])}
@@ -995,6 +1019,7 @@ def _reset_counts() -> None:
         fn.launches = 0
         if hasattr(fn, "launches_by_plane"):
             fn.launches_by_plane.clear()
+            fn.fields = 0
 
 
 def _counts() -> dict:
@@ -1038,9 +1063,9 @@ def run_trainer(argv, engine_cls):
     return engine, counts, dict(sweep), wall
 
 
-def phase_step_parity(tmp: Path) -> None:
+def phase_step_parity(tmp: Path, ae: bool = False) -> None:
     """One _gan_core step on the card and on the CPU from the same weights
-    and injected flows.  Tolerances: losses 1e-5, except the train-mode
+    and injected flows (``ae``: with the AutoEncoder as G).  Tolerances: losses 1e-5, except the train-mode
     spatial D's, 5e-4 relative (float32 sums of its BatchNorms in another
     order, amplified through its deep BN chain, as in
     tests/test_torch_port_train.py); updated parameters within Adam's
@@ -1051,7 +1076,8 @@ def phase_step_parity(tmp: Path) -> None:
 
     b, s = 2, 64
     cfg = Config(model="mygan", isize=s, nfr=NFR, batchsize=b, ngf=8, ndf=8,
-                 ep=1, compute_dtype="float32", result_root=str(tmp))
+                 ep=1, compute_dtype="float32", tensorboard=False, ae=ae,
+                 result_root=str(tmp))
     rng = np.random.default_rng(4)
     data = rng.uniform(-1, 1, (b, NFR, s, s, 3)).astype(np.float32)
     gt = (rng.uniform(size=(b, NFR, s, s, 1)) > 0.85).astype(np.float32)
@@ -1060,7 +1086,9 @@ def phase_step_parity(tmp: Path) -> None:
     for dev in ("cpu", "cuda"):
         device = torch.device(dev)
         eng = MyGanEngine(cfg, None, None, device=device)
-        eng.netg.drop_rate = 0.0
+        for m in eng.netg.modules():
+            if hasattr(m, "drop_rate"):
+                m.drop_rate = 0.0
         fl = torch.from_numpy(flows).to(device)
         eng._flow = lambda v, streams=1, fl=fl: fl  # noqa: E731
         metrics = eng._gan_core(torch.from_numpy(data).to(device),
@@ -1094,7 +1122,9 @@ def phase_step_parity(tmp: Path) -> None:
             else:
                 check(diff <= 2.5 * lr, f"param {k}: {diff} <= 2.5 lr")
                 worst_param = max(worst_param, diff)
-    say("stepparity", f"_gan_core b{b} T{NFR} {s}^2 ngf=ndf=8, CUDA vs CPU "
+    say("stepparity", f"_gan_core{' --ae' if ae else ''} b{b} T{NFR} {s}^2 "
+                      f"{'AutoEncoder, ndf=8' if ae else 'ngf=ndf=8'}, "
+                      f"CUDA vs CPU "
                       f"(TF32 off): losses max-abs {worst_loss:.3g}, params "
                       f"{worst_param:.3g} (<= 2.5 lr = {2.5 * lr:.3g}), BN "
                       f"stats {worst_stat:.3g}")
@@ -1123,7 +1153,8 @@ def phase_supervised_parity(tmp: Path) -> None:
 
     for family, (b, t, isize, extra) in SUPERVISED_PARITY.items():
         cfg = Config(model=family, batchsize=b, nfr=t, isize=isize, ep=1,
-                     compute_dtype="float32", result_root=str(tmp), **extra)
+                     compute_dtype="float32", tensorboard=False,
+                     result_root=str(tmp), **extra)
         s = staging_size(isize)
         rng = np.random.default_rng(5)
         data = rng.integers(0, 256, (b, t, s, s, 3), dtype=np.uint8)
@@ -1190,7 +1221,7 @@ def phase_supervised_train(tmp: Path, family: str) -> dict:
             "--isize", str(ISIZE), "--compute_dtype", "float32",
             "--synthetic_data", str(steps), "--synthetic_test_batches", "1",
             "--ep", "1", "--freq", str(steps), "--device", "cuda",
-            "--result_root", str(root), *extra]
+            "--no-tensorboard", "--result_root", str(root), *extra]
     torch.cuda.reset_peak_memory_stats()
     engine, counts, sweep, wall = run_trainer(argv, SupervisedEngine)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
@@ -1253,7 +1284,7 @@ def phase_train(tmp: Path):
             "--synthetic_data", str(TRAIN_STEPS),
             "--synthetic_test_batches", "2", "--ep", "1",
             "--freq", str(TRAIN_STEPS), "--device", "cuda",
-            "--result_root", str(tmp / "runs")]
+            "--no-tensorboard", "--result_root", str(tmp / "runs")]
     torch.cuda.reset_peak_memory_stats()
     engine, counts, sweep, wall = run_trainer(argv, MyGanEngine)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
@@ -1313,6 +1344,400 @@ def phase_two_kernel(engine) -> dict:
     return counts
 
 
+class MemoryClips:
+    """Clips in memory with the surface of the port's ``MdfVideoDataset``
+    (``__len__``, ``__getitem__`` -> data, real, mask, label), made from a
+    numpy seed: a blocky background, and in every second clip a square
+    forgery that moves a pixel or two per frame, its outline as the gt mask
+    (what the dataset's invert + Canny preparation finds).  No decode: the
+    machine this runs on need not have cv2."""
+
+    def __init__(self, n: int, nfr: int, size: int, seed: int):
+        rng = np.random.default_rng(seed)
+        coarse = rng.integers(0, 256, (n, nfr, size // 4, size // 4, 3),
+                              dtype=np.uint8)
+        self.real = coarse.repeat(4, axis=2).repeat(4, axis=3)
+        self.data = self.real.copy()
+        self.mask = np.zeros((n, nfr, size, size, 1), np.uint8)
+        side = size // 4
+        for i in range(0, n, 2):
+            y0, x0 = rng.integers(0, size - side - 2 * nfr, 2)
+            color = rng.integers(0, 256, 3, dtype=np.uint8)
+            for t in range(nfr):
+                y, x = y0 + t, x0 + 2 * t
+                self.data[i, t, y:y + side, x:x + side] = color
+                self.mask[i, t, y:y + side, x:x + side] = 255
+                self.mask[i, t, y + 1:y + side - 1, x + 1:x + side - 1] = 0
+        self.nfr = nfr
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def __getitem__(self, i: int):
+        fake = bool(self.mask[i].any())
+        return (self.data[i], self.real[i], self.mask[i],
+                np.full(self.nfr, float(fake), np.float32))
+
+
+def _full_width_cfg(model: str, root: Path, **kw):
+    from vfd_gan_tpu_torch.config import Config
+
+    return Config(model=model, batchsize=BATCH, nfr=NFR, isize=ISIZE, ngf=32,
+                  ndf=32, flow_scale=0.5, compute_dtype="float32", ep=1,
+                  tensorboard=False, result_root=str(root), **kw).validate()
+
+
+def _memory_iterators(cfg, n_train: int, n_test: int):
+    """The trainer's two iterators over clips in memory: the train split
+    staged at ``staging_size(isize)``, both shuffled from ``cfg.seed``."""
+    from vfd_gan_tpu_torch.data.dataset import ClipBatchIterator
+    from vfd_gan_tpu_torch.ops.augment import staging_size
+
+    def iterator(n, size, seed):
+        return ClipBatchIterator(MemoryClips(n, cfg.nfr, size, seed),
+                                 cfg.batchsize, shuffle=True, seed=cfg.seed,
+                                 prefetch=cfg.prefetch, workers=cfg.workers)
+
+    return (iterator(n_train, staging_size(cfg.isize), 10),
+            iterator(n_test, cfg.isize, 11))
+
+
+def _engine_cls(model: str):
+    from vfd_gan_tpu_torch.train.gan_engine import MyGanEngine
+    from vfd_gan_tpu_torch.train.supervised_engine import SupervisedEngine
+
+    return MyGanEngine if model == "mygan" else SupervisedEngine
+
+
+DATA_STEPS = 8
+
+
+def phase_data(tmp: Path, device, synthetic_ms: dict) -> None:
+    """Host batches through ``ClipBatchIterator`` and ``device_prefetch``
+    into the MyGAN and clstm engines (``DATA_STEPS`` steps and a two-batch
+    sweep each); ``synthetic_ms``: this run's step medians on synthetic
+    data, printed beside."""
+    from vfd_gan_tpu_torch.parallel.prefetch import device_prefetch
+
+    # what the prefetcher yields is what the iterator gave, bit for bit
+    cfg = _full_width_cfg("clstm", tmp / "data_probe")
+    first, _ = _memory_iterators(cfg, 4 * BATCH, BATCH)
+    second, _ = _memory_iterators(cfg, 4 * BATCH, BATCH)
+    events: list = []
+    n = nbytes = 0
+    for got, want in zip(device_prefetch(first, device, depth=2,
+                                         h2d_events=events), second):
+        check(set(got) == set(want), "prefetched fields")
+        for k, v in want.items():
+            if k == "index":
+                check(isinstance(got[k], np.ndarray)
+                      and np.array_equal(got[k], v), "index stays on the host")
+            else:
+                check(got[k].device.type == "cuda" and np.array_equal(
+                    got[k].cpu().numpy(), v), f"prefetched {k} == host {k}")
+        nbytes = sum(v.nbytes for k, v in want.items() if k != "index")
+        n += 1
+    check(n == 4 and first.epoch == 1, "four batches, one pass")
+    torch.cuda.synchronize()
+    h2d = [s.elapsed_time(e) for s, e in events]
+    say("data", f"device_prefetch over ClipBatchIterator: {n} batches of "
+                f"{nbytes / 1e6:.1f} MB equal to the iterator's bit for bit; "
+                f"host-to-device copy from pinned memory on the side stream "
+                f"{statistics.median(h2d):.3f} ms per batch (max "
+                f"{max(h2d):.3f}): {nbytes / 1e6 / statistics.median(h2d):.1f}"
+                f" GB/s")
+
+    for model in ("mygan", "clstm"):
+        cfg = _full_width_cfg(model, tmp / f"data_{model}", freq=DATA_STEPS)
+        train_iter, test_iter = _memory_iterators(cfg, DATA_STEPS * BATCH,
+                                                  2 * BATCH)
+        engine = _engine_cls(model)(cfg, train_iter, test_iter, device=device)
+        engine.h2d_events = []
+        _reset_counts()                  # the host-data path starts
+        engine.train()
+        torch.cuda.synchronize()
+        counts = _counts()               # ... and ends
+        engine.close()
+        check(engine.global_step == DATA_STEPS, f"data-{model}: all steps ran")
+        check(all(np.isfinite(v) for v in engine.errors.values()),
+              f"data-{model}: finite losses")
+        check(all(np.isfinite(engine.scores[f"score/{k}"])
+                  for k in ("roc", "pr", "f1")), f"data-{model}: sweep scores")
+        # launches as with synthetic data: the augment kernel once per
+        # step, the opening once per sweep batch; MyGAN's fused kernel three
+        # times per step and per sweep batch; clstm's conv kernel
+        fwd = 3 * (1 + NFR)
+        want = {"augment_gather": DATA_STEPS, "morphology_open": 2,
+                "flow_fused": 3 * (DATA_STEPS + 2) if model == "mygan" else 0,
+                "conv3x3": 0 if model == "mygan" else
+                DATA_STEPS * CONV_LAUNCHES_PER_STEP + 2 * fwd}
+        check(all(counts[k] == v for k, v in want.items()),
+              f"data-{model}: launches {counts}, expected {want}")
+        steady = engine.step_seconds[2:]
+        waits = engine.data_seconds[2:]
+        h2d = [s.elapsed_time(e) for s, e in engine.h2d_events]
+        say(f"data-{model}",
+            f"b{BATCH} T{NFR} {ISIZE}^2 float32 on host batches through "
+            f"device_prefetch (depth {cfg.prefetch}): step median "
+            f"{1e3 * statistics.median(steady):.1f} ms (min "
+            f"{1e3 * min(steady):.1f}, max {1e3 * max(steady):.1f}, steps "
+            f"3-{DATA_STEPS}) beside {synthetic_ms[model]:.1f} ms on "
+            f"synthetic data in this run; wait for a batch median "
+            f"{1e3 * statistics.median(waits):.3f} ms (max "
+            f"{1e3 * max(waits):.3f}); H2D {statistics.median(h2d):.3f} ms "
+            f"per batch over {len(h2d)} batches; launches "
+            f"{json.dumps({k: counts[k] for k in want})}")
+
+
+def _tree_equal(a, b) -> bool:
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype \
+            and torch.equal(a, b)
+    if isinstance(a, dict):
+        return isinstance(b, dict) and list(a) == list(b) \
+            and all(_tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) \
+            and all(_tree_equal(x, y) for x, y in zip(a, b))
+    return type(a) is type(b) and a == b
+
+
+def _recording(engine, losses: list, stop_at=None) -> None:
+    """Record the losses of every train step of ``engine`` in ``losses``;
+    ``stop_at``: raise a SIGTERM after that step."""
+    step = engine._train_step_impl
+
+    def recording_step(batch):
+        out = step(batch)
+        losses.append({k: float(v) for k, v in out.items()})
+        if engine.global_step == stop_at:
+            signal.raise_signal(signal.SIGTERM)
+        return out
+
+    engine._train_step_impl = recording_step
+
+
+def _recorded_engine(model: str, root: Path, device, steps: int,
+                     stop_at=None, **kw):
+    """An engine for ``steps`` train steps on synthetic data (no sweep)
+    and the list that will hold the losses of every step it takes."""
+    from vfd_gan_tpu_torch.cli.trainer import build_iterators
+
+    cfg = _full_width_cfg(model, root, synthetic_data=steps, freq=10 ** 6,
+                          **kw)
+    engine = _engine_cls(model)(cfg, *build_iterators(cfg, device),
+                                device=device)
+    losses: list = []
+    _recording(engine, losses, stop_at)
+    return engine, losses
+
+
+RESUME_STEPS, RESUME_STOP = 6, 3
+
+
+def phase_resume(tmp: Path, device) -> None:
+    from vfd_gan_tpu_torch.train.checkpoints import (
+        AsyncSaver,
+        host_copy,
+        restore_checkpoint,
+        save_checkpoint,
+    )
+
+    for model in ("mygan", "clstm"):
+        root = tmp / f"resume_{model}"
+        whole, want = _recorded_engine(model, root / "a", device,
+                                       RESUME_STEPS)
+        again, twice = _recorded_engine(model, root / "a2", device,
+                                        RESUME_STEPS)
+        whole.train()
+        again.train()
+        repeat = want == twice and _tree_equal(
+            host_copy(whole._ckpt_tree()), host_copy(again._ckpt_tree()))
+        whole.close()
+        again.close()
+        del whole, again
+        before = signal.getsignal(signal.SIGTERM)
+        first, head = _recorded_engine(model, root / "b1", device,
+                                       RESUME_STEPS, stop_at=RESUME_STOP,
+                                       autosave_every=2)
+        first.train()
+        first.close()
+        latest = Path(first.dirs.weights) / "latest.pt"
+        check(first.global_step == RESUME_STOP and latest.is_file(),
+              f"resume-{model}: SIGTERM after step {RESUME_STOP} parked "
+              f"{latest}")
+        check(signal.getsignal(signal.SIGTERM) == before,
+              "the signal handlers are restored")
+        saved = restore_checkpoint(str(latest))
+        check(_tree_equal(saved, host_copy(first._ckpt_tree())),
+              f"resume-{model}: latest.pt holds the parked state")
+        size = latest.stat().st_size
+        del first
+
+        second, tail = _recorded_engine(model, root / "b2", device,
+                                        RESUME_STEPS, resume=str(latest))
+        check(_tree_equal(host_copy(second._ckpt_tree()), saved),
+              f"resume-{model}: the restored state (parameters, BN buffers, "
+              "Adam moments and steps, generator, cursor, best scores) "
+              "equals the saved state bit for bit")
+        check((second.epoch, second.batch_in_epoch, second.global_step)
+              == (0, RESUME_STOP, RESUME_STOP) and not tail,
+              "the cursor is (epoch, k)")
+        for net in second._nets().values():
+            check(all(p.device.type == "cuda"
+                      for p in net.module.parameters()),
+                  "restored parameters lie on the card")
+            state = net.optimizer.state_dict()["state"]
+            check(all(s["exp_avg"].device.type == "cuda"
+                      for s in state.values()), "and the Adam moments too")
+        second.train()
+        check(second.global_step == RESUME_STEPS
+              and len(tail) == RESUME_STEPS - RESUME_STOP,
+              f"resume-{model}: ran on to step {RESUME_STEPS}")
+        if repeat:
+            check(head == want[:RESUME_STOP],
+                  "the stopped run's steps are the unbroken run's")
+        # Where two unbroken runs repeat bit for bit, the resumed run must
+        # equal them bit for bit too.  Where they do not (cuDNN's weight
+        # gradients and the trilinear upsample's backward sum with atomics,
+        # and a GAN step amplifies the difference: two unbroken MyGAN runs
+        # are 4-6e-4 apart, relative, at step 6), the resumed run's losses
+        # are held to 1e-5 + 1% of the unbroken run's.
+        def rel_diff(a, b):
+            return abs(a - b) / (abs(b) + 1e-3)
+
+        spread = max(rel_diff(a[k], b[k]) for a, b in zip(twice, want)
+                     for k in b)
+        worst = worst_rel = 0.0
+        for got, ref in zip(tail, want[RESUME_STOP:]):
+            for k, v in ref.items():
+                diff = abs(got[k] - v)
+                check(np.isfinite(got[k]) and (
+                    diff == 0.0 if repeat else diff <= 1e-5 + 1e-2 * abs(v)),
+                    f"resume-{model} {k}: resumed {got[k]} vs unbroken {v} "
+                    f"(two unbroken runs bit-equal: {repeat}, apart by "
+                    f"{spread:.3g} relative)")
+                worst = max(worst, diff)
+                worst_rel = max(worst_rel, rel_diff(got[k], v))
+        exact = tail == want[RESUME_STOP:]
+
+        # an autosave as the step loop sees it: synchronous, and the call
+        # that hands the write to a thread
+        path = str(root / "timed.pt")
+        sync_ms, async_ms, write_ms = [], [], []
+        saver = AsyncSaver()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            save_checkpoint(path, second._ckpt_tree())
+            sync_ms.append(1e3 * (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            check(saver.save(path, second._ckpt_tree()), "async save taken")
+            async_ms.append(1e3 * (time.perf_counter() - t0))
+            saver.wait()
+            write_ms.append(1e3 * (time.perf_counter() - t0))
+        second.close()
+        say(f"resume-{model}",
+            f"b{BATCH} full width, {RESUME_STEPS} steps, SIGTERM after step "
+            f"{RESUME_STOP}: latest.pt {size / 1e6:.1f} MB, restored bit for "
+            f"bit at cursor (0, {RESUME_STOP}); resumed losses vs the "
+            f"unbroken run's max-abs {worst:.3g}, relative {worst_rel:.3g} "
+            f"(held to {'equality' if repeat else '1e-5 + 1%'}), bit-equal: "
+            f"{exact}; two unbroken runs bit-equal (losses and final "
+            f"state): {repeat}, their losses apart by {spread:.3g} relative "
+            f"at most; autosave seen by the "
+            f"loop: synchronous {statistics.median(sync_ms):.1f} ms, "
+            f"asynchronous {statistics.median(async_ms):.1f} ms (its write "
+            f"done after {statistics.median(write_ms):.1f} ms), medians of 3")
+
+
+def phase_sweep_options(tmp: Path, device) -> None:
+    from vfd_gan_tpu_torch.ops.flow_fused import flow_refine_fused_cuda
+    from vfd_gan_tpu_torch.train.gan_engine import MyGanEngine
+
+    def engine_for(name, **kw):
+        cfg = _full_width_cfg("mygan", tmp / f"sweep_{name}", **kw)
+        return MyGanEngine(cfg, *_memory_iterators(cfg, BATCH, 2 * BATCH),
+                           device=device)
+
+    def sweep(engine):
+        _reset_counts()
+        t0 = time.perf_counter()
+        scores = engine.test()
+        torch.cuda.synchronize()
+        return (scores, flow_refine_fused_cuda.fields,
+                flow_refine_fused_cuda.launches,
+                1e3 * (time.perf_counter() - t0))
+
+    cached, plain = engine_for("cached", cache_gt_flow=True), engine_for(
+        "plain")
+    sweep(plain)                                         # warm
+    (s1, f1, l1, ms1), (s2, f2, l2, ms2) = sweep(cached), sweep(cached)
+    p1, pf, _, pms = sweep(plain)
+    check(f1 == pf == 2 * 3 * FIELDS and f2 * 2 == f1 and l1 == l2,
+          f"--cache_gt_flow: fields {f1} then {f2} (uncached {pf})")
+    check(len(cached._gt_flow_cache) == 2 * BATCH, "every test clip cached")
+    check(s1 == s2 == p1 and all(np.isfinite(s1)),
+          f"cached scores {s1} {s2} == uncached {p1}")
+    say("sweep-cache", f"--cache_gt_flow, two sweeps of 2 batches: fused "
+                       f"kernel fields {f1} then {f2} in {l1} launches each "
+                       f"(uncached {pf}); roc/pr/f1 {s2} equal to the "
+                       f"uncached sweep's; sweep {ms1:.0f} ms then "
+                       f"{ms2:.0f} ms, uncached {pms:.0f} ms (host scoring "
+                       "included)")
+    cached.close()
+    plain.close()
+
+    def stats(module):
+        return {k: v.clone() for k, v in module.state_dict().items()
+                if "running" in k}
+
+    quirk = engine_for("quirk", ref_mode_quirks=True)
+    g0, d0 = stats(quirk.netg), stats(quirk.netd)
+    scores, _, _, _ = sweep(quirk)
+    moved = [sum(not torch.equal(v, old[k]) for k, v in stats(m).items())
+             for m, old in ((quirk.netg, g0), (quirk.netd, d0))]
+    check(moved[0] == len(g0) and moved[1] == len(d0),
+          f"--ref_mode_quirks: every BN statistic moved: {moved}")
+    check(quirk.netg.training and quirk.netd.training
+          and len(quirk._gt_flow_cache) == 0 and all(np.isfinite(scores)),
+          "--ref_mode_quirks: train mode, no cache, finite scores")
+    say("sweep-quirks", f"--ref_mode_quirks sweep: G and D in train mode, "
+                        f"{moved[0]} of G's and {moved[1]} of D's BN running "
+                        f"statistics moved; roc/pr/f1 {scores}")
+    quirk.close()
+    phase_step_parity(tmp, ae=True)
+
+
+def phase_tensorboard(tmp: Path) -> None:
+    from vfd_gan_tpu_torch.cli.trainer import main as train_main
+
+    engine = train_main(
+        ["--model", "clstm", "--batchsize", str(BATCH), "--nfr", str(NFR),
+         "--isize", str(ISIZE), "--compute_dtype", "float32",
+         "--synthetic_data", "2", "--synthetic_test_batches", "1", "--ep",
+         "1", "--freq", "2", "--device", "cuda", "--tensorboard",
+         "--result_root", str(tmp / "runs_tb")])
+    events = sorted(Path(engine.dirs.runs).rglob("events.out.tfevents.*"))
+    lines = (Path(engine.dirs.root) / "metrics.jsonl").read_text().splitlines()
+    check(len(lines) == 1, "metrics.jsonl is written either way")
+    try:
+        import tensorboard  # noqa: F401
+        installed = True
+    except ImportError:
+        installed = False
+    check(bool(events) == installed,
+          f"an event file in runs/ exactly where tensorboard is installed "
+          f"({installed}): {events}")
+    what = "existed" if installed else \
+        "did not exist (the tensorboard package is not installed)"
+    say("tensorboard", f"trainer run with --tensorboard: a writer {what}; "
+                       f"{len(events)} event files under runs/ "
+                       f"({sum(e.stat().st_size for e in events)} bytes); "
+                       f"video panels (moviepy) "
+                       f"{'on' if engine.summary.videos else 'off'}; "
+                       f"metrics.jsonl {len(lines)} line")
+
+
 def main() -> None:
     name = phase_device()
     import_port()
@@ -1354,13 +1779,25 @@ def main() -> None:
         gan_steps = engine.global_step
         gan_sweep_batches = engine.test_iter.n_batches
         two_counts = phase_two_kernel(engine)
+        synthetic_ms = {"mygan": 1e3 * statistics.median(
+            engine.step_seconds[4:])}
         del engine
         for family in SUPERVISED_RUNS:
+            # each family starts from an empty allocator: what the run
+            # before left cached shifts clstm's host-bound step by a few ms
+            gc.collect()
+            torch.cuda.empty_cache()
             engine, counts, sweep = phase_supervised_train(Path(tmp), family)
             if family == "clstm":
                 clstm_counts, clstm_sweep = counts, sweep
                 clstm_steps = engine.global_step
+                synthetic_ms["clstm"] = 1e3 * statistics.median(
+                    engine.step_seconds[2:])
             del engine
+        phase_data(Path(tmp), device, synthetic_ms)
+        phase_resume(Path(tmp), device)
+        phase_sweep_options(Path(tmp), device)
+        phase_tensorboard(Path(tmp))
     # launches: each kernel's count on the main path that runs it (MyGAN's
     # trainer for the fused and opening kernels, its --flow_impl
     # two_kernel step for warp and refine, the clstm trainer for the

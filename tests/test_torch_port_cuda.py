@@ -522,3 +522,147 @@ def test_conv3x3_kernel_refuses_what_it_does_not_take(card):
         spatial_conv.conv3x3_cuda(x, k[:, :, :3].contiguous())
     with pytest.raises(ValueError):        # flip wants (3, 3, Cout, Cin)
         spatial_conv.conv3x3_cuda(x, k, flip=True)
+
+
+# -- the training run loop on the card -----------------------------------------
+
+def _host_batches(n, b=4, t=8, s=36, seed=0):
+    rng = np.random.default_rng(seed)
+    return [{"data": rng.integers(0, 256, (b, t, s, s, 3), dtype=np.uint8),
+             "real": rng.integers(0, 256, (b, t, s, s, 3), dtype=np.uint8),
+             "mask": rng.integers(0, 2, (b, t, s, s, 1), dtype=np.uint8) * 255,
+             "label": rng.uniform(size=(b, t)).astype(np.float32),
+             "index": np.arange(b, dtype=np.int32) + i * b}
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("depth", [1, 2, 4])
+@pytest.mark.gpu
+def test_pinned_prefetch_equals_the_host_batches(card, depth):
+    """Order, count and every byte, with more batches than staging
+    buffers (each pinned buffer is rewritten several times); ``index``
+    stays on the host; the copies ran on a side stream, each before the
+    event its batch was yielded behind."""
+    from vfd_gan_tpu_torch.parallel.prefetch import device_prefetch
+
+    batches = _host_batches(11)
+    events: list = []
+    out = []
+    for got in device_prefetch(iter(batches), card, depth=depth,
+                               h2d_events=events):
+        # keep the card busy, so later copies overlap queued work
+        torch.mm(torch.ones(2048, 2048, device=card),
+                 torch.ones(2048, 2048, device=card))
+        out.append(got)
+    assert len(out) == len(batches) == len(events)
+    for got, want in zip(out, batches):
+        assert isinstance(got["index"], np.ndarray)
+        np.testing.assert_array_equal(got["index"], want["index"])
+        for k in ("data", "real", "mask", "label"):
+            assert got[k].device.type == "cuda"
+            np.testing.assert_array_equal(got[k].cpu().numpy(), want[k])
+    torch.cuda.synchronize()
+    assert all(s.elapsed_time(e) > 0 for s, e in events)
+
+
+@pytest.mark.gpu
+def test_prefetch_passes_device_batches_through_and_stops_early(card):
+    import threading
+
+    from vfd_gan_tpu_torch.data.device_synthetic import (
+        DeviceSyntheticIterator,
+    )
+    from vfd_gan_tpu_torch.parallel.prefetch import device_prefetch
+
+    it = DeviceSyntheticIterator(2, 8, 16, n_batches=3, seed=1, device=card)
+    before = threading.active_count()
+    got = list(device_prefetch(it, card))
+    assert threading.active_count() == before      # no staging thread
+    assert all(torch.equal(g["data"], it.batch(0, i)["data"])
+               for i, g in enumerate(got))
+    gen = device_prefetch(iter(_host_batches(50)), card, depth=2)
+    first = next(gen)
+    assert first["data"].device.type == "cuda"
+    gen.close()                                    # the consumer leaves
+    assert threading.active_count() == before
+
+
+_STATE_NETS = {
+    "mygan": ["--model", "mygan", "--batchsize", "1", "--nfr", "16",
+              "--isize", "64", "--ngf", "2", "--ndf", "2"],
+    "mygan_ae": ["--model", "mygan", "--ae", "--batchsize", "1", "--nfr",
+                 "16", "--isize", "64", "--ndf", "2"],
+    "clstm": ["--model", "clstm", "--batchsize", "2", "--nfr", "8",
+              "--isize", "16"],
+    "c2plus1d": ["--model", "c2plus1d", "--batchsize", "2", "--nfr", "16",
+                 "--isize", "16"],
+    "xception": ["--model", "xception", "--batchsize", "2", "--nfr", "8",
+                 "--isize", "32", "--xwidth", "0.0625"],
+}
+_STATE_COMMON = ["--compute_dtype", "float32", "--no-tensorboard",
+                 "--synthetic_data", "4", "--synthetic_test_batches", "1",
+                 "--synthetic_thick_masks", "--ep", "1", "--freq", "1000"]
+
+
+def _tree_equal(a, b):
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict):
+        return list(a) == list(b) and all(_tree_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_tree_equal, a, b))
+    return a == b
+
+
+@pytest.mark.parametrize("net", list(_STATE_NETS))
+@pytest.mark.gpu
+def test_train_state_round_trip_on_the_card(card, tmp_path, net):
+    """Two steps with an autosave, then a fresh engine with ``--resume``:
+    every parameter, BN buffer, Adam moment and step, the CUDA generator's
+    state, the cursor and the best scores equal what was saved, the tensors
+    back on the card; ``latest.pt`` reads with ``weights_only``."""
+    from vfd_gan_tpu_torch.cli import trainer
+
+    argv = [*_STATE_NETS[net], *_STATE_COMMON, "--device", "cuda"]
+    first = trainer.main([*argv, "--max_steps", "2", "--autosave_every", "2",
+                          "--result_root", str(tmp_path / "a")])
+    latest = f"{first.dirs.weights}/latest.pt"
+    saved = torch.load(latest, map_location="cpu", weights_only=True)
+    assert saved["step"] == 2 and saved["loop"]["device"] == "cuda"
+    assert _tree_equal(saved, first._ckpt_tree())
+    second = trainer.build_engine([*argv, "--resume", latest,
+                                   "--result_root", str(tmp_path / "b")])
+    assert _tree_equal(second._ckpt_tree(), saved)
+    assert (second.global_step, second.epoch, second.batch_in_epoch) \
+        == (2, 0, 2)
+    for state in second._nets().values():
+        assert all(p.is_cuda for p in state.module.parameters())
+        moments = state.optimizer.state_dict()["state"]
+        assert moments and all(m["exp_avg"].is_cuda
+                               and float(m["step"]) == 2.0
+                               for m in moments.values())
+    second.train()                    # and it goes on from the cursor
+    assert second.global_step == 4 and len(second.step_seconds) == 2
+    second.close()
+
+
+@pytest.mark.gpu
+def test_resume_refuses_a_generator_state_across_devices(card, tmp_path):
+    from vfd_gan_tpu_torch.cli import trainer
+
+    argv = [*_STATE_NETS["clstm"], *_STATE_COMMON, "--max_steps", "1",
+            "--autosave_every", "1"]
+    on_card = trainer.main([*argv, "--device", "cuda", "--result_root",
+                            str(tmp_path / "a")])
+    on_cpu = trainer.main([*argv, "--device", "cpu", "--result_root",
+                           str(tmp_path / "b")])
+    # the two generators' states do not even have one size
+    assert on_card.rng.get_state().shape != on_cpu.rng.get_state().shape
+    for saved_on, run_on, engine in (("cuda", "cpu", on_card),
+                                     ("cpu", "cuda", on_cpu)):
+        with pytest.raises(SystemExit, match=f"saved on device '{saved_on}' "
+                                             f"and cannot continue on "
+                                             f"'{run_on}'"):
+            trainer.build_engine([*argv, "--device", run_on, "--resume",
+                                  f"{engine.dirs.weights}/latest.pt",
+                                  "--result_root", str(tmp_path / "c")])

@@ -1,6 +1,6 @@
 """Every port module, and chip_smoke.py, imports where jax, flax, orbax,
-cv2, sklearn, matplotlib and the JAX package itself are absent (a
-PyTorch-only machine); and no source of the port names jax or the JAX
+cv2, sklearn, matplotlib, tensorboard and the JAX package itself are absent
+(a PyTorch-only machine); and no source of the port names jax or the JAX
 package in an import at any depth (inside a function too)."""
 
 import ast
@@ -23,7 +23,7 @@ NEVER = {"vfd_gan_tpu", "jax", "jaxlib", "flax", "orbax"}
 _GUARDED_IMPORT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
     BLOCKED = {"jax", "jaxlib", "flax", "orbax", "cv2", "sklearn",
-               "matplotlib", "vfd_gan_tpu"}
+               "matplotlib", "tensorboard", "tensorflow", "vfd_gan_tpu"}
     for name in list(sys.modules):
         if name.split(".")[0] in BLOCKED:
             del sys.modules[name]
@@ -60,7 +60,8 @@ def test_port_imports_without_jax_or_cv2():
         "train.state", "train.checkpoints", "train.engine_base",
         "train.gan_engine", "ops.spatial_conv", "models.convlstm",
         "models.stcnn", "models.xception3d", "train.supervised_engine",
-        "data.video_io",
+        "data.video_io", "data.native", "data.dataset", "data.synthetic",
+        "parallel.prefetch", "obs.summary", "obs.profiling",
     )} <= names
 
 
@@ -109,5 +110,8 @@ def test_source_imports_nothing_of_jax_at_any_depth(source):
 def test_the_scan_covers_the_port():
     assert "chip_smoke.py" in PORT_SOURCES
     for rel in ("cli/infer.py", "cli/serve.py", "data/video_io.py",
-                "ops/spatial_conv.py", "ops/cuda/__init__.py"):
+                "ops/spatial_conv.py", "ops/cuda/__init__.py",
+                "data/dataset.py", "data/native.py", "data/synthetic.py",
+                "parallel/prefetch.py", "obs/summary.py",
+                "obs/profiling.py"):
         assert os.path.join("vfd_gan_tpu_torch", rel) in PORT_SOURCES

@@ -180,12 +180,22 @@ def test_trainer_runs_each_family_and_writes_loadable_pth(tmp_path, capsys,
     (["--model", "xception", "--moe_experts", "2"], "--moe_experts"),
     (["--model", "xception", "--pp", "2"], "parallelism"),
     (["--model", "clstm", "--accum", "2"], "--accum"),
-    (["--model", "clstm", "--ref_mode_quirks"], "train-mode test sweep"),
-    (["--model", "clstm", "--resume", "x"], "exact resume"),
+    # ported since: the engine is built and holds the option
+    pytest.param(["--model", "clstm", "--ref_mode_quirks"], None,
+                 id="--model_clstm_--ref_mode_quirks-train-mode test sweep"),
+    # --resume is ported; a path that is no file is refused by name
+    pytest.param(["--model", "clstm", "--resume", "x"],
+                 "--resume x: no such file",
+                 id="--model_clstm_--resume_x-exact resume"),
     (["--model", "ganomaly"], "item 10"),
 ], ids=lambda v: v if isinstance(v, str) else "_".join(v))
 def test_trainer_refuses_what_the_supervised_port_does_not_run(
         tmp_path, extra, match):
+    argv = _ARGS + ["--nfr", "8"] + extra + ["--result_root", str(tmp_path)]
+    if match is None:
+        engine = trainer.build_engine(argv)
+        assert engine.cfg.ref_mode_quirks and not engine.stuck_in_eval
+        engine.close()
+        return
     with pytest.raises(SystemExit, match=match):
-        trainer.main(_ARGS + ["--nfr", "8"] + extra
-                     + ["--result_root", str(tmp_path)])
+        trainer.main(argv)

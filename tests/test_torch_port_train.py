@@ -425,8 +425,8 @@ def test_eval_tail_matches_jax(engines, step_inputs, jax_disc):
         d_state, *map(jnp.asarray, (data, data, gt, pred, g3, p3, flows[:B],
                                     flows[B:])))
     port.netd.eval()
-    _, pm, got = port._eval_tail(*map(_t, (data, gt, pred, g3, p3,
-                                           flows[:B], flows[B:])))
+    _, pm, got, _ = port._eval_tail(*map(_t, (data, gt, pred, g3, p3,
+                                              flows[:B], flows[B:])))
     np.testing.assert_array_equal(pm.numpy(), np.asarray(jm))
     assert set(got) == set(want)
     for k in want:
@@ -487,18 +487,41 @@ def test_trainer_runs_a_sweep_and_writes_loadable_pth(tmp_path, capsys):
 @pytest.mark.parametrize("extra, match", [
     (["--model", "anogan"], "item 10"),
     (["--compute_dtype", "bfloat16"], "item 11"),
-    (["--synthetic_data", "0"], "mp4"),
+    # neither synthetic data nor both path lists: the JAX trainer's exit 2
+    pytest.param(["--synthetic_data", "0"], 2, id="--synthetic_data_0-mp4"),
     (["--accum", "2"], "--accum"),
     (["--remat"], "--remat"),
-    (["--cache_gt_flow"], "gt-flow cache"),
-    (["--ref_mode_quirks"], "train-mode test sweep"),
+    # ported since: the engine is built and holds the option
+    pytest.param(["--cache_gt_flow"], None,
+                 id="--cache_gt_flow-gt-flow cache"),
+    pytest.param(["--ref_mode_quirks"], None,
+                 id="--ref_mode_quirks-train-mode test sweep"),
     (["--host_flow"], "host_flow"),
     (["--int8_disc"], "quant"),
 ], ids=lambda v: v if isinstance(v, str) else "_".join(v))
-def test_trainer_refuses_what_is_not_ported(tmp_path, extra, match):
+def test_trainer_refuses_what_is_not_ported(tmp_path, capsys, extra, match):
+    argv = _ARGS + extra + ["--device", "cpu", "--result_root", str(tmp_path)]
+    if match is None:
+        engine = trainer.build_engine(argv)
+        assert getattr(engine.cfg, extra[0].lstrip("-")) is True
+        engine.close()
+        return
+    if match == 2:
+        with pytest.raises(SystemExit) as exit_info:
+            trainer.main(argv)
+        assert exit_info.value.code == 2
+        assert "--tr_plist and --ts_plist are required" in \
+            capsys.readouterr().err
+        return
     with pytest.raises(SystemExit, match=match):
-        trainer.main(_ARGS + extra + ["--device", "cpu", "--result_root",
-                                      str(tmp_path)])
+        trainer.main(argv)
+
+
+def test_unported_lost_exactly_the_five_ported_options():
+    from vfd_gan_tpu_torch.train.engine_base import UNPORTED
+
+    assert set(UNPORTED) == {"accum", "remat", "int8_disc", "host_flow",
+                             "device_scoring", "dp/sp/tp/pp", "moe_experts"}
 
 
 def test_trainer_needs_a_card_for_cuda(tmp_path):

@@ -4,18 +4,23 @@ Takes the JAX trainer's flags (``vfd_gan_tpu_torch.config``, the JAX
 package's ``vfd_gan_tpu.config`` restated) plus two of its own::
 
     python -m vfd_gan_tpu_torch.cli.trainer --model mygan \\
-        --compute_dtype float32 --synthetic_data 100 [--device cuda] \\
-        [--flow_impl fused|two_kernel|warp]
+        --compute_dtype float32 --tr_plist train.txt --ts_plist test.txt \\
+        [--autosave_every 500 [--autosave_async]] [--resume latest.pt] \\
+        [--device cuda] [--flow_impl fused|two_kernel|warp]
     python -m vfd_gan_tpu_torch.cli.trainer --model clstm \\
         --compute_dtype float32 --synthetic_data 100 [--device cuda]
 
-What this port runs today: ``--model mygan`` (the GAN engine) and
-``--model c2plus1d|xception|clstm`` (the supervised engine) in float32
-(TF32 off) on on-device synthetic data (``--synthetic_data N`` train
-batches per epoch, ``--synthetic_test_batches`` per sweep).  Every other
-choice exits with the ``ROADMAP.md`` item that holds it.  ``--device``
-defaults to ``cuda`` and raises without a card; ``--flow_impl`` applies to
-MyGAN only.
+What this port runs: ``--model mygan`` (the GAN engine; ``--ae`` for the
+AutoEncoder as G) and ``--model c2plus1d|xception|clstm`` (the supervised
+engine) in float32 (TF32 off), on mp4 path lists (``--tr_plist`` and
+``--ts_plist``: decoded with cv2 on ``--workers`` threads, copied to the
+card ``--prefetch`` batches ahead) or on on-device synthetic data
+(``--synthetic_data N`` train batches per epoch,
+``--synthetic_test_batches`` per sweep), with autosave, a parked checkpoint
+on SIGTERM, exact ``--resume``, TensorBoard panels, ``--cache_gt_flow`` and
+``--ref_mode_quirks`` as in the JAX trainer.  Every other choice exits with
+the ``ROADMAP.md`` item that holds it.  ``--device`` defaults to ``cuda``
+and raises without a card; ``--flow_impl`` applies to MyGAN only.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import argparse
 import sys
 
 from vfd_gan_tpu_torch.config import parse_args
+from vfd_gan_tpu_torch.data.dataset import ClipBatchIterator, MdfVideoDataset
 from vfd_gan_tpu_torch.data.device_synthetic import DeviceSyntheticIterator
 from vfd_gan_tpu_torch.models import SUPERVISED
 from vfd_gan_tpu_torch.ops.augment import staging_size
@@ -34,15 +40,29 @@ from vfd_gan_tpu_torch.utils.runtime import resolve_device
 
 
 def build_iterators(cfg, device):
-    """Train and test batch sources (synthetic data only, for now)."""
-    return (DeviceSyntheticIterator(
-                cfg.batchsize, cfg.nfr, staging_size(cfg.isize),
-                n_batches=cfg.synthetic_data, seed=cfg.seed,
-                thick_masks=cfg.synthetic_thick_masks, device=device),
-            DeviceSyntheticIterator(
-                cfg.batchsize, cfg.nfr, cfg.isize,
-                n_batches=cfg.synthetic_test_batches, seed=cfg.seed + 1,
-                thick_masks=cfg.synthetic_thick_masks, device=device))
+    """Train and test batch sources with the reference's loader semantics
+    (both splits shuffled and drop-last during training, lib/data.py:142):
+    batches made on the device under ``--synthetic_data``, else the mp4
+    dataset, the train split staged at ``staging_size(isize)`` for the
+    augment crop."""
+    if cfg.synthetic_data:
+        return (DeviceSyntheticIterator(
+                    cfg.batchsize, cfg.nfr, staging_size(cfg.isize),
+                    n_batches=cfg.synthetic_data, seed=cfg.seed,
+                    thick_masks=cfg.synthetic_thick_masks, device=device),
+                DeviceSyntheticIterator(
+                    cfg.batchsize, cfg.nfr, cfg.isize,
+                    n_batches=cfg.synthetic_test_batches, seed=cfg.seed + 1,
+                    thick_masks=cfg.synthetic_thick_masks, device=device))
+    train_ds = MdfVideoDataset(cfg.tr_plist, cfg.nfr,
+                               staging=staging_size(cfg.isize))
+    test_ds = MdfVideoDataset(cfg.ts_plist, cfg.nfr, staging=cfg.isize)
+    return (ClipBatchIterator(train_ds, cfg.batchsize, shuffle=True,
+                              seed=cfg.seed, prefetch=cfg.prefetch,
+                              workers=cfg.workers),
+            ClipBatchIterator(test_ds, cfg.batchsize, shuffle=True,
+                              seed=cfg.seed, prefetch=cfg.prefetch,
+                              workers=cfg.workers))
 
 
 def parse(argv):
@@ -64,10 +84,11 @@ def parse(argv):
         raise SystemExit(f"--compute_dtype {cfg.compute_dtype}: not ported "
                          "yet (ROADMAP.md queue 1 item 11); pass "
                          "--compute_dtype float32")
-    if not cfg.synthetic_data:
-        raise SystemExit("real mp4 data (--tr_plist/--ts_plist) is not "
-                         "ported yet (ROADMAP.md queue 1 item 7); use "
-                         "--synthetic_data N")
+    if not cfg.synthetic_data and (not cfg.tr_plist or not cfg.ts_plist):
+        print("error: --tr_plist and --ts_plist are required "
+              "(no hardcoded dataset defaults; or use --synthetic_data N)",
+              file=sys.stderr)
+        sys.exit(2)
     return cfg, ns.device, ns.flow_impl
 
 
@@ -85,7 +106,10 @@ def build_engine(argv):
 def main(argv=None):
     """Train; returns the engine (its step times and scores) when done."""
     engine = build_engine(sys.argv[1:] if argv is None else list(argv))
-    engine.train()
+    try:
+        engine.train()
+    finally:
+        engine.close()
     return engine
 
 

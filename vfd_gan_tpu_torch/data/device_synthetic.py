@@ -10,8 +10,11 @@ probability ``p_fake``; a real clip has an empty mask.
 
 The stream is a pure function of ``(seed, epoch, batch_index)``: each
 batch is drawn on the device from its own ``torch.Generator``, seeded from
-those three numbers.  It is not bit-equal to the JAX iterator's stream
-(another RNG).
+those three numbers, so a resumed run sets ``epoch`` and ``skip_batches``
+and continues the same stream.  It is not bit-equal to the JAX iterator's
+stream (another RNG).  The batches carry no ``index`` field (the JAX
+iterator's repeats from pass to pass while its clips change), so
+``--cache_gt_flow`` does not cache on synthetic data.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ class DeviceSyntheticIterator:
         self.p_fake = p_fake
         self.thick_masks = thick_masks
         self.device = torch.device(device)
-        self.epoch = 0
+        self.epoch = 0          # index of the next pass
+        self.skip_batches = 0   # fast-forward within the next pass (resume)
 
     def _generator(self, epoch: int, i: int) -> torch.Generator:
         seed = int(np.random.SeedSequence(
@@ -98,6 +102,8 @@ class DeviceSyntheticIterator:
 
     def __iter__(self):
         epoch = self.epoch
+        start = min(self.skip_batches, self.n_batches)
+        self.skip_batches = 0
         self.epoch += 1
-        for i in range(self.n_batches):
+        for i in range(start, self.n_batches):
             yield self.batch(epoch, i)

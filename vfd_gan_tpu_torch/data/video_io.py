@@ -1,8 +1,9 @@
-"""Host-side video decode and encode with cv2, for the entry points that
-take or write mp4 files (``cli/infer.py``, the server's ``/predict_video``).
+"""Host-side video decode and encode with cv2 and the ground-truth mask
+preparation, for whatever takes or writes mp4 files (the dataset of
+``data/dataset.py``, ``cli/infer.py``, the server's ``/predict_video``).
 
-The port's own copy of what it uses from ``vfd_gan_tpu/data/video_io.py``
-(the same frames and counts from the same files).  cv2 is imported inside
+The port's own copy of ``vfd_gan_tpu/data/video_io.py`` (the same frames,
+masks and counts from the same files).  cv2 is imported inside
 the functions: a machine without it still imports this module, and a call
 there raises an error that names cv2.
 """
@@ -35,11 +36,26 @@ def count_frames(path: str) -> int:
         cap.release()
 
 
+def mask_edge_frames(frames: np.ndarray) -> np.ndarray:
+    """Ground-truth mask preparation: invert, then the ``Canny(100, 200)``
+    edge map (reference lib/data.py:102-105: the gt is the forgery's
+    boundary, not its filled region).  ``(T, H, W, 3)`` uint8 RGB in,
+    ``(T, H, W, 1)`` uint8 in {0, 255} out."""
+    cv2 = _cv2()
+    out = np.empty(frames.shape[:3] + (1,), np.uint8)
+    for i, f in enumerate(frames):
+        out[i, :, :, 0] = cv2.Canny(cv2.bitwise_not(f), 100, 200)
+    return out
+
+
 def read_clip(path: str, first_frame: int, num_frames: int,
-              resize_to: tuple[int, int] | None = None) -> np.ndarray:
+              resize_to: tuple[int, int] | None = None,
+              mask: bool = False) -> np.ndarray:
     """Decode ``num_frames`` RGB frames starting at ``first_frame`` as uint8
-    ``(T, H, W, 3)``.  ``resize_to=(H, W)`` resizes each frame on the host
-    (bilinear).  A clip that runs past the end repeats its last frame."""
+    ``(T, H, W, 3)``, or with ``mask=True`` their invert + Canny edge maps
+    ``(T, H, W, 1)``.  ``resize_to=(H, W)`` resizes each frame on the host
+    (bilinear), an edge map after the Canny, as the reference does.  A
+    clip that runs past the end repeats its last frame."""
     cv2 = _cv2()
     if not os.path.exists(path):
         raise FileNotFoundError(f"video not found: {path}")
@@ -56,9 +72,13 @@ def read_clip(path: str, first_frame: int, num_frames: int,
                 frames.append(frames[-1].copy())
                 continue
             rgb = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+            if mask:
+                rgb = cv2.Canny(cv2.bitwise_not(rgb), 100, 200)[..., None]
             if resize_to is not None:
                 rgb = cv2.resize(rgb, (resize_to[1], resize_to[0]),
                                  interpolation=cv2.INTER_LINEAR)
+                if rgb.ndim == 2:       # cv2 drops a single channel axis
+                    rgb = rgb[..., None]
             frames.append(rgb)
         return np.stack(frames)
     finally:

@@ -49,9 +49,11 @@ def flow_refine_fused_cuda(p1: torch.Tensor, p2: torch.Tensor,
                           p1, p2, flow, winsize, iterations)
 
 
-# Kernel launches since the last reset, in all and by plane size (h, w).
+# Kernel launches since the last reset, in all and by plane size (h, w),
+# and the flow fields they solved.
 flow_refine_fused_cuda.launches = 0
 flow_refine_fused_cuda.launches_by_plane = Counter()
+flow_refine_fused_cuda.fields = 0
 
 
 def flow_refine_fused(p1: torch.Tensor, p2: torch.Tensor, flow: torch.Tensor,

@@ -170,6 +170,7 @@ def _launch_solver(wrapper, entry: str, p1, p2, flow, winsize: int,
                 winsize, *extra)
     wrapper.launches += 1
     wrapper.launches_by_plane[(h, w)] += 1
+    wrapper.fields += n
     return out
 
 
@@ -181,9 +182,11 @@ def flow_refine_step_cuda(p1: torch.Tensor, w2: torch.Tensor,
                           p1, w2, flow, winsize)
 
 
-# Kernel launches since the last reset, in all and by plane size (h, w).
+# Kernel launches since the last reset, in all and by plane size (h, w),
+# and the flow fields they solved.
 flow_refine_step_cuda.launches = 0
 flow_refine_step_cuda.launches_by_plane = Counter()
+flow_refine_step_cuda.fields = 0
 
 
 def flow_refine_step(p1: torch.Tensor, w2: torch.Tensor, flow: torch.Tensor,

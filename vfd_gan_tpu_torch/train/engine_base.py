@@ -1,63 +1,55 @@
-"""Run directories, the training loop and the best-checkpoint rule (port of
+"""The training loop, its checkpoints and the best-checkpoint rule (port of
 ``vfd_gan_tpu.train.engine_base``).
 
-* Run dir ``result_root/model/{comment}/{timestamp}`` with ``weights/``
-  and ``runs/`` and an ``args.txt`` JSON dump of the config; the comment
-  is ``b{B}xd{nfr}xwh{isize}_lr-{lr}_w-a{w_adv}c{w_con}`` for a GAN run
-  (lib/train_gan.py:33-50), ``b{B}xd{nfr}xwh{isize}_lr{lr}`` for a
-  supervised one (lib/train_stcnn.py:37; ``obs/summary.run_comment``).
+* Run dir, ``args.txt`` and the TensorBoard logger: ``obs/summary.py``.
 * ``refuse_unported``: the options the port does not run yet exit with
   the ``ROADMAP.md`` item that holds them.
-* The epoch/step loop: every ``freq`` steps the step's scalars are
-  fetched, the periodic test sweep runs, and the scalars and scores are
-  printed and appended to ``metrics.jsonl`` in the run dir.
+* The epoch/step loop starts at ``(epoch, batch_in_epoch)``, takes its
+  batches through ``parallel/prefetch.device_prefetch``, and every ``freq``
+  steps fetches the step's scalars, runs the periodic test sweep and
+  flushes the scalars, scores and panels to TensorBoard and to
+  ``metrics.jsonl`` in the run dir.
+* ``--autosave_every N`` writes the full train state to
+  ``weights/latest.pt`` every N steps (``--autosave_async``: the file is
+  written on a thread); SIGTERM or SIGINT parks the same file after the
+  step in flight and ``train()`` returns; ``--resume latest.pt`` restores
+  parameters, BatchNorm buffers, Adam state, the engine's generator, the
+  loop cursor and the best scores, and the run continues as if never
+  stopped: bit for bit on the CPU, and on a card as far as cuDNN's kernels
+  repeat themselves.
 * ``score_and_checkpoint``: gt cast to int32 (truncation binarises
   fractional mask edges, models/mygannet.py:444), NaN scores for a
   single-class or empty sweep, and the reference's rule: save on a ROC
   improvement, else on a PR improvement (models/mygannet.py:449-454).
-
-Not ported yet (ROADMAP.md queue 1 item 7): TensorBoard panels, autosave,
-SIGTERM parking and exact resume.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import contextlib
 import json
 import os
+import signal
 import time
-from datetime import datetime
 
 import numpy as np
 import torch
 
 from vfd_gan_tpu_torch.eval.metrics import evaluate
-
-
-@dataclasses.dataclass
-class RunDirs:
-    root: str
-    weights: str
-    runs: str
-
-
-def make_run_dirs(result_root: str, model: str, comment: str) -> RunDirs:
-    stamp = datetime.now().strftime("%b%d_%H-%M-%S")
-    root = os.path.join(result_root, model, comment, stamp)
-    dirs = RunDirs(root=root, weights=os.path.join(root, "weights"),
-                   runs=os.path.join(root, "runs"))
-    for d in (dirs.root, dirs.weights, dirs.runs):
-        os.makedirs(d, exist_ok=True)
-    return dirs
-
-
-def run_comment(cfg, gan: bool) -> str:
-    """The reference's run-dir comment (lib/train_gan.py:35-36 for a GAN
-    run, lib/train_stcnn.py:37 for a supervised one)."""
-    base = f"b{cfg.batchsize}xd{cfg.nfr}xwh{cfg.isize}"
-    if gan:
-        return f"{base}_lr-{cfg.lr}_w-a{cfg.w_adv}c{cfg.w_con}"
-    return f"{base}_lr{cfg.lr}"
+from vfd_gan_tpu_torch.obs.summary import (  # noqa: F401  (re-exported)
+    RunDirs,
+    SummaryLogger,
+    dump_config,
+    make_run_dirs,
+    run_comment,
+)
+from vfd_gan_tpu_torch.ops.image import threshold
+from vfd_gan_tpu_torch.ops.morphology import video_open
+from vfd_gan_tpu_torch.parallel.prefetch import device_prefetch
+from vfd_gan_tpu_torch.train.checkpoints import (
+    AsyncSaver,
+    restore_checkpoint,
+    save_checkpoint,
+)
 
 
 # JAX-engine options the port does not run yet: (is it set?, ROADMAP
@@ -66,26 +58,17 @@ def run_comment(cfg, gan: bool) -> str:
 UNPORTED = {
     "accum": (lambda c: c.accum > 1, "queue 1 item 13 (--accum)"),
     "remat": (lambda c: c.remat, "queue 1 item 13 (--remat)"),
-    "ae": (lambda c: c.ae, "queue 1 item 9 (the AutoEncoder as G)"),
     "int8_disc": (lambda c: c.int8_disc, "queue 1 item 15 (quant)"),
     "host_flow": (lambda c: c.host_flow,
                   "queue 1 item 12 (train/host_flow.py)"),
-    "cache_gt_flow": (lambda c: c.cache_gt_flow,
-                      "queue 1 item 7 (gt-flow cache)"),
-    "ref_mode_quirks": (lambda c: c.ref_mode_quirks,
-                        "queue 1 item 7 (train-mode test sweep)"),
     "device_scoring": (lambda c: c.device_scoring,
                        "queue 1 item 12 (eval/device_metrics.py)"),
-    "resume": (lambda c: bool(c.resume),
-               "queue 1 item 7 (exact resume)"),
-    "autosave_every": (lambda c: c.autosave_every > 0,
-                       "queue 1 item 7 (autosave)"),
     "dp/sp/tp/pp": (lambda c: c.dp > 1 or c.sp > 1 or c.tp > 1 or c.pp > 1,
                     "queue 1 item 13 (parallelism)"),
     "moe_experts": (lambda c: c.moe_experts > 0,
                     "queue 1 item 13 (the MoE block)"),
 }
-GAN_ONLY = ("ae", "int8_disc", "host_flow", "cache_gt_flow")
+GAN_ONLY = ("int8_disc", "host_flow")
 
 
 def refuse_unported(cfg, gan: bool) -> None:
@@ -122,7 +105,8 @@ class SweepAccumulator:
 
 class EngineBase:
     """Common state of the training engines.  An engine implements
-    ``_train_step_impl(batch) -> metrics``, ``test()`` and
+    ``_train_step_impl(batch) -> metrics``, ``_update_train_videos()``,
+    ``test()``, ``_nets() -> {name: NetState}`` and
     ``_save_weights(head)``."""
 
     def __init__(self, cfg, train_iter, test_iter, *, device: torch.device,
@@ -134,46 +118,240 @@ class EngineBase:
         self.device = device
         self.dirs = make_run_dirs(cfg.result_root, cfg.model,
                                   run_comment(cfg, gan))
-        with open(os.path.join(self.dirs.root, "args.txt"), "w") as f:
-            json.dump(dataclasses.asdict(cfg), f, indent=4)
+        self.summary = SummaryLogger(self.dirs.runs, enabled=cfg.tensorboard)
+        dump_config(self.dirs.root, cfg)
         self.global_step = 0
         self.epoch = 0
+        self.batch_in_epoch = 0
         self.best_roc = 0.0
         self.best_pr = 0.0
         # wall seconds of each train step, the device synchronised at its
-        # end: the step time a user waits for
+        # end: the step time a user waits for; and of each wait for the
+        # step's batch before it
         self.step_seconds: list[float] = []
+        self.data_seconds: list[float] = []
+        # set to a list to collect the prefetcher's (start, end) CUDA event
+        # pairs around each batch's host-to-device copies
+        self.h2d_events: list | None = None
+        # periodic-summary buffers, flushed every cfg.freq steps
+        self.color_videos: dict[str, np.ndarray] = {}
+        self.gray_videos: dict[str, np.ndarray] = {}
         self.errors: dict[str, float] = {}
         self.scores: dict[str, float] = {}
+        self.hists: dict[str, np.ndarray] = {}
+        self._autosaver: AsyncSaver | None = None
         print(f"\n SAVE PATH == {self.dirs.root} \n")
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _batches(self, iterator):
+        """``iterator``'s batches on the engine's device, copied ahead."""
+        return device_prefetch(iterator, self.device,
+                               depth=max(1, self.cfg.prefetch),
+                               h2d_events=self.h2d_events)
+
+    # -- the training loop -------------------------------------------------
     def train(self) -> None:
+        print(f" >> Training model {self.cfg.model}.")
+        with self._graceful_shutdown() as stop_signal:
+            self._train_loop(stop_signal)
+
+    def _train_loop(self, stop_signal) -> None:
         cfg = self.cfg
-        print(f" >> Training model {cfg.model}.")
-        for self.epoch in range(cfg.ep):
-            for batch in self.train_iter:
-                self.global_step += 1
+        latest = self.weight_path("latest.pt")
+        for self.epoch in range(self.epoch, cfg.ep):
+            if hasattr(self.train_iter, "epoch"):
+                # the pass's order follows the epoch; a resumed run
+                # fast-forwards within it
+                self.train_iter.epoch = self.epoch
+                self.train_iter.skip_batches = self.batch_in_epoch
+            waited = time.perf_counter()
+            for batch in self._batches(self.train_iter):
                 t0 = time.perf_counter()
+                self.data_seconds.append(t0 - waited)
+                self.global_step += 1
+                self.batch_in_epoch += 1
                 metrics = self._train_step_impl(batch)
                 self._sync()
                 self.step_seconds.append(time.perf_counter() - t0)
+
                 if self.global_step % cfg.freq == 0:
                     self.errors.update(
                         {k: float(v) for k, v in metrics.items()})
                     window = self.step_seconds[-cfg.freq:]
                     self.errors["perf/steps_per_sec"] = (
                         len(window) / sum(window))
+                    if self.summary.enabled:
+                        # panels exist only for TensorBoard: without a
+                        # writer nothing is fetched from the device
+                        self._update_train_videos()
                     self.test()
                     self.flush_summary()
+
+                if cfg.autosave_every and \
+                        self.global_step % cfg.autosave_every == 0:
+                    if cfg.autosave_async:
+                        self._async_saver().save(latest, self._ckpt_tree())
+                    else:
+                        save_checkpoint(latest, self._ckpt_tree())
+
                 if cfg.max_steps and self.global_step >= cfg.max_steps:
+                    self._wait_autosave()
                     print(f" >> Training model {cfg.model}."
                           f"[Stopped at max_steps={cfg.max_steps}]")
                     return
+
+                if stop_signal():
+                    # SIGTERM/SIGINT: park a checkpoint that resumes
+                    # exactly, and return instead of dying
+                    self._wait_autosave()
+                    save_checkpoint(latest, self._ckpt_tree())
+                    print(f" >> Training model {cfg.model}."
+                          f"[Interrupted by signal {stop_signal()}; "
+                          f"saved '{latest}'; resume with --resume]")
+                    return
+                waited = time.perf_counter()
+            self.batch_in_epoch = 0
+        self._wait_autosave()
         print(f" >> Training model {cfg.model}.[Done]")
+
+    @contextlib.contextmanager
+    def _graceful_shutdown(self):
+        """SIGTERM and SIGINT latches for the training loop: yields a
+        callable that returns the caught signal number (or None); the old
+        handlers come back on exit.  Off the main thread ``signal.signal``
+        raises ``ValueError`` and nothing is installed."""
+        caught: dict = {"sig": None}
+        saved = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                saved[sig] = signal.signal(
+                    sig, lambda s, _f: caught.__setitem__("sig", s))
+            except ValueError:
+                pass
+        try:
+            yield lambda: caught["sig"]
+        finally:
+            for sig, handler in saved.items():
+                signal.signal(sig, handler)
+
+    # -- full train state ----------------------------------------------------
+    def _loop_state(self) -> dict:
+        """What exact resume needs beyond the nets and their optimizers:
+        the state of the engine's generator (augment draws and dropout
+        masks come from it) with the device type its layout belongs to,
+        the epoch and batch cursor, the iterators' pass counters, and the
+        best scores that gate the if-roc-elif-pr rule."""
+        return {
+            "epoch": self.epoch,
+            "batch_in_epoch": self.batch_in_epoch,
+            "rng_state": self.rng.get_state(),
+            "device": self.device.type,
+            "train_iter_epoch": getattr(self.train_iter, "epoch", 0),
+            "test_iter_epoch": getattr(self.test_iter, "epoch", 0),
+            "best_roc": self.best_roc,
+            "best_pr": self.best_pr,
+        }
+
+    def _apply_loop_state(self, loop: dict) -> None:
+        if loop["device"] != self.device.type:
+            raise SystemExit(
+                f"--resume: this train state was saved on device "
+                f"'{loop['device']}' and cannot continue on "
+                f"'{self.device.type}': the random generator's state does "
+                "not carry from one device type to another, so the augment "
+                "and dropout draws would not be the saved run's (pass "
+                f"--device {loop['device']}; the weights alone carry over "
+                "as the best .pth files)")
+        self.epoch = int(loop["epoch"])
+        self.batch_in_epoch = int(loop["batch_in_epoch"])
+        self.rng.set_state(loop["rng_state"])
+        if hasattr(self.train_iter, "epoch"):
+            self.train_iter.epoch = int(loop["train_iter_epoch"])
+        if hasattr(self.test_iter, "epoch"):
+            self.test_iter.epoch = int(loop["test_iter_epoch"])
+        self.best_roc = float(loop["best_roc"])
+        self.best_pr = float(loop["best_pr"])
+
+    def _ckpt_tree(self) -> dict:
+        """The full train state as a tree of tensors, numbers, strings,
+        lists and dicts."""
+        tree = {name: {"module": net.module.state_dict(),
+                       "optimizer": net.optimizer.state_dict()}
+                for name, net in self._nets().items()}
+        tree["step"] = self.global_step
+        tree["loop"] = self._loop_state()
+        return tree
+
+    def restore_into(self, path: str, nets: dict) -> None:
+        """Load the train state saved at ``path`` into ``nets`` (name ->
+        NetState: modules and optimizers, in place) and into the engine's
+        step, generator and loop cursor."""
+        if os.path.isdir(path):
+            raise SystemExit(
+                f"--resume {path}: a directory, as the JAX trainer's Orbax "
+                "checkpoints are.  Train state does not cross the two "
+                "frameworks; python -m vfd_gan_tpu.cli.export_torch "
+                "--ckpt <dir> converts its weights (only) to .pth files")
+        if not os.path.isfile(path):
+            raise SystemExit(f"--resume {path}: no such file (expected the "
+                             "weights/latest.pt of an earlier run)")
+        self._wait_autosave()
+        tree = restore_checkpoint(path)
+        missing = [k for k in (*nets, "step", "loop") if k not in tree]
+        if missing:
+            raise SystemExit(f"--resume {path}: not this model's train "
+                             f"state (no {missing} in it)")
+        for name, net in nets.items():
+            net.module.load_state_dict(tree[name]["module"], strict=True)
+            net.optimizer.load_state_dict(tree[name]["optimizer"])
+        self.global_step = int(tree["step"])
+        self._apply_loop_state(tree["loop"])
+
+    def _async_saver(self) -> AsyncSaver:
+        if self._autosaver is None:
+            self._autosaver = AsyncSaver()
+        return self._autosaver
+
+    def _wait_autosave(self) -> None:
+        """Join an ``--autosave_async`` write in flight (before a final
+        save, a restore of the same path, or the process's exit)."""
+        if self._autosaver is not None:
+            self._autosaver.wait()
+
+    def close(self) -> None:
+        self._wait_autosave()
+        self.summary.close()
+
+    # -- summaries -----------------------------------------------------------
+    def viz_morphology(self, pred: torch.Tensor):
+        """Thresholded and opened masks for the summary videos, computed
+        when a summary is flushed and not in every train step (the test
+        step computes its own: there the opened mask is what is scored)."""
+        with torch.no_grad():
+            t_pre = threshold(pred)
+            return t_pre, video_open(t_pre, self.cfg.morph_plane)
+
+    @property
+    def panel_step(self) -> bool:
+        """Is this a step whose panels go to TensorBoard?  Only then does
+        a train step keep the tensors the panels are made of."""
+        return self.summary.enabled \
+            and self.global_step % self.cfg.freq == 0
+
+    @property
+    def stuck_in_eval(self) -> bool:
+        """Under ``--ref_mode_quirks``: has the reference's ``.eval()``
+        latch engaged?  The reference's supervised ``test()`` switches the
+        model to eval mode and never back (lib/train_stcnn.py:143), so
+        every train step after the first periodic test runs without
+        dropout and with frozen BN statistics.  The loop tests at step
+        ``freq``, after that step's update, so the latch holds from step
+        ``freq + 1``; it follows from ``global_step`` and so survives a
+        resume."""
+        return self.cfg.ref_mode_quirks and self.global_step > self.cfg.freq
 
     def score_and_checkpoint(self, gts, predicts,
                              save_fn) -> tuple[float, float, float]:
@@ -209,8 +387,13 @@ class EngineBase:
         return roc, pr, f1
 
     def flush_summary(self) -> None:
-        """Print the window's scalars and scores and append them to
-        ``metrics.jsonl``."""
+        """Send the window's panels, scalars and scores to TensorBoard,
+        print the scalars and scores and append them to ``metrics.jsonl``."""
+        self.summary.update(self.global_step,
+                            color_videos=self.color_videos,
+                            gray_videos=self.gray_videos,
+                            errors=self.errors, scores=self.scores,
+                            hists=self.hists)
         rec = {"step": self.global_step, "epoch": self.epoch,
                **{k: float(v) for k, v in self.errors.items()},
                **{k: float(v) for k, v in self.scores.items()}}

@@ -24,15 +24,25 @@ with the reference's semantics, as the JAX engine keeps them:
 
 The flow of both streams is one ``video_to_flow_rgb`` call with
 ``streams=2``; its refinement loop runs on the flow kernels of
-``flow_impl`` (``ops/flow.py``).  Options of the JAX engine that are not
-ported yet are refused with the ``ROADMAP.md`` item that holds them.
+``flow_impl`` (``ops/flow.py``).
+
+Options: ``--ae`` trains the (2+1)D ``AutoEncoder`` as G (saved as
+``*_netG.pth`` like any G); ``--resume latest.pt`` restores the full train
+state (``EngineBase.restore_into``); ``--cache_gt_flow`` keeps each test clip's
+gt flow video on the device after the first sweep and computes only the
+predicted stream afterwards; ``--ref_mode_quirks`` runs the sweep as the
+reference does, with G and D in train mode.  Options of the JAX engine
+that are not ported yet are refused with the ``ROADMAP.md`` item that holds
+them.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from vfd_gan_tpu_torch.models.mygan import DualDisc, Generator
+from vfd_gan_tpu_torch.models.stcnn import AutoEncoder
 from vfd_gan_tpu_torch.ops.augment import (
     augment_clips,
     normalize_clips,
@@ -47,26 +57,47 @@ from vfd_gan_tpu_torch.ops.image import (
 )
 from vfd_gan_tpu_torch.ops.losses import bce, l2_loss, weighted_bce
 from vfd_gan_tpu_torch.ops.morphology import video_open
+from vfd_gan_tpu_torch.parallel.prefetch import to_device
 from vfd_gan_tpu_torch.train.checkpoints import best_ckpt_name, save_pth
 from vfd_gan_tpu_torch.train.engine_base import EngineBase, SweepAccumulator
 from vfd_gan_tpu_torch.train.state import NetState
+
+
+def _host(viz: dict) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in viz.items()}
+
 
 class MyGanEngine(EngineBase):
     def __init__(self, cfg, train_iter, test_iter, *, device: torch.device,
                  flow_impl: str = "fused"):
         super().__init__(cfg, train_iter, test_iter, device=device, gan=True)
         init = torch.Generator().manual_seed(cfg.seed)
-        self.g = NetState.create(
-            Generator(cfg.ngf, generator=init).to(device), cfg.lr, cfg.beta1)
+        if cfg.ae:
+            print("\n --Using C2plus1d AutoEncoder as G-- ")
+            netg = AutoEncoder(generator=init)
+        else:
+            netg = Generator(cfg.ngf, generator=init)
+        self.g = NetState.create(netg.to(device), cfg.lr, cfg.beta1)
         self.d = NetState.create(
             DualDisc(cfg.ndf, cfg.nfr, cfg.isize, generator=init).to(device),
             cfg.lr, cfg.beta1)
         # augmentation draws and dropout masks
         self.rng = torch.Generator(device=device).manual_seed(cfg.seed + 1)
         self.flow_impl = flow_impl
+        # --cache_gt_flow: clip index -> its (T, H, W, 3) gt flow video on
+        # the device
+        self._gt_flow_cache: dict[int, torch.Tensor] = {}
+        # the tensors of the last train step's panels (a panel step only)
+        self._viz: dict | None = None
+        if cfg.resume:
+            self.restore_into(cfg.resume, self._nets())
+            print(f"\n Loaded pretrained G/D weights from {cfg.resume}\n")
+
+    def _nets(self) -> dict:
+        return {"netG": self.g, "netD": self.d}
 
     @property
-    def netg(self) -> Generator:
+    def netg(self) -> Generator | AutoEncoder:
         return self.g.module
 
     @property
@@ -88,13 +119,16 @@ class MyGanEngine(EngineBase):
     # -- the train step ----------------------------------------------------
     def _train_step_impl(self, batch: dict) -> dict:
         cfg = self.cfg
+        batch = to_device(batch, self.device)
         b, _, s = batch["data"].shape[:3]
         params = sample_clip_params(self.rng, b, s, cfg.isize,
                                     device=self.device)
-        data, _, gt = augment_clips(params, batch["data"].to(self.device),
-                                    batch["real"].to(self.device),
-                                    batch["mask"].to(self.device), cfg.isize)
-        return self._gan_core(data, gt, self.rng)
+        data, real, gt = augment_clips(params, batch["data"], batch["real"],
+                                       batch["mask"], cfg.isize)
+        metrics = self._gan_core(data, gt, self.rng)
+        if self._viz is not None:
+            self._viz.update({"input": data, "real": real})
+        return metrics
 
     def _gan_core(self, data: torch.Tensor, gt: torch.Tensor,
                   drop_gen: torch.Generator | None = None) -> dict:
@@ -160,37 +194,92 @@ class MyGanEngine(EngineBase):
                 "g/err_g_adv_t/train": err_g_adv_t,
                 "g/err_g_con/train": g_con / cfg.w_con,
             }
+        # the panels' tensors, kept (not copied) on a panel step only;
+        # their thresholded and opened forms are made when flushed
+        self._viz = {"gt": gt, "pred": pred_sg, "gt_flow": gt_flow,
+                     "pre_flow": pre_flow} if self.panel_step else None
         return {k: v.detach() for k, v in metrics.items()}
+
+    def _update_train_videos(self) -> None:
+        viz = self._viz
+        if viz is None or "input" not in viz:
+            return
+        t_pre, m_pre = self.viz_morphology(viz["pred"])
+        d = _host({**viz, "t_pre": t_pre, "m_pre": m_pre})
+        self._viz = None
+        if self.summary.videos:
+            self.color_videos["train/input-real-inflow-genflow"] = \
+                np.concatenate([d["input"], d["real"], d["gt_flow"],
+                                d["pre_flow"]], axis=2)
+            self.gray_videos["train/gt-pre-th-morph"] = np.concatenate(
+                [d["gt"], d["pred"], d["t_pre"], d["m_pre"]], axis=2)
+        self.hists.update({f"train/{k}": d[k].ravel()
+                           for k in ("input", "gt", "pred", "t_pre", "m_pre")})
 
     # -- the periodic test -------------------------------------------------
     @torch.no_grad()
-    def _eval_step_impl(self, batch: dict):
-        """Test step (reference MyGAN.test body, models/mygannet.py:
-        395-424) with G and D in eval mode."""
-        dev = self.device
-        data, real, gt = normalize_clips(batch["data"].to(dev),
-                                         batch["real"].to(dev),
-                                         batch["mask"].to(dev))
-        self.netg.eval()
-        self.netd.eval()
-        pred = to_channel_last(self.netg(to_channel_first(data)))
+    def _eval_step(self, batch: dict, *, train_mode: bool = False,
+                   gt_flow: torch.Tensor | None = None):
+        """The body of the three test steps below: G and D in
+        ``train_mode``, the gt stream's flow computed with the predicted
+        one unless ``gt_flow`` is given; returns ``(gt, m_pre, metrics,
+        viz)``."""
+        batch = to_device(batch, self.device)
+        data, real, gt = normalize_clips(batch["data"], batch["real"],
+                                         batch["mask"])
+        self.netg.train(train_mode)
+        self.netd.train(train_mode)
+        pred = to_channel_last(self.netg(
+            to_channel_first(data), self.rng if train_mode else None))
         gt_3ch = gray2rgb(gt)
         pre_3ch = gray2rgb(pred)
-        flows = self._flow(torch.cat([gt_3ch, pre_3ch], dim=0), streams=2)
-        gt_flow, pre_flow = flows.chunk(2, dim=0)
+        if gt_flow is None:
+            flows = self._flow(torch.cat([gt_3ch, pre_3ch], dim=0),
+                               streams=2)
+            gt_flow, pre_flow = flows.chunk(2, dim=0)
+        else:
+            pre_flow = self._flow(pre_3ch, streams=1)
         return self._eval_tail(data, gt, pred, gt_3ch, pre_3ch, gt_flow,
-                               pre_flow)
+                               pre_flow, real)
+
+    def _eval_step_impl(self, batch: dict):
+        """Test step (reference MyGAN.test body, models/mygannet.py:
+        395-424) with G and D in eval mode; the gt flow comes back under
+        ``viz["gt_flow"]`` for the ``--cache_gt_flow`` cache."""
+        return self._eval_step(batch)
+
+    def _eval_step_cached_impl(self, batch: dict, gt_flow: torch.Tensor):
+        """Test step on cached gt flows ``(B, T, H, W, 3)``: the gt masks
+        are fixed per clip, so their flow of the first sweep is reused and
+        only the predicted stream is computed, half of the sweep's fields.
+        Near-exact: the flow's per-time-slab min-max over the batch
+        (lib/utils.py:96) is the identity for a binary edge slab that holds
+        both values, so a cached flow depends on the batch it was computed
+        in only for all-constant slabs; that reaches D's test losses alone
+        (the scores come from ``m_pre``, which no flow enters)."""
+        return self._eval_step(batch, gt_flow=gt_flow)
+
+    def _eval_step_quirk_impl(self, batch: dict):
+        """``--ref_mode_quirks`` test step: the reference's MyGAN.test
+        never calls ``.eval()`` (models/mygannet.py:369-441), so G runs
+        with dropout on (masks from the engine's generator) and G's and
+        D's BatchNorms normalise by batch statistics and update their
+        running statistics during the sweep, D's twice per batch; what
+        they become carries back into training."""
+        return self._eval_step(batch, train_mode=True)
 
     @torch.no_grad()
     def _eval_tail(self, data, gt, pred, gt_3ch, pre_3ch, gt_flow,
-                   pre_flow):
-        """Opened binary masks and the reference's test losses; returns
-        ``(gt, m_pre, metrics)``."""
+                   pre_flow, real=None):
+        """Opened binary masks and the reference's test losses, D in the
+        mode the caller set; returns ``(gt, m_pre, metrics, viz)``, ``viz``
+        the tensors of the test panels and the gt flow (not copied)."""
         cfg = self.cfg
         b = data.shape[0]
         ones = torch.ones(b, device=data.device)
         zeros = torch.zeros(b, device=data.device)
-        m_pre = video_open(threshold(pred), cfg.morph_plane)
+        t_pre = threshold(pred)
+        m_pre = video_open(t_pre, cfg.morph_plane)
         (s_r, sf_r, t_r, tf_r), (s_f, sf_f, t_f, tf_f) = self._disc(
             gt_3ch, gt_flow, pre_3ch, pre_flow)
         err_g_adv_s = l2_loss(sf_r.float(), sf_f.float())
@@ -217,19 +306,59 @@ class MyGanEngine(EngineBase):
         metrics["d/err_d_fake/test"] = (err_d_fake_s + err_d_fake_t) * 0.5
         metrics["d/err_d/test"] = (metrics["d/err_d_real/test"]
                                    + metrics["d/err_d_fake/test"]) * 0.5
-        return gt, m_pre, metrics
+        viz = {"input": data, "real": data if real is None else real,
+               "gt": gt, "pred": pred, "t_pre": t_pre, "m_pre": m_pre,
+               "gt_flow": gt_flow}
+        return gt, m_pre, metrics, viz
 
     def test(self) -> tuple[float, float, float]:
+        cfg = self.cfg
         sweep = SweepAccumulator()
-        for batch in self.test_iter:
-            gt, m_pre, metrics = self._eval_step_impl(batch)
+        for batch in self._batches(self.test_iter):
+            idx = batch.get("index")
+            caching = cfg.cache_gt_flow and idx is not None \
+                and not cfg.ref_mode_quirks
+            if cfg.ref_mode_quirks:
+                # G and D stay in train mode through the sweep; the gt-flow
+                # cache is bypassed, so the path is the reference's
+                gt, m_pre, metrics, viz = self._eval_step_quirk_impl(batch)
+            elif caching and all(int(i) in self._gt_flow_cache for i in idx):
+                gt, m_pre, metrics, viz = self._eval_step_cached_impl(
+                    batch, torch.stack([self._gt_flow_cache[int(i)]
+                                        for i in idx]))
+            else:
+                gt, m_pre, metrics, viz = self._eval_step_impl(batch)
+                if caching:
+                    for j, i in enumerate(idx):
+                        self._gt_flow_cache[int(i)] = viz["gt_flow"][j]
             sweep.add(gt, m_pre, metrics)
+            if self.summary.videos:
+                # TensorBoard-only panels (the last batch's stay)
+                d = _host({k: viz[k] for k in ("input", "real", "gt", "pred",
+                                               "t_pre", "m_pre")})
+                self.color_videos["test/input-real"] = np.concatenate(
+                    [d["input"], d["real"]], axis=2)
+                self.gray_videos["test/gt-pre-th-morph"] = np.concatenate(
+                    [d["gt"], d["pred"], d["t_pre"], d["m_pre"]], axis=2)
         roc, pr, f1 = self.score_and_checkpoint(sweep.gts, sweep.preds,
                                                 self._save_weights)
         self.errors.update(sweep.mean_metrics())
         print(f" >> test sweep at step {self.global_step}: {sweep.n} "
               f"batches, roc {roc:.6g} pr {pr:.6g} f1 {f1:.6g}", flush=True)
         return roc, pr, f1
+
+    def reinit_d(self) -> None:
+        """Draw the discriminator anew, with a fresh Adam state (reference
+        reinit_d, models/mygannet.py:346-348: a hook against collapse);
+        the seed comes from the engine's generator."""
+        cfg = self.cfg
+        seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.rng,
+                                 device=self.device))
+        init = torch.Generator().manual_seed(seed)
+        self.d = NetState.create(
+            DualDisc(cfg.ndf, cfg.nfr, cfg.isize,
+                     generator=init).to(self.device), cfg.lr, cfg.beta1)
+        print("Reloading Net d")
 
     def _save_weights(self, head: str) -> None:
         for net, module in (("netG", self.netg), ("netD", self.netd)):

@@ -14,12 +14,20 @@ The periodic test sweep runs ``normalize_clips`` -> eval forward -> bce
 opened binary mask, not ``pred`` (lib/train_stcnn.py:158-162), with the
 if-roc-elif-pr rule of ``EngineBase.score_and_checkpoint``; a best model
 is saved as ``{roc|pr}-{score:.4f}_step{NNNN}.pth`` with the reference's
-``state_dict`` keys.  Options of the JAX engine that are not ported yet
-are refused with the ``ROADMAP.md`` item that holds them.
+``state_dict`` keys.
+
+``--resume latest.pt`` restores the full train state
+(``EngineBase.restore_into``).  Under ``--ref_mode_quirks`` the reference's
+stuck-in-eval latch holds: its ``test()`` switches the model to eval mode
+and never back (lib/train_stcnn.py:143), so from step ``freq + 1`` on the
+model trains without dropout and normalises by frozen BatchNorm running
+statistics (gradients still flow).  Options of the JAX engine that are
+not ported yet are refused with the ``ROADMAP.md`` item that holds them.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from vfd_gan_tpu_torch.models import build_mask_model
@@ -35,6 +43,7 @@ from vfd_gan_tpu_torch.ops.image import (
 )
 from vfd_gan_tpu_torch.ops.losses import bce
 from vfd_gan_tpu_torch.ops.morphology import video_open
+from vfd_gan_tpu_torch.parallel.prefetch import to_device
 from vfd_gan_tpu_torch.train.checkpoints import save_pth
 from vfd_gan_tpu_torch.train.engine_base import EngineBase, SweepAccumulator
 from vfd_gan_tpu_torch.train.state import NetState
@@ -49,6 +58,14 @@ class SupervisedEngine(EngineBase):
             cfg.lr, cfg.beta1)
         # augmentation draws and dropout masks
         self.rng = torch.Generator(device=device).manual_seed(cfg.seed + 1)
+        # the tensors of the last train step's panels (a panel step only)
+        self._viz: dict | None = None
+        if cfg.resume:
+            self.restore_into(cfg.resume, self._nets())
+            print(f"\n Loaded pretrained weights from {cfg.resume}\n")
+
+    def _nets(self) -> dict:
+        return {"state": self.net}
 
     @property
     def model(self) -> torch.nn.Module:
@@ -56,46 +73,75 @@ class SupervisedEngine(EngineBase):
 
     def _train_step_impl(self, batch: dict) -> dict:
         cfg = self.cfg
+        batch = to_device(batch, self.device)
         b, _, s = batch["data"].shape[:3]
         params = sample_clip_params(self.rng, b, s, cfg.isize,
                                     device=self.device)
-        data, _, gt = augment_clips(params, batch["data"].to(self.device),
-                                    batch["real"].to(self.device),
-                                    batch["mask"].to(self.device), cfg.isize)
-        return self._step(data, gt, self.rng)
+        data, real, gt = augment_clips(params, batch["data"], batch["real"],
+                                       batch["mask"], cfg.isize)
+        metrics = self._step(data, gt, self.rng)
+        if self._viz is not None:
+            self._viz.update({"data": data, "real": real})
+        return metrics
 
     def _step(self, data: torch.Tensor, gt: torch.Tensor,
               drop_gen: torch.Generator | None = None) -> dict:
         """One step on augmented channel-last ``data (B, T, H, W, C)`` and
         ``gt (B, T, H, W, 1)``: the model updated in place; returns the
-        step's loss (a 0-dim tensor, on the device)."""
+        step's loss (a 0-dim tensor, on the device).  In eval mode once
+        the ``--ref_mode_quirks`` latch holds."""
         model = self.model
-        model.train()
+        model.train(not self.stuck_in_eval)
         pred = to_channel_last(model(to_channel_first(data), drop_gen))
         loss = bce(pred, gt)
         self.net.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.net.optimizer.step()
+        self._viz = {"gt": gt, "pred": pred.detach()} \
+            if self.panel_step else None
         return {"loss/err/train": loss.detach()}
+
+    def _update_train_videos(self) -> None:
+        viz = self._viz
+        if viz is None or "data" not in viz or not self.summary.videos:
+            return
+        t_pre, m_pre = self.viz_morphology(viz["pred"])
+        d = {k: v.detach().cpu().numpy()
+             for k, v in {**viz, "t_pre": t_pre, "m_pre": m_pre}.items()}
+        self._viz = None
+        self.color_videos["train/input-real"] = np.concatenate(
+            [d["data"], d["real"]], axis=2)
+        self.gray_videos["train/gt-pre-th-mor"] = np.concatenate(
+            [d["gt"], d["pred"], d["t_pre"], d["m_pre"]], axis=2)
 
     @torch.no_grad()
     def _eval_step_impl(self, batch: dict):
-        """Test step: ``(bce, gt, m_pre)`` with the model in eval mode."""
-        dev = self.device
-        data, _, gt = normalize_clips(batch["data"].to(dev),
-                                      batch["real"].to(dev),
-                                      batch["mask"].to(dev))
+        """Test step with the model in eval mode: ``(bce, gt, pred, t_pre,
+        m_pre, data, real)``."""
+        batch = to_device(batch, self.device)
+        data, real, gt = normalize_clips(batch["data"], batch["real"],
+                                         batch["mask"])
         self.model.eval()
         pred = to_channel_last(self.model(to_channel_first(data)))
-        m_pre = video_open(threshold(pred), self.cfg.morph_plane)
-        return bce(pred, gt), gt, m_pre
+        t_pre = threshold(pred)
+        m_pre = video_open(t_pre, self.cfg.morph_plane)
+        return bce(pred, gt), gt, pred, t_pre, m_pre, data, real
 
     def test(self) -> tuple[float, float, float]:
         sweep = SweepAccumulator()
-        for batch in self.test_iter:
-            err, gt, m_pre = self._eval_step_impl(batch)
+        for batch in self._batches(self.test_iter):
+            err, gt, pred, t_pre, m_pre, data, real = \
+                self._eval_step_impl(batch)
             # the scored prediction is the opened binary mask
             sweep.add(gt, m_pre, {"loss/err/test": err})
+            if self.summary.videos:
+                # TensorBoard-only panels (the last batch's stay)
+                d = [v.cpu().numpy()
+                     for v in (data, real, gt, pred, t_pre, m_pre)]
+                self.color_videos["test/input-real"] = np.concatenate(
+                    d[:2], axis=2)
+                self.gray_videos["test/mask-pre-th-mor"] = np.concatenate(
+                    d[2:], axis=2)
         roc, pr, f1 = self.score_and_checkpoint(sweep.gts, sweep.preds,
                                                 self._save_weights)
         self.errors.update(sweep.mean_metrics())
