@@ -51,7 +51,7 @@ phases, one line each (or a few):
    size from the same weights and the same injected flows, TF32 off:
    losses, updated G and D parameters and D BatchNorm statistics;
 10. training: ``cli.trainer.main`` at the reference width (b8, T16, 128^2,
-    ngf = ndf = 32, flow_scale 0.5, float32, synthetic data) for a few
+    ngf = ndf = 32, flow_scale 0.5, float32, synthetic data) for 12
     steps and one test sweep; finite losses, ROC/PR/F1, the best
     ``*_netG.pth``/``*_netD.pth`` loaded back with strict=True, step time
     and peak memory;
@@ -87,6 +87,21 @@ phases, one line each (or a few):
 16. tensorboard: one short trainer run with the logger on; says whether a
     writer existed, and then finds its event file.  The other trainer
     phases pass ``--no-tensorboard``.
+
+bfloat16, the JAX package's and the trainer's default compute dtype, runs
+beside float32: the conv kernel's bf16 form at the nine launches of a
+clstm step against its plain version (at least 99% of the elements equal,
+every one within one bf16 ulp beyond the float32 sums' own spread), timed
+with its plain version and ``F.conv2d`` in bf16; after the serving phases,
+``--dtype bfloat16`` serving of the four families (``predict_clips`` on
+the card against the CPU's bf16, the b8 forward beside float32's, HTTP
+requests); after the float32 step parities, the same CUDA-vs-CPU steps in
+bf16 (MyGAN, ``--ae`` and the supervised families; losses 1e-2 relative,
+parameters 2.5 lr, as the CPU tests hold the port to JAX); after the
+float32 training phases, the default command line (no ``--compute_dtype``)
+for MyGAN (12 steps and a one-batch sweep), ``--ae`` (3 steps), clstm,
+c2plus1d and xception, each step median and peak memory printed beside
+the float32 run's, clstm's launches all on the bf16 conv kernel.
 
 Before the serving phase come two more kernel phases: the augment gather
 kernel against its plain version (bit-equal on all three outputs at the
@@ -162,15 +177,20 @@ KERNELS = {
                        "vfd_gan_tpu/ops/pallas/augment.py:54"),
     "conv3x3": ("vfd_gan_tpu_torch/ops/cuda/conv3x3.cu",
                 "vfd_gan_tpu/ops/pallas/spatial_conv.py:42"),
+    # the same TPU kernel on bfloat16 operands (compute_dtype bfloat16)
+    "conv3x3_bf16": ("vfd_gan_tpu_torch/ops/cuda/conv3x3.cu",
+                     "vfd_gan_tpu/ops/pallas/spatial_conv.py:42"),
 }
 # the train step's flow fields: 2 streams x B x (T - 1)
 FIELDS = 2 * BATCH * (NFR - 1)
 # flow levels at flow_scale 0.5 (64, 32, 16) and the top one at 1.0 (128)
 FLOW_SIZES = (64, 32, 16, 128)
-TRAIN_STEPS = 16
+TRAIN_STEPS = 12
 # the supervised families' training phases: model -> (steps, extra flags)
 SUPERVISED_RUNS = {"clstm": (8, []), "c2plus1d": (4, []),
                    "xception": (4, ["--xwidth", "1.0"])}
+# the --ae run in bfloat16: steps
+AE_STEPS = 3
 
 
 def say(phase: str, msg: str) -> None:
@@ -214,6 +234,7 @@ def event_ms(fn, reps: int = 20, calls: int = 10, warmup: int = 5) -> float:
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_TF32_FLOP_PER_S = 495e12
+PEAK_BF16_FLOP_PER_S = 989e12
 
 
 def bound(nbytes: float, flop: float,
@@ -716,6 +737,94 @@ def phase_conv_kernel(device) -> dict:
             step["library_ms"], "step_bound_ms_sum": step["bound_ms"]}
 
 
+def phase_conv_kernel_bf16(device) -> dict:
+    """The bfloat16 form of the conv kernel at the nine launches of a clstm
+    step (``CONV_CASES`` F1-D4): the case's launch (with ``flip`` for a dx
+    case) against its plain version on the same bfloat16 tensors (float32
+    sums of the widened operands, rounded once): at least 99% of the
+    elements equal and every one within one bfloat16 ulp of the plain
+    result beyond the float32 sums' own spread (``conv_sum_slack``; a sum
+    that cancels to near 0 is off by many ulps of itself, in any two
+    orders).  Then timed in
+    turns with the plain version and with ``F.conv2d`` in bfloat16 (cuDNN,
+    the library call) on the same tensors.  Bound: the bytes at two per
+    value over 3.35 TB/s against 2 N H W 9 Cin Cout over 989 TFLOP/s
+    (dense bf16).  Returns the kernels-line entry, one entry per case under
+    ``shapes``."""
+    import torch.nn.functional as F
+
+    from vfd_gan_tpu_torch.ops import spatial_conv
+
+    shapes = []
+    for label, (n, h, w, cin, cout, flip, per_step, what) in \
+            CONV_CASES.items():
+        if not per_step:
+            continue
+        g = torch.Generator(device=device).manual_seed(cin)
+        x = torch.randn((n, h, w, cin), generator=g,
+                        device=device).bfloat16()
+        given = (torch.randn((3, 3, cout, cin) if flip else (3, 3, cin, cout),
+                             generator=g, device=device) * 0.1).bfloat16()
+        # the weights the launch convolves by, (3, 3, Cin, Cout)
+        k = given.flip(0, 1).transpose(2, 3).contiguous() if flip else given
+        kernel = lambda: spatial_conv.conv3x3_cuda(  # noqa: E731
+            x, given, flip=flip)
+        plain = lambda: spatial_conv.conv3x3_plain(x, k)  # noqa: E731
+        xc, kc = x.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1)
+        library = lambda: F.conv2d(xc, kc, padding=1)  # noqa: E731
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        check(got.dtype == torch.bfloat16, f"conv3x3 bf16 {label} dtype")
+        ulps = spatial_conv.bf16_ulps(got, want,
+                                        spatial_conv.conv_sum_slack(x, k))
+        raw = spatial_conv.bf16_ulps(got, want)
+        beyond = (raw > 1).float().mean().item()
+        raw_max = raw.max().item()
+        equal = (got == want).float().mean().item()
+        check(equal >= 0.99 and ulps.max().item() <= 1.0,
+              f"conv3x3 bf16 {label}: {equal:.6f} equal, "
+              f"{ulps.max().item()} ulps beyond the sums' spread")
+        err = (got.float() - want.float()).abs().max().item()
+        lib_err = (library().permute(0, 2, 3, 1).float()
+                   - want.float()).abs().max().item()
+        del got, want, ulps, raw
+        k_ms, p_ms, _ = _time_pair(kernel, plain)
+        _, l_ms, order = _time_pair(kernel, library)
+        px = n * h * w
+        limit = bound(2 * (px * (cin + cout) + 9 * cin * cout),
+                      2 * px * 9 * cin * cout, PEAK_BF16_FLOP_PER_S)
+        say("conv3x3-bf16",
+            f"{label} ({what}) N{n} {h}x{w} {cin}->{cout}"
+            f"{' flip' if flip else ''}: {100 * equal:.4f}% equal to the "
+            f"plain version, the rest within one bf16 ulp beyond the float32 "
+            f"sums' spread ({100 * beyond:.4f}% more than one ulp apart, "
+            f"{raw_max:.0f} at most, where the products cancel), max-abs "
+            f"{err:.3g} (F.conv2d bf16 {lib_err:.3g}); kernel {k_ms:.4f} "
+            f"ms, plain {p_ms:.4f} ms, F.conv2d bf16 {l_ms:.4f} ms "
+            f"(library/kernel/kernel/library {order}); bound "
+            f"{limit['bound_ms']:.4f} ms by {limit['bound_by']}; "
+            f"x{per_step} per step")
+        shapes.append({"id": label, "what": what, "n": n, "h": h, "w": w,
+                       "cin": cin, "cout": cout, "flip": flip,
+                       "launches_per_step": per_step, "max_abs_err": err,
+                       "equal_share": equal, "ms": k_ms, "plain_ms": p_ms,
+                       "library_ms": l_ms, **limit})
+        del x, given, k, xc, kc
+    step = {key: sum(c["launches_per_step"] * c[key] for c in shapes)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    say("conv3x3-bf16", f"times x launches over one bf16 clstm step "
+                        f"({CONV_LAUNCHES_PER_STEP} launches): kernel "
+                        f"{step['ms']:.3f} ms, plain {step['plain_ms']:.3f} "
+                        f"ms, F.conv2d bf16 {step['library_ms']:.3f} ms, "
+                        f"bound {step['bound_ms']:.3f} ms")
+    main_case = next(c for c in shapes if c["id"] == CONV_MAIN_CASE)
+    keys = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")
+    return {**{key: main_case[key] for key in keys},
+            "shape": CONV_MAIN_CASE, "shapes": shapes,
+            **{f"step_{key}_sum": v for key, v in step.items()}}
+
+
 # The served families: name -> the substring of a checkpoint's file name
 # that ``cli.infer._load`` dispatches on.
 SERVED = {"mygan": "netG", "clstm": "clstm", "c2plus1d": "c2plus1d",
@@ -804,15 +913,16 @@ def _scores_ok(scores, k: int) -> None:
 
 
 @contextlib.contextmanager
-def _serving(path: Path):
-    """``cli.serve.serve`` for ``path`` on port 0 at the serving shape, its
-    HTTP loop on a thread; yields (server, base URL, httpd) and stops
-    both."""
+def _serving(path: Path, dtype: str = "float32"):
+    """``cli.serve.serve`` for ``path`` on port 0 at the serving shape and
+    ``--dtype``, its HTTP loop on a thread; yields (server, base URL,
+    httpd) and stops both."""
     from vfd_gan_tpu_torch.cli.serve import build_parser, serve
 
     args = build_parser().parse_args(
         ["--ckpt", str(path), "--port", "0", "--max_batch", str(BATCH),
-         "--nfr", str(NFR), "--isize", str(ISIZE), "--device", "cuda"])
+         "--nfr", str(NFR), "--isize", str(ISIZE), "--dtype", dtype,
+         "--device", "cuda"])
     httpd = serve(args)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
@@ -828,9 +938,9 @@ def _serving(path: Path):
 
 
 def _served_vs_direct(base: str, model: torch.nn.Module,
-                      one: np.ndarray) -> float:
+                      one: np.ndarray, tol: float = 1e-5) -> float:
     """One served clip's frame scores against a direct forward of the
-    same weights (<= 1e-5)."""
+    same weights (<= ``tol``)."""
     from vfd_gan_tpu_torch.ops.image import to_channel_first
 
     out = _post(base, "/predict", one)
@@ -839,7 +949,7 @@ def _served_vs_direct(base: str, model: torch.nn.Module,
         direct = model(to_channel_first(torch.from_numpy(one)).cuda())
     want = direct[:, 0].flatten(2).mean(dim=2).cpu().numpy()
     err = float(np.abs(np.asarray(out["frame_scores"]) - want).max())
-    check(err <= 1e-5, f"served frame scores vs direct forward {err}")
+    check(err <= tol, f"served frame scores vs direct forward {err}")
     return err
 
 
@@ -993,6 +1103,96 @@ def phase_infer(family: str, path: Path, model: torch.nn.Module) -> None:
         f"{json.dumps(counts)}; b{BATCH} "
         f"forward {b8_ms:.3f} ms (median of 5); the CPU took {cpu_s:.1f} s; "
         "mp4 decode/encode (cv2) is covered by the CPU tests, not run here")
+    return b8_ms
+
+
+def phase_serve_bf16(paths: dict, f32_ms: dict) -> dict:
+    """``--dtype bfloat16`` serving, one main path over the four families:
+    each checkpoint loaded by the entry points' loader computing in
+    bfloat16 (name tagged `` [bf16]``, parameters float32); ``predict_clips``
+    on eight uint8 clips on the card, its first clip against the same
+    bfloat16 model's on the CPU (one clip: the CPU is slow at full width)
+    by the CPU tests' noise criterion: the mean distance to the CPU's
+    bfloat16 prediction at most twice the CPU's own bfloat16-vs-float32
+    distance (bf16 sums in two orders differ by an ulp now and then, and a
+    recurrence or a deep net carries that on: 0.7% of the ConvLSTM's
+    prediction is beyond 2^-7 relative of the CPU's, max-abs 5e-3); one
+    launch of the opening kernel, the ConvLSTM on the bf16 conv kernel
+    and never the float32 one; the b8 forward timed beside ``f32_ms``, the
+    float32 one of this run; then a served request against a direct
+    forward (frame scores, means of 16k pixels, within 2e-3: the server's
+    batch of 8 may take other cuDNN algorithms than a direct forward of
+    one) and four full batches over HTTP.  Returns family -> b8 ms."""
+    from vfd_gan_tpu_torch.cli.infer import _load, predict_clips
+
+    _reset_counts()                         # the bf16 serving path starts
+    frames = np.random.default_rng(3).integers(
+        0, 256, (BATCH, NFR, ISIZE, ISIZE, 3), dtype=np.uint8)
+    rng = np.random.default_rng(7)
+    clips = lambda k: rng.uniform(  # noqa: E731
+        -1, 1, (k, NFR, ISIZE, ISIZE, 3)).astype(np.float32)
+    out = {}
+    for family, path in paths.items():
+        model, name = _load(str(path), torch.device("cuda"), torch.bfloat16)
+        check(name.endswith(" [bf16]") and all(
+            p.dtype == torch.float32 for p in model.parameters()),
+            f"{family}: {name}, float32 parameters")
+        cpu_model, _ = _load(str(path), torch.device("cpu"), torch.bfloat16)
+        t0 = time.perf_counter()
+        pred_cpu, _, _ = predict_clips(cpu_model, frames[:1], "th")
+        cpu_s = time.perf_counter() - t0
+        cpu32, _ = _load(str(path), torch.device("cpu"))
+        pred_cpu32, _, _ = predict_clips(cpu32, frames[:1], "th")
+        del cpu_model, cpu32
+        before = _counts()
+        pred, opened, scores = predict_clips(model, frames, "th")
+        torch.cuda.synchronize()
+        counts = {k: n - before.get(k, 0) for k, n in _counts().items()}
+        check(counts["morphology_open"] == 1 and counts["conv3x3"] == 0,
+              f"{family} bf16 predict_clips launches: {counts}")
+        if family == "clstm":
+            check(counts["conv3x3_bf16"] == 3 * (1 + NFR),
+                  f"the bf16 ConvLSTM ran on the bf16 kernel: {counts}")
+        check(pred.dtype == torch.float32 and bool(torch.isfinite(
+            pred).all()) and tuple(scores.shape) == (BATCH, NFR),
+            f"{family} bf16 prediction")
+        got, want = pred[:1].cpu(), pred_cpu
+        err = (got - want).abs()
+        share = (err > 2.0 ** -7 * want.abs()).float().mean().item()
+        own = (want - pred_cpu32).abs().mean().item()
+        check(err.mean().item() <= 2 * own,
+              f"{family} bf16 CUDA vs CPU: mean distance {err.mean().item()} "
+              f"against the CPU's own bf16-vs-f32 {own}; {share} of the "
+              f"prediction beyond 2^-7, max-abs {err.max().item()}")
+        x8 = torch.rand((BATCH, 3, NFR, ISIZE, ISIZE), device="cuda") * 2 - 1
+        with torch.inference_mode():
+            b8_ms = event_ms(lambda: model(x8), reps=5, calls=1, warmup=2)
+        with _serving(path, "bfloat16") as (srv, base, _):
+            check(srv.name == name, f"served as {srv.name}")
+            served = _served_vs_direct(base, model, clips(1), tol=2e-3)
+            b8, request_ms = _b8_rounds(srv, base, clips, 4)
+        say(f"serve-bf16-{family}",
+            f"{name}: predict_clips b{BATCH} CUDA vs CPU (clip 0) max-abs "
+            f"{err.max().item():.3g}, mean {err.mean().item():.3g} (the "
+            f"CPU's bf16 vs its f32: {own:.3g}), {100 * share:.4f}% beyond "
+            f"2^-7 relative; mask on {opened.float().mean().item():.3f} after "
+            f"the opening; b{BATCH} forward {b8_ms:.3f} ms beside float32 "
+            f"{f32_ms[family]:.3f} ms in this run; served vs direct frame "
+            f"scores {served:.3g}; b{BATCH} serve batch median "
+            f"{statistics.median(b8):.2f} ms, HTTP request p50 "
+            f"{statistics.median(request_ms):.2f} ms; the CPU's bf16 "
+            f"forward of one clip took {cpu_s:.1f} s; launches "
+            f"{json.dumps(counts)}")
+        out[family] = b8_ms
+        del model
+    counts = _counts()                      # ... and ends
+    check(counts["morphology_open"] > 0 and counts["conv3x3_bf16"] > 0
+          and counts["conv3x3"] == 0,
+          f"bf16 serving: opening and bf16 conv kernels, no float32 conv: "
+          f"{counts}")
+    say("serve-bf16", f"bf16 serve + infer path, four families: launches "
+                      f"{json.dumps(counts)}")
+    return out
 
 
 def _wrappers() -> dict:
@@ -1020,12 +1220,15 @@ def _reset_counts() -> None:
         if hasattr(fn, "launches_by_plane"):
             fn.launches_by_plane.clear()
             fn.fields = 0
+    _wrappers()["conv3x3"].launches_bf16 = 0
 
 
 def _counts() -> dict:
     """Launches per kernel, and for the solver kernels, which count them by
     plane as well, per ``"kernel@HxW"``."""
     counts = {k: fn.launches for k, fn in _wrappers().items()}
+    # the conv wrapper counts its bfloat16 launches apart
+    counts["conv3x3_bf16"] = _wrappers()["conv3x3"].launches_bf16
     for k, fn in _wrappers().items():
         for (h, w), n in getattr(fn, "launches_by_plane", {}).items():
             counts[f"{k}@{h}x{w}"] = n
@@ -1040,7 +1243,7 @@ def run_trainer(argv, engine_cls):
     it) and the wall seconds."""
     from vfd_gan_tpu_torch.cli.trainer import main as train_main
 
-    sweep = collections.Counter(dict.fromkeys(_wrappers(), 0))
+    sweep = collections.Counter(dict.fromkeys(_counts(), 0))
     test = engine_cls.test
 
     def counted_test(self):
@@ -1063,37 +1266,105 @@ def run_trainer(argv, engine_cls):
     return engine, counts, dict(sweep), wall
 
 
-def phase_step_parity(tmp: Path, ae: bool = False) -> None:
+# bfloat16 CUDA-vs-CPU gradient bounds by net, as
+# tests/test_torch_port_bf16_step.py holds the port to JAX: the median
+# parameter's and the whole gradient's relative L2 distance, read from
+# Adam's first moment after one step
+BF16_GRAD_RTOL = {"clstm": 0.03, "c2plus1d": 0.3, "xception": 0.6,
+                  "netg": 0.45, "netd": 0.7, "netg_ae": 0.3, "netd_ae": 0.7}
+
+
+# The families whose bfloat16 step parity runs in eval mode (the
+# --ref_mode_quirks latch): Xception's train-mode forward on the card
+# equals the CPU's through block 2, where cuDNN's sums round one value of
+# one conv the other way, and its middle flow's train-mode BatchNorms (64
+# values per channel at this size) grow that difference block by block,
+# as a float64-summed conv does on the CPU
+# (tests/test_torch_port_bf16_nets.py).  In eval mode no
+# BatchNorm divides by a batch's spread.
+BF16_EVAL_PARITY = ("xception",)
+
+
+def bf16_gradients_close(what: str, gpu, cpu, control) -> str:
+    """A net's bfloat16 gradients on the card (``NetState`` ``gpu``)
+    within BF16_GRAD_RTOL[what] of the CPU's, where the control's (the
+    card's step on the clip reversed in time and mirrored) median misses
+    it, as a zero, stale or misrouted gradient does; returns the
+    readings."""
+    from vfd_gan_tpu_torch.train.state import relative_distances
+
+    want = cpu.first_moments()
+    median, whole = relative_distances(gpu.first_moments(), want)
+    cmedian, _ = relative_distances(control.first_moments(), want)
+    rtol = BF16_GRAD_RTOL[what]
+    check(median <= rtol and whole <= rtol < cmedian,
+          f"{what} bf16 gradients: median {median}, whole {whole} <= "
+          f"{rtol} < control {cmedian}")
+    return (f"{what} gradient median {median:.3g}, whole {whole:.3g} "
+            f"(<= {rtol}; control {cmedian:.3g})")
+
+
+def bf16_stats_close(what: str, gpu: dict, cpu: dict) -> float:
+    """A net's BatchNorm running means, and its variances, on the card
+    within 2e-2 of the CPU's as a whole (relative L2), as
+    tests/test_torch_port_bf16_step.py holds the port to JAX (one deep
+    statistic near 0 may be far off in bfloat16); returns the larger."""
+    from vfd_gan_tpu_torch.train.state import relative_distances
+
+    worst = 0.0
+    for kind in ("running_mean", "running_var"):
+        keys = [k for k in cpu if k.endswith(kind)]
+        _, whole = relative_distances({k: gpu[k] for k in keys},
+                                      {k: cpu[k] for k in keys})
+        check(whole <= 2e-2, f"{what} bf16 {kind}: {whole} <= 2e-2")
+        worst = max(worst, whole)
+    return worst
+
+
+def phase_step_parity(tmp: Path, ae: bool = False,
+                      dtype: str = "float32") -> None:
     """One _gan_core step on the card and on the CPU from the same weights
-    and injected flows (``ae``: with the AutoEncoder as G).  Tolerances: losses 1e-5, except the train-mode
+    and injected flows (``ae``: with the AutoEncoder as G).  Tolerances in
+    float32: losses 1e-5, except the train-mode
     spatial D's, 5e-4 relative (float32 sums of its BatchNorms in another
     order, amplified through its deep BN chain, as in
     tests/test_torch_port_train.py); updated parameters within Adam's
     first-step sign-flip envelope of 2.5 lr (a conv bias under a BN has a
-    true gradient of 0); BN statistics 1e-5 (spatial D: 5e-4 relative)."""
+    true gradient of 0); BN statistics 1e-5 (spatial D: 5e-4 relative).
+    In bfloat16, as tests/test_torch_port_bf16_gan_step.py holds the port
+    to JAX: losses 1e-2 relative (the spatial feature-matching loss, the
+    most amplified, 5e-2), parameters 2.5 lr, BN statistics by
+    ``bf16_stats_close`` and G's and D's gradients by
+    ``bf16_gradients_close``."""
     from vfd_gan_tpu_torch.config import Config
     from vfd_gan_tpu_torch.train.gan_engine import MyGanEngine
 
     b, s = 2, 64
+    bf16 = dtype == "bfloat16"
     cfg = Config(model="mygan", isize=s, nfr=NFR, batchsize=b, ngf=8, ndf=8,
-                 ep=1, compute_dtype="float32", tensorboard=False, ae=ae,
+                 ep=1, compute_dtype=dtype, tensorboard=False, ae=ae,
                  result_root=str(tmp))
     rng = np.random.default_rng(4)
     data = rng.uniform(-1, 1, (b, NFR, s, s, 3)).astype(np.float32)
     gt = (rng.uniform(size=(b, NFR, s, s, 1)) > 0.85).astype(np.float32)
     flows = rng.uniform(-1, 1, (2 * b, NFR, s, s, 3)).astype(np.float32)
-    out = {}
-    for dev in ("cpu", "cuda"):
-        device = torch.device(dev)
+    out, engines = {}, {}
+    # the bfloat16 gradients' control: the card's step on the clip
+    # reversed in time and mirrored
+    runs = (("cpu", data), ("cuda", data)) + (
+        (("control", data[:, ::-1, :, ::-1].copy()),) if bf16 else ())
+    for run, clip in runs:
+        device = torch.device("cpu" if run == "cpu" else "cuda")
         eng = MyGanEngine(cfg, None, None, device=device)
         for m in eng.netg.modules():
             if hasattr(m, "drop_rate"):
                 m.drop_rate = 0.0
         fl = torch.from_numpy(flows).to(device)
         eng._flow = lambda v, streams=1, fl=fl: fl  # noqa: E731
-        metrics = eng._gan_core(torch.from_numpy(data).to(device),
+        metrics = eng._gan_core(torch.from_numpy(clip).to(device),
                                 torch.from_numpy(gt).to(device))
-        out[dev] = ({k: float(v) for k, v in metrics.items()},
+        engines[run] = eng
+        out[run] = ({k: float(v) for k, v in metrics.items()},
                     {k: v.cpu() for k, v in eng.netg.state_dict().items()},
                     {k: v.cpu() for k, v in eng.netd.state_dict().items()})
     (m_cpu, g_cpu, d_cpu), (m_gpu, g_gpu, d_gpu) = out["cpu"], out["cuda"]
@@ -1103,6 +1374,9 @@ def phase_step_parity(tmp: Path, ae: bool = False) -> None:
                                            "d/err_d_fake/train",
                                            "d/err_d/train", "g/err_g/train",
                                            "g/err_g_adv/train")) else 0.0
+        if bf16:
+            rel = 5e-2 if k.split("/")[1] in ("err_g_adv_s",
+                                              "err_g_adv") else 1e-2
         diff = abs(m_gpu[k] - v)
         check(np.isfinite(m_gpu[k]) and diff <= 1e-5 + rel * abs(v),
               f"step loss {k}: cuda {m_gpu[k]} vs cpu {v}")
@@ -1114,6 +1388,8 @@ def phase_step_parity(tmp: Path, ae: bool = False) -> None:
             if k.endswith("num_batches_tracked"):
                 continue
             diff = (sd_gpu[k] - v).abs().max().item()
+            if "running" in k and bf16:
+                continue
             if "running" in k:
                 bound = 1e-5 + (5e-4 * v.abs().max().item()
                                 if k.startswith("spatdisc") else 0.0)
@@ -1122,12 +1398,23 @@ def phase_step_parity(tmp: Path, ae: bool = False) -> None:
             else:
                 check(diff <= 2.5 * lr, f"param {k}: {diff} <= 2.5 lr")
                 worst_param = max(worst_param, diff)
-    say("stepparity", f"_gan_core{' --ae' if ae else ''} b{b} T{NFR} {s}^2 "
+    grads = ""
+    if bf16:
+        worst_stat = max(bf16_stats_close("G", g_gpu, g_cpu),
+                         bf16_stats_close("D", d_gpu, d_cpu))
+        tag = "_ae" if ae else ""
+        grads = "; " + "; ".join(bf16_gradients_close(
+            net + tag, *(getattr(engines[r], attr)
+                         for r in ("cuda", "cpu", "control")))
+            for net, attr in (("netg", "g"), ("netd", "d")))
+    say("stepparity", f"_gan_core{' --ae' if ae else ''} {dtype} b{b} T{NFR} "
+                      f"{s}^2 "
                       f"{'AutoEncoder, ndf=8' if ae else 'ngf=ndf=8'}, "
                       f"CUDA vs CPU "
                       f"(TF32 off): losses max-abs {worst_loss:.3g}, params "
                       f"{worst_param:.3g} (<= 2.5 lr = {2.5 * lr:.3g}), BN "
-                      f"stats {worst_stat:.3g}")
+                      f"stats {worst_stat:.3g}{' (relative L2)' if bf16 else ''}"
+                      f"{grads}")
 
 
 # the supervised families' CUDA-vs-CPU step sizes (the CPU tests' own):
@@ -1136,13 +1423,18 @@ SUPERVISED_PARITY = {"clstm": (2, 8, 16, {}), "c2plus1d": (2, 16, 16, {}),
                      "xception": (2, 8, 32, {"xwidth": 1 / 16})}
 
 
-def phase_supervised_parity(tmp: Path) -> None:
+def phase_supervised_parity(tmp: Path, dtype: str = "float32") -> None:
     """One SupervisedEngine step per family on the card and on the CPU,
     from the same seeded weights and the same injected augment draws
     (gathered by the kernel on the card, by the plain version on the CPU),
     dropout at rate 0.  Tolerances as the CPU tests hold the port to JAX:
-    the loss 1e-5, BN statistics 1e-5, updated parameters within Adam's
-    first-step envelope of 2.5 lr with at most 2% beyond 5e-6."""
+    in float32 the loss 1e-5, BN statistics 1e-5, updated parameters
+    within Adam's first-step envelope of 2.5 lr with at most 2% beyond
+    5e-6; in bfloat16 (c2plus1d at 32^2, as
+    tests/test_torch_port_bf16_step.py) the loss 1e-2 relative,
+    parameters 2.5 lr, BN statistics by ``bf16_stats_close`` and the
+    gradients by ``bf16_gradients_close``.  Xception's bfloat16 step runs
+    in eval mode (``BF16_EVAL_PARITY``)."""
     from vfd_gan_tpu_torch.config import Config
     from vfd_gan_tpu_torch.ops.augment import (
         _src_coords,
@@ -1151,10 +1443,15 @@ def phase_supervised_parity(tmp: Path) -> None:
     )
     from vfd_gan_tpu_torch.train.supervised_engine import SupervisedEngine
 
+    bf16 = dtype == "bfloat16"
     for family, (b, t, isize, extra) in SUPERVISED_PARITY.items():
+        if bf16 and family == "c2plus1d":
+            isize = 32
+        eval_mode = bf16 and family in BF16_EVAL_PARITY
         cfg = Config(model=family, batchsize=b, nfr=t, isize=isize, ep=1,
-                     compute_dtype="float32", tensorboard=False,
-                     result_root=str(tmp), **extra)
+                     compute_dtype=dtype, tensorboard=False,
+                     result_root=str(tmp), ref_mode_quirks=eval_mode,
+                     **extra)
         s = staging_size(isize)
         rng = np.random.default_rng(5)
         data = rng.integers(0, 256, (b, t, s, s, 3), dtype=np.uint8)
@@ -1166,23 +1463,29 @@ def phase_supervised_parity(tmp: Path) -> None:
         # may differ by an ulp and flip a floor
         src_x, src_y = (c.contiguous() for c in _src_coords(
             *(torch.from_numpy(np.asarray(v)) for v in draws), s, isize))
-        out = {}
-        for dev in ("cpu", "cuda"):
-            device = torch.device(dev)
+        out, nets = {}, {}
+        runs = (("cpu", data), ("cuda", data)) + (
+            (("control", data[:, ::-1, :, ::-1].copy()),) if bf16 else ())
+        for run, clip in runs:
+            device = torch.device("cpu" if run == "cpu" else "cuda")
             eng = SupervisedEngine(cfg, None, None, device=device)
             for m in eng.model.modules():
                 if hasattr(m, "drop_rate"):
                     m.drop_rate = 0.0
+            if eval_mode:     # the --ref_mode_quirks latch: eval mode
+                eng.global_step = cfg.freq + 1
             batch = [torch.from_numpy(v).to(device)
-                     for v in (data, data, mask)]
+                     for v in (clip, clip, mask)]
             x, _, gt = augment_gather(*batch, src_x.to(device),
                                       src_y.to(device))
             loss = float(eng._step(x, gt)["loss/err/train"])
-            out[dev] = (loss, {k: v.cpu() for k, v in
+            nets[run] = eng.net
+            out[run] = (loss, {k: v.cpu() for k, v in
                                eng.model.state_dict().items()})
         (l_cpu, sd_cpu), (l_gpu, sd_gpu) = out["cpu"], out["cuda"]
-        check(np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= 1e-5,
-              f"{family} step loss: cuda {l_gpu} vs cpu {l_cpu}")
+        check(np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= (
+            1e-2 * abs(l_cpu) if bf16 else 1e-5),
+            f"{family} step loss: cuda {l_gpu} vs cpu {l_cpu}")
         lr = cfg.lr
         worst_param = worst_stat = 0.0
         total = loose = 0
@@ -1190,35 +1493,58 @@ def phase_supervised_parity(tmp: Path) -> None:
             if k.endswith("num_batches_tracked"):
                 continue
             d = (sd_gpu[k] - v).abs()
-            if "running" in k:
+            if "running" in k and not bf16:
                 check(d.max().item() <= 1e-5, f"{family} BN stat {k}")
                 worst_stat = max(worst_stat, d.max().item())
+            elif "running" in k:
+                continue
             else:
                 check(d.max().item() <= 2.5 * lr, f"{family} param {k}")
                 worst_param = max(worst_param, d.max().item())
                 total += d.numel()
                 loose += int((d > 5e-6).sum())
-        check(loose / total < 0.02, f"{family}: {loose} of {total} params "
-                                    "beyond 5e-6")
-        say("stepparity", f"{family} b{b} T{t} {isize}^2 {extra}: CUDA vs "
+        if bf16:
+            if not eval_mode:
+                worst_stat = bf16_stats_close(family, sd_gpu, sd_cpu)
+            grads = bf16_gradients_close(
+                family, nets["cuda"], nets["cpu"], nets["control"])
+        else:
+            check(loose / total < 0.02,
+                  f"{family}: {loose} of {total} params beyond 5e-6")
+            grads = f"{loose}/{total} params beyond 5e-6"
+        say("stepparity", f"{family} {dtype} b{b} T{t} {isize}^2 {extra}"
+                          f"{' (eval mode)' if eval_mode else ''}: "
+                          f"CUDA vs "
                           f"CPU (TF32 off) loss {abs(l_gpu - l_cpu):.3g}, "
                           f"params max {worst_param:.3g} (<= 2.5 lr), "
-                          f"{loose}/{total} beyond 5e-6, BN stats "
-                          f"{worst_stat:.3g}")
+                          f"BN stats {worst_stat:.3g}"
+                          f"{' (relative L2)' if bf16 else ''}; {grads}")
 
 
-def phase_supervised_train(tmp: Path, family: str) -> dict:
+def _dtype_flags(dtype: str | None) -> tuple[list, str]:
+    """The trainer's flags for ``dtype`` (None: no flag, the default
+    command line, which computes in bfloat16) and its label."""
+    if dtype is None:
+        return [], "bfloat16 (default: no --compute_dtype)"
+    return ["--compute_dtype", dtype], dtype
+
+
+def phase_supervised_train(tmp: Path, family: str,
+                           dtype: str | None = "float32") -> dict:
     """``cli.trainer.main --model family`` at the reference width, b8, T16,
-    128^2, float32, with a one-batch test sweep; returns the engine, the
-    kernels' launch counts on the run and those of its sweep."""
+    128^2, in ``dtype`` (None: the default command line, bfloat16), with a
+    one-batch test sweep; returns the engine, the kernels' launch counts on
+    the run, those of its sweep, the step median (ms) and peak memory
+    (MiB)."""
     from vfd_gan_tpu_torch.models import build_mask_model
     from vfd_gan_tpu_torch.train.supervised_engine import SupervisedEngine
     from vfd_gan_tpu_torch.utils.checkpoint import load_state_dict
 
     steps, extra = SUPERVISED_RUNS[family]
-    root = tmp / f"runs_{family}"
+    flags, label = _dtype_flags(dtype)
+    root = tmp / f"runs_{family}_{dtype or 'default'}"
     argv = ["--model", family, "--batchsize", str(BATCH), "--nfr", str(NFR),
-            "--isize", str(ISIZE), "--compute_dtype", "float32",
+            "--isize", str(ISIZE), *flags,
             "--synthetic_data", str(steps), "--synthetic_test_batches", "1",
             "--ep", "1", "--freq", str(steps), "--device", "cuda",
             "--no-tensorboard", "--result_root", str(root), *extra]
@@ -1245,60 +1571,72 @@ def phase_supervised_train(tmp: Path, family: str) -> dict:
     if family == "clstm":
         # per forward 3 input halves + 3 x T hidden halves; the backward
         # launches dx for each but the first layer's input half and each
-        # layer's first hidden half (their inputs need no gradient)
+        # layer's first hidden half (their inputs need no gradient); all
+        # on the kernel of the run's dtype, none on the other
+        conv, other = (("conv3x3", "conv3x3_bf16") if dtype == "float32"
+                       else ("conv3x3_bf16", "conv3x3"))
         fwd = 3 * (1 + NFR)
-        check(counts["conv3x3"] - sweep["conv3x3"] == steps * (2 * fwd - 4)
-              and sweep["conv3x3"] == fwd * engine.test_iter.n_batches,
-              f"clstm launched the conv kernel {counts['conv3x3']} times, "
-              f"{sweep['conv3x3']} of them in the sweep; expected "
-              f"{2 * fwd - 4} per step (forward and dx) and {fwd} per sweep "
-              "batch")
+        check(counts[conv] - sweep[conv] == steps * (2 * fwd - 4)
+              and sweep[conv] == fwd * engine.test_iter.n_batches
+              and counts[other] == 0,
+              f"clstm launched the {conv} kernel {counts[conv]} times, "
+              f"{sweep[conv]} of them in the sweep, {other} "
+              f"{counts[other]} times; expected {2 * fwd - 4} per step "
+              f"(forward and dx), {fwd} per sweep batch, and 0")
         check(2 * fwd - 4 == CONV_LAUNCHES_PER_STEP,
               "the conv phase's cases are one step's launches")
     steady = engine.step_seconds[2:] if steps > 4 else engine.step_seconds[1:]
-    say(f"train-{family}",
-        f"trainer.main --model {family} b{BATCH} T{NFR} {ISIZE}^2 float32 "
+    median = 1e3 * statistics.median(steady)
+    what = f"train-{family}{'' if dtype == 'float32' else '-bf16'}"
+    say(what,
+        f"trainer.main --model {family} b{BATCH} T{NFR} {ISIZE}^2 {label} "
         f"{' '.join(extra)}: {steps} steps + sweep in {wall:.1f} s; step "
-        f"median {1e3 * statistics.median(steady):.1f} ms (min "
+        f"median {median:.1f} ms (min "
         f"{1e3 * min(steady):.1f}, max {1e3 * max(steady):.1f}, after "
         f"{steps - len(steady)} warm-up); first step "
         f"{1e3 * engine.step_seconds[0]:.0f} ms; peak memory {peak:.0f} "
         f"MiB; losses {json.dumps(losses)}")
-    say(f"train-{family}", f"sweep: roc {roc:.6g} pr {pr:.6g} f1 {f1:.6g}; "
-                           f"saved {pth[0].name} (loaded strict); launches "
-                           f"{json.dumps(counts)}, of them in the sweep "
-                           f"{json.dumps(sweep)}")
-    return engine, counts, sweep
+    say(what, f"sweep: roc {roc:.6g} pr {pr:.6g} f1 {f1:.6g}; saved "
+              f"{pth[0].name} (loaded strict); launches "
+              f"{json.dumps(counts)}, of them in the sweep "
+              f"{json.dumps(sweep)}")
+    return engine, counts, sweep, median, peak
 
 
-def phase_train(tmp: Path):
-    """The training main path at the reference width; returns the engine,
-    the kernels' launch counts on it and those of its sweep."""
+def phase_train(tmp: Path, dtype: str | None = "float32", ae: bool = False,
+                steps: int = TRAIN_STEPS, sweep_batches: int = 2):
+    """The MyGAN training main path at the reference width in ``dtype``
+    (None: the default command line, bfloat16; ``ae``: the AutoEncoder as
+    G); returns the engine, the kernels' launch counts on it, those of its
+    sweep, the step median (ms) and peak memory (MiB)."""
     from vfd_gan_tpu_torch.models.mygan import DualDisc, Generator
+    from vfd_gan_tpu_torch.models.stcnn import AutoEncoder
     from vfd_gan_tpu_torch.train.gan_engine import MyGanEngine
     from vfd_gan_tpu_torch.utils.checkpoint import load_state_dict
 
+    flags, label = _dtype_flags(dtype)
+    root = tmp / f"runs_mygan{'_ae' if ae else ''}_{dtype or 'default'}"
     argv = ["--model", "mygan", "--batchsize", str(BATCH), "--nfr", str(NFR),
             "--isize", str(ISIZE), "--ngf", "32", "--ndf", "32",
-            "--flow_scale", "0.5", "--compute_dtype", "float32",
-            "--synthetic_data", str(TRAIN_STEPS),
-            "--synthetic_test_batches", "2", "--ep", "1",
-            "--freq", str(TRAIN_STEPS), "--device", "cuda",
-            "--no-tensorboard", "--result_root", str(tmp / "runs")]
+            "--flow_scale", "0.5", *flags, *(["--ae"] if ae else []),
+            "--synthetic_data", str(steps),
+            "--synthetic_test_batches", str(sweep_batches), "--ep", "1",
+            "--freq", str(steps), "--device", "cuda",
+            "--no-tensorboard", "--result_root", str(root)]
     torch.cuda.reset_peak_memory_stats()
     engine, counts, sweep, wall = run_trainer(argv, MyGanEngine)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    check(engine.global_step == TRAIN_STEPS, "all train steps ran")
+    check(engine.global_step == steps, "all train steps ran")
     losses = {k: v for k, v in engine.errors.items() if "/" in k}
     check(len(losses) > 20 and all(np.isfinite(v) for v in losses.values()),
           f"finite losses: {losses}")
     roc, pr, f1 = (engine.scores[f"score/{k}"] for k in ("roc", "pr", "f1"))
     check(all(np.isfinite(v) for v in (roc, pr, f1)), "sweep scores")
-    g_pth = sorted((tmp / "runs").rglob("*_netG.pth"))
-    d_pth = sorted((tmp / "runs").rglob("*_netD.pth"))
+    g_pth = sorted(root.rglob("*_netG.pth"))
+    d_pth = sorted(root.rglob("*_netD.pth"))
     check(len(g_pth) == len(d_pth) == 1, f"one best pair: {g_pth} {d_pth}")
-    Generator(32).load_state_dict(load_state_dict(str(g_pth[0])),
-                                  strict=True)
+    (AutoEncoder() if ae else Generator(32)).load_state_dict(
+        load_state_dict(str(g_pth[0])), strict=True)
     DualDisc(32, NFR, ISIZE).load_state_dict(load_state_dict(str(d_pth[0])),
                                              strict=True)
     check(counts["flow_fused"] > 0, "training launched the fused kernel")
@@ -1306,22 +1644,27 @@ def phase_train(tmp: Path):
           "training launched the augment kernel")
     check(counts["morphology_open"] > 0,
           "the test sweep launched the opening kernel")
-    steady = engine.step_seconds[4:]
-    say("train", f"trainer.main b{BATCH} T{NFR} {ISIZE}^2 ngf=ndf=32 "
-                 f"flow_scale 0.5 float32: {TRAIN_STEPS} steps + sweep in "
-                 f"{wall:.1f} s; step median {1e3 * statistics.median(steady):.1f}"
-                 f" ms (min {1e3 * min(steady):.1f}, max "
-                 f"{1e3 * max(steady):.1f}, steps 5-{TRAIN_STEPS}); first "
-                 f"step {1e3 * engine.step_seconds[0]:.0f} ms; peak memory "
-                 f"{peak:.0f} MiB")
-    say("train", "losses at the last step: " + ", ".join(
+    check(counts["conv3x3"] == counts["conv3x3_bf16"] == 0,
+          "MyGAN has no ConvLSTM")
+    warm = 4 if steps > 6 else 1
+    steady = engine.step_seconds[warm:]
+    median = 1e3 * statistics.median(steady)
+    what = f"train{'-ae' if ae else ''}{'' if dtype == 'float32' else '-bf16'}"
+    say(what, f"trainer.main b{BATCH} T{NFR} {ISIZE}^2 "
+              f"{'--ae ' if ae else 'ngf=32 '}ndf=32 flow_scale 0.5 {label}: "
+              f"{steps} steps + sweep in {wall:.1f} s; step median "
+              f"{median:.1f} ms (min {1e3 * min(steady):.1f}, max "
+              f"{1e3 * max(steady):.1f}, steps {warm + 1}-{steps}); first "
+              f"step {1e3 * engine.step_seconds[0]:.0f} ms; peak memory "
+              f"{peak:.0f} MiB")
+    say(what, "losses at the last step: " + ", ".join(
         f"{k} {v:.5g}" for k, v in sorted(losses.items())
         if k.endswith("/train")))
-    say("train", f"sweep: roc {roc:.6g} pr {pr:.6g} f1 {f1:.6g}; saved "
-                 f"{g_pth[0].name}, {d_pth[0].name} (loaded strict); "
-                 f"launches {json.dumps(counts)}, of them in the sweep "
-                 f"{json.dumps(sweep)}")
-    return engine, counts, sweep
+    say(what, f"sweep: roc {roc:.6g} pr {pr:.6g} f1 {f1:.6g}; saved "
+              f"{g_pth[0].name}, {d_pth[0].name} (loaded strict); "
+              f"launches {json.dumps(counts)}, of them in the sweep "
+              f"{json.dumps(sweep)}")
+    return engine, counts, sweep, median, peak
 
 
 def phase_two_kernel(engine) -> dict:
@@ -1750,20 +2093,22 @@ def main() -> None:
     results.update(phase_flow_kernels(device))
     results["augment_gather"] = phase_augment_kernel(device)
     results["conv3x3"] = phase_conv_kernel(device)
+    results["conv3x3_bf16"] = phase_conv_kernel_bf16(device)
     phase_flow_video(device)
     with tempfile.TemporaryDirectory() as tmp:
         from vfd_gan_tpu_torch.cli.infer import _load
 
         paths = make_checkpoints(Path(tmp))
         model = phase_generator(paths["mygan"], device)
+        f32_forward_ms = {}
         _reset_counts()                          # the serving path starts
         phase_serve(paths["mygan"], model)
-        phase_infer("mygan", paths["mygan"], model)
+        f32_forward_ms["mygan"] = phase_infer("mygan", paths["mygan"], model)
         del model
         for family in ("clstm", "c2plus1d", "xception"):
             model, _ = _load(str(paths[family]), device)
             phase_serve_family(family, paths[family], model)
-            phase_infer(family, paths[family], model)
+            f32_forward_ms[family] = phase_infer(family, paths[family], model)
             del model
         serve_counts = _counts()                 # ... and ends
         check(serve_counts["morphology_open"] == len(SERVED),
@@ -1773,27 +2118,64 @@ def main() -> None:
               "serving clstm launched the conv3x3 kernel")
         say("serve", f"serve + infer path, four families: launches "
                      f"{json.dumps(serve_counts)}")
+        bf16_forward_ms = phase_serve_bf16(paths, f32_forward_ms)
         phase_step_parity(Path(tmp))
         phase_supervised_parity(Path(tmp))
-        engine, gan_counts, gan_sweep = phase_train(Path(tmp))
+        phase_step_parity(Path(tmp), dtype="bfloat16")
+        phase_step_parity(Path(tmp), ae=True, dtype="bfloat16")
+        phase_supervised_parity(Path(tmp), dtype="bfloat16")
+        engine, gan_counts, gan_sweep, gan_ms, gan_peak = phase_train(
+            Path(tmp))
         gan_steps = engine.global_step
         gan_sweep_batches = engine.test_iter.n_batches
         two_counts = phase_two_kernel(engine)
-        synthetic_ms = {"mygan": 1e3 * statistics.median(
-            engine.step_seconds[4:])}
+        synthetic_ms = {"mygan": gan_ms}
+        steps_ms = {"mygan": [gan_ms, gan_peak]}
         del engine
         for family in SUPERVISED_RUNS:
             # each family starts from an empty allocator: what the run
             # before left cached shifts clstm's host-bound step by a few ms
             gc.collect()
             torch.cuda.empty_cache()
-            engine, counts, sweep = phase_supervised_train(Path(tmp), family)
+            engine, counts, sweep, ms, peak = phase_supervised_train(
+                Path(tmp), family)
+            steps_ms[family] = [ms, peak]
             if family == "clstm":
                 clstm_counts, clstm_sweep = counts, sweep
                 clstm_steps = engine.global_step
-                synthetic_ms["clstm"] = 1e3 * statistics.median(
-                    engine.step_seconds[2:])
+                synthetic_ms["clstm"] = ms
             del engine
+        # the default command line: no --compute_dtype, bfloat16
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine, _, _, ms, peak = phase_train(Path(tmp), None,
+                                             sweep_batches=1)
+        steps_ms["mygan"] += [ms, peak]
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine, _, _, ms, peak = phase_train(Path(tmp), None, ae=True,
+                                             steps=AE_STEPS, sweep_batches=1)
+        steps_ms["mygan --ae"] = [float("nan"), float("nan"), ms, peak]
+        del engine
+        for family in SUPERVISED_RUNS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            engine, counts, sweep, ms, peak = phase_supervised_train(
+                Path(tmp), family, None)
+            steps_ms[family] += [ms, peak]
+            if family == "clstm":
+                bf16_counts, bf16_sweep = counts, sweep
+                bf16_steps = engine.global_step
+            del engine
+        say("bf16-vs-f32", "b8 train step median ms and peak MiB, float32 "
+                           "-> bfloat16 (the default): " + "; ".join(
+                               f"{k} {a:.1f} ms {b:.0f} MiB -> {c:.1f} ms "
+                               f"{d:.0f} MiB" for k, (a, b, c, d)
+                               in steps_ms.items()))
+        say("bf16-vs-f32", "b8 forward ms, float32 -> bfloat16: " + "; ".join(
+            f"{k} {f32_forward_ms[k]:.3f} -> {bf16_forward_ms[k]:.3f}"
+            for k in SERVED))
         phase_data(Path(tmp), device, synthetic_ms)
         phase_resume(Path(tmp), device)
         phase_sweep_options(Path(tmp), device)
@@ -1806,7 +2188,8 @@ def main() -> None:
     # sweep's launches per sweep batch)
     launches = {"morphology_open": gan_counts, "flow_fused": gan_counts,
                 "flow_warp": two_counts, "flow_refine": two_counts,
-                "augment_gather": clstm_counts, "conv3x3": clstm_counts}
+                "augment_gather": clstm_counts, "conv3x3": clstm_counts,
+                "conv3x3_bf16": bf16_counts}
     per_step = {
         "morphology_open": gan_sweep["morphology_open"] / gan_sweep_batches,
         "flow_fused": (gan_counts["flow_fused"] - gan_sweep["flow_fused"])
@@ -1816,7 +2199,9 @@ def main() -> None:
         "augment_gather": (clstm_counts["augment_gather"]
                            - clstm_sweep["augment_gather"]) / clstm_steps,
         "conv3x3": (clstm_counts["conv3x3"] - clstm_sweep["conv3x3"])
-        / clstm_steps}
+        / clstm_steps,
+        "conv3x3_bf16": (bf16_counts["conv3x3_bf16"]
+                         - bf16_sweep["conv3x3_bf16"]) / bf16_steps}
     check(gan_counts["morphology_open"] == gan_sweep["morphology_open"],
           "only the sweep runs the opening kernel")
     # the solver kernels by plane size: launches per step from the same

@@ -44,7 +44,7 @@ def test_every_entry_point_is_bound():
     names = {"vfd_morphology_open_f32", "vfd_flow_warp_f32",
              "vfd_flow_refine_f32", "vfd_flow_fused_f32",
              "vfd_flow_workspace_bytes", "vfd_augment_gather_u8",
-             "vfd_conv3x3_f32"}
+             "vfd_conv3x3_f32", "vfd_conv3x3_bf16"}
     assert set(cuda.ENTRIES) == names
     text = "".join(src.read_text() for src in cuda.sources())
     for name in names:
@@ -522,6 +522,154 @@ def test_conv3x3_kernel_refuses_what_it_does_not_take(card):
         spatial_conv.conv3x3_cuda(x, k[:, :, :3].contiguous())
     with pytest.raises(ValueError):        # flip wants (3, 3, Cout, Cin)
         spatial_conv.conv3x3_cuda(x, k, flip=True)
+
+
+# The bfloat16 form: the nine shapes of a clstm step, a ragged case for H, W
+# and every channel count the kernel pads (Cin off 16 in both forms, Cout
+# off 2: scalar stores), and one past a block's 64 output channels.
+BF16_CONV_CASES = {k: CONV_CASES[k] for k in (
+    "F1", "F2", "F3", "F4", "F5", "D1", "D2", "D3", "D4", "ragged",
+    "ragged_hw", "ragged_packed", "one_channel", "two_slices")}
+
+
+def _within_bf16_ulp(got, want, x, k, what):
+    """At least 99% of the elements equal, every one within one bfloat16
+    ulp beyond what two float32 sums of the K = 9 Cin products may differ
+    by in any two orders, one truncating (``spatial_conv.conv_sum_slack``):
+    float32 sums in another order may land on the other side of a rounding
+    boundary, and a sum that cancels to near 0 is off by many ulps of
+    itself."""
+    ulps = spatial_conv.bf16_ulps(got, want,
+                                  spatial_conv.conv_sum_slack(x, k))
+    equal = (got.float() == want.float()).float().mean().item()
+    assert equal >= 0.99 and ulps.max().item() <= 1.0, \
+        (what, equal, ulps.max().item())
+
+
+@pytest.mark.parametrize("case", list(BF16_CONV_CASES))
+@pytest.mark.gpu
+def test_conv3x3_bf16_kernel_matches_plain_on_card(card, case):
+    """The bfloat16 kernel against its plain version, bf16 operands with
+    float32 sums rounded once, forward and with ``flip``; it counts its
+    launches apart from the float32 kernel's."""
+    n, h, w, cin, cout = BF16_CONV_CASES[case]
+    x, k, _ = _conv_inputs(card, n, h, w, cin, cout)
+    x, k = x.bfloat16(), k.bfloat16()
+    f32, bf16 = (spatial_conv.conv3x3_cuda.launches,
+                 spatial_conv.conv3x3_cuda.launches_bf16)
+    got = spatial_conv.conv3x3_cuda(x, k)
+    assert got.dtype == torch.bfloat16
+    _within_bf16_ulp(got, spatial_conv.conv3x3_plain(x, k), x, k, case)
+    # dx's launch: dy (Cout channels) by the forward's weights, flipped
+    g = torch.randn((n, h, w, cout), device=card).bfloat16()
+    kf = k.flip(0, 1).transpose(2, 3).contiguous()     # (3, 3, Cout, Cin)
+    _within_bf16_ulp(spatial_conv.conv3x3_cuda(g, k, flip=True),
+                     spatial_conv.conv3x3_plain(g, kf), g, kf,
+                     f"{case} flip")
+    assert spatial_conv.conv3x3_cuda.launches == f32
+    assert spatial_conv.conv3x3_cuda.launches_bf16 == bf16 + 2
+
+
+@pytest.mark.parametrize("case", ["F4", "D2", "ragged", "ragged_packed"])
+@pytest.mark.gpu
+def test_conv3x3_bf16_vjp_against_float64_autograd(card, case):
+    """Through ``conv3x3`` on a bfloat16 input and a float32 weight: dx
+    bfloat16 within one ulp of float64 autograd on the same bf16 values
+    (one rounding of float32 sums) beyond the sums' own spread, K 2^-22
+    sum |dy w| (see ``_within_bf16_ulp``); dw float32 within 1e-4
+    (products of bf16 operands are exact in float32; TF32 off)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, k, dy = _conv_inputs(card, *CONV_CASES[case])
+    x, dy = x.bfloat16(), (dy * 100).bfloat16()
+    xa, ka = x.clone().requires_grad_(), k.clone().requires_grad_()
+    y = spatial_conv.conv3x3(xa, ka)
+    assert y.dtype == torch.bfloat16
+    y.backward(dy)
+    assert xa.grad.dtype == torch.bfloat16 and ka.grad.dtype == torch.float32
+    xb = x.double().requires_grad_()
+    kb = k.bfloat16().double().requires_grad_()
+    spatial_conv.conv3x3_plain(xb, kb).backward(dy.double())
+    flipped = k.bfloat16().flip(0, 1).transpose(2, 3)
+    slack = spatial_conv.conv_sum_slack(dy, flipped)
+    assert spatial_conv.bf16_ulps(xa.grad, xb.grad, slack).max().item() <= 1.0
+    torch.testing.assert_close(ka.grad, kb.grad.float(), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_conv3x3_bf16_kernel_refuses_what_it_does_not_take(card):
+    x, k, _ = _conv_inputs(card, 2, 8, 8, 16, 8)
+    x, k = x.bfloat16(), k.bfloat16()
+    with pytest.raises(TypeError):           # one dtype for x and w
+        spatial_conv.conv3x3_cuda(x, k.float())
+    with pytest.raises(TypeError):
+        spatial_conv.conv3x3_cuda(x.float(), k)
+    with pytest.raises(ValueError):
+        spatial_conv.conv3x3_cuda(x.transpose(1, 2), k)
+    with pytest.raises(ValueError):
+        spatial_conv.conv3x3_cuda(x, k.transpose(2, 3))
+
+
+@pytest.mark.gpu
+def test_clstm_bf16_train_step_on_card_matches_cpu(card, tmp_path):
+    """One bfloat16 clstm step on the card against the CPU, from the same
+    weights and augment draws: the loss within 1e-2 relative, updated
+    parameters within Adam's first-step envelope of 2.5 lr, the gradient
+    (Adam's first moment) within 3e-2 by its median parameter and as a
+    whole, where the card's step on the clip reversed in time and mirrored
+    misses it, as tests/test_torch_port_bf16_step.py holds the port to
+    JAX; running means and variances within 2e-2 as a whole (relative L2); the gate convs ran
+    on the bf16 kernel and never on the float32 one."""
+    from vfd_gan_tpu_torch.config import Config
+    from vfd_gan_tpu_torch.ops.augment import _src_coords, augment_gather
+    from vfd_gan_tpu_torch.ops.augment import staging_size
+    from vfd_gan_tpu_torch.train.state import relative_distances
+    from vfd_gan_tpu_torch.train.supervised_engine import SupervisedEngine
+
+    b, t, isize = 2, 8, 32
+    cfg = Config(model="clstm", batchsize=b, nfr=t, isize=isize, ep=1,
+                 tensorboard=False, result_root=str(tmp_path)).validate()
+    assert cfg.compute_dtype == "bfloat16"
+    s = staging_size(isize)
+    rng = np.random.default_rng(5)
+    data = rng.integers(0, 256, (b, t, s, s, 3), dtype=np.uint8)
+    mask = np.zeros((b, t, s, s, 1), np.uint8)
+    mask[:, :, 4:s - 4, 5:s - 6] = 255
+    draws = (np.linspace(-0.17, 0.15, b).astype(np.float32),
+             np.arange(b) % 2, np.ones(b, np.int64), np.arange(b) % 2 == 0)
+    src = [c.contiguous() for c in _src_coords(
+        *(torch.from_numpy(np.asarray(v)) for v in draws), s, isize)]
+    out, nets = {}, {}
+    for run, clip in (("cpu", data), ("cuda", data),
+                      ("control", data[:, ::-1, :, ::-1].copy())):
+        device = torch.device("cpu" if run == "cpu" else "cuda")
+        eng = SupervisedEngine(cfg, None, None, device=device)
+        batch = [torch.from_numpy(v).to(device) for v in (clip, clip, mask)]
+        x, _, gt = augment_gather(*batch, *(c.to(device) for c in src))
+        f32, bf16 = (spatial_conv.conv3x3_cuda.launches,
+                     spatial_conv.conv3x3_cuda.launches_bf16)
+        loss = float(eng._step(x, gt)["loss/err/train"])
+        if run == "cuda":
+            assert spatial_conv.conv3x3_cuda.launches == f32
+            assert spatial_conv.conv3x3_cuda.launches_bf16 > bf16
+        nets[run] = eng.net
+        out[run] = (loss, {k: v.cpu() for k, v in
+                           eng.model.state_dict().items()})
+    (l_cpu, sd_cpu), (l_gpu, sd_gpu) = out["cpu"], out["cuda"]
+    assert np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= 1e-2 * abs(l_cpu)
+    for kind in ("running_mean", "running_var"):
+        keys = [k for k in sd_cpu if k.endswith(kind)]
+        assert relative_distances({k: sd_gpu[k] for k in keys},
+                                  {k: sd_cpu[k] for k in keys})[1] <= 2e-2
+    for k, v in sd_cpu.items():
+        if "running" not in k and not k.endswith("num_batches_tracked"):
+            assert (sd_gpu[k] - v).abs().max().item() <= 2.5 * cfg.lr, k
+            assert sd_gpu[k].dtype == torch.float32, k
+    want = nets["cpu"].first_moments()
+    median, whole = relative_distances(nets["cuda"].first_moments(), want)
+    control, _ = relative_distances(nets["control"].first_moments(), want)
+    assert median <= 3e-2 and whole <= 3e-2 < control, (median, whole,
+                                                        control)
 
 
 # -- the training run loop on the card -----------------------------------------

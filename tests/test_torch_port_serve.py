@@ -320,11 +320,42 @@ def test_serve_args_from_pth(tmp_path):
         httpd.server_close()
 
 
-@pytest.mark.parametrize("flag,value", [
-    ("--dp", "2"), ("--quant", "int8"), ("--dtype", "bfloat16")])
+@pytest.mark.parametrize("flag,value", [("--dp", "2"), ("--quant", "int8")])
 def test_serve_refuses_unported_options(tmp_path, flag, value):
     with pytest.raises(SystemExit, match="ROADMAP.md"):
         serve(_args(_save_pth(tmp_path), flag, value))
+
+
+def test_serve_dtype_bfloat16_matches_the_jax_bf16_server(tmp_path):
+    """``--dtype bfloat16``: the checkpoint's float32 parameters, the
+    model computing in bfloat16, `` [bf16]`` in its name, as the JAX
+    server rebuilds its module (cli/serve.py:539-544); float32 clips in,
+    float32 masks out.  Held to JAX's bf16 server within 2^-7 relative on
+    99.9% of the mask's elements (tests/test_torch_port_bf16.py)."""
+    httpd = serve(_args(_save_pth(tmp_path), "--dtype", "bfloat16"))
+    jax_srv = JaxInferenceServer(
+        JaxGenerator(ngf=NGF, dtype=jnp.bfloat16),
+        jax.tree_util.tree_map(jnp.asarray, _jax_variables()), "jax",
+        isize=S, nfr=T, max_batch=2, max_wait_ms=5.0)
+    try:
+        srv = httpd.inference
+        assert srv.name == "Propose model[GAN] [bf16]"
+        assert srv.model.dconv1.bn.dtype == torch.bfloat16
+        assert all(p.dtype == torch.float32 for p in srv.model.parameters())
+        clips = _clips(12, 3)
+        got = srv.predict(clips, timeout=TIMEOUT)
+        want = jax_srv.predict(clips, timeout=TIMEOUT)
+        assert got.dtype == np.float32 and got.shape == want.shape
+        err = np.abs(got - want)
+        assert (err > 2.0 ** -7 * np.abs(want)).mean() <= 1e-3, err.max()
+        with torch.inference_mode():
+            direct = to_channel_last(srv.model(to_channel_first(
+                torch.from_numpy(clips)))).numpy()
+        np.testing.assert_allclose(got, direct, atol=1e-6, rtol=0)
+    finally:
+        jax_srv.close()
+        httpd.inference.close()
+        httpd.server_close()
 
 
 def test_cuda_device_never_falls_back_to_cpu(tmp_path):
@@ -376,3 +407,31 @@ def test_infer_main_writes_mask_overlay_scores(tmp_path):
     _, _, scores = infer.predict_clips(_port_model(), frames[None])
     np.testing.assert_allclose([float(r.split(",")[1]) for r in rows[1 + T:]],
                                scores[0].numpy(), atol=1e-6)
+
+
+def test_infer_main_dtype_bfloat16(tmp_path):
+    """``infer --dtype bfloat16`` (JAX cli/infer.py:53-57, 97-98): the
+    model computes in bfloat16 from the float32 checkpoint; its scores are
+    those of ``predict_clips`` on that model, and near the float32 run's."""
+    from vfd_gan_tpu.data.video_io import read_clip, write_video
+
+    vid = str(tmp_path / "in.mp4")
+    write_video(vid, np.random.default_rng(14).integers(
+        0, 255, (T, S, S, 3), dtype=np.uint8))
+    path = _save_pth(tmp_path)
+    rows = {}
+    for dtype in ("float32", "bfloat16"):
+        out = str(tmp_path / dtype)
+        infer.main(["--video", vid, "--ckpt", path, "--out", out, "--isize",
+                    str(S), "--nfr", str(T), "--dtype", dtype, "--device",
+                    "cpu"])
+        with open(os.path.join(out, "scores.csv")) as f:
+            rows[dtype] = np.array([float(r.split(",")[1])
+                                    for r in f.read().splitlines()[1:]])
+    model, name = infer._load(path, torch.device("cpu"), torch.bfloat16)
+    assert name == "Propose model[GAN] [bf16]"
+    frames = read_clip(vid, 0, T, resize_to=(S, S))
+    _, _, scores = infer.predict_clips(model, frames[None])
+    np.testing.assert_allclose(rows["bfloat16"], scores[0].numpy(),
+                               atol=1e-6)
+    np.testing.assert_allclose(rows["bfloat16"], rows["float32"], atol=2e-2)

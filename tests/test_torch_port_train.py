@@ -486,7 +486,9 @@ def test_trainer_runs_a_sweep_and_writes_loadable_pth(tmp_path, capsys):
 
 @pytest.mark.parametrize("extra, match", [
     (["--model", "anogan"], "item 10"),
-    (["--compute_dtype", "bfloat16"], "item 11"),
+    # ported since: the nets compute in it
+    pytest.param(["--compute_dtype", "bfloat16"], None,
+                 id="--compute_dtype_bfloat16-bf16 nets"),
     # neither synthetic data nor both path lists: the JAX trainer's exit 2
     pytest.param(["--synthetic_data", "0"], 2, id="--synthetic_data_0-mp4"),
     (["--accum", "2"], "--accum"),
@@ -503,7 +505,11 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, capsys, extra, match):
     argv = _ARGS + extra + ["--device", "cpu", "--result_root", str(tmp_path)]
     if match is None:
         engine = trainer.build_engine(argv)
-        assert getattr(engine.cfg, extra[0].lstrip("-")) is True
+        want = extra[1] if len(extra) > 1 else True
+        assert getattr(engine.cfg, extra[0].lstrip("-")) == want
+        if extra[0] == "--compute_dtype":
+            assert engine.netg.dconv1.bn.dtype == torch.bfloat16
+            assert engine.netd.spatdisc.linear.dtype == torch.bfloat16
         engine.close()
         return
     if match == 2:

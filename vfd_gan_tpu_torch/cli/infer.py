@@ -13,7 +13,11 @@ picked by the checkpoint's file name as the reference does), and writes
 Usage::
 
     python -m vfd_gan_tpu_torch.cli.infer --video clip.mp4 \\
-        --ckpt run_netG.pth --out out/ [--device cuda]
+        --ckpt run_netG.pth --out out/ [--dtype bfloat16] [--device cuda]
+
+``--dtype bfloat16`` builds the model computing in bfloat16 from the
+checkpoint's float32 parameters, as the JAX ``infer`` does
+(``models/layers.py``); the clips in and the mask out stay float32.
 
 The checkpoint is a reference-format ``.pth``; an Orbax run directory of
 the JAX package converts to one with ``python -m
@@ -30,6 +34,7 @@ import os
 import numpy as np
 import torch
 
+from vfd_gan_tpu_torch.models import DTYPES
 from vfd_gan_tpu_torch.models.convlstm import ConvLSTMModel
 from vfd_gan_tpu_torch.models.mygan import Generator
 from vfd_gan_tpu_torch.models.stcnn import AutoEncoder
@@ -56,6 +61,8 @@ def build_parser():
                    help="opening plane: th = reference cv2 quirk "
                         "(PARITY.md), hw = per-frame")
     p.add_argument("--nfr", type=int, default=16)
+    p.add_argument("--dtype", choices=tuple(DTYPES), default="float32",
+                   help="compute dtype (parameters stay float32)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
     return p
@@ -72,24 +79,28 @@ DISPATCH = (
 )
 
 
-def _build(family: str, sd: dict, device: torch.device) -> torch.nn.Module:
+def _build(family: str, sd: dict, device: torch.device,
+           dtype: torch.dtype) -> torch.nn.Module:
     """The family's model at the checkpoint's width (the reference's is
-    ngf = 32 and Xception's full width)."""
+    ngf = 32 and Xception's full width), computing in ``dtype``."""
+    kw = {"dtype": dtype, "device": device}
     if family == "mygan":
-        return Generator(ngf=sd["conv_last.weight"].shape[1], device=device)
+        return Generator(ngf=sd["conv_last.weight"].shape[1], **kw)
     if family == "c2plus1d":
-        return AutoEncoder(device=device)
+        return AutoEncoder(**kw)
     if family == "xception":
         # bn4 normalises the trunk's widest layer, 2048 x width_mult
         return Xception3D(sd["conv1.weight"].shape[1],
-                          sd["bn4.weight"].shape[0] / 2048, device=device)
-    return ConvLSTMModel(device=device)
+                          sd["bn4.weight"].shape[0] / 2048, **kw)
+    return ConvLSTMModel(**kw)
 
 
-def _load(ckpt: str, device: torch.device):
+def _load(ckpt: str, device: torch.device,
+          dtype: torch.dtype = torch.float32):
     """Model for a ``.pth`` by the reference's filename rule
     (test.py:115-144), loaded ``strict=True``, in eval mode on ``device``,
-    and its display name."""
+    computing in ``dtype`` (its parameters float32), and its display name
+    (`` [bf16]`` appended in bfloat16, as the JAX CLIs do)."""
     if os.path.isdir(ckpt):
         raise SystemExit(
             f"{ckpt} is a directory: Orbax checkpoints need jax; convert it "
@@ -98,8 +109,10 @@ def _load(ckpt: str, device: torch.device):
     for substrings, family, name in DISPATCH:
         if any(sub in ckpt for sub in substrings):
             sd = load_state_dict(ckpt)
-            model = _build(family, sd, device)
+            model = _build(family, sd, device, dtype)
             model.load_state_dict(sd, strict=True)
+            if dtype == torch.bfloat16:
+                name += " [bf16]"
             return model.eval(), name
     raise SystemExit(f"cannot infer model type from path: {ckpt}")
 
@@ -138,7 +151,7 @@ def main(argv=None) -> None:
 
     device = resolve_device(args.device)
     os.makedirs(args.out, exist_ok=True)
-    model, name = _load(args.ckpt, device)
+    model, name = _load(args.ckpt, device, DTYPES[args.dtype])
     print(f"model: {name} on {device}")
 
     n_frames = count_frames(args.video)

@@ -29,7 +29,13 @@ admitted clips are waiting.  With ``--auth_token`` every endpoint but
 
 Usage::
 
-    python -m vfd_gan_tpu_torch.cli.serve --ckpt run_netG.pth [--device cuda]
+    python -m vfd_gan_tpu_torch.cli.serve --ckpt run_netG.pth \\
+        [--dtype bfloat16] [--device cuda]
+
+``--dtype bfloat16`` serves the model computing in bfloat16 from the
+checkpoint's float32 parameters, its name tagged `` [bf16]``, as the JAX
+server does; the wire format is unchanged.  ``--dp`` and ``--quant int8``
+exit with the ``ROADMAP.md`` item that holds them.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from vfd_gan_tpu_torch.models import DTYPES
 from vfd_gan_tpu_torch.ops.image import to_channel_first, to_channel_last
 
 
@@ -65,11 +72,12 @@ def build_parser():
                    help="how long the batcher waits to fill a batch")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--dtype", choices=tuple(DTYPES), default="float32",
+                   help="compute dtype (parameters stay float32; clips in "
+                        "and masks out stay float32)")
     # Accepted so that JAX-server command lines fail with a pointer instead
     # of an argparse error; only the defaults are ported.
     p.add_argument("--dp", type=int, default=1)
-    p.add_argument("--dtype", choices=("float32", "bfloat16"),
-                   default="float32")
     p.add_argument("--quant", choices=("none", "int8"), default="none")
     p.add_argument("--max_queued_clips", type=int, default=256,
                    help="admission bound before shedding load with 429s")
@@ -486,7 +494,6 @@ def make_handler(server: InferenceServer, video_root: str = "",
 _NOT_PORTED = (
     ("dp", 1, "--dp > 1", "Multi-card serving"),
     ("quant", "none", "--quant int8", "int8 serving"),
-    ("dtype", "float32", "--dtype bfloat16", "Reduced-precision serving"),
 )
 
 
@@ -501,7 +508,9 @@ def serve(args) -> ThreadingHTTPServer:
                              f"ROADMAP.md, 'Modules still to port', "
                              f"item '{item}'")
     device = resolve_device(args.device)
-    model, name = _load(args.ckpt, device)
+    # --dtype bfloat16: the model rebuilt to compute in bfloat16 from the
+    # checkpoint's float32 parameters (JAX cli/serve.py:539-544)
+    model, name = _load(args.ckpt, device, DTYPES[args.dtype])
     inf = InferenceServer(model, name, isize=args.isize, nfr=args.nfr,
                           max_batch=args.max_batch,
                           max_wait_ms=args.max_wait_ms,

@@ -4,17 +4,19 @@ Takes the JAX trainer's flags (``vfd_gan_tpu_torch.config``, the JAX
 package's ``vfd_gan_tpu.config`` restated) plus two of its own::
 
     python -m vfd_gan_tpu_torch.cli.trainer --model mygan \\
-        --compute_dtype float32 --tr_plist train.txt --ts_plist test.txt \\
+        --tr_plist train.txt --ts_plist test.txt \\
         [--autosave_every 500 [--autosave_async]] [--resume latest.pt] \\
         [--device cuda] [--flow_impl fused|two_kernel|warp]
     python -m vfd_gan_tpu_torch.cli.trainer --model clstm \\
-        --compute_dtype float32 --synthetic_data 100 [--device cuda]
+        --synthetic_data 100 [--compute_dtype float32] [--device cuda]
 
 What this port runs: ``--model mygan`` (the GAN engine; ``--ae`` for the
 AutoEncoder as G) and ``--model c2plus1d|xception|clstm`` (the supervised
-engine) in float32 (TF32 off), on mp4 path lists (``--tr_plist`` and
-``--ts_plist``: decoded with cv2 on ``--workers`` threads, copied to the
-card ``--prefetch`` batches ahead) or on on-device synthetic data
+engine) in ``--compute_dtype`` bfloat16 (the default, as in the JAX
+trainer) or float32 (TF32 off either way), on mp4 path lists
+(``--tr_plist`` and ``--ts_plist``: decoded with cv2 on ``--workers``
+threads, copied to the card ``--prefetch`` batches ahead) or on on-device
+synthetic data
 (``--synthetic_data N`` train batches per epoch,
 ``--synthetic_test_batches`` per sweep), with autosave, a parked checkpoint
 on SIGTERM, exact ``--resume``, TensorBoard panels, ``--cache_gt_flow`` and
@@ -80,10 +82,6 @@ def parse(argv):
                          "vfd_gan_tpu_torch yet (ROADMAP.md queue 1 item "
                          f"10); --model mygan and {'|'.join(SUPERVISED)} "
                          "are")
-    if cfg.compute_dtype != "float32":
-        raise SystemExit(f"--compute_dtype {cfg.compute_dtype}: not ported "
-                         "yet (ROADMAP.md queue 1 item 11); pass "
-                         "--compute_dtype float32")
     if not cfg.synthetic_data and (not cfg.tr_plist or not cfg.ts_plist):
         print("error: --tr_plist and --ts_plist are required "
               "(no hardcoded dataset defaults; or use --synthetic_data N)",

@@ -10,15 +10,17 @@ from vfd_gan_tpu_torch.models.stcnn import AutoEncoder
 from vfd_gan_tpu_torch.models.xception3d import Xception3D
 
 SUPERVISED = ("c2plus1d", "xception", "clstm")
+# the trainer's --compute_dtype and the servers' --dtype choices
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def build_mask_model(name: str, cfg, *, device=None,
-                     generator: torch.Generator | None = None):
+def build_mask_model(name: str, cfg, *, dtype: torch.dtype = torch.float32,
+                     device=None, generator: torch.Generator | None = None):
     """The ``--model`` mask predictor (reference dispatch:
-    lib/train_stcnn.py:52-66), with the reference init drawn from
-    ``generator``.  As in JAX, only Xception reads ``--ich`` and
-    ``--xwidth`` (the others take the 3-channel clips)."""
-    kw = {"device": device, "generator": generator}
+    lib/train_stcnn.py:52-66) computing in ``dtype``, with the reference
+    init drawn from ``generator``.  As in JAX, only Xception reads
+    ``--ich`` and ``--xwidth`` (the others take the 3-channel clips)."""
+    kw = {"dtype": dtype, "device": device, "generator": generator}
     if name == "c2plus1d":
         return AutoEncoder(**kw)
     if name == "xception":

@@ -18,6 +18,12 @@ Each layer keeps the reference's one gate weight,
 ``clstm{i}.cell_list.0.conv.weight`` in ``nn.Conv2d`` layout ``(4h,
 cin + h, 3, 3)`` (bias-free, PyTorch's default init: the reference's
 ``weights_init`` skips Conv2d), and slices it in ``forward``.
+
+``dtype`` (JAX models/convlstm.py:54-89): the gate convs run in it, the
+input cast to it and the gate weight's halves cast once per forward; the
+initial hidden and cell states are zeros of ``dtype``, so in bfloat16 the
+cell state and every gate stay bfloat16 through the recurrence.  The
+BatchNorms return ``dtype``; the head's sigmoid is float32.
 """
 
 from __future__ import annotations
@@ -49,20 +55,26 @@ class ConvLSTMLayer(nn.Module):
     """One ConvLSTM layer over a clip: channel-last ``(B, T, H, W, Cin)``
     -> every hidden state ``(B, T, H, W, hidden)``."""
 
-    def __init__(self, cin: int, hidden: int, *, device=None,
+    def __init__(self, cin: int, hidden: int, *,
+                 dtype: torch.dtype = torch.float32, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.hidden = hidden
+        self.dtype = dtype
         self.cell_list = nn.ModuleList([ConvLSTMCell(
             cin, hidden, device=device, generator=generator)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, h, w, cin = x.shape
         hid = self.hidden
-        # (4h, cin + h, 3, 3) -> the (3, 3, I, 4h) halves of the JAX kernel
+        if self.dtype != torch.float32:
+            x = x.to(self.dtype)
+        # (4h, cin + h, 3, 3) -> the (3, 3, I, 4h) halves of the JAX kernel,
+        # cast to x's dtype once, as the JAX layer casts its kernel: the T
+        # steps' gradients of the hidden half add up in that dtype
         weight = self.cell_list[0].conv.weight.permute(2, 3, 1, 0)
-        kx = weight[:, :, :cin].contiguous()
-        kh = weight[:, :, cin:].contiguous()
+        kx = weight[:, :, :cin].to(x.dtype).contiguous()
+        kh = weight[:, :, cin:].to(x.dtype).contiguous()
         xg = conv3x3(x.reshape(b * t, h, w, cin), kx).reshape(
             b, t, h, w, 4 * hid)
         hcur = x.new_zeros((b, h, w, hid))
@@ -84,17 +96,18 @@ class ConvLSTMModel(nn.Module):
     """The 3-layer stack with inter-layer BN and the sigmoid mask head;
     NCDHW ``(B, 3, T, H, W)`` -> ``(B, 1, T, H, W)``."""
 
-    def __init__(self, *, device=None,
+    def __init__(self, *, dtype: torch.dtype = torch.float32, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        kw = {"device": device, "generator": generator}
+        kw = {"dtype": dtype, "device": device, "generator": generator}
         widths = (3,) + HIDDEN
         for i, hid in enumerate(HIDDEN):
             setattr(self, f"clstm{i + 1}",
                     ConvLSTMLayer(widths[i], hid, **kw))
             setattr(self, f"bn{i + 1}", VideoBatchNorm(hid, **kw))
         self.conv_last = make_conv3d(HIDDEN[-1], 1, (3, 3, 3), (1, 1, 1),
-                                     bias=False, **kw)
+                                     bias=False, device=device,
+                                     generator=generator)
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:

@@ -14,8 +14,18 @@ NCDHW ``(B, C, T, H, W)`` input.  Submodule names are the reference's, so
   U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and bias)
 * ``VideoBatchNorm``: ``nn.BatchNorm3d`` with torch's eps 1e-5 and
   momentum 0.1, whose running statistics the eval forward uses.
+* ``Conv3d``: ``nn.Conv3d`` that casts its weight and bias to its input's
+  dtype.
 * ``dropout``: flax ``nn.Dropout``'s function with masks drawn from a
   ``torch.Generator``.
+
+Compute dtype, as the JAX modules' ``dtype`` field sets it (bfloat16 is
+the trainer's default): parameters and running statistics stay float32;
+every conv and pool runs in its input's dtype (so a net's first conv, fed
+float32 clips, runs in float32); a BatchNorm computes its statistics and
+normalises in float32 and returns the model's ``dtype`` (so the net runs
+in ``dtype`` from its first BatchNorm on); ``TorchLinear`` runs in
+``dtype``.  Gradients reach the float32 parameters through the casts.
 """
 
 from __future__ import annotations
@@ -31,22 +41,68 @@ from vfd_gan_tpu_torch.utils.init import bn_scale_, dcgan_normal_, torch_default
 
 
 class VideoBatchNorm(nn.BatchNorm3d):
-    """BatchNorm over (B, T, H, W) per channel, scale ~ N(1, 0.02)."""
+    """BatchNorm over (B, T, H, W) per channel, scale ~ N(1, 0.02): float32
+    statistics and normalisation (a bfloat16 input is read as float32 by
+    torch's mixed-dtype BatchNorm), the result in ``dtype``
+    (models/layers.py:143-144 of the JAX package)."""
 
-    def __init__(self, features: int, *, device=None,
-                 generator: torch.Generator | None = None):
+    def __init__(self, features: int, *, dtype: torch.dtype = torch.float32,
+                 device=None, generator: torch.Generator | None = None):
         super().__init__(features, eps=1e-5, momentum=0.1, device=device)
+        self.dtype = dtype
         if generator is not None:
             bn_scale_(self.weight, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype != torch.float32:
+            return super().forward(x).to(self.dtype)
+        return super().forward(x)
+
+
+class Conv3d(nn.Conv3d):
+    """``nn.Conv3d`` in its input's dtype: the float32 weight and bias are
+    cast to it, as the JAX convolutions cast their kernels
+    (``ops/convs.py``); their gradients come back float32.
+
+    Below float32 the sums are rounded to the input's dtype, as an XLA
+    convolution in that dtype stores them.  A bias-free conv returns them
+    so.  A bias is added to them in float32 and the result stays float32,
+    as XLA adds ``y + bias.astype(y.dtype)`` inside the fusion that reads
+    it and rounds only what that fusion stores; each reader of a biased
+    conv rounds or widens as JAX does (a BatchNorm computes in float32 and
+    returns its dtype, a head is float32, the AutoEncoder's residual is
+    cast to its block input's dtype).  Measured against JAX in bfloat16
+    (tests/test_torch_port_bf16_nets.py): rounding the biased sum puts
+    MyGAN's Generator twice as far from JAX's as JAX's own bfloat16 noise,
+    eval and train; leaving bias-free sums unrounded does not bring the
+    AutoEncoder's train forward within 2^-7 of JAX's and takes Xception's
+    out of it.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype in (torch.float32, torch.float64):
+            return super().forward(x)
+        w = self.weight.to(x.dtype)
+        if x.device.type == "cpu":
+            # the same function from float32 kernels: products of the
+            # rounded operands and float32 sums, rounded once.  oneDNN's
+            # bfloat16 conv3d returned NaN weight gradients now and then
+            # on one x86 host, where 3 taps outreach a 2-frame time axis
+            y = self._conv_forward(x.float(), w.float(), None).to(x.dtype)
+        else:
+            y = self._conv_forward(x, w, None)
+        if self.bias is None:
+            return y
+        return y.float() + self.bias.to(x.dtype).float().view(-1, 1, 1, 1)
 
 
 def make_conv3d(cin: int, cout: int, kernel, padding=(0, 0, 0), *,
                 stride=(1, 1, 1), bias: bool = True, device=None,
-                generator: torch.Generator | None = None) -> nn.Conv3d:
-    """``nn.Conv3d`` with the reference init drawn from ``generator``:
-    kernel ~ N(0, 0.02), bias PyTorch's default over the kernel's fan-in."""
-    conv = nn.Conv3d(cin, cout, tuple(kernel), stride=tuple(stride),
-                     padding=tuple(padding), bias=bias, device=device)
+                generator: torch.Generator | None = None) -> Conv3d:
+    """``Conv3d`` with the reference init drawn from ``generator``: kernel
+    ~ N(0, 0.02), bias PyTorch's default over the kernel's fan-in."""
+    conv = Conv3d(cin, cout, tuple(kernel), stride=tuple(stride),
+                  padding=tuple(padding), bias=bias, device=device)
     if generator is not None:
         dcgan_normal_(conv.weight, generator)
         if bias:
@@ -62,7 +118,8 @@ class STConv(nn.Module):
 
     def __init__(self, cin: int, cout: int,
                  kernel_size: Sequence[int] = (3, 3, 3),
-                 padding: Sequence[int] = (0, 0, 0), *, device=None,
+                 padding: Sequence[int] = (0, 0, 0), *,
+                 dtype: torch.dtype = torch.float32, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         kt, kh, kw = kernel_size
@@ -70,7 +127,8 @@ class STConv(nn.Module):
         mid = r2plus1d_mid_channels(kt, kh, kw, cin, cout)
         self.spatial_conv = make_conv3d(cin, mid, (1, kh, kw), (0, ph, pw),
                                         device=device, generator=generator)
-        self.bn = VideoBatchNorm(mid, device=device, generator=generator)
+        self.bn = VideoBatchNorm(mid, dtype=dtype, device=device,
+                                 generator=generator)
         self.temporal_conv = make_conv3d(mid, cout, (kt, 1, 1), (pt, 0, 0),
                                          device=device, generator=generator)
 
@@ -82,12 +140,13 @@ class GenConvBlock(nn.Module):
     """STConv -> BN -> LeakyReLU(0.2): the generator's conv block
     (models/mygannet.py:13-28, 3x3x3 with SAME padding)."""
 
-    def __init__(self, cin: int, cout: int, *, device=None,
+    def __init__(self, cin: int, cout: int, *,
+                 dtype: torch.dtype = torch.float32, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.conv = STConv(cin, cout, (3, 3, 3), padding=(1, 1, 1),
-                           device=device, generator=generator)
-        self.bn = VideoBatchNorm(cout, device=device, generator=generator)
+        kw = {"dtype": dtype, "device": device, "generator": generator}
+        self.conv = STConv(cin, cout, (3, 3, 3), padding=(1, 1, 1), **kw)
+        self.bn = VideoBatchNorm(cout, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.leaky_relu(self.bn(self.conv(x)), negative_slope=0.2)
@@ -98,12 +157,13 @@ class DiscConvBlock(nn.Module):
     (models/mygannet.py:104-116; note the default slope, not 0.2)."""
 
     def __init__(self, cin: int, cout: int, kernel_size: Sequence[int],
-                 padding: Sequence[int], *, device=None,
+                 padding: Sequence[int], *,
+                 dtype: torch.dtype = torch.float32, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.conv = STConv(cin, cout, kernel_size, padding=padding,
-                           device=device, generator=generator)
-        self.bn = VideoBatchNorm(cout, device=device, generator=generator)
+        kw = {"dtype": dtype, "device": device, "generator": generator}
+        self.conv = STConv(cin, cout, kernel_size, padding=padding, **kw)
+        self.bn = VideoBatchNorm(cout, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.leaky_relu(self.bn(self.conv(x)), negative_slope=0.01)
@@ -122,11 +182,22 @@ def dropout(y: torch.Tensor, rate: float, training: bool,
 
 
 class TorchLinear(nn.Linear):
-    """``nn.Linear`` with PyTorch's default init drawn from ``generator``."""
+    """``nn.Linear`` with PyTorch's default init drawn from ``generator``,
+    run in ``dtype``: input, weight and bias cast to it, as flax ``Dense``
+    with ``dtype`` and float32 parameters does."""
 
-    def __init__(self, fan_in: int, features: int, *, device=None,
+    def __init__(self, fan_in: int, features: int, *,
+                 dtype: torch.dtype = torch.float32, device=None,
                  generator: torch.Generator | None = None):
         super().__init__(fan_in, features, device=device)
+        self.dtype = dtype
         if generator is not None:
             torch_default_(self.weight, fan_in, generator)
             torch_default_(self.bias, fan_in, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.dtype
+        if d == torch.float32:
+            return super().forward(x)
+        # the rounded product, then the bias, as flax adds it
+        return F.linear(x.to(d), self.weight.to(d)) + self.bias.to(d)

@@ -22,20 +22,27 @@ flattens its pooled features in NCDHW ``(C, T, H, W)`` order into a Linear
 and a float32 sigmoid and returns ``(score (B,), features)``.  The Linear
 input size follows the clip geometry, so the discriminators take
 ``nfr`` and ``isize``.
+
+``dtype`` (float32 or bfloat16) is the compute dtype of
+``models/layers.py``: parameters float32, each first conv in its float32
+input's dtype, the rest from the first BatchNorm on in ``dtype``; the
+heads cast to float32 before the sigmoid (JAX models/mygan.py:96, 120,
+146).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from vfd_gan_tpu_torch.models.layers import (
+    Conv3d,
     DiscConvBlock,
     GenConvBlock,
     TorchLinear,
     dropout,
 )
+from vfd_gan_tpu_torch.ops.convs import avg_pool_ncdhw
 from vfd_gan_tpu_torch.ops.resize import upsample_ncdhw
 from vfd_gan_tpu_torch.utils.init import dcgan_normal_
 
@@ -44,10 +51,11 @@ class Generator(nn.Module):
     """U-Net mask predictor; ``generator`` seeds the reference init."""
 
     def __init__(self, ngf: int = 32, *, drop_rate: float = 0.25,
-                 device=None, generator: torch.Generator | None = None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 generator: torch.Generator | None = None):
         super().__init__()
         g = ngf
-        kw = {"device": device, "generator": generator}
+        kw = {"dtype": dtype, "device": device, "generator": generator}
         self.dconv1 = GenConvBlock(3, g, **kw)
         self.dconv2 = GenConvBlock(g, g * 2, **kw)
         self.dconv3 = GenConvBlock(g * 2, g * 4, **kw)
@@ -59,8 +67,8 @@ class Generator(nn.Module):
         self.uconv2 = GenConvBlock(g * 6, g * 2, **kw)
         self.uconv1 = GenConvBlock(g * 3, g, **kw)
         self.drop_rate = drop_rate
-        self.conv_last = nn.Conv3d(g, 1, 3, padding=1, bias=False,
-                                   device=device)
+        self.conv_last = Conv3d(g, 1, 3, padding=1, bias=False,
+                                device=device)
         if generator is not None:
             dcgan_normal_(self.conv_last.weight, generator)
 
@@ -76,10 +84,10 @@ class Generator(nn.Module):
         """Mask video ``(B, 1, T, H, W)``; ``generator`` draws the dropout
         masks of a train-mode forward."""
         d1 = self.dconv1(x)
-        d2 = self.dconv2(F.avg_pool3d(d1, 2))
-        d3 = self.dconv3(F.avg_pool3d(d2, 2))
-        d4 = self.dconv4(F.avg_pool3d(d3, 2))
-        latent = self.dconv5(F.avg_pool3d(d4, 2))
+        d2 = self.dconv2(avg_pool_ncdhw(d1, 2))
+        d3 = self.dconv3(avg_pool_ncdhw(d2, 2))
+        d4 = self.dconv4(avg_pool_ncdhw(d3, 2))
+        latent = self.dconv5(avg_pool_ncdhw(d4, 2))
 
         g = generator
         y = upsample_ncdhw(self.drop(self.uconv5(latent), g))
@@ -93,23 +101,23 @@ class Generator(nn.Module):
 class SpatialDisc(nn.Module):
     """Spatial branch (reference SDisc, models/mygannet.py:119-162)."""
 
-    def __init__(self, ndf: int = 32, isize: int = 128, *, device=None,
+    def __init__(self, ndf: int = 32, isize: int = 128, *,
+                 dtype: torch.dtype = torch.float32, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
+        kw = {"dtype": dtype, "device": device, "generator": generator}
         widths = [3] + [ndf * m for m in (1, 2, 4, 8, 16, 32)]
         for i in range(6):
             setattr(self, f"dconv{i + 1}", DiscConvBlock(
-                widths[i], widths[i + 1], (1, 3, 3), (0, 1, 1),
-                device=device, generator=generator))
+                widths[i], widths[i + 1], (1, 3, 3), (0, 1, 1), **kw))
         side = isize // 64
-        self.linear = TorchLinear(widths[-1] * side * side, 1, device=device,
-                                  generator=generator)
+        self.linear = TorchLinear(widths[-1] * side * side, 1, **kw)
 
     def forward(self, x: torch.Tensor):
         for i in range(6):
-            x = F.avg_pool3d(getattr(self, f"dconv{i + 1}")(x), (1, 2, 2))
+            x = avg_pool_ncdhw(getattr(self, f"dconv{i + 1}")(x), (1, 2, 2))
         features = x                                 # (B, C, T, s, s)
-        x = F.avg_pool3d(x, (x.shape[2], 1, 1), 1)   # global temporal pool
+        x = avg_pool_ncdhw(x, (x.shape[2], 1, 1), 1)   # global temporal pool
         score = torch.sigmoid(self.linear(x.flatten(1)).float())
         return score[:, 0], features
 
@@ -118,22 +126,22 @@ class TemporalDisc(nn.Module):
     """Temporal branch over the flow video (reference TDisc,
     models/mygannet.py:164-196)."""
 
-    def __init__(self, ndf: int = 32, nfr: int = 16, *, device=None,
+    def __init__(self, ndf: int = 32, nfr: int = 16, *,
+                 dtype: torch.dtype = torch.float32, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
+        kw = {"dtype": dtype, "device": device, "generator": generator}
         widths = [3, ndf, ndf * 2, ndf * 4]
         for i in range(3):
             setattr(self, f"dconv{i + 1}", DiscConvBlock(
-                widths[i], widths[i + 1], (3, 1, 1), (1, 0, 0),
-                device=device, generator=generator))
-        self.linear = TorchLinear(widths[-1] * (nfr // 8), 1, device=device,
-                                  generator=generator)
+                widths[i], widths[i + 1], (3, 1, 1), (1, 0, 0), **kw))
+        self.linear = TorchLinear(widths[-1] * (nfr // 8), 1, **kw)
 
     def forward(self, x: torch.Tensor):
         for i in range(3):
-            x = F.avg_pool3d(getattr(self, f"dconv{i + 1}")(x), (2, 1, 1))
+            x = avg_pool_ncdhw(getattr(self, f"dconv{i + 1}")(x), (2, 1, 1))
         features = x                                 # (B, C, T/8, H, W)
-        x = F.avg_pool3d(x, (1, x.shape[3], x.shape[4]), 1)  # global spatial
+        x = avg_pool_ncdhw(x, (1, x.shape[3], x.shape[4]), 1)  # global spatial
         score = torch.sigmoid(self.linear(x.flatten(1)).float())
         return score[:, 0], features
 
@@ -144,9 +152,10 @@ class DualDisc(nn.Module):
     ``(s_score, s_features, t_score, t_features)``."""
 
     def __init__(self, ndf: int = 32, nfr: int = 16, isize: int = 128, *,
-                 device=None, generator: torch.Generator | None = None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 generator: torch.Generator | None = None):
         super().__init__()
-        kw = {"device": device, "generator": generator}
+        kw = {"dtype": dtype, "device": device, "generator": generator}
         self.spatdisc = SpatialDisc(ndf, isize, **kw)
         self.tempdisc = TemporalDisc(ndf, nfr, **kw)
 

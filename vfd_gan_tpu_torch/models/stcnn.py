@@ -15,6 +15,9 @@ Submodule names are the reference's (``down_sep{i}``/``up_sep{i}`` with
 so ``state_dict`` keys match its ``.pth`` files.  ``drop_rate`` (default
 the reference's 0.25) can be set to 0 for a deterministic train forward;
 the masks come from the ``torch.Generator`` passed to ``forward``.
+``dtype`` is the compute dtype of ``models/layers.py`` (the first block's
+spatial conv and residual projection take the float32 clip; the head
+casts to float32 before the sigmoid).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from vfd_gan_tpu_torch.models.layers import (
     dropout,
     make_conv3d,
 )
+from vfd_gan_tpu_torch.ops.convs import avg_pool_ncdhw
 from vfd_gan_tpu_torch.ops.resize import upsample_ncdhw
 
 DOWN = (64, 128, 256, 512)
@@ -38,18 +42,18 @@ class C2Plus1dBlock(nn.Module):
     """Residual factored-conv block (reference mystcnn.py:6-49)."""
 
     def __init__(self, cin: int, cout: int, down_samp: bool, *,
-                 drop_rate: float = 0.25, device=None,
-                 generator: torch.Generator | None = None):
+                 drop_rate: float = 0.25, dtype: torch.dtype = torch.float32,
+                 device=None, generator: torch.Generator | None = None):
         super().__init__()
         kw = {"device": device, "generator": generator}
         self.down_samp = down_samp
         self.drop_rate = drop_rate
         self.spaceconv = make_conv3d(cin, cin, (1, 3, 3), (0, 1, 1),
                                      bias=False, **kw)
-        self.bn1 = VideoBatchNorm(cin, **kw)
+        self.bn1 = VideoBatchNorm(cin, dtype=dtype, **kw)
         self.pointwise = make_conv3d(cin, cout, (3, 1, 1), (1, 0, 0),
                                      bias=False, **kw)
-        self.bn2 = VideoBatchNorm(cout, **kw)
+        self.bn2 = VideoBatchNorm(cout, dtype=dtype, **kw)
         self.conv = make_conv3d(cin, cout, (1, 1, 1), **kw)
         self.conv_last = make_conv3d(2 * cout, cout, (3, 3, 3), (1, 1, 1),
                                      bias=False, **kw)
@@ -58,13 +62,15 @@ class C2Plus1dBlock(nn.Module):
                 generator: torch.Generator | None = None) -> torch.Tensor:
         y = F.relu(self.bn1(self.spaceconv(x)))
         y = F.relu(self.bn2(self.pointwise(y)))
+        # the projection's biased sum (float32 below float32, see Conv3d)
+        # rounds to the dtype JAX gives it, x's (JAX stcnn.py:52-62)
         if self.down_samp:
-            y = F.avg_pool3d(y, 2)
-            residual = F.avg_pool3d(self.conv(x), 2)
+            y = avg_pool_ncdhw(y, 2)
+            residual = avg_pool_ncdhw(self.conv(x), 2).to(x.dtype)
         else:
             y = upsample_ncdhw(y)
             residual = dropout(x, self.drop_rate, self.training, generator)
-            residual = self.conv(upsample_ncdhw(residual))
+            residual = self.conv(upsample_ncdhw(residual)).to(x.dtype)
         return self.conv_last(torch.cat([y, residual], 1))
 
 
@@ -73,10 +79,11 @@ class AutoEncoder(nn.Module):
     (reference mystcnn.py:52-88); ``(B, 3, T, H, W)`` -> ``(B, 1, T, H,
     W)``."""
 
-    def __init__(self, *, drop_rate: float = 0.25, device=None,
+    def __init__(self, *, drop_rate: float = 0.25,
+                 dtype: torch.dtype = torch.float32, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        kw = {"drop_rate": drop_rate, "device": device,
+        kw = {"drop_rate": drop_rate, "dtype": dtype, "device": device,
               "generator": generator}
         cin = 3
         for i, f in enumerate(DOWN):

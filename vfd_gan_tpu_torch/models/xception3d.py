@@ -15,7 +15,9 @@ conv, each followed by ReLU (xception.py:7-21).  Submodule names and
 ``state_dict`` keys match its ``.pth`` files.  ``width_mult`` (the
 trainer's ``--xwidth``) scales every width as the JAX model does;
 ``drop_rate`` (default 0.25) is the decoder dropout, drawn from the
-``torch.Generator`` passed to ``forward``.
+``torch.Generator`` passed to ``forward``.  ``dtype`` is the compute dtype
+of ``models/layers.py`` (the stem's first conv takes the float32 clip; the
+head casts to float32 before the sigmoid).
 """
 
 from __future__ import annotations
@@ -58,9 +60,11 @@ class XceptionBlock(nn.Module):
 
     def __init__(self, cin: int, cout: int, reps: int, strides: int = 1,
                  start_with_relu: bool = True, grow_first: bool = True, *,
-                 device=None, generator: torch.Generator | None = None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 generator: torch.Generator | None = None):
         super().__init__()
         kw = {"device": device, "generator": generator}
+        bn = {"dtype": dtype, **kw}
         if grow_first:
             widths = [cout] * reps
         else:
@@ -70,7 +74,7 @@ class XceptionBlock(nn.Module):
         for i, w in enumerate(widths):
             if i > 0 or start_with_relu:
                 layers.append(nn.ReLU())
-            layers += [SepaConv(width, w, **kw), VideoBatchNorm(w, **kw)]
+            layers += [SepaConv(width, w, **kw), VideoBatchNorm(w, **bn)]
             width = w
         if strides != 1:
             layers.append(nn.MaxPool3d((1, 3, 3), (1, strides, strides),
@@ -81,7 +85,7 @@ class XceptionBlock(nn.Module):
             self.skip = make_conv3d(cin, cout, (1, 1, 1),
                                     stride=(1, strides, strides), bias=False,
                                     **kw)
-            self.skipbn = VideoBatchNorm(cout, **kw)
+            self.skipbn = VideoBatchNorm(cout, **bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         skip = x if self.skip is None else self.skipbn(self.skip(x))
@@ -93,12 +97,14 @@ class DeConvBlock(nn.Module):
     upsample (reference xception.py:74-89)."""
 
     def __init__(self, cin: int, cout: int, *, drop_rate: float = 0.25,
-                 device=None, generator: torch.Generator | None = None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 generator: torch.Generator | None = None):
         super().__init__()
         self.drop_rate = drop_rate
         self.conv = make_conv3d(cin, cout, *_SPATIAL, bias=False,
                                 device=device, generator=generator)
-        self.bn = VideoBatchNorm(cout, device=device, generator=generator)
+        self.bn = VideoBatchNorm(cout, dtype=dtype, device=device,
+                                 generator=generator)
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -112,34 +118,35 @@ class Xception3D(nn.Module):
     ``(B, C, T, H, W)`` -> ``(B, 1, T, H, W)``."""
 
     def __init__(self, in_channels: int = 3, width_mult: float = 1.0, *,
-                 drop_rate: float = 0.25, device=None,
-                 generator: torch.Generator | None = None):
+                 drop_rate: float = 0.25, dtype: torch.dtype = torch.float32,
+                 device=None, generator: torch.Generator | None = None):
         super().__init__()
 
         def w(c: int) -> int:
             return max(1, round(c * width_mult))
 
         kw = {"device": device, "generator": generator}
+        bn = {"dtype": dtype, **kw}
         self.conv1 = make_conv3d(in_channels, w(32), (1, 3, 3), (0, 1, 1),
                                  stride=(1, 2, 2), bias=False, **kw)
-        self.bn1 = VideoBatchNorm(w(32), **kw)
+        self.bn1 = VideoBatchNorm(w(32), **bn)
         self.conv2 = make_conv3d(w(32), w(64), *_SPATIAL, bias=False, **kw)
-        self.bn2 = VideoBatchNorm(w(64), **kw)
-        self.block1 = XceptionBlock(w(64), w(128), 2, 2, False, True, **kw)
-        self.block2 = XceptionBlock(w(128), w(256), 2, 2, False, True, **kw)
-        self.block3 = XceptionBlock(w(256), w(728), 2, 2, False, True, **kw)
+        self.bn2 = VideoBatchNorm(w(64), **bn)
+        self.block1 = XceptionBlock(w(64), w(128), 2, 2, False, True, **bn)
+        self.block2 = XceptionBlock(w(128), w(256), 2, 2, False, True, **bn)
+        self.block3 = XceptionBlock(w(256), w(728), 2, 2, False, True, **bn)
         for i in range(N_MIDDLE_BLOCKS):
             setattr(self, f"block{i + 4}",
-                    XceptionBlock(w(728), w(728), 3, 1, True, True, **kw))
-        self.block12 = XceptionBlock(w(728), w(1024), 2, 1, True, False, **kw)
+                    XceptionBlock(w(728), w(728), 3, 1, True, True, **bn))
+        self.block12 = XceptionBlock(w(728), w(1024), 2, 1, True, False, **bn)
         self.conv3 = SepaConv(w(1024), w(1536), **kw)
-        self.bn3 = VideoBatchNorm(w(1536), **kw)
+        self.bn3 = VideoBatchNorm(w(1536), **bn)
         self.conv4 = SepaConv(w(1536), w(2048), **kw)
-        self.bn4 = VideoBatchNorm(w(2048), **kw)
+        self.bn4 = VideoBatchNorm(w(2048), **bn)
         widths = (w(2048), w(1024), w(256), w(128), w(32))
         for i in range(4):
             setattr(self, f"uconv{i + 1}", DeConvBlock(
-                widths[i], widths[i + 1], drop_rate=drop_rate, **kw))
+                widths[i], widths[i + 1], drop_rate=drop_rate, **bn))
         # with bias: PyTorch's default over the 3x3 taps, as the JAX head's
         self.conv_last = make_conv3d(w(32), 1, *_SPATIAL, **kw)
 

@@ -91,6 +91,17 @@ def avg_pool3d(x: torch.Tensor, window: tuple[int, int, int],
     return to_channel_last(y)
 
 
+def avg_pool_ncdhw(x: torch.Tensor, window, stride=None) -> torch.Tensor:
+    """``F.avg_pool3d`` of an NCDHW video in its dtype: float32 sums, one
+    rounding, as the JAX package's reshape-mean computes it
+    (ops/convs.py:430-432).  Torch's CPU kernel has no bfloat16, so there it
+    averages a float32 copy and rounds; the CUDA kernel sums bfloat16 in
+    float32 itself."""
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        return F.avg_pool3d(x.float(), window, stride).to(x.dtype)
+    return F.avg_pool3d(x, window, stride)
+
+
 def max_pool3d(x: torch.Tensor, window: tuple[int, int, int],
                stride: tuple[int, int, int],
                padding: tuple[int, int, int] = (0, 0, 0)) -> torch.Tensor:

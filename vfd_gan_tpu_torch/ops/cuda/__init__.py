@@ -54,6 +54,8 @@ ENTRIES = {
                               ctypes.c_int),
     "vfd_conv3x3_f32": ([_P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
                         ctypes.c_int),
+    "vfd_conv3x3_bf16": ([_P, _P, _P, _L, _I, _I, _I, _I, _I, _P],
+                         ctypes.c_int),
 }
 
 

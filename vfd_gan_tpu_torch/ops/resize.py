@@ -2,7 +2,8 @@
 
 The reference decoders upsample with ``nn.Upsample(mode='trilinear',
 align_corners=True)`` (models/mygannet.py:50); the port calls
-``F.interpolate`` for that.  ``resize_bilinear`` (half-pixel sampling, no
+``F.interpolate`` for that in float32, and in bfloat16 takes the JAX
+package's per-axis products (``upsample_ncdhw``).  ``resize_bilinear`` (half-pixel sampling, no
 antialias) is the flow pipeline's resize: the pyramid, the per-level flow
 upsample, ``flow_scale`` and the RGB upsample.  It is written, as in the
 JAX package, as one ``(out, in)`` interpolation matrix per axis applied in
@@ -22,10 +23,21 @@ from vfd_gan_tpu_torch.ops.image import to_channel_first, to_channel_last
 
 def upsample_ncdhw(x: torch.Tensor, scale: tuple[int, int, int] = (2, 2, 2),
                    align_corners: bool = True) -> torch.Tensor:
-    """Trilinear upsample of ``(B, C, T, H, W)`` by integer ``scale``."""
+    """Trilinear upsample of ``(B, C, T, H, W)`` by integer ``scale``.
+
+    float32: ``F.interpolate``.  bfloat16: as the JAX package computes it
+    (ops/resize.py:40-47), one ``(out, in)`` interpolation matrix per axis
+    cast to bfloat16 and a product per axis, T, then H, then W, each
+    rounded to bfloat16; ``F.interpolate`` would weigh in float32 and
+    round once, 2^-7 off on one element in eight."""
     t, h, w = x.shape[2:]
-    return F.interpolate(x, size=(t * scale[0], h * scale[1], w * scale[2]),
-                         mode="trilinear", align_corners=align_corners)
+    size = (t * scale[0], h * scale[1], w * scale[2])
+    if x.dtype in (torch.float32, torch.float64):
+        return F.interpolate(x, size=size, mode="trilinear",
+                             align_corners=align_corners)
+    for axis, n_out in zip((2, 3, 4), size):
+        x = _resize_axis(x, axis, n_out, align_corners)
+    return x
 
 
 def upsample2x(x: torch.Tensor, scale: tuple[int, int, int] = (2, 2, 2),
@@ -63,9 +75,12 @@ def _linear_matrix(n_in: int, n_out: int,
 def _matrix_on(n_in: int, n_out: int, align_corners: bool,
                device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """``_linear_matrix`` on ``device``, copied there once: a copy from
-    pageable host memory would wait for all work queued on the card."""
-    return torch.from_numpy(_linear_matrix(n_in, n_out, align_corners)).to(
-        device=device, dtype=dtype)
+    pageable host memory would wait for all work queued on the card.  Made
+    outside inference mode even when first asked for inside it (a served
+    forward), so that a later train step can save it for its backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_linear_matrix(
+            n_in, n_out, align_corners)).to(device=device, dtype=dtype)
 
 
 def _resize_axis(x: torch.Tensor, axis: int, n_out: int,

@@ -1,10 +1,12 @@
 """Where a train step's time goes on the card, by kernel.
 
-    python -m vfd_gan_tpu_torch.tools.profile_step --model clstm
+    python -m vfd_gan_tpu_torch.tools.profile_step --model clstm \
+        [--compute_dtype float32]
 
 builds the trainer's engine for the given flags (those of
-``vfd_gan_tpu_torch.cli.trainer``; synthetic data, b8, T16, 128^2, float32
-unless given), warms it up, then reports
+``vfd_gan_tpu_torch.cli.trainer``; synthetic data, b8, T16, 128^2 and the
+trainer's own ``--compute_dtype``, bfloat16, unless given), warms it up,
+then reports
 
 * the step time as a user waits for it: host clock around steps that end
   in a synchronise, median over ``--steps``;
@@ -64,7 +66,7 @@ def main(argv=None) -> dict:
         raise SystemExit("profile_step: torch.cuda.is_available() is False: "
                          "this needs an NVIDIA card")
     defaults = ["--batchsize", "8", "--nfr", "16", "--isize", "128",
-                "--compute_dtype", "float32", "--ep", "1", "--device", "cuda",
+                "--ep", "1", "--device", "cuda",
                 "--synthetic_data", str(ns.warmup + 2 * ns.steps)]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -105,7 +107,8 @@ def main(argv=None) -> dict:
         fam[0] += ms
         fam[1] += count
     step_ms = statistics.median(plain)
-    print(f"model {engine.cfg.model}: step {step_ms:.1f} ms (median of "
+    print(f"model {engine.cfg.model} {engine.cfg.compute_dtype}: step "
+          f"{step_ms:.1f} ms (median of "
           f"{ns.steps}, min {min(plain):.1f}, max {max(plain):.1f}); under "
           f"the profiler {statistics.median(profiled):.1f} ms")
     print(f"device time per step {device_ms:.1f} ms in "
@@ -120,7 +123,8 @@ def main(argv=None) -> dict:
     for name, (ms, count) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][0])[:ns.top]:
         print(f"  {ms:8.2f} ms  {count:6.0f} x  {name[:110]}")
-    result = {"model": engine.cfg.model, "step_ms": step_ms,
+    result = {"model": engine.cfg.model, "dtype": engine.cfg.compute_dtype,
+              "step_ms": step_ms,
               "device_ms_per_step": device_ms,
               "families": {k: v[0] for k, v in families.items()}}
     print(json.dumps(result))

@@ -26,6 +26,11 @@ The flow of both streams is one ``video_to_flow_rgb`` call with
 ``streams=2``; its refinement loop runs on the flow kernels of
 ``flow_impl`` (``ops/flow.py``).
 
+The nets compute in ``--compute_dtype`` (bfloat16 by default, float32
+parameters and Adam state; ``models/layers.py``); their scores, features
+for the feature-matching losses and G's mask are float32, and so are the
+losses, the flow and the augment gather (JAX gan_engine.py:54-63).
+
 Options: ``--ae`` trains the (2+1)D ``AutoEncoder`` as G (saved as
 ``*_netG.pth`` like any G); ``--resume latest.pt`` restores the full train
 state (``EngineBase.restore_into``); ``--cache_gt_flow`` keeps each test clip's
@@ -41,6 +46,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from vfd_gan_tpu_torch.models import DTYPES
 from vfd_gan_tpu_torch.models.mygan import DualDisc, Generator
 from vfd_gan_tpu_torch.models.stcnn import AutoEncoder
 from vfd_gan_tpu_torch.ops.augment import (
@@ -72,14 +78,16 @@ class MyGanEngine(EngineBase):
                  flow_impl: str = "fused"):
         super().__init__(cfg, train_iter, test_iter, device=device, gan=True)
         init = torch.Generator().manual_seed(cfg.seed)
+        self.dtype = DTYPES[cfg.compute_dtype]
         if cfg.ae:
             print("\n --Using C2plus1d AutoEncoder as G-- ")
-            netg = AutoEncoder(generator=init)
+            netg = AutoEncoder(dtype=self.dtype, generator=init)
         else:
-            netg = Generator(cfg.ngf, generator=init)
+            netg = Generator(cfg.ngf, dtype=self.dtype, generator=init)
         self.g = NetState.create(netg.to(device), cfg.lr, cfg.beta1)
         self.d = NetState.create(
-            DualDisc(cfg.ndf, cfg.nfr, cfg.isize, generator=init).to(device),
+            DualDisc(cfg.ndf, cfg.nfr, cfg.isize, dtype=self.dtype,
+                     generator=init).to(device),
             cfg.lr, cfg.beta1)
         # augmentation draws and dropout masks
         self.rng = torch.Generator(device=device).manual_seed(cfg.seed + 1)
@@ -356,7 +364,7 @@ class MyGanEngine(EngineBase):
                                  device=self.device))
         init = torch.Generator().manual_seed(seed)
         self.d = NetState.create(
-            DualDisc(cfg.ndf, cfg.nfr, cfg.isize,
+            DualDisc(cfg.ndf, cfg.nfr, cfg.isize, dtype=self.dtype,
                      generator=init).to(self.device), cfg.lr, cfg.beta1)
         print("Reloading Net d")
 

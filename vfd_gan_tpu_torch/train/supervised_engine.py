@@ -16,6 +16,10 @@ if-roc-elif-pr rule of ``EngineBase.score_and_checkpoint``; a best model
 is saved as ``{roc|pr}-{score:.4f}_step{NNNN}.pth`` with the reference's
 ``state_dict`` keys.
 
+The model computes in ``--compute_dtype`` (bfloat16 by default, float32
+parameters and Adam state; ``models/layers.py``); its mask and the loss are
+float32 (JAX supervised_engine.py:37-39).
+
 ``--resume latest.pt`` restores the full train state
 (``EngineBase.restore_into``).  Under ``--ref_mode_quirks`` the reference's
 stuck-in-eval latch holds: its ``test()`` switches the model to eval mode
@@ -30,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vfd_gan_tpu_torch.models import build_mask_model
+from vfd_gan_tpu_torch.models import DTYPES, build_mask_model
 from vfd_gan_tpu_torch.ops.augment import (
     augment_clips,
     normalize_clips,
@@ -54,7 +58,9 @@ class SupervisedEngine(EngineBase):
         super().__init__(cfg, train_iter, test_iter, device=device, gan=False)
         init = torch.Generator().manual_seed(cfg.seed)
         self.net = NetState.create(
-            build_mask_model(cfg.model, cfg, generator=init).to(device),
+            build_mask_model(cfg.model, cfg,
+                             dtype=DTYPES[cfg.compute_dtype],
+                             generator=init).to(device),
             cfg.lr, cfg.beta1)
         # augmentation draws and dropout masks
         self.rng = torch.Generator(device=device).manual_seed(cfg.seed + 1)

@@ -11,7 +11,9 @@ def resolve_device(name: str) -> torch.device:
 
     On CUDA, TF32 is switched off for convolutions and matmuls, so the
     card's float32 forward is the same function as the CPU reference
-    (cuDNN convolutions default to TF32)."""
+    (cuDNN convolutions default to TF32), and so are reduced-precision
+    reductions in bfloat16 matmuls: their sums stay float32, as on the
+    CPU and in the JAX package."""
     device = torch.device(name)
     if device.type == "cuda":
         if not torch.cuda.is_available():
@@ -19,6 +21,8 @@ def resolve_device(name: str) -> torch.device:
                              "(use --device cpu explicitly)")
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     elif device.type != "cpu":
         raise SystemExit(f"--device {name}: only cuda and cpu are supported")
     return device
