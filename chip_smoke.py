@@ -66,25 +66,38 @@ phases, one line each (or a few):
     best ``{roc|pr}-*.pth`` loaded back with strict=True, step time, peak
     memory and launch counts.
 
-13. host data: clips in memory (a stand-in for the mp4 dataset, which
+13. AnoGAN and GANomaly (the last two families): a CUDA-vs-CPU step of
+    each (``_ano_core`` with z and dropout masks from the CPU,
+    ``_ganomaly_core``), then ``cli.trainer.main --model anogan|ganomaly``
+    at b8, T16, 128^2 (their widths are fixed) for 8 steps and a 2-batch
+    sweep: finite losses and scores, the best ``*_netG.pth``/``*_netD.pth``
+    pair loaded back with strict=True, one augment launch per step, one
+    opening launch per AnoGAN sweep batch (none in GANomaly's frame-level
+    sweep), step median, clips/s and peak memory;
+14. device scoring: one full-width two-batch sweep of each family with
+    and without ``--device_scoring``, from the same seed: roc/pr/f1
+    within 1e-5 and the same best checkpoint, and the time of
+    ``score_and_checkpoint`` on each path (GANomaly's frame-level ROC
+    stays on the host, as in the JAX engine);
+15. host data: clips in memory (a stand-in for the mp4 dataset, which
     needs cv2: staged at 140^2 for train, 128^2 for test) through the
     port's ``ClipBatchIterator`` and ``device_prefetch`` (pinned buffers, a
     side stream) into ``MyGanEngine`` and ``SupervisedEngine(clstm)`` for a
     few steps and a sweep: the prefetched batches equal the iterator's bit
     for bit, the kernels launch as with synthetic data; step median, the
     wait for a batch and the host-to-device copy's time;
-14. resume: for mygan and clstm a run with ``--autosave_every`` that is
+16. resume: for mygan and clstm a run with ``--autosave_every`` that is
     sent a SIGTERM after step k parks ``latest.pt`` and returns; a new
     engine with ``--resume`` holds the saved state bit for bit at the cursor
     ``(epoch, k)`` and runs on to N; whether two unbroken runs are
     bit-equal: if so the resumed run's losses must equal theirs, else lie
     within 1e-5 + 1% of them; the file's size and the cost of a synchronous and an
     asynchronous autosave as the step loop sees them;
-15. sweep options: ``--cache_gt_flow`` (the second sweep solves half the
+17. sweep options: ``--cache_gt_flow`` (the second sweep solves half the
     flow fields of the first, scores equal to an uncached engine's),
     ``--ref_mode_quirks`` (G's and D's BatchNorm running statistics move
     over a sweep) and one ``--ae`` step CUDA vs CPU;
-16. tensorboard: one short trainer run with the logger on; says whether a
+18. tensorboard: one short trainer run with the logger on; says whether a
     writer existed, and then finds its event file.  The other trainer
     phases pass ``--no-tensorboard``.
 
@@ -100,8 +113,9 @@ bf16 (MyGAN, ``--ae`` and the supervised families; losses 1e-2 relative,
 parameters 2.5 lr, as the CPU tests hold the port to JAX); after the
 float32 training phases, the default command line (no ``--compute_dtype``)
 for MyGAN (12 steps and a one-batch sweep), ``--ae`` (3 steps), clstm,
-c2plus1d and xception, each step median and peak memory printed beside
-the float32 run's, clstm's launches all on the bf16 conv kernel.
+c2plus1d, xception, anogan and ganomaly, each step median and peak memory
+printed beside the float32 run's, clstm's launches all on the bf16 conv
+kernel.
 
 Before the serving phase come two more kernel phases: the augment gather
 kernel against its plain version (bit-equal on all three outputs at the
@@ -114,8 +128,9 @@ dx D1-D4), a ragged and a wide case, each timed in turns with ``F.conv2d``
 CUDA-vs-CPU supervised step for each family at a small size.
 
 Each main path (serve + infer of the four families; MyGAN training; the
-two-kernel step; each supervised training run) starts with the launch counts of the kernels set
-to 0 and reads them after.  Then come one JSON line of kernel results
+two-kernel step; each supervised, AnoGAN and GANomaly training run)
+starts with the launch counts of the kernels set to 0 and reads them
+after.  Then come one JSON line of kernel results
 and, last, ``{"ok": true, "device": {...}}``.  Per kernel the JSON line
 holds its time (``ms``), its plain version's (``plain_ms``), the time of
 one PyTorch call that computes the same function where there is one
@@ -134,7 +149,9 @@ one per plane of the serve batch's video, and the three flow kernels one
 per plane size (``shapes``), the refine and fused kernels' with
 the launches per step at that size and, as the conv kernel, their times x
 launches summed over one step of their path (``step_ms_sum``,
-``step_bound_ms_sum``).  Any failure raises:
+``step_bound_ms_sum``); the augment and opening kernels also their
+launches on the AnoGAN and GANomaly runs (``launches_on``).  Any failure
+raises:
 the script exits non-zero and prints no last line.  It does the same
 without a card, and outside a checkout of the repo.
 """
@@ -191,6 +208,9 @@ SUPERVISED_RUNS = {"clstm": (8, []), "c2plus1d": (4, []),
                    "xception": (4, ["--xwidth", "1.0"])}
 # the --ae run in bfloat16: steps
 AE_STEPS = 3
+# the AnoGAN and GANomaly training runs: steps per dtype, sweep batches
+FAMILIES = ("anogan", "ganomaly")
+FAMILY_STEPS, FAMILY_SWEEP = 8, 2
 
 
 def say(phase: str, msg: str) -> None:
@@ -1271,7 +1291,9 @@ def run_trainer(argv, engine_cls):
 # parameter's and the whole gradient's relative L2 distance, read from
 # Adam's first moment after one step
 BF16_GRAD_RTOL = {"clstm": 0.03, "c2plus1d": 0.3, "xception": 0.6,
-                  "netg": 0.45, "netd": 0.7, "netg_ae": 0.3, "netd_ae": 0.7}
+                  "netg": 0.45, "netd": 0.7, "netg_ae": 0.3, "netd_ae": 0.7,
+                  "anogan_g": 0.3, "anogan_d": 0.15, "ganomaly_g": 0.25,
+                  "ganomaly_d": 0.15}
 
 
 # The families whose bfloat16 step parity runs in eval mode (the
@@ -1519,6 +1541,254 @@ def phase_supervised_parity(tmp: Path, dtype: str = "float32") -> None:
                           f"params max {worst_param:.3g} (<= 2.5 lr), "
                           f"BN stats {worst_stat:.3g}"
                           f"{' (relative L2)' if bf16 else ''}; {grads}")
+
+
+def _within(what: str, got: dict, want: dict, lr: float,
+            stats_rtol: float) -> tuple[float, float]:
+    """Updated parameters of one net within Adam's first-step envelope of
+    2.5 lr; its BatchNorm running statistics (``stats_rtol`` not None)
+    within 1e-5 relative plus ``stats_rtol`` of each vector's largest
+    value.  Returns the largest parameter and statistic differences."""
+    worst_param = worst_stat = 0.0
+    for k, v in want.items():
+        if k.endswith("num_batches_tracked"):
+            check(torch.equal(got[k], v), f"{what} {k}")
+            continue
+        diff = (got[k] - v).abs()
+        if "running" in k:
+            if stats_rtol is None:
+                continue
+            bound = 1e-5 * v.abs() + 1e-5 + stats_rtol * v.abs().max()
+            check(bool((diff <= bound).all()), f"{what} BN stat {k}")
+            worst_stat = max(worst_stat, diff.max().item())
+        else:
+            check(diff.max().item() <= 2.5 * lr,
+                  f"{what} param {k}: {diff.max().item()} <= 2.5 lr")
+            worst_param = max(worst_param, diff.max().item())
+    return worst_param, worst_stat
+
+
+def phase_family_parity(tmp: Path, model: str,
+                        dtype: str = "float32") -> None:
+    """One AnoGAN ``_ano_core`` or GANomaly ``_ganomaly_core`` step on the
+    card and on the CPU from the same seeded weights, clip and z, AnoGAN's
+    dropout masks drawn from one CPU generator for both (b2, 32^2; AnoGAN
+    T16, GANomaly T8 folded to 16 frames).  Tolerances, as MyGAN's in
+    float32: losses 1e-5 + 5e-4 relative (D's train-mode BatchNorms),
+    parameters 2.5 lr (G's AnoGAN lr is 5x), running statistics 1e-5
+    relative plus, for D, 5e-4 of each vector's largest value (AnoGAN's
+    third D update reads the updated D behind its LeakyReLU(64)); in
+    bfloat16 as PR 8's criteria: losses 1e-2 relative, parameters 2.5 lr,
+    running statistics by ``bf16_stats_close`` and the gradients by
+    ``bf16_gradients_close`` against a control step (the clip reversed in
+    time and mirrored, z reversed)."""
+    from vfd_gan_tpu_torch.config import Config
+    from vfd_gan_tpu_torch.train.anogan_engine import AnoGanEngine
+    from vfd_gan_tpu_torch.train.ganomaly_engine import GanomalyEngine, fold
+
+    bf16 = dtype == "bfloat16"
+    b, t, s = (2, NFR, 32) if model == "anogan" else (2, 8, 32)
+    cfg = Config(model=model, batchsize=b, nfr=t, isize=s, ep=1,
+                 compute_dtype=dtype, tensorboard=False,
+                 result_root=str(tmp))
+    rng = np.random.default_rng(6)
+    clip = rng.uniform(-1, 1, (b, t, s, s, 3)).astype(np.float32)
+    z = rng.standard_normal((b, 100)).astype(np.float32)
+    runs = [("cpu", clip, z), ("cuda", clip, z)] + (
+        [("control", clip[:, ::-1, :, ::-1].copy(), z[:, ::-1].copy())]
+        if bf16 else [])
+    out, engines = {}, {}
+    for run, c, zz in runs:
+        device = torch.device("cpu" if run == "cpu" else "cuda")
+        x = torch.from_numpy(c).to(device)
+        if model == "anogan":
+            eng = AnoGanEngine(cfg, None, None, device=device)
+            metrics, _ = eng._ano_core(x, torch.from_numpy(zz).to(device),
+                                       torch.Generator().manual_seed(7))
+        else:
+            eng = GanomalyEngine(cfg, None, None, device=device)
+            metrics, _ = eng._ganomaly_core(fold(x))
+        engines[run] = eng
+        out[run] = ({k: float(v) for k, v in metrics.items()},
+                    {k: v.cpu() for k, v in eng.netg.state_dict().items()},
+                    {k: v.cpu() for k, v in eng.netd.state_dict().items()})
+    (m_cpu, g_cpu, d_cpu), (m_gpu, g_gpu, d_gpu) = out["cpu"], out["cuda"]
+    worst_loss = 0.0
+    for k, v in m_cpu.items():
+        rel = 1e-2 if bf16 else 5e-4
+        diff = abs(m_gpu[k] - v)
+        check(np.isfinite(m_gpu[k]) and diff <= 1e-5 + rel * abs(v),
+              f"{model} step loss {k}: cuda {m_gpu[k]} vs cpu {v}")
+        worst_loss = max(worst_loss, diff)
+    g_lr = 5 * cfg.lr if model == "anogan" else cfg.lr
+    gp, gs = _within(f"{model} G", g_gpu, g_cpu, g_lr,
+                     None if bf16 else 0.0)
+    dp, ds = _within(f"{model} D", d_gpu, d_cpu, cfg.lr,
+                     None if bf16 else 5e-4)
+    worst_param, worst_stat = max(gp, dp), max(gs, ds)
+    grads = ""
+    if bf16:
+        worst_stat = max(bf16_stats_close(f"{model} G", g_gpu, g_cpu),
+                         bf16_stats_close(f"{model} D", d_gpu, d_cpu))
+        grads = "; " + "; ".join(bf16_gradients_close(
+            f"{model}_{net}", *(getattr(engines[r], net)
+                                for r in ("cuda", "cpu", "control")))
+            for net in ("g", "d"))
+    for eng in engines.values():
+        eng.close()
+    say("stepparity", f"{model} {dtype} b{b} T{t} {s}^2, CUDA vs CPU (TF32 "
+                      f"off): losses max-abs {worst_loss:.3g}, params "
+                      f"{worst_param:.3g} (<= 2.5 lr), BN stats "
+                      f"{worst_stat:.3g}"
+                      f"{' (relative L2)' if bf16 else ''}{grads}")
+
+
+def phase_family_train(tmp: Path, model: str,
+                       dtype: str | None = "float32"):
+    """``cli.trainer.main --model anogan|ganomaly`` at the reference size
+    (b8, T16, 128^2; both families' widths are fixed) in ``dtype`` (None:
+    the default command line, bfloat16) for ``FAMILY_STEPS`` steps and a
+    ``FAMILY_SWEEP``-batch sweep; returns the engine, the kernels' launch
+    counts on the run, those of its sweep, the step median (ms) and peak
+    memory (MiB)."""
+    from vfd_gan_tpu_torch.models.anogan import (
+        AnoDiscriminator,
+        AnoGenerator,
+    )
+    from vfd_gan_tpu_torch.models.ganomaly import (
+        GanomalyDiscriminator,
+        GanomalyGenerator,
+    )
+    from vfd_gan_tpu_torch.train.anogan_engine import AnoGanEngine
+    from vfd_gan_tpu_torch.train.ganomaly_engine import GanomalyEngine
+    from vfd_gan_tpu_torch.utils.checkpoint import load_state_dict
+
+    ano = model == "anogan"
+    flags, label = _dtype_flags(dtype)
+    root = tmp / f"runs_{model}_{dtype or 'default'}"
+    argv = ["--model", model, "--batchsize", str(BATCH), "--nfr", str(NFR),
+            "--isize", str(ISIZE), *flags,
+            "--synthetic_data", str(FAMILY_STEPS),
+            "--synthetic_test_batches", str(FAMILY_SWEEP), "--ep", "1",
+            "--freq", str(FAMILY_STEPS), "--device", "cuda",
+            "--no-tensorboard", "--result_root", str(root)]
+    torch.cuda.reset_peak_memory_stats()
+    engine, counts, sweep, wall = run_trainer(
+        argv, AnoGanEngine if ano else GanomalyEngine)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    check(engine.global_step == FAMILY_STEPS, f"{model}: all steps ran")
+    losses = {k: v for k, v in engine.errors.items() if "/" in k
+              and not k.startswith("perf/")}
+    check(len(losses) >= (4 if ano else 5)
+          and all(np.isfinite(v) for v in losses.values()),
+          f"{model}: finite losses {losses}")
+    heads = ("roc", "pr", "f1") if ano else ("roc",)
+    scores = {k: engine.scores[f"score/{k}"] for k in heads}
+    check(all(np.isfinite(v) for v in scores.values())
+          and engine.scores["score/roc"] > 0, f"{model}: sweep {scores}")
+    g_pth = sorted(root.rglob("*_netG.pth"))
+    d_pth = sorted(root.rglob("*_netD.pth"))
+    check(len(g_pth) == len(d_pth) == 1, f"{model}: one best pair: "
+                                         f"{g_pth} {d_pth}")
+    g_net, d_net = ((AnoGenerator(NFR, ISIZE), AnoDiscriminator(NFR, ISIZE))
+                    if ano else (GanomalyGenerator(ISIZE),
+                                 GanomalyDiscriminator(ISIZE)))
+    g_net.load_state_dict(load_state_dict(str(g_pth[0])), strict=True)
+    d_net.load_state_dict(load_state_dict(str(d_pth[0])), strict=True)
+    check(counts["augment_gather"] == FAMILY_STEPS
+          and sweep["augment_gather"] == 0,
+          f"{model}: one augment launch per step, none in the sweep: "
+          f"{counts}")
+    check(counts["morphology_open"] == sweep["morphology_open"]
+          == (FAMILY_SWEEP if ano else 0),
+          f"{model}: opening launches {counts['morphology_open']} "
+          f"(sweep {sweep['morphology_open']}), expected "
+          f"{FAMILY_SWEEP if ano else 0}, all in the sweep")
+    check(all(counts[k] == 0 for k in ("flow_fused", "flow_warp",
+                                       "flow_refine", "conv3x3",
+                                       "conv3x3_bf16")),
+          f"{model} has no flow and no ConvLSTM: {counts}")
+    steady = engine.step_seconds[2:]
+    median = 1e3 * statistics.median(steady)
+    what = f"train-{model}{'' if dtype == 'float32' else '-bf16'}"
+    say(what, f"trainer.main --model {model} b{BATCH} T{NFR} {ISIZE}^2 "
+              f"{label}: {FAMILY_STEPS} steps + {FAMILY_SWEEP}-batch sweep "
+              f"in {wall:.1f} s; step median {median:.1f} ms "
+              f"({BATCH * 1e3 / median:.1f} clips/s; min "
+              f"{1e3 * min(steady):.1f}, max {1e3 * max(steady):.1f}, after "
+              f"2 warm-up); first step {1e3 * engine.step_seconds[0]:.0f} "
+              f"ms; peak memory {peak:.0f} MiB; losses {json.dumps(losses)}")
+    say(what, f"sweep: {json.dumps(scores)}; saved {g_pth[0].name}, "
+              f"{d_pth[0].name} (loaded strict); launches "
+              f"{json.dumps(counts)}, of them in the sweep "
+              f"{json.dumps(sweep)}")
+    return engine, counts, sweep, median, peak
+
+
+# --device_scoring: the families, each at the reference width with a
+# two-batch sweep (model -> extra flags)
+SCORED = {"anogan": [], "mygan": ["--ngf", "32", "--ndf", "32",
+                                  "--flow_scale", "0.5"],
+          "clstm": [], "c2plus1d": [], "xception": ["--xwidth", "1.0"],
+          "ganomaly": []}
+
+
+def phase_device_scoring(tmp: Path) -> None:
+    """One full-width test sweep of each family with and without
+    ``--device_scoring`` from the same seed (the same weights, test clips
+    and AnoGAN z): roc/pr/f1 within 1e-5 and the same best checkpoint
+    written.  GANomaly's frame-level sweep stays on the host either way,
+    as in the JAX engine.  The time of ``score_and_checkpoint`` (the
+    scoring and the checkpoint rule) on each path is printed."""
+    from vfd_gan_tpu_torch.cli.trainer import build_engine
+
+    for model, extra in SCORED.items():
+        results, saved, ms = {}, {}, {}
+        for flag in (False, True):
+            root = tmp / f"scoring_{model}_{flag}"
+            eng = build_engine(
+                ["--model", model, "--batchsize", str(BATCH), "--nfr",
+                 str(NFR), "--isize", str(ISIZE), "--compute_dtype",
+                 "float32", "--synthetic_data", "1",
+                 "--synthetic_test_batches", "2", "--device", "cuda",
+                 "--no-tensorboard", "--result_root", str(root), *extra,
+                 *(["--device_scoring"] if flag else [])])
+            score = eng.score_and_checkpoint
+            spent = []
+
+            def timed(*a, score=score, spent=spent):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = score(*a)
+                spent.append(1e3 * (time.perf_counter() - t0))
+                return out
+
+            eng.score_and_checkpoint = timed
+            out = eng.test()
+            results[flag] = out if isinstance(out, tuple) else (out,)
+            ms[flag] = spent[0] if spent else float("nan")
+            saved[flag] = sorted(p.name for p in root.rglob("*.pth"))
+            check(("score/eer" in eng.scores) == (flag and model
+                                                  != "ganomaly"),
+                  f"{model}: the EER comes with device scoring")
+            eng.close()
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        host, dev = results[False], results[True]
+        check(all(np.isfinite(dev)) and all(
+            abs(a - b) <= 1e-5 for a, b in zip(host, dev)),
+            f"{model} --device_scoring {dev} vs host {host}")
+        check(saved[True] == saved[False] and saved[True],
+              f"{model}: the same best checkpoint: {saved}")
+        spent = (f"score_and_checkpoint {ms[True]:.1f} ms (device) vs "
+                 f"{ms[False]:.1f} ms (host)" if model != "ganomaly" else
+                 "frame-level ROC on the host either way")
+        diff = max(abs(a - b) for a, b in zip(host, dev))
+        say("device-scoring", f"{model} b{BATCH} T{NFR} {ISIZE}^2, 2-batch "
+                              f"sweep: device {dev} vs host {host}, max "
+                              f"diff {diff:.3g}; saved {saved[True]} on "
+                              f"both; {spent}")
 
 
 def _dtype_flags(dtype: str | None) -> tuple[list, str]:
@@ -2082,6 +2352,7 @@ def phase_tensorboard(tmp: Path) -> None:
 
 
 def main() -> None:
+    start = time.perf_counter()
     name = phase_device()
     import_port()
     from vfd_gan_tpu_torch.utils.runtime import resolve_device
@@ -2121,9 +2392,13 @@ def main() -> None:
         bf16_forward_ms = phase_serve_bf16(paths, f32_forward_ms)
         phase_step_parity(Path(tmp))
         phase_supervised_parity(Path(tmp))
+        for model in FAMILIES:
+            phase_family_parity(Path(tmp), model)
         phase_step_parity(Path(tmp), dtype="bfloat16")
         phase_step_parity(Path(tmp), ae=True, dtype="bfloat16")
         phase_supervised_parity(Path(tmp), dtype="bfloat16")
+        for model in FAMILIES:
+            phase_family_parity(Path(tmp), model, dtype="bfloat16")
         engine, gan_counts, gan_sweep, gan_ms, gan_peak = phase_train(
             Path(tmp))
         gan_steps = engine.global_step
@@ -2144,6 +2419,17 @@ def main() -> None:
                 clstm_counts, clstm_sweep = counts, sweep
                 clstm_steps = engine.global_step
                 synthetic_ms["clstm"] = ms
+            del engine
+        # AnoGAN and GANomaly; their launches of the augment and opening
+        # kernels, each run a path of its own
+        family_counts = {}
+        for model in FAMILIES:
+            gc.collect()
+            torch.cuda.empty_cache()
+            engine, counts, sweep, ms, peak = phase_family_train(
+                Path(tmp), model)
+            steps_ms[model] = [ms, peak]
+            family_counts[model] = counts
             del engine
         # the default command line: no --compute_dtype, bfloat16
         gc.collect()
@@ -2168,6 +2454,14 @@ def main() -> None:
                 bf16_counts, bf16_sweep = counts, sweep
                 bf16_steps = engine.global_step
             del engine
+        for model in FAMILIES:
+            gc.collect()
+            torch.cuda.empty_cache()
+            engine, counts, sweep, ms, peak = phase_family_train(
+                Path(tmp), model, None)
+            steps_ms[model] += [ms, peak]
+            family_counts[f"{model} bf16"] = counts
+            del engine
         say("bf16-vs-f32", "b8 train step median ms and peak MiB, float32 "
                            "-> bfloat16 (the default): " + "; ".join(
                                f"{k} {a:.1f} ms {b:.0f} MiB -> {c:.1f} ms "
@@ -2176,6 +2470,9 @@ def main() -> None:
         say("bf16-vs-f32", "b8 forward ms, float32 -> bfloat16: " + "; ".join(
             f"{k} {f32_forward_ms[k]:.3f} -> {bf16_forward_ms[k]:.3f}"
             for k in SERVED))
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_device_scoring(Path(tmp))
         phase_data(Path(tmp), device, synthetic_ms)
         phase_resume(Path(tmp), device)
         phase_sweep_options(Path(tmp), device)
@@ -2223,6 +2520,12 @@ def main() -> None:
         say("flow", f"{k} times x launches over one step ({per_step[k]:g} "
                     f"launches): kernel {results[k]['step_ms_sum']:.4f} ms, "
                     f"bound {results[k]['step_bound_ms_sum']:.4f} ms")
+    say("done", f"all phases in {time.perf_counter() - start:.1f} s")
+    # the augment and opening kernels on the AnoGAN and GANomaly paths
+    # (each its own trainer run, counts set to 0 before it)
+    for k in ("augment_gather", "morphology_open"):
+        results[k]["launches_on"] = {run: counts[k] for run, counts
+                                     in family_counts.items()}
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": KERNELS[k][0],
         "replaces": KERNELS[k][1], "launches": launches[k][k],

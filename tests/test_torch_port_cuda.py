@@ -746,6 +746,10 @@ _STATE_NETS = {
                  "--isize", "16"],
     "xception": ["--model", "xception", "--batchsize", "2", "--nfr", "8",
                  "--isize", "32", "--xwidth", "0.0625"],
+    "anogan": ["--model", "anogan", "--batchsize", "2", "--nfr", "8",
+               "--isize", "16"],
+    "ganomaly": ["--model", "ganomaly", "--batchsize", "2", "--nfr", "8",
+                 "--isize", "16"],
 }
 _STATE_COMMON = ["--compute_dtype", "float32", "--no-tensorboard",
                  "--synthetic_data", "4", "--synthetic_test_batches", "1",
@@ -814,3 +818,111 @@ def test_resume_refuses_a_generator_state_across_devices(card, tmp_path):
             trainer.build_engine([*argv, "--device", run_on, "--resume",
                                   f"{engine.dirs.weights}/latest.pt",
                                   "--result_root", str(tmp_path / "c")])
+
+
+def _sd(module) -> dict:
+    return {k: v.detach().cpu() for k, v in module.state_dict().items()}
+
+
+def _steps_close(cpu, gpu, lr: float, d_rtol: float = 5e-4) -> None:
+    """Updated parameters within Adam's first-step envelope of 2.5 lr; BN
+    running statistics within 1e-5 relative plus ``d_rtol`` of each
+    vector's largest value."""
+    for k, v in cpu.items():
+        if k.endswith("num_batches_tracked"):
+            assert torch.equal(gpu[k], v), k
+        elif "running" in k:
+            bound = 1e-5 * v.abs() + 1e-5 + d_rtol * v.abs().max()
+            assert ((gpu[k] - v).abs() <= bound).all(), k
+        else:
+            assert (gpu[k] - v).abs().max() <= 2.5 * lr, k
+
+
+@pytest.mark.parametrize("train_mode", [True, False])
+@pytest.mark.gpu
+def test_anogan_step_on_card_matches_cpu(card, tmp_path, train_mode):
+    """One float32 ``_ano_core`` on the card and on the CPU from the same
+    seeded weights, z and dropout masks (a CPU generator for both), TF32
+    off: losses 1e-5 + 5e-4 relative (D's train-mode BatchNorms), G's
+    video 1e-5, parameters 2.5 lr, running statistics as ``_steps_close``;
+    in train mode and in the ``--ref_mode_quirks`` latch."""
+    from vfd_gan_tpu_torch.config import Config
+    from vfd_gan_tpu_torch.train.anogan_engine import AnoGanEngine
+    from vfd_gan_tpu_torch.utils.runtime import resolve_device
+
+    resolve_device("cuda")
+    cfg = Config(model="anogan", batchsize=2, nfr=16, isize=32, ep=1,
+                 compute_dtype="float32", tensorboard=False,
+                 result_root=str(tmp_path))
+    rng = np.random.default_rng(3)
+    real = torch.from_numpy(rng.uniform(-1, 1, (2, 16, 32, 32, 3)).astype(
+        np.float32))
+    z = torch.from_numpy(rng.standard_normal((2, 100)).astype(np.float32))
+    out = {}
+    for device in ("cpu", "cuda"):
+        eng = AnoGanEngine(cfg, None, None, device=torch.device(device))
+        metrics, fake = eng._ano_core(
+            real.to(device), z.to(device),
+            torch.Generator().manual_seed(7), train_mode)
+        out[device] = ({k: float(v) for k, v in metrics.items()},
+                       fake.cpu(), _sd(eng.netg), _sd(eng.netd))
+        eng.close()
+    (m_cpu, f_cpu, g_cpu, d_cpu), (m_gpu, f_gpu, g_gpu, d_gpu) = \
+        out["cpu"], out["cuda"]
+    for k, v in m_cpu.items():
+        assert abs(m_gpu[k] - v) <= 1e-5 + 5e-4 * abs(v), k
+    assert (f_gpu - f_cpu).abs().max() <= 1e-5
+    _steps_close(g_cpu, g_gpu, 5 * cfg.lr, 0.0)
+    _steps_close(d_cpu, d_gpu, cfg.lr)
+
+
+@pytest.mark.gpu
+def test_ganomaly_step_on_card_matches_cpu(card, tmp_path):
+    """One float32 ``_ganomaly_core`` on the card and on the CPU from the
+    same seeded weights and frames, TF32 off: losses 1e-6 + 1e-5 relative,
+    parameters 2.5 lr, running statistics as ``_steps_close``."""
+    from vfd_gan_tpu_torch.config import Config
+    from vfd_gan_tpu_torch.train.ganomaly_engine import GanomalyEngine, fold
+    from vfd_gan_tpu_torch.utils.runtime import resolve_device
+
+    resolve_device("cuda")
+    cfg = Config(model="ganomaly", batchsize=2, nfr=8, isize=32, ep=1,
+                 compute_dtype="float32", tensorboard=False,
+                 result_root=str(tmp_path))
+    clip = torch.from_numpy(np.random.default_rng(4).uniform(
+        -1, 1, (2, 8, 32, 32, 3)).astype(np.float32))
+    out = {}
+    for device in ("cpu", "cuda"):
+        eng = GanomalyEngine(cfg, None, None, device=torch.device(device))
+        metrics, _ = eng._ganomaly_core(fold(clip.to(device)))
+        out[device] = ({k: float(v) for k, v in metrics.items()},
+                       _sd(eng.netg), _sd(eng.netd))
+        eng.close()
+    (m_cpu, g_cpu, d_cpu), (m_gpu, g_gpu, d_gpu) = out["cpu"], out["cuda"]
+    for k, v in m_cpu.items():
+        assert abs(m_gpu[k] - v) <= 1e-6 + 1e-5 * abs(v), k
+    _steps_close(g_cpu, g_gpu, cfg.lr)
+    _steps_close(d_cpu, d_gpu, cfg.lr)
+
+
+@pytest.mark.gpu
+def test_score_sweep_on_card_matches_numpy(card):
+    """``--device_scoring``'s metrics on the card against the host path's
+    numpy ones on 4M pixels of ties and fractional gt: roc, eer and pr
+    1e-5, f1 1e-6."""
+    from vfd_gan_tpu_torch.eval import metrics as host
+    from vfd_gan_tpu_torch.eval.device_metrics import score_sweep
+
+    rng = np.random.default_rng(5)
+    gts = (rng.uniform(0, 1, (2, 8, 16, 128, 128, 1)) > 0.97).astype(
+        np.float32)
+    gts[0, 0, 0, :8] = 0.5                        # truncated to 0
+    preds = np.round(np.clip(rng.normal(0.2, 0.2, gts.shape) + 0.4 * gts,
+                             0, 1) * 255).astype(np.float32) / 255
+    got = [float(v) for v in score_sweep(torch.from_numpy(gts).cuda(),
+                                         torch.from_numpy(preds).cuda())]
+    labels = np.asarray(gts, dtype=np.int32).ravel()
+    auc, eer, _, _ = host.roc_auc_with_eer(labels, preds.ravel())
+    assert abs(got[0] - auc) < 1e-5 and abs(got[1] - eer) < 1e-5
+    assert abs(got[2] - host.pr_auc(labels, preds.ravel())[0]) < 1e-5
+    assert abs(got[3] - host.f1_at(labels, preds.ravel())) < 1e-6

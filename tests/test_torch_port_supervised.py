@@ -187,14 +187,20 @@ def test_trainer_runs_each_family_and_writes_loadable_pth(tmp_path, capsys,
     pytest.param(["--model", "clstm", "--resume", "x"],
                  "--resume x: no such file",
                  id="--model_clstm_--resume_x-exact resume"),
-    (["--model", "ganomaly"], "item 10"),
+    # ported since: the engine is built and holds the option
+    pytest.param(["--model", "ganomaly"], None,
+                 id="--model_ganomaly-GANomaly"),
 ], ids=lambda v: v if isinstance(v, str) else "_".join(v))
 def test_trainer_refuses_what_the_supervised_port_does_not_run(
         tmp_path, extra, match):
     argv = _ARGS + ["--nfr", "8"] + extra + ["--result_root", str(tmp_path)]
     if match is None:
         engine = trainer.build_engine(argv)
-        assert engine.cfg.ref_mode_quirks and not engine.stuck_in_eval
+        if extra[-1] == "--ref_mode_quirks":
+            assert engine.cfg.ref_mode_quirks and not engine.stuck_in_eval
+        else:
+            assert engine.cfg.model == "ganomaly"
+            assert type(engine).__name__ == "GanomalyEngine"
         engine.close()
         return
     with pytest.raises(SystemExit, match=match):

@@ -485,7 +485,10 @@ def test_trainer_runs_a_sweep_and_writes_loadable_pth(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--model", "anogan"], "item 10"),
+    # ported since: the engine is built and holds the option
+    pytest.param(["--model", "anogan"], None, id="--model_anogan-AnoGAN"),
+    pytest.param(["--device_scoring"], None,
+                 id="--device_scoring-sweep scored on the device"),
     # ported since: the nets compute in it
     pytest.param(["--compute_dtype", "bfloat16"], None,
                  id="--compute_dtype_bfloat16-bf16 nets"),
@@ -510,6 +513,8 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, capsys, extra, match):
         if extra[0] == "--compute_dtype":
             assert engine.netg.dconv1.bn.dtype == torch.bfloat16
             assert engine.netd.spatdisc.linear.dtype == torch.bfloat16
+        if extra[0] == "--model":
+            assert type(engine).__name__ == "AnoGanEngine"
         engine.close()
         return
     if match == 2:
@@ -527,7 +532,7 @@ def test_unported_lost_exactly_the_five_ported_options():
     from vfd_gan_tpu_torch.train.engine_base import UNPORTED
 
     assert set(UNPORTED) == {"accum", "remat", "int8_disc", "host_flow",
-                             "device_scoring", "dp/sp/tp/pp", "moe_experts"}
+                             "dp/sp/tp/pp", "moe_experts"}
 
 
 def test_trainer_needs_a_card_for_cuda(tmp_path):

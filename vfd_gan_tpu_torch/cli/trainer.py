@@ -11,18 +11,19 @@ package's ``vfd_gan_tpu.config`` restated) plus two of its own::
         --synthetic_data 100 [--compute_dtype float32] [--device cuda]
 
 What this port runs: ``--model mygan`` (the GAN engine; ``--ae`` for the
-AutoEncoder as G) and ``--model c2plus1d|xception|clstm`` (the supervised
-engine) in ``--compute_dtype`` bfloat16 (the default, as in the JAX
-trainer) or float32 (TF32 off either way), on mp4 path lists
-(``--tr_plist`` and ``--ts_plist``: decoded with cv2 on ``--workers``
-threads, copied to the card ``--prefetch`` batches ahead) or on on-device
-synthetic data
+AutoEncoder as G), ``--model anogan`` and ``--model ganomaly`` (their own
+engines) and ``--model c2plus1d|xception|clstm`` (the supervised engine) in
+``--compute_dtype`` bfloat16 (the default, as in the JAX trainer) or
+float32 (TF32 off either way), on mp4 path lists (``--tr_plist`` and
+``--ts_plist``: decoded with cv2 on ``--workers`` threads, copied to the
+card ``--prefetch`` batches ahead) or on on-device synthetic data
 (``--synthetic_data N`` train batches per epoch,
 ``--synthetic_test_batches`` per sweep), with autosave, a parked checkpoint
-on SIGTERM, exact ``--resume``, TensorBoard panels, ``--cache_gt_flow`` and
-``--ref_mode_quirks`` as in the JAX trainer.  Every other choice exits with
-the ``ROADMAP.md`` item that holds it.  ``--device`` defaults to ``cuda``
-and raises without a card; ``--flow_impl`` applies to MyGAN only.
+on SIGTERM, exact ``--resume``, TensorBoard panels, ``--cache_gt_flow``,
+``--ref_mode_quirks`` and ``--device_scoring`` as in the JAX trainer. Every
+other choice exits with the ``ROADMAP.md`` item that holds it. ``--device``
+defaults to ``cuda`` and raises without a card; ``--flow_impl`` applies to
+MyGAN only.
 """
 
 from __future__ import annotations
@@ -36,7 +37,9 @@ from vfd_gan_tpu_torch.data.device_synthetic import DeviceSyntheticIterator
 from vfd_gan_tpu_torch.models import SUPERVISED
 from vfd_gan_tpu_torch.ops.augment import staging_size
 from vfd_gan_tpu_torch.ops.flow import IMPLS
+from vfd_gan_tpu_torch.train.anogan_engine import AnoGanEngine
 from vfd_gan_tpu_torch.train.gan_engine import MyGanEngine
+from vfd_gan_tpu_torch.train.ganomaly_engine import GanomalyEngine
 from vfd_gan_tpu_torch.train.supervised_engine import SupervisedEngine
 from vfd_gan_tpu_torch.utils.runtime import resolve_device
 
@@ -77,11 +80,6 @@ def parse(argv):
                      help="how the flow refinement runs on the card")
     ns, rest = own.parse_known_args(argv)
     cfg = parse_args(rest)
-    if cfg.model not in ("mygan",) + SUPERVISED:
-        raise SystemExit(f"--model {cfg.model}: not ported to "
-                         "vfd_gan_tpu_torch yet (ROADMAP.md queue 1 item "
-                         f"10); --model mygan and {'|'.join(SUPERVISED)} "
-                         "are")
     if not cfg.synthetic_data and (not cfg.tr_plist or not cfg.ts_plist):
         print("error: --tr_plist and --ts_plist are required "
               "(no hardcoded dataset defaults; or use --synthetic_data N)",
@@ -98,7 +96,13 @@ def build_engine(argv):
     if cfg.model == "mygan":
         return MyGanEngine(cfg, train_iter, test_iter, device=device,
                            flow_impl=flow_impl)
-    return SupervisedEngine(cfg, train_iter, test_iter, device=device)
+    if cfg.model == "anogan":
+        return AnoGanEngine(cfg, train_iter, test_iter, device=device)
+    if cfg.model == "ganomaly":
+        return GanomalyEngine(cfg, train_iter, test_iter, device=device)
+    if cfg.model in SUPERVISED:
+        return SupervisedEngine(cfg, train_iter, test_iter, device=device)
+    raise ValueError(f"unknown model {cfg.model!r}")
 
 
 def main(argv=None):

@@ -27,8 +27,10 @@ import torch
 
 class DeviceSyntheticIterator:
     """Yields staged batches like the JAX iterator's: ``data``/``real``
-    ``(B, T, S, S, 3)`` uint8 and ``mask`` ``(B, T, S, S, 1)`` uint8 in
-    {0, 255}, on ``device``.  Each pass over it is the next epoch."""
+    ``(B, T, S, S, 3)`` uint8, ``mask`` ``(B, T, S, S, 1)`` uint8 in
+    {0, 255} and ``label`` ``(B, T)`` float32 (1 for every frame of a
+    forged clip, the frame-level labels GANomaly's sweep scores), on
+    ``device``.  Each pass over it is the next epoch."""
 
     def __init__(self, batch_size: int, nfr: int, size: int, n_batches: int,
                  seed: int = 0, p_fake: float = 0.5,
@@ -98,6 +100,8 @@ class DeviceSyntheticIterator:
             "data": data.clamp(0, 255).to(torch.uint8),
             "real": bg.clamp(0, 255).to(torch.uint8),
             "mask": mask.to(torch.uint8) * 255,
+            "label": is_fake.to(torch.float32)[:, None].expand(b, t)
+            .contiguous(),
         }
 
     def __iter__(self):

@@ -12,10 +12,11 @@ NCDHW ``(B, C, T, H, W)`` input.  Submodule names are the reference's, so
 * ``TorchLinear``: ``nn.Linear`` with the reference's init (the
   reference's ``weights_init`` skips Linear layers, so PyTorch's default
   U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weight and bias)
-* ``VideoBatchNorm``: ``nn.BatchNorm3d`` with torch's eps 1e-5 and
-  momentum 0.1, whose running statistics the eval forward uses.
-* ``Conv3d``: ``nn.Conv3d`` that casts its weight and bias to its input's
-  dtype.
+* ``VideoBatchNorm``, ``FrameBatchNorm``, ``BatchNorm1d``: torch's
+  BatchNorms (3-D, 2-D, 1-D) with eps 1e-5 and momentum 0.1, whose running
+  statistics the eval forward uses.
+* ``Conv3d``, ``Conv2d``, ``ConvTranspose3d``, ``ConvTranspose2d``: torch's
+  convolutions, casting their weight and bias to their input's dtype.
 * ``dropout``: flax ``nn.Dropout``'s function with masks drawn from a
   ``torch.Generator``.
 
@@ -40,10 +41,11 @@ from vfd_gan_tpu_torch.ops.convs import r2plus1d_mid_channels
 from vfd_gan_tpu_torch.utils.init import bn_scale_, dcgan_normal_, torch_default_
 
 
-class VideoBatchNorm(nn.BatchNorm3d):
-    """BatchNorm over (B, T, H, W) per channel, scale ~ N(1, 0.02): float32
-    statistics and normalisation (a bfloat16 input is read as float32 by
-    torch's mixed-dtype BatchNorm), the result in ``dtype``
+class _DtypeBatchNorm:
+    """A torch BatchNorm (eps 1e-5, momentum 0.1, unbiased running
+    variance: JAX ``TorchBatchNorm``'s semantics) with scale ~ N(1, 0.02):
+    float32 statistics and normalisation (a bfloat16 input is read as
+    float32 by torch's mixed-dtype BatchNorm), the result in ``dtype``
     (models/layers.py:143-144 of the JAX package)."""
 
     def __init__(self, features: int, *, dtype: torch.dtype = torch.float32,
@@ -59,9 +61,23 @@ class VideoBatchNorm(nn.BatchNorm3d):
         return super().forward(x)
 
 
-class Conv3d(nn.Conv3d):
-    """``nn.Conv3d`` in its input's dtype: the float32 weight and bias are
-    cast to it, as the JAX convolutions cast their kernels
+class VideoBatchNorm(_DtypeBatchNorm, nn.BatchNorm3d):
+    """BatchNorm over (B, T, H, W) per channel of an NCDHW video."""
+
+
+class FrameBatchNorm(_DtypeBatchNorm, nn.BatchNorm2d):
+    """BatchNorm over (N, H, W) per channel of NCHW frames (GANomaly's
+    ``VideoBatchNorm`` on ``(N, H, W, C)`` frames in JAX)."""
+
+
+class BatchNorm1d(_DtypeBatchNorm, nn.BatchNorm1d):
+    """BatchNorm over the batch per feature of ``(B, F)`` (AnoGAN's
+    ``fc_bn``, a ``TorchBatchNorm`` in JAX)."""
+
+
+class _InputDtypeConv:
+    """A torch convolution in its input's dtype: the float32 weight and
+    bias are cast to it, as the JAX convolutions cast their kernels
     (``ops/convs.py``); their gradients come back float32.
 
     Below float32 the sums are rounded to the input's dtype, as an XLA
@@ -71,29 +87,61 @@ class Conv3d(nn.Conv3d):
     it and rounds only what that fusion stores; each reader of a biased
     conv rounds or widens as JAX does (a BatchNorm computes in float32 and
     returns its dtype, a head is float32, the AutoEncoder's residual is
-    cast to its block input's dtype).  Measured against JAX in bfloat16
-    (tests/test_torch_port_bf16_nets.py): rounding the biased sum puts
-    MyGAN's Generator twice as far from JAX's as JAX's own bfloat16 noise,
-    eval and train; leaving bias-free sums unrounded does not bring the
-    AutoEncoder's train forward within 2^-7 of JAX's and takes Xception's
-    out of it.
+    cast to its block input's dtype, a conv reads it in its own dtype).
+    Measured against JAX in bfloat16 (tests/test_torch_port_bf16_nets.py):
+    rounding the biased sum puts MyGAN's Generator twice as far from JAX's
+    as JAX's own bfloat16 noise, eval and train; leaving bias-free sums
+    unrounded does not bring the AutoEncoder's train forward within 2^-7
+    of JAX's and takes Xception's out of it.  A subclass gives the torch
+    function as ``_conv(x, weight, bias)``.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype in (torch.float32, torch.float64):
-            return super().forward(x)
+            return self._conv(x, self.weight, self.bias)
         w = self.weight.to(x.dtype)
         if x.device.type == "cpu":
             # the same function from float32 kernels: products of the
             # rounded operands and float32 sums, rounded once.  oneDNN's
             # bfloat16 conv3d returned NaN weight gradients now and then
             # on one x86 host, where 3 taps outreach a 2-frame time axis
-            y = self._conv_forward(x.float(), w.float(), None).to(x.dtype)
+            y = self._conv(x.float(), w.float(), None).to(x.dtype)
         else:
-            y = self._conv_forward(x, w, None)
+            y = self._conv(x, w, None)
         if self.bias is None:
             return y
-        return y.float() + self.bias.to(x.dtype).float().view(-1, 1, 1, 1)
+        return y.float() + self.bias.to(x.dtype).float().view(
+            -1, *(1,) * (y.dim() - 2))
+
+
+class Conv3d(_InputDtypeConv, nn.Conv3d):
+    """``nn.Conv3d`` in its input's dtype (``_InputDtypeConv``)."""
+
+    def _conv(self, x, weight, bias):
+        return self._conv_forward(x, weight, bias)
+
+
+class Conv2d(_InputDtypeConv, nn.Conv2d):
+    """``nn.Conv2d`` in its input's dtype (``_InputDtypeConv``)."""
+
+    def _conv(self, x, weight, bias):
+        return self._conv_forward(x, weight, bias)
+
+
+class ConvTranspose3d(_InputDtypeConv, nn.ConvTranspose3d):
+    """``nn.ConvTranspose3d`` in its input's dtype (``_InputDtypeConv``)."""
+
+    def _conv(self, x, weight, bias):
+        return F.conv_transpose3d(x, weight, bias, self.stride, self.padding,
+                                  self.output_padding)
+
+
+class ConvTranspose2d(_InputDtypeConv, nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` in its input's dtype (``_InputDtypeConv``)."""
+
+    def _conv(self, x, weight, bias):
+        return F.conv_transpose2d(x, weight, bias, self.stride, self.padding,
+                                  self.output_padding)
 
 
 def make_conv3d(cin: int, cout: int, kernel, padding=(0, 0, 0), *,
@@ -172,11 +220,14 @@ class DiscConvBlock(nn.Module):
 def dropout(y: torch.Tensor, rate: float, training: bool,
             generator: torch.Generator | None = None) -> torch.Tensor:
     """flax ``nn.Dropout``'s function: keep with probability 1 - rate and
-    scale kept values by 1 / (1 - rate), the mask drawn from ``generator``;
+    scale kept values by 1 / (1 - rate), the mask drawn from ``generator``
+    on its device (so a CPU generator gives a card step the CPU's masks);
     inert out of training mode or at rate 0."""
     if not training or rate == 0.0:
         return y
-    keep = torch.rand(y.shape, generator=generator, device=y.device) >= rate
+    draw = y.device if generator is None else generator.device
+    keep = torch.rand(y.shape, generator=generator,
+                      device=draw).to(y.device) >= rate
     return torch.where(keep, y / (1.0 - rate),
                        torch.zeros((), dtype=y.dtype, device=y.device))
 

@@ -1,13 +1,16 @@
 """Video convolution and pooling (port of ``vfd_gan_tpu.ops.convs``).
 
-The semantics of the JAX functions, on ``F.conv3d`` / ``F.avg_pool3d``.
-Signatures, layouts and kernel shapes are the JAX package's: channel-last
-``(B, T, H, W, C)`` video, spatial kernels ``(kh, kw, Cin, Cout)``, temporal
-``(kt, Cin, Cout)``, full ``(kt, kh, kw, Cin, Cout)``.  The TPU lowerings
+The semantics of the JAX functions, on ``F.conv3d``,
+``F.conv_transpose3d``, ``F.conv2d``, ``F.conv_transpose2d`` and
+``F.avg_pool3d``.  Signatures, layouts and kernel shapes are the JAX
+package's: channel-last ``(B, T, H, W, C)`` video, spatial kernels ``(kh,
+kw, Cin, Cout)``, temporal ``(kt, Cin, Cout)``, full ``(kt, kh, kw, Cin,
+Cout)``; GANomaly's 2-D functions take ``(N, H, W, C)`` frames and ``(kh,
+kw, Cin, Cout)`` kernels.  The TPU lowerings
 (tap-GEMM head, factored conv3d, shifted temporal GEMMs, block pool) are
 not carried over: on the card these are cuDNN convolutions.  The modules
-(``models/layers.py``) hold torch-layout weights in ``nn.Conv3d`` and call
-the same convolutions directly in NCDHW.
+(``models/layers.py``) hold torch-layout weights in torch's conv modules
+and call the same convolutions directly in NCDHW (NCHW).
 """
 
 from __future__ import annotations
@@ -80,6 +83,43 @@ def conv3d(x: torch.Tensor, kernel: torch.Tensor, *,
     weight = kernel.to(x.dtype).permute(4, 3, 0, 1, 2)
     return to_channel_last(_conv_ncdhw(to_channel_first(x), weight, stride,
                                        pairs))
+
+
+def conv3d_transpose(x: torch.Tensor, kernel: torch.Tensor, *,
+                     stride: tuple[int, int, int],
+                     padding: tuple[int, int, int] = (1, 1, 1),
+                     output_padding: tuple[int, int, int] = (1, 1, 1)
+                     ) -> torch.Tensor:
+    """``nn.ConvTranspose3d`` of a ``(B, T, H, W, C)`` video by a
+    ``(kt, kh, kw, Cin, Cout)`` kernel (AnoGAN, anogan.py:51-69): out =
+    (in - 1) * stride - 2 * padding + k + output_padding.  JAX builds it
+    from input dilation and the flipped kernel; torch's transposed conv
+    takes the kernel unflipped as ``(Cin, Cout, kt, kh, kw)``."""
+    weight = kernel.to(x.dtype).permute(3, 4, 0, 1, 2)
+    y = F.conv_transpose3d(to_channel_first(x), weight, stride=tuple(stride),
+                           padding=tuple(padding),
+                           output_padding=tuple(output_padding))
+    return to_channel_last(y)
+
+
+def conv2d(x: torch.Tensor, kernel: torch.Tensor, stride: int,
+           padding: int) -> torch.Tensor:
+    """2-D convolution of ``(N, H, W, C)`` frames by a ``(kh, kw, Cin,
+    Cout)`` kernel (GANomaly, JAX models/ganomaly.py:29-32)."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), kernel.to(x.dtype).permute(3, 2, 0, 1),
+                 stride=stride, padding=padding)
+    return y.permute(0, 2, 3, 1)
+
+
+def conv2d_transpose(x: torch.Tensor, kernel: torch.Tensor, stride: int,
+                     padding: int) -> torch.Tensor:
+    """``nn.ConvTranspose2d`` of ``(N, H, W, C)`` frames by a ``(kh, kw,
+    Cin, Cout)`` kernel (GANomaly, JAX models/ganomaly.py:35-43): out =
+    (in - 1) * stride - 2 * padding + k."""
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2),
+                           kernel.to(x.dtype).permute(2, 3, 0, 1),
+                           stride=stride, padding=padding)
+    return y.permute(0, 2, 3, 1)
 
 
 def avg_pool3d(x: torch.Tensor, window: tuple[int, int, int],

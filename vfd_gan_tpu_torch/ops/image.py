@@ -33,6 +33,18 @@ def minmax_normalize(x: torch.Tensor, dims=None) -> torch.Tensor:
     return (x - mn) / (mx - mn + 1e-5)
 
 
+# ITU-R BT.601 luma weights, cv2.cvtColor(RGB2GRAY)'s (reference
+# lib/utils.py:108,134)
+_LUMA = (0.299, 0.587, 0.114)
+
+
+def rgb_to_gray(video: torch.Tensor) -> torch.Tensor:
+    """BT.601 luma of a channel-last video: ``(..., 3) -> (..., 1)``
+    (reference lib/utils.py:131-136)."""
+    r, g, b = video[..., 0], video[..., 1], video[..., 2]
+    return (_LUMA[0] * r + _LUMA[1] * g + _LUMA[2] * b)[..., None]
+
+
 def gray2rgb(video: torch.Tensor) -> torch.Tensor:
     """Repeat a channel-last single channel ``(..., 1)`` to ``(..., 3)``
     (reference lib/utils.py:91-92)."""

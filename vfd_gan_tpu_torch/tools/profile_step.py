@@ -3,6 +3,9 @@
     python -m vfd_gan_tpu_torch.tools.profile_step --model clstm \
         [--compute_dtype float32]
 
+(any ``--model`` the trainer takes: mygan, anogan, ganomaly, clstm,
+c2plus1d, xception)
+
 builds the trainer's engine for the given flags (those of
 ``vfd_gan_tpu_torch.cli.trainer``; synthetic data, b8, T16, 128^2 and the
 trainer's own ``--compute_dtype``, bfloat16, unless given), warms it up,

@@ -21,6 +21,9 @@
   fractional mask edges, models/mygannet.py:444), NaN scores for a
   single-class or empty sweep, and the reference's rule: save on a ROC
   improvement, else on a PR improvement (models/mygannet.py:449-454).
+  Under ``--device_scoring`` the sweep's arrays stay on the device and
+  ``eval/device_metrics.score_sweep`` scores them there (the EER as well);
+  four scalars reach the host and no curve CSV is written.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import time
 import numpy as np
 import torch
 
+from vfd_gan_tpu_torch.eval.device_metrics import score_sweep
 from vfd_gan_tpu_torch.eval.metrics import evaluate
 from vfd_gan_tpu_torch.obs.summary import (  # noqa: F401  (re-exported)
     RunDirs,
@@ -47,8 +51,10 @@ from vfd_gan_tpu_torch.ops.morphology import video_open
 from vfd_gan_tpu_torch.parallel.prefetch import device_prefetch
 from vfd_gan_tpu_torch.train.checkpoints import (
     AsyncSaver,
+    best_ckpt_name,
     restore_checkpoint,
     save_checkpoint,
+    save_pth,
 )
 
 
@@ -61,8 +67,6 @@ UNPORTED = {
     "int8_disc": (lambda c: c.int8_disc, "queue 1 item 15 (quant)"),
     "host_flow": (lambda c: c.host_flow,
                   "queue 1 item 12 (train/host_flow.py)"),
-    "device_scoring": (lambda c: c.device_scoring,
-                       "queue 1 item 12 (eval/device_metrics.py)"),
     "dp/sp/tp/pp": (lambda c: c.dp > 1 or c.sp > 1 or c.tp > 1 or c.pp > 1,
                     "queue 1 item 13 (parallelism)"),
     "moe_experts": (lambda c: c.moe_experts > 0,
@@ -81,19 +85,31 @@ def refuse_unported(cfg, gan: bool) -> None:
                              "trainer (python trainer.py)")
 
 
-class SweepAccumulator:
-    """One periodic test sweep: host gt/prediction arrays for scoring and
-    running sums of the per-batch metrics."""
+def host_arrays(tensors: dict) -> dict:
+    """The panels' tensors as host numpy arrays."""
+    return {k: v.detach().cpu().numpy() for k, v in tensors.items()}
 
-    def __init__(self):
-        self.gts: list[np.ndarray] = []
-        self.preds: list[np.ndarray] = []
+
+class SweepAccumulator:
+    """One periodic test sweep: the gt/prediction arrays to score and
+    running sums of the per-batch metrics.  The arrays are copied to the
+    host, or with ``device=True`` (``--device_scoring``) kept where they
+    lie, for ``eval/device_metrics.score_sweep`` to score them there."""
+
+    def __init__(self, device: bool = False):
+        self.device = device
+        self.gts: list = []
+        self.preds: list = []
         self._sums: dict[str, float] = {}
         self.n = 0
 
     def add(self, gt, pred, metrics=None) -> None:
-        self.gts.append(gt.detach().cpu().numpy())
-        self.preds.append(pred.detach().cpu().numpy())
+        if self.device:
+            self.gts.append(gt.detach())
+            self.preds.append(pred.detach())
+        else:
+            self.gts.append(gt.detach().cpu().numpy())
+            self.preds.append(pred.detach().cpu().numpy())
         for k, v in (metrics or {}).items():
             self._sums[k] = self._sums.get(k, 0.0) + float(v)
         self.n += 1
@@ -106,8 +122,8 @@ class SweepAccumulator:
 class EngineBase:
     """Common state of the training engines.  An engine implements
     ``_train_step_impl(batch) -> metrics``, ``_update_train_videos()``,
-    ``test()``, ``_nets() -> {name: NetState}`` and
-    ``_save_weights(head)``."""
+    ``test()`` and ``_nets() -> {name: NetState}``; the supervised engine
+    also its own ``_save_weights(head)``."""
 
     def __init__(self, cfg, train_iter, test_iter, *, device: torch.device,
                  gan: bool):
@@ -364,6 +380,8 @@ class EngineBase:
             self.scores.update({"score/roc": nan, "score/pr": nan,
                                 "score/f1": nan})
             return nan, nan, nan
+        if getattr(getattr(self, "cfg", None), "device_scoring", False):
+            return self._score_on_device(gts, predicts, save_fn)
         labels = np.asarray(gts, dtype=np.int32).ravel()
         preds = np.asarray(predicts).ravel()
         if (labels == labels.flat[0]).all():
@@ -386,6 +404,35 @@ class EngineBase:
         self.scores.update({"score/roc": roc, "score/pr": pr, "score/f1": f1})
         return roc, pr, f1
 
+    def _score_on_device(self, gts, predicts,
+                         save_fn) -> tuple[float, float, float]:
+        """``--device_scoring``: the sweep's tensors stacked and scored on
+        their device; the same if-roc-elif-pr rule, and a single-class
+        sweep scores NaN and saves nothing, as on the host path."""
+        # stacking needs one batch shape (drop_last iterators)
+        shapes = {tuple(g.shape) for g in gts} | {
+            tuple(p.shape) for p in predicts}
+        if len(shapes) > 1:
+            raise ValueError(
+                f"--device_scoring needs uniform per-batch shapes "
+                f"(drop_last iterator); got {sorted(shapes)}")
+        roc_v, eer_v, pr_v, f1_v = score_sweep(torch.stack(gts),
+                                               torch.stack(predicts))
+        roc, pr, f1 = float(roc_v), float(pr_v), float(f1_v)
+        if not np.isfinite(roc):
+            print(" >> test labels are single-class; ROC/PR are undefined "
+                  "(scores NaN, no checkpoint)")
+            pr = f1 = float("nan")
+        elif roc > self.best_roc:
+            self.best_roc = roc
+            save_fn("roc")
+        elif pr > self.best_pr:
+            self.best_pr = pr
+            save_fn("pr")
+        self.scores.update({"score/roc": roc, "score/pr": pr,
+                            "score/f1": f1, "score/eer": float(eer_v)})
+        return roc, pr, f1
+
     def flush_summary(self) -> None:
         """Send the window's panels, scalars and scores to TensorBoard,
         print the scalars and scores and append them to ``metrics.jsonl``."""
@@ -402,6 +449,14 @@ class EngineBase:
             for k, v in rec.items()), flush=True)
         with open(os.path.join(self.dirs.root, "metrics.jsonl"), "a") as f:
             f.write(json.dumps(rec) + "\n")
+
+    def _save_weights(self, head: str) -> None:
+        """A best model as the reference's GAN engines save it: one
+        ``{head}_ep{NNNN}_{net}.pth`` per net (``netG``, ``netD``)."""
+        for net, state in self._nets().items():
+            save_pth(self.weight_path(
+                best_ckpt_name(head, self.epoch, net) + ".pth"),
+                state.module, self.epoch)
 
     def weight_path(self, name: str) -> str:
         return os.path.join(self.dirs.weights, name)

@@ -64,13 +64,12 @@ from vfd_gan_tpu_torch.ops.image import (
 from vfd_gan_tpu_torch.ops.losses import bce, l2_loss, weighted_bce
 from vfd_gan_tpu_torch.ops.morphology import video_open
 from vfd_gan_tpu_torch.parallel.prefetch import to_device
-from vfd_gan_tpu_torch.train.checkpoints import best_ckpt_name, save_pth
-from vfd_gan_tpu_torch.train.engine_base import EngineBase, SweepAccumulator
+from vfd_gan_tpu_torch.train.engine_base import (
+    EngineBase,
+    SweepAccumulator,
+    host_arrays,
+)
 from vfd_gan_tpu_torch.train.state import NetState
-
-
-def _host(viz: dict) -> dict:
-    return {k: v.detach().cpu().numpy() for k, v in viz.items()}
 
 
 class MyGanEngine(EngineBase):
@@ -213,7 +212,7 @@ class MyGanEngine(EngineBase):
         if viz is None or "input" not in viz:
             return
         t_pre, m_pre = self.viz_morphology(viz["pred"])
-        d = _host({**viz, "t_pre": t_pre, "m_pre": m_pre})
+        d = host_arrays({**viz, "t_pre": t_pre, "m_pre": m_pre})
         self._viz = None
         if self.summary.videos:
             self.color_videos["train/input-real-inflow-genflow"] = \
@@ -321,7 +320,7 @@ class MyGanEngine(EngineBase):
 
     def test(self) -> tuple[float, float, float]:
         cfg = self.cfg
-        sweep = SweepAccumulator()
+        sweep = SweepAccumulator(device=cfg.device_scoring)
         for batch in self._batches(self.test_iter):
             idx = batch.get("index")
             caching = cfg.cache_gt_flow and idx is not None \
@@ -342,8 +341,8 @@ class MyGanEngine(EngineBase):
             sweep.add(gt, m_pre, metrics)
             if self.summary.videos:
                 # TensorBoard-only panels (the last batch's stay)
-                d = _host({k: viz[k] for k in ("input", "real", "gt", "pred",
-                                               "t_pre", "m_pre")})
+                d = host_arrays({k: viz[k] for k in (
+                    "input", "real", "gt", "pred", "t_pre", "m_pre")})
                 self.color_videos["test/input-real"] = np.concatenate(
                     [d["input"], d["real"]], axis=2)
                 self.gray_videos["test/gt-pre-th-morph"] = np.concatenate(
@@ -367,9 +366,3 @@ class MyGanEngine(EngineBase):
             DualDisc(cfg.ndf, cfg.nfr, cfg.isize, dtype=self.dtype,
                      generator=init).to(self.device), cfg.lr, cfg.beta1)
         print("Reloading Net d")
-
-    def _save_weights(self, head: str) -> None:
-        for net, module in (("netG", self.netg), ("netD", self.netd)):
-            save_pth(self.weight_path(
-                best_ckpt_name(head, self.epoch, net) + ".pth"), module,
-                self.epoch)

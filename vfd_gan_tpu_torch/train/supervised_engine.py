@@ -134,7 +134,7 @@ class SupervisedEngine(EngineBase):
         return bce(pred, gt), gt, pred, t_pre, m_pre, data, real
 
     def test(self) -> tuple[float, float, float]:
-        sweep = SweepAccumulator()
+        sweep = SweepAccumulator(device=self.cfg.device_scoring)
         for batch in self._batches(self.test_iter):
             err, gt, pred, t_pre, m_pre, data, real = \
                 self._eval_step_impl(batch)

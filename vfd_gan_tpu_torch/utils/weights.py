@@ -6,13 +6,17 @@ arrays, becomes reference NetG / NetD ``state_dict`` keys and torch
 layouts.  The same rules as
 ``vfd_gan_tpu.utils.torch_export`` (``mygan_generator_to_torch``,
 ``mygan_dualdisc_to_torch``, ``stcnn_autoencoder_to_torch``,
-``convlstm_to_torch``, ``xception_to_torch``), restated because importing
-that package pulls in jax:
+``convlstm_to_torch``, ``xception_to_torch``,
+``anogan_{generator,discriminator}_to_torch``), restated because importing
+that package pulls in jax; GANomaly, which has no reference ``.pth``
+layout, maps onto the port's own names:
 
 * spatial kernel ``(kh, kw, I, O)``  -> Conv3d ``(O, I, 1, kh, kw)``
 * temporal kernel ``(kt, I, O)``     -> Conv3d ``(O, I, kt, 1, 1)``
 * full kernel ``(kt, kh, kw, I, O)`` -> Conv3d ``(O, I, kt, kh, kw)``
-* 2-D kernel ``(kh, kw, I, O)``      -> Conv2d ``(O, I, kh, kw)`` (ConvLSTM)
+* 2-D kernel ``(kh, kw, I, O)``      -> Conv2d ``(O, I, kh, kw)`` (ConvLSTM,
+  GANomaly)
+* transposed kernels ``(k..., I, O)`` -> ConvTranspose ``(I, O, k...)``
 * BN ``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``,
   plus a zero ``num_batches_tracked``.
 * Dense kernel ``(I, O)`` -> Linear ``(O, I)``, its input axis permuted
@@ -199,4 +203,135 @@ def xception_state_dict(variables: dict) -> dict[str, np.ndarray]:
         _bn(out, f"uconv{i}.bn", p[f"deconv{i}"]["bn"], s[f"deconv{i}"]["bn"])
     out["conv_last.weight"] = _spatial(p["head_kernel"])
     out["conv_last.bias"] = _f32(p["head_bias"])
+    return out
+
+
+def _transpose3d(k) -> np.ndarray:
+    """``(kt, kh, kw, Cin, Cout)`` -> ConvTranspose3d ``(Cin, Cout, kt, kh,
+    kw)`` (torch_export.transpose_to_conv3d_transpose)."""
+    return _f32(k).transpose(3, 4, 0, 1, 2)
+
+
+def anogan_generator_state_dict(variables: dict, nfr: int = 16,
+                                isize: int = 128) -> dict[str, np.ndarray]:
+    """JAX ``AnoGenerator`` variables -> reference AnoGAN NetG
+    ``state_dict`` (numpy; torch_export.anogan_generator_to_torch).  The
+    seed Linear's features and its BatchNorm1d are permuted from JAX's
+    (T, H, W, C) reshape order to torch's (C, T, H, W)."""
+    p, s = variables["params"], variables["batch_stats"]
+    t0, s0 = nfr // 8, isize // 8
+    perm = np.arange(512 * t0 * s0 * s0).reshape(512, t0, s0, s0) \
+        .transpose(1, 2, 3, 0).ravel()
+    inv = np.argsort(perm)
+    dense = p["fc"]["Dense_0"]
+    out: dict = {"layer1.0.weight": _f32(dense["kernel"])[:, inv].T,
+                 "layer1.0.bias": _f32(dense["bias"])[inv]}
+    _bn(out, "layer1.1", {k: _f32(v)[inv] for k, v in p["fc_bn"].items()},
+        {k: _f32(v)[inv] for k, v in s["fc_bn"].items()})
+    for i, (name, (tk, ck, bk)) in enumerate((
+            ("up1", ("layer2.1", "layer2.2", "layer2.3")),
+            ("up2", ("layer2.6", "layer2.7", "layer2.8")),
+            ("up3", ("layer3.1", "layer3.2", "layer3.3")),
+            ("up4", ("layer3.6", "layer3.7", None))), start=1):
+        out[f"{tk}.weight"] = _transpose3d(p[f"{name}_tkernel"])
+        out[f"{tk}.bias"] = _f32(p[f"{name}_tbias"])
+        out[f"{ck}.weight"] = _full(p[f"{name}_ckernel"])
+        out[f"{ck}.bias"] = _f32(p[f"{name}_cbias"])
+        if bk is not None:
+            _bn(out, bk, p[f"bn{i}"], s[f"bn{i}"])
+    return out
+
+
+def anogan_discriminator_state_dict(variables: dict,
+                                    nfr: int = 16) -> dict[str, np.ndarray]:
+    """JAX ``AnoDiscriminator`` variables -> reference AnoGAN NetD
+    ``state_dict`` (numpy; torch_export.anogan_discriminator_to_torch).
+    The pooled features are ``(256, nfr / 8, s, s)``; torch_export
+    hardcodes their time axis to 2, which is right at nfr 16 only."""
+    p, s = variables["params"], variables["batch_stats"]
+    out: dict = {}
+    for ours, ref in (("conv1", "layer1.0"), ("conv2", "layer1.3"),
+                      ("conv3", "layer1.4"), ("conv4", "layer2.0"),
+                      ("conv5", "layer2.1"), ("conv6", "layer2.5")):
+        out[f"{ref}.weight"] = _full(p[f"{ours}_kernel"])
+        out[f"{ref}.bias"] = _f32(p[f"{ours}_bias"])
+    for ours, ref in (("bn1", "layer1.1"), ("bn2", "layer1.5"),
+                      ("bn3", "layer2.2"), ("bn4", "layer2.6")):
+        _bn(out, ref, p[ours], s[ours])
+    dense = p["fc"]["Dense_0"]
+    t = nfr // 8
+    side = int(round((np.asarray(dense["kernel"]).shape[0] // (256 * t))
+                     ** 0.5))
+    out["fc.0.weight"] = linear_to_torch(dense["kernel"], (256, t, side, side))
+    out["fc.0.bias"] = _f32(dense["bias"])
+    return out
+
+
+def _conv2d(k) -> np.ndarray:
+    """``(kh, kw, Cin, Cout)`` -> Conv2d ``(Cout, Cin, kh, kw)``."""
+    return _f32(k).transpose(3, 2, 0, 1)
+
+
+def _transpose2d(k) -> np.ndarray:
+    """``(kh, kw, Cin, Cout)`` -> ConvTranspose2d ``(Cin, Cout, kh, kw)``."""
+    return _f32(k).transpose(2, 3, 0, 1)
+
+
+def _dcgan_block(out: dict, prefix: str, kernel, p: dict, s: dict) -> None:
+    out[f"{prefix}.conv.weight"] = kernel
+    _bn(out, f"{prefix}.bn", p, s)
+
+
+def _dcgan_encoder(out: dict, prefix: str, p: dict, s: dict) -> None:
+    out[f"{prefix}.stem.weight"] = _conv2d(p["stem_kernel"])
+    t = 0
+    while f"extra{t}_kernel" in p:
+        _dcgan_block(out, f"{prefix}.extra.{t}",
+                     _conv2d(p[f"extra{t}_kernel"]), p[f"extra{t}_bn"],
+                     s[f"extra{t}_bn"])
+        t += 1
+    i = 0
+    while f"pyr{i}_kernel" in p:
+        _dcgan_block(out, f"{prefix}.pyramid.{i}",
+                     _conv2d(p[f"pyr{i}_kernel"]), p[f"pyr{i}_bn"],
+                     s[f"pyr{i}_bn"])
+        i += 1
+    if "final_kernel" in p:
+        out[f"{prefix}.final.weight"] = _conv2d(p["final_kernel"])
+
+
+def ganomaly_generator_state_dict(variables: dict) -> dict[str, np.ndarray]:
+    """JAX ``GanomalyGenerator`` variables -> the port's
+    ``GanomalyGenerator`` ``state_dict`` (numpy; the reference has no
+    trained GANomaly, so the names are the port's own)."""
+    p, s = variables["params"], variables["batch_stats"]
+    out: dict = {}
+    _dcgan_encoder(out, "enc1", p["enc1"], s["enc1"])
+    dp, ds = p["dec"], s["dec"]
+    _dcgan_block(out, "dec.stem", _transpose2d(dp["stem_kernel"]),
+                 dp["stem_bn"], ds["stem_bn"])
+    i = 0
+    while f"pyr{i}_kernel" in dp:
+        _dcgan_block(out, f"dec.pyramid.{i}",
+                     _transpose2d(dp[f"pyr{i}_kernel"]), dp[f"pyr{i}_bn"],
+                     ds[f"pyr{i}_bn"])
+        i += 1
+    t = 0
+    while f"extra{t}_kernel" in dp:
+        _dcgan_block(out, f"dec.extra.{t}", _conv2d(dp[f"extra{t}_kernel"]),
+                     dp[f"extra{t}_bn"], ds[f"extra{t}_bn"])
+        t += 1
+    out["dec.final.weight"] = _transpose2d(dp["final_kernel"])
+    _dcgan_encoder(out, "enc2", p["enc2"], s["enc2"])
+    return out
+
+
+def ganomaly_discriminator_state_dict(variables: dict
+                                      ) -> dict[str, np.ndarray]:
+    """JAX ``GanomalyDiscriminator`` variables -> the port's
+    ``GanomalyDiscriminator`` ``state_dict`` (numpy)."""
+    p, s = variables["params"], variables["batch_stats"]
+    out: dict = {}
+    _dcgan_encoder(out, "trunk", p["trunk"], s["trunk"])
+    out["classifier.weight"] = _conv2d(p["cls_kernel"])
     return out
