@@ -51,7 +51,7 @@ phases, one line each (or a few):
    size from the same weights and the same injected flows, TF32 off:
    losses, updated G and D parameters and D BatchNorm statistics;
 10. training: ``cli.trainer.main`` at the reference width (b8, T16, 128^2,
-    ngf = ndf = 32, flow_scale 0.5, float32, synthetic data) for 12
+    ngf = ndf = 32, flow_scale 0.5, float32, synthetic data) for 10
     steps and one test sweep; finite losses, ROC/PR/F1, the best
     ``*_netG.pth``/``*_netD.pth`` loaded back with strict=True, step time
     and peak memory;
@@ -69,7 +69,7 @@ phases, one line each (or a few):
 13. AnoGAN and GANomaly (the last two families): a CUDA-vs-CPU step of
     each (``_ano_core`` with z and dropout masks from the CPU,
     ``_ganomaly_core``), then ``cli.trainer.main --model anogan|ganomaly``
-    at b8, T16, 128^2 (their widths are fixed) for 8 steps and a 2-batch
+    at b8, T16, 128^2 (their widths are fixed) for 6 steps and a 2-batch
     sweep: finite losses and scores, the best ``*_netG.pth``/``*_netD.pth``
     pair loaded back with strict=True, one augment launch per step, one
     opening launch per AnoGAN sweep batch (none in GANomaly's frame-level
@@ -100,6 +100,28 @@ phases, one line each (or a few):
 18. tensorboard: one short trainer run with the logger on; says whether a
     writer existed, and then finds its event file.  The other trainer
     phases pass ``--no-tensorboard``.
+19. accum: ``cli.trainer.main --accum k`` at the reference size, 4 steps
+    and a one-batch sweep each: MyGAN float32 and bf16 at k 2 and 4 (b8),
+    bf16 ``--batchsize 32 --accum 4``, clstm float32 k 2; one augment
+    launch per step, 3 k fused-flow launches per MyGAN step, k x 98 conv
+    launches per clstm step; step median and peak memory beside the
+    accum-1 run's; then one b8 float32 ``--accum 2`` step against the same
+    step by hand from one state (SGD(1.0): the updates within 4 x the
+    spread of two hand-made steps, the buffers equal);
+20. remat: MyGAN b8 float32 and bf16 with ``--remat`` and ``--remat
+    --remat_blocks dconv1,uconv1`` (step median, peak memory beside the
+    plain run's); one step of a remat engine against two plain ones from
+    one state: G's gradient within their spread, every BatchNorm buffer
+    (``num_batches_tracked`` too) as plain's;
+21. evaluate: ``cli.export_torch`` of a 2-step MyGAN run's ``latest.pt``
+    (the pair loads strict=True), then ``cli.evaluate_models`` on that G
+    and the seed-0 clstm, c2plus1d and xception files over clips held in
+    memory (b4, T16, 128^2): AUC, EER, F1 and seconds per model, each
+    within 1e-4 of the same call on the CPU, no opening launch;
+22. host-only: with ``import cv2`` made to fail, ``--host_flow`` exits when
+    the engine is built, naming cv2; where cv2 imports, a 2-step
+    ``--host_flow`` MyGAN run (no flow kernel) and ``cli.frames`` on a
+    synthetic mp4 tree.
 
 bfloat16, the JAX package's and the trainer's default compute dtype, runs
 beside float32: the conv kernel's bf16 form at the nine launches of a
@@ -112,7 +134,7 @@ requests); after the float32 step parities, the same CUDA-vs-CPU steps in
 bf16 (MyGAN, ``--ae`` and the supervised families; losses 1e-2 relative,
 parameters 2.5 lr, as the CPU tests hold the port to JAX); after the
 float32 training phases, the default command line (no ``--compute_dtype``)
-for MyGAN (12 steps and a one-batch sweep), ``--ae`` (3 steps), clstm,
+for MyGAN (10 steps and a one-batch sweep), ``--ae`` (3 steps), clstm,
 c2plus1d, xception, anogan and ganomaly, each step median and peak memory
 printed beside the float32 run's, clstm's launches all on the bf16 conv
 kernel.
@@ -128,9 +150,10 @@ dx D1-D4), a ragged and a wide case, each timed in turns with ``F.conv2d``
 CUDA-vs-CPU supervised step for each family at a small size.
 
 Each main path (serve + infer of the four families; MyGAN training; the
-two-kernel step; each supervised, AnoGAN and GANomaly training run)
-starts with the launch counts of the kernels set to 0 and reads them
-after.  Then come one JSON line of kernel results
+two-kernel step; each supervised, AnoGAN and GANomaly training run; each
+``--accum``, ``--remat`` and ``--host_flow`` run and each model's
+``evaluate_models`` call) starts with the launch counts of the kernels
+set to 0 and reads them after.  Then come one JSON line of kernel results
 and, last, ``{"ok": true, "device": {...}}``.  Per kernel the JSON line
 holds its time (``ms``), its plain version's (``plain_ms``), the time of
 one PyTorch call that computes the same function where there is one
@@ -149,11 +172,12 @@ one per plane of the serve batch's video, and the three flow kernels one
 per plane size (``shapes``), the refine and fused kernels' with
 the launches per step at that size and, as the conv kernel, their times x
 launches summed over one step of their path (``step_ms_sum``,
-``step_bound_ms_sum``); the augment and opening kernels also their
-launches on the AnoGAN and GANomaly runs (``launches_on``).  Any failure
-raises:
-the script exits non-zero and prints no last line.  It does the same
-without a card, and outside a checkout of the repo.
+``step_bound_ms_sum``); each kernel also its nonzero launches on the
+other runs (``launches_on``: AnoGAN and GANomaly for the augment and
+opening kernels; every ``--accum``, ``--remat``, ``--host_flow`` and
+evaluate run).  Any failure raises: the script exits non-zero and
+prints no last line.  It does the same without a card, and outside a
+checkout of the repo.
 """
 
 from __future__ import annotations
@@ -202,7 +226,7 @@ KERNELS = {
 FIELDS = 2 * BATCH * (NFR - 1)
 # flow levels at flow_scale 0.5 (64, 32, 16) and the top one at 1.0 (128)
 FLOW_SIZES = (64, 32, 16, 128)
-TRAIN_STEPS = 12
+TRAIN_STEPS = 10
 # the supervised families' training phases: model -> (steps, extra flags)
 SUPERVISED_RUNS = {"clstm": (8, []), "c2plus1d": (4, []),
                    "xception": (4, ["--xwidth", "1.0"])}
@@ -210,7 +234,7 @@ SUPERVISED_RUNS = {"clstm": (8, []), "c2plus1d": (4, []),
 AE_STEPS = 3
 # the AnoGAN and GANomaly training runs: steps per dtype, sweep batches
 FAMILIES = ("anogan", "ganomaly")
-FAMILY_STEPS, FAMILY_SWEEP = 8, 2
+FAMILY_STEPS, FAMILY_SWEEP = 6, 2
 
 
 def say(phase: str, msg: str) -> None:
@@ -2351,6 +2375,390 @@ def phase_tensorboard(tmp: Path) -> None:
                        f"metrics.jsonl {len(lines)} line")
 
 
+# the new single-card training options at the reference size: (tag, model,
+# dtype (None: the default command line, bf16), batch, extra flags)
+ACCUM_RUNS = (
+    ("mygan-f32-accum2", "mygan", "float32", BATCH, ["--accum", "2"]),
+    ("mygan-f32-accum4", "mygan", "float32", BATCH, ["--accum", "4"]),
+    ("mygan-bf16-accum2", "mygan", None, BATCH, ["--accum", "2"]),
+    ("mygan-bf16-accum4", "mygan", None, BATCH, ["--accum", "4"]),
+    ("mygan-bf16-b32-accum4", "mygan", None, 32, ["--accum", "4"]),
+    ("clstm-f32-accum2", "clstm", "float32", BATCH, ["--accum", "2"]),
+)
+REMAT_RUNS = (
+    ("remat", ["--remat"]),
+    ("remat-dconv1,uconv1", ["--remat", "--remat_blocks", "dconv1,uconv1"]),
+)
+SHORT_STEPS = 4
+# the clstm conv kernel's launches per microbatch of a train step: forward
+# 3 x (1 + T), dx for all but the first layer's input half and each
+# layer's first hidden half
+CLSTM_CONV_PER_MICRO = 2 * 3 * (1 + NFR) - 4
+
+
+def _short_run(tmp: Path, tag: str, model: str, dtype: str | None,
+               extra: list, batch: int = BATCH, steps: int = SHORT_STEPS):
+    """``cli.trainer.main`` at the reference width (MyGAN ngf = ndf = 32,
+    flow_scale 0.5) for ``steps`` steps and a one-batch sweep, as one main
+    path; returns the engine, the launch counts, those of the sweep, the
+    step median after the first step (ms) and the peak memory (MiB) of
+    the train steps (read as the sweep starts) and of the whole run."""
+    flags, _ = _dtype_flags(dtype)
+    widths = ["--ngf", "32", "--ndf", "32", "--flow_scale", "0.5"] \
+        if model == "mygan" else []
+    argv = ["--model", model, "--batchsize", str(batch), "--nfr", str(NFR),
+            "--isize", str(ISIZE), *widths, *flags, *extra,
+            "--synthetic_data", str(steps), "--synthetic_test_batches", "1",
+            "--ep", "1", "--freq", str(steps), "--device", "cuda",
+            "--no-tensorboard", "--result_root", str(tmp / f"runs_{tag}")]
+    gc.collect()
+    torch.cuda.empty_cache()
+    cls = _engine_cls(model)
+    test, train_peak = cls.test, []
+
+    def peak_then_test(self):
+        train_peak.append(torch.cuda.max_memory_allocated() / 2 ** 20)
+        return test(self)
+
+    cls.test = peak_then_test
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        engine, counts, sweep, _ = run_trainer(argv, cls)
+    finally:
+        cls.test = test
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    check(engine.global_step == steps and len(train_peak) == 1,
+          f"{tag}: all train steps ran, then one sweep")
+    check(all(np.isfinite(v) for v in engine.errors.values()),
+          f"{tag}: finite losses {engine.errors}")
+    median = 1e3 * statistics.median(engine.step_seconds[1:])
+    return engine, counts, sweep, median, (train_peak[0], peak)
+
+
+def _spread_close(what: str, got: dict, want: dict, again: dict) -> str:
+    """``got`` within 4 x the spread of two runs of the same thing
+    (``want``, ``again``) plus 1e-5, by relative L2 distance, the median
+    tensor's and the whole set's (``tools/step_reference.within_spread``);
+    returns the readings."""
+    from vfd_gan_tpu_torch.tools.step_reference import within_spread
+
+    dist, spread, ok = within_spread(got, want, again)
+    check(ok, f"{what}: {dist} within 4 x the spread {spread} + 1e-5")
+    return (f"{what} median {dist[0]:.3g}, whole {dist[1]:.3g} (two plain "
+            f"runs: {spread[0]:.3g}, {spread[1]:.3g})")
+
+
+def _buffers_as_plain(what: str, got: dict, want: dict, again: dict) -> str:
+    """Every buffer of ``got`` equal to ``want``'s where two plain runs
+    (``want``, ``again``) are equal, else within 4 x their spread;
+    ``num_batches_tracked`` always equal."""
+    unequal = 0
+    for k, v in want.items():
+        if "running" not in k and not k.endswith("num_batches_tracked"):
+            continue
+        if k.endswith("num_batches_tracked") or torch.equal(v, again[k]):
+            check(torch.equal(got[k], v), f"{what} buffer {k} equal")
+        else:
+            unequal += 1
+            check((got[k] - v).abs().max() <= 4 * (again[k] - v).abs().max(),
+                  f"{what} buffer {k} within the plain runs' spread")
+    return f"{what} buffers equal ({unequal} within the spread)"
+
+
+def _step_inputs(device, b: int = BATCH):
+    rng = np.random.default_rng(21)
+    data = rng.uniform(-1, 1, (b, NFR, ISIZE, ISIZE, 3)).astype(np.float32)
+    gt = (rng.uniform(size=(b, NFR, ISIZE, ISIZE, 1)) > 0.9).astype(
+        np.float32)
+    return (torch.from_numpy(data).to(device),
+            torch.from_numpy(gt).to(device))
+
+
+def _cpu_state(module) -> dict:
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in module.state_dict().items()}
+
+
+def phase_accum_reference(tmp: Path, device) -> str:
+    """One ``--accum 2`` MyGAN step at the reference size (float32, the
+    fused flow per microbatch, dropout on) against the same step by hand,
+    twice, from one state, with SGD(1.0) so that each update is the
+    averaged gradient: the engine's updates within the spread of the two
+    hand-made ones."""
+    from vfd_gan_tpu_torch.tools.step_reference import manual_gan_accum
+    from vfd_gan_tpu_torch.train.gan_engine import MyGanEngine
+
+    cfg = _full_width_cfg("mygan", tmp / "accum_ref", accum=2)
+    data, gt = _step_inputs(device)
+    before, steps, stats = None, [], []
+    for i in range(3):
+        eng = MyGanEngine(cfg, None, None, device=device)
+        if before is None:
+            before = {n: _cpu_state(net.module)
+                      for n, net in eng._nets().items()}
+        for net in eng._nets().values():
+            net.optimizer = torch.optim.SGD(net.module.parameters(), lr=1.0)
+        drop = torch.Generator(device=device).manual_seed(3)
+        if i == 0:
+            eng._gan_core(data, gt, drop)
+        else:
+            manual_gan_accum(eng, data, gt, 2, drop)
+        after = {n: _cpu_state(net.module) for n, net in eng._nets().items()}
+        params = {n: [k for k, _ in net.module.named_parameters()]
+                  for n, net in eng._nets().items()}
+        steps.append({f"{n}.{k}": after[n][k] - before[n][k]
+                      for n in after for k in params[n]
+                      if not k.endswith(("spatial_conv.bias",
+                                         "temporal_conv.bias"))})
+        stats.append({f"{n}.{k}": v for n in after
+                      for k, v in after[n].items()})
+        del eng
+    return "; ".join((_spread_close("updates", *steps),
+                      _buffers_as_plain("G and D", *stats)))
+
+
+def phase_accum(tmp: Path, device, base: dict) -> dict:
+    """The ``--accum`` runs (``ACCUM_RUNS``), each its own main path: one
+    augment launch per step, 3 x k fused-flow launches per MyGAN step, k x
+    the clstm step's conv launches; step median and peak memory printed
+    beside the accum-1 run's (``base``: tag -> (ms, MiB)); then one step
+    against its manual reference.  Returns the counts by run."""
+    out = {}
+    for tag, model, dtype, batch, extra in ACCUM_RUNS:
+        k = int(extra[-1])
+        engine, counts, sweep, ms, peak = _short_run(tmp, tag, model, dtype,
+                                                     extra, batch)
+        steps = engine.global_step
+        train = {key: n - sweep.get(key, 0) for key, n in counts.items()}
+        check(train["augment_gather"] == steps,
+              f"{tag}: one augment launch per step: {counts}")
+        if model == "mygan":
+            check(train["flow_fused"] == 3 * k * steps,
+                  f"{tag}: 3 x {k} fused launches per step: {train}")
+        else:
+            conv = "conv3x3" if dtype == "float32" else "conv3x3_bf16"
+            check(train[conv] == k * CLSTM_CONV_PER_MICRO * steps,
+                  f"{tag}: {k} x {CLSTM_CONV_PER_MICRO} conv launches per "
+                  f"step: {train}")
+        ref = base.get(f"{model}-{'f32' if dtype else 'bf16'}")
+        beside = (f"; accum 1 at b{BATCH}: {ref[0]:.1f} ms, {ref[1]:.0f} "
+                  "MiB with its sweep" if ref else "")
+        say("accum", f"trainer.main --model {model} b{batch} T{NFR} "
+                     f"{ISIZE}^2 {dtype or 'bfloat16 (default)'} "
+                     f"{' '.join(extra)}: step median {ms:.1f} ms "
+                     f"({1e3 * batch / ms:.1f} clips/s), peak memory "
+                     f"{peak[0]:.0f} MiB in the train steps, {peak[1]:.0f} "
+                     f"with the sweep{beside}; launches per step "
+                     + json.dumps({key: train[key] / steps for key in (
+                         "augment_gather", "flow_fused", "conv3x3",
+                         "conv3x3_bf16") if train[key]}))
+        out[tag] = counts
+        engine.close()
+        del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("accum", "one --accum 2 step (float32, b8) against the same step "
+                 "by hand: " + phase_accum_reference(tmp, device))
+    return out
+
+
+def phase_remat(tmp: Path, device, base: dict) -> dict:
+    """``--remat`` and ``--remat --remat_blocks dconv1,uconv1`` runs of
+    MyGAN in float32 and bf16, step median and peak memory beside the
+    plain run's; then one step of a remat engine against two plain ones
+    from one state: G's gradient within the plain steps' spread and every
+    BatchNorm buffer as plain's."""
+    from vfd_gan_tpu_torch.train.gan_engine import MyGanEngine
+
+    out = {}
+    for dtype in ("float32", None):
+        key = f"mygan-{'f32' if dtype else 'bf16'}"
+        for tag, extra in REMAT_RUNS:
+            engine, counts, _, ms, peak = _short_run(
+                tmp, f"{key}-{tag}", "mygan", dtype, extra)
+            check(engine.netg.remat and counts["flow_fused"] > 0,
+                  f"{tag}: the Generator rematerializes its blocks")
+            ref = base.get(key)
+            beside = (f"; plain: {ref[0]:.1f} ms, {ref[1]:.0f} MiB with "
+                      "its sweep" if ref else "")
+            say("remat", f"trainer.main --model mygan b{BATCH} "
+                         f"{dtype or 'bfloat16 (default)'} "
+                         f"{' '.join(extra)}: step median {ms:.1f} ms, peak "
+                         f"memory {peak[0]:.0f} MiB in the train steps, "
+                         f"{peak[1]:.0f} with the sweep{beside}")
+            out[f"{key} {' '.join(extra)}"] = counts
+            engine.close()
+            del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = _full_width_cfg("mygan", tmp / "remat_ref")
+        cfg.compute_dtype = dtype or "bfloat16"
+        data, gt = _step_inputs(device)
+        grads, stats = [], []
+        for remat in (False, False, True):
+            cfg.remat = remat
+            eng = MyGanEngine(cfg, None, None, device=device)
+            eng._gan_core(data, gt, torch.Generator(device=device)
+                          .manual_seed(3))
+            grads.append({k: p.grad.detach().to("cpu", copy=True)
+                          for k, p in eng.netg.named_parameters()})
+            stats.append({f"{n}.{k}": v for n, net in eng._nets().items()
+                          for k, v in _cpu_state(net.module).items()})
+            del eng
+        say("remat", f"one step, {dtype or 'bfloat16'}, --remat against "
+                     "plain: " + "; ".join((
+                         _spread_close("G's gradient", grads[2], *grads[:2]),
+                         _buffers_as_plain("G and D", stats[2],
+                                           *stats[:2]))))
+    return out
+
+
+EVAL_BATCH = 4
+
+
+def phase_evaluate(tmp: Path, device, paths: dict) -> dict:
+    """``cli.export_torch`` of a short MyGAN run's ``latest.pt`` (the pair
+    loads strict=True), then ``cli.evaluate_models`` on that G and the
+    seed-0 clstm, c2plus1d and xception files, over clips held in memory
+    (b4, T16, 128^2; no cv2 to decode with here): raw sigmoid scores, so
+    no opening launch; per model AUC, EER, F1 and seconds, each against
+    the same call on the CPU within 1e-4."""
+    from vfd_gan_tpu_torch.cli import evaluate_models, export_torch
+    from vfd_gan_tpu_torch.models.mygan import DualDisc, Generator
+    from vfd_gan_tpu_torch.utils.checkpoint import load_state_dict
+
+    engine, _, _, _, _ = _short_run(tmp, "export", "mygan", "float32",
+                                    ["--autosave_every", "2"], steps=2)
+    latest = Path(engine.dirs.weights) / "latest.pt"
+    engine.close()
+    del engine
+    out_dir = tmp / "mygan_export"                 # "mygan": the dispatch
+    written = export_torch.main(["--ckpt", str(latest), "--out",
+                                 str(out_dir)])
+    g_pth, d_pth = (out_dir / f"latest_{n}.pth" for n in ("netG", "netD"))
+    check([Path(p) for p, _ in written] == [g_pth, d_pth],
+          f"export wrote the pair: {written}")
+    Generator(32).load_state_dict(load_state_dict(str(g_pth)), strict=True)
+    DualDisc(32, NFR, ISIZE).load_state_dict(load_state_dict(str(d_pth)),
+                                             strict=True)
+    clips = MemoryClips(EVAL_BATCH, NFR, ISIZE, seed=12)
+    batch = {k: np.stack([clips[i][j] for i in range(EVAL_BATCH)])
+             for j, k in enumerate(("data", "real", "mask"))}
+    lines, counts_by = [], {}
+    for ckpt in (g_pth, paths["clstm"], paths["c2plus1d"],
+                 paths["xception"]):
+        _reset_counts()                          # the evaluate path starts
+        t0 = time.perf_counter()
+        got = evaluate_models.evaluate_checkpoints(
+            [str(ckpt)], [batch], "roc", str(tmp / "eval_cuda"), device)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _counts()                       # ... and ends
+        t0 = time.perf_counter()
+        want = evaluate_models.evaluate_checkpoints(
+            [str(ckpt)], [batch], "roc", str(tmp / "eval_cpu"),
+            torch.device("cpu"))
+        cpu_secs = time.perf_counter() - t0
+        (name, r), = got.items()
+        check(list(want) == [name], f"{ckpt.name}: one model, {name}")
+        for key in ("auc", "eer", "f1"):
+            check(np.isfinite(r[key]) and abs(r[key] - want[name][key])
+                  <= 1e-4, f"{name} {key}: cuda {r[key]} vs cpu "
+                           f"{want[name][key]}")
+        check(counts["morphology_open"] == 0,
+              f"{name}: raw scores, no opening: {counts}")
+        counts_by[name] = counts
+        lines.append(f"{name} ({ckpt.name}): AUC {r['auc']:.6f} EER "
+                     f"{r['eer']:.6f} F1 {r['f1']:.6f} in {secs:.2f} s "
+                     f"(CPU {cpu_secs:.2f} s, within 1e-4)")
+    check(counts_by["ConvLSTM"]["conv3x3"] > 0,
+          "the ConvLSTM's forward launched the conv3x3 kernel")
+    say("evaluate", f"export_torch {latest.name} -> {g_pth.name}, "
+                    f"{d_pth.name} (strict loads); evaluate_models, "
+                    f"b{EVAL_BATCH} T{NFR} {ISIZE}^2 clips in memory: "
+                    + "; ".join(lines))
+    return counts_by
+
+
+def phase_host_only(tmp: Path, device) -> dict:
+    """``--host_flow`` and ``cli.frames`` need cv2.  With the import made to
+    fail, ``--host_flow`` must exit when the engine is built, naming cv2 and
+    the flag.  Where cv2 imports, a short ``--host_flow`` MyGAN run (no
+    fused-flow launch in its train steps: the flow is OpenCV's on the host)
+    and ``cli.frames`` on a synthetic mp4 tree; where it does not, that is
+    said.  Returns the run's launch counts (empty without cv2)."""
+    import importlib.util
+
+    from vfd_gan_tpu_torch.cli.trainer import build_engine
+
+    argv = ["--model", "mygan", "--batchsize", "2", "--nfr", str(NFR),
+            "--isize", "64", "--ngf", "8", "--ndf", "8", "--host_flow",
+            "--synthetic_data", "1", "--device", "cuda", "--no-tensorboard",
+            "--result_root", str(tmp / "runs_host_flow")]
+    saved = sys.modules.get("cv2")
+    sys.modules["cv2"] = None                    # import cv2 now fails
+    try:
+        build_engine(argv)
+    except SystemExit as e:
+        msg = str(e)
+    else:
+        raise RuntimeError("check failed: --host_flow built an engine "
+                           "without cv2")
+    finally:
+        if saved is None:
+            del sys.modules["cv2"]
+        else:
+            sys.modules["cv2"] = saved
+    check("cv2" in msg and "--host_flow" in msg,
+          f"--host_flow names cv2 and the flag: {msg}")
+    say("host-only", f"without cv2, --host_flow exits when the engine is "
+                     f"built: {msg}")
+    if importlib.util.find_spec("cv2") is None:
+        say("host-only", "--host_flow and cli.frames need cv2, which this "
+                         "machine lacks: not run here (the CPU tests hold "
+                         "them to JAX)")
+        return {}
+    from vfd_gan_tpu_torch.cli import frames
+    from vfd_gan_tpu_torch.data.synthetic import make_dataset
+
+    engine, counts, sweep, ms, _ = _short_run(tmp, "host-flow", "mygan",
+                                              "float32", ["--host_flow"],
+                                              steps=2)
+    check(counts["flow_fused"] == counts["flow_warp"] == 0
+          and counts["augment_gather"] == 2,
+          f"--host_flow: no flow kernel, one augment launch per step: "
+          f"{counts}")
+    engine.close()
+    make_dataset(str(tmp / "mp4"), n_train=1, n_test=1, frames=16, size=64)
+    t0 = time.perf_counter()
+    frames.main(["--src", str(tmp / "mp4"), "--dst", str(tmp / "png")])
+    pngs = len(list((tmp / "png").rglob("*.png")))
+    check(pngs == 2 * 3 * 16, f"frames wrote every frame: {pngs} PNGs")
+    say("host-only", f"cv2 imports here: trainer.main --model mygan b{BATCH} "
+                     f"float32 --host_flow: step median {ms:.1f} ms, no flow "
+                     f"kernel launched; cli.frames: {pngs} PNGs in "
+                     f"{time.perf_counter() - t0:.2f} s")
+    return counts
+
+
+def run_new_phases(tmp: Path, device, paths: dict, base: dict) -> dict:
+    """The --accum, --remat, evaluate and host-only phases; returns the
+    kernels' launch counts by run."""
+    t0 = time.perf_counter()
+    runs = {f"accum {k}": v for k, v in phase_accum(tmp, device,
+                                                     base).items()}
+    runs.update({f"remat {k}": v for k, v in phase_remat(
+        tmp, device, base).items()})
+    runs.update({f"evaluate {k}": v for k, v in phase_evaluate(
+        tmp, device, paths).items()})
+    host = phase_host_only(tmp, device)
+    if host:
+        runs["mygan --host_flow"] = host
+    say("new-phases", f"--accum, --remat, evaluate, host-only: "
+                      f"{time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def main() -> None:
     start = time.perf_counter()
     name = phase_device()
@@ -2477,6 +2885,12 @@ def main() -> None:
         phase_resume(Path(tmp), device)
         phase_sweep_options(Path(tmp), device)
         phase_tensorboard(Path(tmp))
+        gc.collect()
+        torch.cuda.empty_cache()
+        new_runs = run_new_phases(Path(tmp), device, paths, {
+            f"{model}-{dtype}": steps_ms[model][i:i + 2]
+            for model in ("mygan", "clstm")
+            for dtype, i in (("f32", 0), ("bf16", 2))})
     # launches: each kernel's count on the main path that runs it (MyGAN's
     # trainer for the fused and opening kernels, its --flow_impl
     # two_kernel step for warp and refine, the clstm trainer for the
@@ -2521,11 +2935,15 @@ def main() -> None:
                     f"launches): kernel {results[k]['step_ms_sum']:.4f} ms, "
                     f"bound {results[k]['step_bound_ms_sum']:.4f} ms")
     say("done", f"all phases in {time.perf_counter() - start:.1f} s")
-    # the augment and opening kernels on the AnoGAN and GANomaly paths
-    # (each its own trainer run, counts set to 0 before it)
-    for k in ("augment_gather", "morphology_open"):
-        results[k]["launches_on"] = {run: counts[k] for run, counts
-                                     in family_counts.items()}
+    # the kernels on the AnoGAN and GANomaly paths and on the --accum,
+    # --remat and evaluate paths (each its own run, counts set to 0 before
+    # it)
+    for k in KERNELS:
+        results[k]["launches_on"] = {
+            run: counts[k] for run, counts in (
+                *(family_counts.items() if k in ("augment_gather",
+                                                 "morphology_open") else ()),
+                *new_runs.items()) if counts[k]}
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": KERNELS[k][0],
         "replaces": KERNELS[k][1], "launches": launches[k][k],

@@ -926,3 +926,97 @@ def test_score_sweep_on_card_matches_numpy(card):
     assert abs(got[0] - auc) < 1e-5 and abs(got[1] - eer) < 1e-5
     assert abs(got[2] - host.pr_auc(labels, preds.ravel())[0]) < 1e-5
     assert abs(got[3] - host.f1_at(labels, preds.ravel())) < 1e-6
+
+
+def _spread_close(what: str, got: dict, want: dict, again: dict) -> None:
+    """``got`` within 4 x the spread of two runs of the same thing
+    (``tools/step_reference.within_spread``)."""
+    from vfd_gan_tpu_torch.tools.step_reference import within_spread
+
+    dist, spread, ok = within_spread(got, want, again)
+    assert ok, (what, dist, spread)
+
+
+@pytest.mark.gpu
+def test_accum_step_on_card_matches_its_manual_reference(card, tmp_path):
+    """One ``--accum 2`` MyGAN step on the card (the fused flow kernel per
+    microbatch, dropout on) against the same step by hand from the same
+    state, SGD(1.0) so that the update is the averaged gradient: the
+    updates (but those of conv biases under a BatchNorm, float noise)
+    within the spread of two hand-made steps; the running statistics'
+    counters equal (G's moved twice, D's four times)."""
+    from vfd_gan_tpu_torch.config import Config
+    from vfd_gan_tpu_torch.tools.step_reference import manual_gan_accum
+    from vfd_gan_tpu_torch.train.gan_engine import MyGanEngine
+    from vfd_gan_tpu_torch.utils.runtime import resolve_device
+
+    resolve_device("cuda")
+    cfg = Config(model="mygan", isize=64, nfr=16, batchsize=4, ngf=8,
+                 ndf=8, accum=2, ep=1, compute_dtype="float32",
+                 tensorboard=False, result_root=str(tmp_path)).validate()
+    rng = np.random.default_rng(4)
+    data = torch.from_numpy(rng.uniform(-1, 1, (4, 16, 64, 64, 3)).astype(
+        np.float32)).to(card)
+    gt = torch.from_numpy((rng.uniform(size=(4, 16, 64, 64, 1)) > 0.85
+                           ).astype(np.float32)).to(card)
+    engines = [MyGanEngine(cfg, None, None, device=card) for _ in range(3)]
+    before = {attr: {k: v.clone() for k, v in
+                     _sd(getattr(engines[0], attr)).items()}
+              for attr in ("netg", "netd")}
+    for i, eng in enumerate(engines):
+        for net in (eng.g, eng.d):
+            net.optimizer = torch.optim.SGD(net.module.parameters(), lr=1.0)
+        drop = torch.Generator(device=card).manual_seed(3)
+        if i == 0:
+            eng._gan_core(data, gt, drop)
+        else:
+            manual_gan_accum(eng, data, gt, 2, drop)
+    for attr in ("netg", "netd"):
+        sds = [_sd(getattr(e, attr)) for e in engines]
+        params = [n for n, _ in getattr(engines[0], attr).named_parameters()]
+        steps = [{n: sd[n] - before[attr][n] for n in params
+                  if not n.endswith(("spatial_conv.bias",
+                                     "temporal_conv.bias"))}
+                 for sd in sds]
+        # conv biases under a BatchNorm (a true gradient of 0) left out
+        assert sum(float(v.abs().sum()) for v in steps[0].values()) > 0
+        _spread_close(attr, *steps)
+        for k, v in sds[1].items():
+            if k.endswith("num_batches_tracked"):
+                assert int(sds[0][k]) == int(v) == (2 if attr == "netg"
+                                                    else 4), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("blocks", [(), ("dconv1", "uconv1")],
+                         ids=["all", "dconv1,uconv1"])
+def test_remat_generator_on_card_keeps_plain_buffers(card, blocks):
+    """The rematerialized Generator on the card: every buffer
+    (``num_batches_tracked`` included) and every gradient as the plain
+    Generator's, within the spread of two plain runs (bit for bit where
+    those repeat)."""
+    from vfd_gan_tpu_torch.models.mygan import Generator
+    from vfd_gan_tpu_torch.utils.runtime import resolve_device
+
+    resolve_device("cuda")
+    x = torch.from_numpy(np.random.default_rng(2).uniform(
+        -1, 1, (2, 3, 16, 64, 64)).astype(np.float32)).to(card)
+    runs = []
+    for remat in (False, False, True):
+        model = Generator(8, remat=remat, remat_blocks=blocks,
+                          generator=torch.Generator().manual_seed(0))
+        model.to(card).train()
+        drop = torch.Generator(device=card).manual_seed(5)
+        for _ in range(2):
+            model(x, drop).square().mean().backward()
+        runs.append(({k: p.grad.detach().cpu()
+                      for k, p in model.named_parameters()}, _sd(model)))
+    (g1, b1), (g2, b2), (gr, br) = runs
+    _spread_close("gradients", gr, g1, g2)
+    for k, v in b1.items():
+        if k.endswith("num_batches_tracked"):
+            assert int(br[k]) == int(v) == 2, k
+        elif torch.equal(v, b2[k]):
+            assert torch.equal(br[k], v), k
+        else:
+            assert (br[k] - v).abs().max() <= 4 * (b2[k] - v).abs().max(), k

@@ -179,7 +179,10 @@ def test_trainer_runs_each_family_and_writes_loadable_pth(tmp_path, capsys,
 @pytest.mark.parametrize("extra, match", [
     (["--model", "xception", "--moe_experts", "2"], "--moe_experts"),
     (["--model", "xception", "--pp", "2"], "parallelism"),
-    (["--model", "clstm", "--accum", "2"], "--accum"),
+    # ported since: the engine is built and holds the option (the id is
+    # the refusal case's)
+    pytest.param(["--model", "clstm", "--accum", "2"], None,
+                 id="--model_clstm_--accum_2---accum"),
     # ported since: the engine is built and holds the option
     pytest.param(["--model", "clstm", "--ref_mode_quirks"], None,
                  id="--model_clstm_--ref_mode_quirks-train-mode test sweep"),
@@ -198,6 +201,9 @@ def test_trainer_refuses_what_the_supervised_port_does_not_run(
         engine = trainer.build_engine(argv)
         if extra[-1] == "--ref_mode_quirks":
             assert engine.cfg.ref_mode_quirks and not engine.stuck_in_eval
+        elif "--accum" in extra:
+            assert engine.cfg.accum == 2
+            assert type(engine).__name__ == "SupervisedEngine"
         else:
             assert engine.cfg.model == "ganomaly"
             assert type(engine).__name__ == "GanomalyEngine"

@@ -79,8 +79,8 @@ DISPATCH = (
 )
 
 
-def _build(family: str, sd: dict, device: torch.device,
-           dtype: torch.dtype) -> torch.nn.Module:
+def build_model(family: str, sd: dict, device: torch.device,
+                dtype: torch.dtype) -> torch.nn.Module:
     """The family's model at the checkpoint's width (the reference's is
     ngf = 32 and Xception's full width), computing in ``dtype``."""
     kw = {"dtype": dtype, "device": device}
@@ -109,7 +109,7 @@ def _load(ckpt: str, device: torch.device,
     for substrings, family, name in DISPATCH:
         if any(sub in ckpt for sub in substrings):
             sd = load_state_dict(ckpt)
-            model = _build(family, sd, device, dtype)
+            model = build_model(family, sd, device, dtype)
             model.load_state_dict(sd, strict=True)
             if dtype == torch.bfloat16:
                 name += " [bf16]"

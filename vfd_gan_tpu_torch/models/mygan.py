@@ -11,7 +11,12 @@ by 16.
 
 Serving runs it in ``.eval()``: BN uses its running statistics and dropout
 is inert.  ``drop_rate`` (default the reference's 0.25) can be set to 0 so
-that a train-mode forward is deterministic.
+that a train-mode forward is deterministic.  ``remat`` (``--remat``)
+recomputes the blocks' activations in the backward pass instead of keeping
+them, all blocks or those named in ``remat_blocks`` (``--remat_blocks``; a
+name that is no block matches nothing), as ``nn.remat`` does in the JAX
+Generator; the output, the gradients and every BatchNorm buffer are the
+plain Generator's.
 
 ``DualDisc`` (reference NetD, models/mygannet.py:200-213) scores a pair of
 NCDHW videos: ``SpatialDisc`` the RGB mask video (6 spatial-only
@@ -34,6 +39,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from vfd_gan_tpu_torch.models.layers import (
     Conv3d,
@@ -47,10 +53,42 @@ from vfd_gan_tpu_torch.ops.resize import upsample_ncdhw
 from vfd_gan_tpu_torch.utils.init import dcgan_normal_
 
 
+def rematerialized(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)`` with its activations recomputed in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant) instead of kept.  The
+    recomputation runs the block in train mode a second time, and a
+    train-mode BatchNorm would then move its running statistics and
+    ``num_batches_tracked`` again, which JAX's ``nn.remat`` does not do:
+    the block's buffers are put back as the forward left them.  The blocks
+    draw no random numbers (dropout lies between them)."""
+    forward_done = False
+
+    def run(x):
+        nonlocal forward_done
+        if not forward_done:
+            forward_done = True
+            return block(x)
+        kept = [b.clone() for b in block.buffers()]
+        try:
+            return block(x)
+        finally:
+            # also when the recomputation stops early, once it has made
+            # what the backward needs
+            with torch.no_grad():
+                for b, k in zip(block.buffers(), kept):
+                    b.copy_(k)
+
+    return checkpoint(run, x, use_reentrant=False)
+
+
 class Generator(nn.Module):
     """U-Net mask predictor; ``generator`` seeds the reference init."""
 
+    BLOCKS = ("dconv1", "dconv2", "dconv3", "dconv4", "dconv5", "uconv5",
+              "uconv4", "uconv3", "uconv2", "uconv1")
+
     def __init__(self, ngf: int = 32, *, drop_rate: float = 0.25,
+                 remat: bool = False, remat_blocks: tuple = (),
                  dtype: torch.dtype = torch.float32, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
@@ -67,6 +105,9 @@ class Generator(nn.Module):
         self.uconv2 = GenConvBlock(g * 6, g * 2, **kw)
         self.uconv1 = GenConvBlock(g * 3, g, **kw)
         self.drop_rate = drop_rate
+        self.remat = frozenset(
+            (b for b in self.BLOCKS if not remat_blocks or b in remat_blocks)
+            if remat else ())
         self.conv_last = Conv3d(g, 1, 3, padding=1, bias=False,
                                 device=device)
         if generator is not None:
@@ -79,22 +120,30 @@ class Generator(nn.Module):
         from ``generator``; inert in eval mode or at rate 0."""
         return dropout(y, self.drop_rate, self.training, generator)
 
+    def block(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """The conv block ``name`` on ``x``, rematerialized where
+        ``remat`` names it and a backward pass will follow."""
+        if name in self.remat and torch.is_grad_enabled():
+            return rematerialized(getattr(self, name), x)
+        return getattr(self, name)(x)
+
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """Mask video ``(B, 1, T, H, W)``; ``generator`` draws the dropout
         masks of a train-mode forward."""
-        d1 = self.dconv1(x)
-        d2 = self.dconv2(avg_pool_ncdhw(d1, 2))
-        d3 = self.dconv3(avg_pool_ncdhw(d2, 2))
-        d4 = self.dconv4(avg_pool_ncdhw(d3, 2))
-        latent = self.dconv5(avg_pool_ncdhw(d4, 2))
+        blk = self.block
+        d1 = blk("dconv1", x)
+        d2 = blk("dconv2", avg_pool_ncdhw(d1, 2))
+        d3 = blk("dconv3", avg_pool_ncdhw(d2, 2))
+        d4 = blk("dconv4", avg_pool_ncdhw(d3, 2))
+        latent = blk("dconv5", avg_pool_ncdhw(d4, 2))
 
         g = generator
-        y = upsample_ncdhw(self.drop(self.uconv5(latent), g))
-        y = upsample_ncdhw(self.drop(self.uconv4(torch.cat([y, d4], 1)), g))
-        y = upsample_ncdhw(self.drop(self.uconv3(torch.cat([y, d3], 1)), g))
-        y = upsample_ncdhw(self.drop(self.uconv2(torch.cat([y, d2], 1)), g))
-        y = self.uconv1(torch.cat([y, d1], 1))
+        y = upsample_ncdhw(self.drop(blk("uconv5", latent), g))
+        y = upsample_ncdhw(self.drop(blk("uconv4", torch.cat([y, d4], 1)), g))
+        y = upsample_ncdhw(self.drop(blk("uconv3", torch.cat([y, d3], 1)), g))
+        y = upsample_ncdhw(self.drop(blk("uconv2", torch.cat([y, d2], 1)), g))
+        y = blk("uconv1", torch.cat([y, d1], 1))
         return torch.sigmoid(self.conv_last(y).float())
 
 

@@ -62,17 +62,13 @@ from vfd_gan_tpu_torch.train.checkpoints import (
 # item); ``GAN_ONLY`` are MyGAN's, which the supervised engine ignores as
 # the JAX one does
 UNPORTED = {
-    "accum": (lambda c: c.accum > 1, "queue 1 item 13 (--accum)"),
-    "remat": (lambda c: c.remat, "queue 1 item 13 (--remat)"),
     "int8_disc": (lambda c: c.int8_disc, "queue 1 item 15 (quant)"),
-    "host_flow": (lambda c: c.host_flow,
-                  "queue 1 item 12 (train/host_flow.py)"),
     "dp/sp/tp/pp": (lambda c: c.dp > 1 or c.sp > 1 or c.tp > 1 or c.pp > 1,
                     "queue 1 item 13 (parallelism)"),
     "moe_experts": (lambda c: c.moe_experts > 0,
                     "queue 1 item 13 (the MoE block)"),
 }
-GAN_ONLY = ("int8_disc", "host_flow")
+GAN_ONLY = ("int8_disc",)
 
 
 def refuse_unported(cfg, gan: bool) -> None:

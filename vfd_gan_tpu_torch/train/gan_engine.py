@@ -36,9 +36,14 @@ Options: ``--ae`` trains the (2+1)D ``AutoEncoder`` as G (saved as
 state (``EngineBase.restore_into``); ``--cache_gt_flow`` keeps each test clip's
 gt flow video on the device after the first sweep and computes only the
 predicted stream afterwards; ``--ref_mode_quirks`` runs the sweep as the
-reference does, with G and D in train mode.  Options of the JAX engine
-that are not ported yet are refused with the ``ROADMAP.md`` item that holds
-them.
+reference does, with G and D in train mode; ``--accum k`` runs the step
+over k microbatches of the augmented batch with one optimizer step per
+net (``_gan_core``); ``--remat [--remat_blocks a,b]`` recomputes the
+Generator's block activations in the backward pass (not the ``--ae``
+AutoEncoder's, as in JAX); ``--host_flow`` computes every flow with cv2 on
+the host (``train/host_flow.py``; refused when the engine is built where
+cv2 does not import).  Options of the JAX engine that are not ported yet
+are refused with the ``ROADMAP.md`` item that holds them.
 """
 
 from __future__ import annotations
@@ -69,6 +74,10 @@ from vfd_gan_tpu_torch.train.engine_base import (
     SweepAccumulator,
     host_arrays,
 )
+from vfd_gan_tpu_torch.train.host_flow import (
+    require_cv2,
+    video_to_flow_rgb_host,
+)
 from vfd_gan_tpu_torch.train.state import NetState
 
 
@@ -82,7 +91,10 @@ class MyGanEngine(EngineBase):
             print("\n --Using C2plus1d AutoEncoder as G-- ")
             netg = AutoEncoder(dtype=self.dtype, generator=init)
         else:
-            netg = Generator(cfg.ngf, dtype=self.dtype, generator=init)
+            netg = Generator(cfg.ngf, remat=cfg.remat,
+                             remat_blocks=tuple(
+                                 b for b in cfg.remat_blocks.split(",") if b),
+                             dtype=self.dtype, generator=init)
         self.g = NetState.create(netg.to(device), cfg.lr, cfg.beta1)
         self.d = NetState.create(
             DualDisc(cfg.ndf, cfg.nfr, cfg.isize, dtype=self.dtype,
@@ -91,6 +103,12 @@ class MyGanEngine(EngineBase):
         # augmentation draws and dropout masks
         self.rng = torch.Generator(device=device).manual_seed(cfg.seed + 1)
         self.flow_impl = flow_impl
+        if cfg.host_flow:
+            # cv2 on the host for every flow (the train step and the
+            # sweeps); where cv2 does not import, exit now, not at the
+            # first step
+            require_cv2()
+            self._flow = video_to_flow_rgb_host
         # --cache_gt_flow: clip index -> its (T, H, W, 3) gt flow video on
         # the device
         self._gt_flow_cache: dict[int, torch.Tensor] = {}
@@ -141,7 +159,49 @@ class MyGanEngine(EngineBase):
                   drop_gen: torch.Generator | None = None) -> dict:
         """One step on augmented channel-last ``data (B, T, H, W, 3)`` and
         ``gt (B, T, H, W, 1)``: both networks updated in place; returns the
-        step's metrics (0-dim tensors, on the device)."""
+        step's metrics (0-dim tensors, on the device).
+
+        ``--accum k`` (JAX ``_gan_core_accum``): the gradients of ``k``
+        consecutive microbatches, the parameters fixed and the BatchNorm
+        running statistics chained through them (G's move once per
+        microbatch, D's twice), summed, times ``1 / k``, then one Adam step
+        per net; the metrics are the microbatches' means, the panels the
+        whole batch in microbatch order.  Each microbatch's flow is its own
+        ``streams=2`` call, so the per-stream stretch is over the
+        microbatch."""
+        k = self.cfg.accum
+        self._zero_grads()
+        micro = [self._gan_grads(d, g, drop_gen)
+                 for d, g in zip(data.chunk(k), gt.chunk(k))]
+        metrics, viz = micro[0]
+        if k > 1:
+            for net in (self.g, self.d):
+                for p in net.module.parameters():
+                    if p.grad is not None:
+                        p.grad.mul_(1.0 / k)
+            metrics = {name: torch.stack([m[name] for m, _ in micro]).mean(0)
+                       for name in metrics}
+            viz = {name: torch.cat([v[name] for _, v in micro])
+                   for name in viz}
+        # both gradients are in; now both updates
+        self.g.optimizer.step()
+        self.d.optimizer.step()
+        # the panels' tensors, kept (not copied) on a panel step only;
+        # their thresholded and opened forms are made when flushed
+        self._viz = viz if self.panel_step else None
+        return metrics
+
+    def _zero_grads(self) -> None:
+        self.g.optimizer.zero_grad(set_to_none=True)
+        self.d.optimizer.zero_grad(set_to_none=True)
+
+    def _gan_grads(self, data: torch.Tensor, gt: torch.Tensor,
+                   drop_gen: torch.Generator | None = None):
+        """G's and D's gradients of one (micro)batch, added to the
+        parameters' ``.grad``, and the BatchNorm running statistics moved
+        (G's once, D's twice: real, then fake), without an optimizer step
+        (JAX ``_gan_grads``); returns the metrics (0-dim tensors, on the
+        device) and the panels' tensors."""
         cfg = self.cfg
         netg, netd = self.netg, self.netd
         netg.train()
@@ -153,7 +213,6 @@ class MyGanEngine(EngineBase):
         # G forward; its gradient comes from l_con alone
         pred = to_channel_last(netg(to_channel_first(data), drop_gen))
         g_con_scaled = weighted_bce(pred, gt) * cfg.w_con
-        self.g.optimizer.zero_grad(set_to_none=True)
         g_con_scaled.backward()
 
         # flow + D inputs, all detached (models/mygannet.py:279-286); one
@@ -175,12 +234,7 @@ class MyGanEngine(EngineBase):
         err_d_real = (err_d_real_s + err_d_real_t) * 0.5
         err_d_fake = (err_d_fake_s + err_d_fake_t) * 0.5
         err_d = (err_d_real + err_d_fake) * 0.5
-        self.d.optimizer.zero_grad(set_to_none=True)
         err_d.backward()
-
-        # both gradients are in; now both updates
-        self.g.optimizer.step()
-        self.d.optimizer.step()
 
         with torch.no_grad():
             err_g_adv_s = l2_loss(sf_r.float(), sf_f.float())
@@ -201,11 +255,9 @@ class MyGanEngine(EngineBase):
                 "g/err_g_adv_t/train": err_g_adv_t,
                 "g/err_g_con/train": g_con / cfg.w_con,
             }
-        # the panels' tensors, kept (not copied) on a panel step only;
-        # their thresholded and opened forms are made when flushed
-        self._viz = {"gt": gt, "pred": pred_sg, "gt_flow": gt_flow,
-                     "pre_flow": pre_flow} if self.panel_step else None
-        return {k: v.detach() for k, v in metrics.items()}
+        viz = {"gt": gt, "pred": pred_sg, "gt_flow": gt_flow,
+               "pre_flow": pre_flow}
+        return {k: v.detach() for k, v in metrics.items()}, viz
 
     def _update_train_videos(self) -> None:
         viz = self._viz

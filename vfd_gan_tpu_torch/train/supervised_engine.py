@@ -21,12 +21,14 @@ parameters and Adam state; ``models/layers.py``); its mask and the loss are
 float32 (JAX supervised_engine.py:37-39).
 
 ``--resume latest.pt`` restores the full train state
-(``EngineBase.restore_into``).  Under ``--ref_mode_quirks`` the reference's
-stuck-in-eval latch holds: its ``test()`` switches the model to eval mode
-and never back (lib/train_stcnn.py:143), so from step ``freq + 1`` on the
-model trains without dropout and normalises by frozen BatchNorm running
-statistics (gradients still flow).  Options of the JAX engine that are
-not ported yet are refused with the ``ROADMAP.md`` item that holds them.
+(``EngineBase.restore_into``).  ``--accum k`` runs the step over k
+microbatches of the augmented batch with one optimizer step (``_step``).
+Under ``--ref_mode_quirks`` the reference's stuck-in-eval latch holds: its
+``test()`` switches the model to eval mode and never back
+(lib/train_stcnn.py:143), so from step ``freq + 1`` on the model trains
+without dropout and normalises by frozen BatchNorm running statistics
+(gradients still flow).  Options of the JAX engine that are not ported
+yet are refused with the ``ROADMAP.md`` item that holds them.
 """
 
 from __future__ import annotations
@@ -95,13 +97,30 @@ class SupervisedEngine(EngineBase):
         """One step on augmented channel-last ``data (B, T, H, W, C)`` and
         ``gt (B, T, H, W, 1)``: the model updated in place; returns the
         step's loss (a 0-dim tensor, on the device).  In eval mode once
-        the ``--ref_mode_quirks`` latch holds."""
+        the ``--ref_mode_quirks`` latch holds.
+
+        ``--accum k`` (JAX ``supervised_engine.py:138-165``): the loss's
+        gradients over ``k`` consecutive microbatches, the parameters fixed
+        and the BatchNorm running statistics chained through them, summed
+        and divided by ``k``, then one Adam step; the loss is the sum of
+        the microbatches' over ``k``, the prediction concatenated."""
         model = self.model
         model.train(not self.stuck_in_eval)
-        pred = to_channel_last(model(to_channel_first(data), drop_gen))
-        loss = bce(pred, gt)
+        k = self.cfg.accum
         self.net.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        losses, preds = [], []
+        for data_i, gt_i in zip(data.chunk(k), gt.chunk(k)):
+            pred = to_channel_last(model(to_channel_first(data_i), drop_gen))
+            loss = bce(pred, gt_i)
+            loss.backward()
+            losses.append(loss.detach())
+            preds.append(pred.detach())
+        if k > 1:
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(k)
+            loss = sum(losses[1:], losses[0]) / k
+            pred = torch.cat(preds)
         self.net.optimizer.step()
         self._viz = {"gt": gt, "pred": pred.detach()} \
             if self.panel_step else None

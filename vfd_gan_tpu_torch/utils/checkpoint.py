@@ -22,3 +22,7 @@ def load_state_dict(path: str) -> dict:
     blob = torch.load(path, map_location="cpu", weights_only=True)
     return strip_module_prefix(blob.get("state_dict", blob))
 
+
+def has_module(sd: dict, name: str) -> bool:
+    """Does ``state_dict`` ``sd`` hold the top-level submodule ``name``?"""
+    return any(k.startswith(name + ".") for k in sd)
