@@ -122,6 +122,26 @@ phases, one line each (or a few):
     the engine is built, naming cv2; where cv2 imports, a 2-step
     ``--host_flow`` MyGAN run (no flow kernel) and ``cli.frames`` on a
     synthetic mp4 tree.
+23. moe: ``cli.trainer.main --model xception --xwidth 1.0 --moe_experts
+    4`` (4 steps and a one-batch sweep, float32 and the default bf16;
+    step median, clips/s, peak memory, the MoE layer's token count and
+    dispatch bytes, the augment and opening launches); then one step on
+    the card against the CPU at b2, T8, 32^2, xwidth 1/16, with the
+    tokens routed to another expert counted (the card's step run again
+    with the CPU's routing where any are), held by loss, parameters, BN
+    statistics and the gradient against the CPU's float64 step;
+24. int8-serve: the four families calibrated on 8 synthetic clips and
+    served int8 (``build_int8_serving``; ``predict_clips`` on 8 uint8
+    clips, one opening launch each; one HTTP request through ``serve
+    --quant int8``; ``infer.main --quant int8`` on a 2-clip mp4 where cv2
+    imports), as one main path; then every ``int8_matmul`` shape of each
+    b8 forward bit-equal to its plain version, each int8 input against
+    the CPU's on a 64^2 clip (flips by one step only), the int8 mask
+    against the BN-folded float forward, and the b8 int8 forward's time
+    and peak beside the float32 and bf16 forwards';
+25. int8-disc: MyGAN ``--int8_disc``, 4 steps and a sweep in float32 and
+    bf16 (step median, peak, int8 GEMM launches), and G after them
+    against two plain float32 runs (within 4 x their spread).
 
 bfloat16, the JAX package's and the trainer's default compute dtype, runs
 beside float32: the conv kernel's bf16 form at the nine launches of a
@@ -152,8 +172,12 @@ CUDA-vs-CPU supervised step for each family at a small size.
 Each main path (serve + infer of the four families; MyGAN training; the
 two-kernel step; each supervised, AnoGAN and GANomaly training run; each
 ``--accum``, ``--remat`` and ``--host_flow`` run and each model's
-``evaluate_models`` call) starts with the launch counts of the kernels
-set to 0 and reads them after.  Then come one JSON line of kernel results
+``evaluate_models`` call; each ``--moe_experts`` and ``--int8_disc`` run
+and the int8 serve + infer path) starts with the launch counts of the
+kernels set to 0 and reads them after; the same counters hold the int8
+GEMM's calls (``int8_matmul``: cuBLASLt, no kernel of the port), printed
+on the phases' lines and not on the kernels line.  ``--slice-only``
+runs the build and phases 23-25 alone and prints no result line.  Then come one JSON line of kernel results
 and, last, ``{"ok": true, "device": {...}}``.  Per kernel the JSON line
 holds its time (``ms``), its plain version's (``plain_ms``), the time of
 one PyTorch call that computes the same function where there is one
@@ -174,8 +198,8 @@ the launches per step at that size and, as the conv kernel, their times x
 launches summed over one step of their path (``step_ms_sum``,
 ``step_bound_ms_sum``); each kernel also its nonzero launches on the
 other runs (``launches_on``: AnoGAN and GANomaly for the augment and
-opening kernels; every ``--accum``, ``--remat``, ``--host_flow`` and
-evaluate run).  Any failure raises: the script exits non-zero and
+opening kernels; every ``--accum``, ``--remat``, ``--host_flow``,
+evaluate, ``--moe_experts``, int8 serve and ``--int8_disc`` run).  Any failure raises: the script exits non-zero and
 prints no last line.  It does the same without a card, and outside a
 checkout of the repo.
 """
@@ -185,6 +209,7 @@ from __future__ import annotations
 import base64
 import collections
 import contextlib
+import copy
 import gc
 import json
 import math
@@ -957,16 +982,16 @@ def _scores_ok(scores, k: int) -> None:
 
 
 @contextlib.contextmanager
-def _serving(path: Path, dtype: str = "float32"):
-    """``cli.serve.serve`` for ``path`` on port 0 at the serving shape and
-    ``--dtype``, its HTTP loop on a thread; yields (server, base URL,
-    httpd) and stops both."""
+def _serving(path: Path, dtype: str = "float32", extra: tuple = ()):
+    """``cli.serve.serve`` for ``path`` on port 0 at the serving shape,
+    ``--dtype`` and ``extra`` flags, its HTTP loop on a thread; yields
+    (server, base URL, httpd) and stops both."""
     from vfd_gan_tpu_torch.cli.serve import build_parser, serve
 
     args = build_parser().parse_args(
         ["--ckpt", str(path), "--port", "0", "--max_batch", str(BATCH),
          "--nfr", str(NFR), "--isize", str(ISIZE), "--dtype", dtype,
-         "--device", "cuda"])
+         "--device", "cuda", *extra])
     httpd = serve(args)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
@@ -1248,14 +1273,18 @@ def _wrappers() -> dict:
         spatial_conv,
         warp,
     )
+    from vfd_gan_tpu_torch.ops.int8 import int8_matmul
     from vfd_gan_tpu_torch.ops.morphology import open_planes_cuda
 
+    # int8_matmul is cuBLASLt's int8 GEMM (quant/), no kernel of the port:
+    # counted beside the kernels, not on the kernels line
     return {"morphology_open": open_planes_cuda,
             "flow_fused": flow_fused.flow_refine_fused_cuda,
             "flow_warp": warp.bilinear_warp_cuda,
             "flow_refine": flow_refine.flow_refine_step_cuda,
             "augment_gather": augment.augment_gather_cuda,
-            "conv3x3": spatial_conv.conv3x3_cuda}
+            "conv3x3": spatial_conv.conv3x3_cuda,
+            "int8_matmul": int8_matmul}
 
 
 def _reset_counts() -> None:
@@ -1824,19 +1853,22 @@ def _dtype_flags(dtype: str | None) -> tuple[list, str]:
 
 
 def phase_supervised_train(tmp: Path, family: str,
-                           dtype: str | None = "float32") -> dict:
+                           dtype: str | None = "float32", steps: int = 0,
+                           extra: tuple = (), tag: str = "") -> dict:
     """``cli.trainer.main --model family`` at the reference width, b8, T16,
     128^2, in ``dtype`` (None: the default command line, bfloat16), with a
-    one-batch test sweep; returns the engine, the kernels' launch counts on
-    the run, those of its sweep, the step median (ms) and peak memory
-    (MiB)."""
+    one-batch test sweep (``steps`` and ``extra`` flags, where given, in
+    place of ``SUPERVISED_RUNS``'; ``tag`` names the run); returns the
+    engine, the kernels' launch counts on the run, those of its sweep, the
+    step median (ms) and peak memory (MiB)."""
     from vfd_gan_tpu_torch.models import build_mask_model
     from vfd_gan_tpu_torch.train.supervised_engine import SupervisedEngine
     from vfd_gan_tpu_torch.utils.checkpoint import load_state_dict
 
-    steps, extra = SUPERVISED_RUNS[family]
+    if not steps:
+        steps, extra = SUPERVISED_RUNS[family]
     flags, label = _dtype_flags(dtype)
-    root = tmp / f"runs_{family}_{dtype or 'default'}"
+    root = tmp / f"runs_{family}{tag}_{dtype or 'default'}"
     argv = ["--model", family, "--batchsize", str(BATCH), "--nfr", str(NFR),
             "--isize", str(ISIZE), *flags,
             "--synthetic_data", str(steps), "--synthetic_test_batches", "1",
@@ -1881,7 +1913,7 @@ def phase_supervised_train(tmp: Path, family: str,
               "the conv phase's cases are one step's launches")
     steady = engine.step_seconds[2:] if steps > 4 else engine.step_seconds[1:]
     median = 1e3 * statistics.median(steady)
-    what = f"train-{family}{'' if dtype == 'float32' else '-bf16'}"
+    what = f"train-{family}{tag}{'' if dtype == 'float32' else '-bf16'}"
     say(what,
         f"trainer.main --model {family} b{BATCH} T{NFR} {ISIZE}^2 {label} "
         f"{' '.join(extra)}: {steps} steps + sweep in {wall:.1f} s; step "
@@ -1898,21 +1930,23 @@ def phase_supervised_train(tmp: Path, family: str,
 
 
 def phase_train(tmp: Path, dtype: str | None = "float32", ae: bool = False,
-                steps: int = TRAIN_STEPS, sweep_batches: int = 2):
+                steps: int = TRAIN_STEPS, sweep_batches: int = 2,
+                extra: tuple = (), tag: str = ""):
     """The MyGAN training main path at the reference width in ``dtype``
     (None: the default command line, bfloat16; ``ae``: the AutoEncoder as
-    G); returns the engine, the kernels' launch counts on it, those of its
-    sweep, the step median (ms) and peak memory (MiB)."""
+    G; ``extra`` flags, the run named by ``tag``); returns the engine, the
+    kernels' launch counts on it, those of its sweep, the step median (ms)
+    and peak memory (MiB)."""
     from vfd_gan_tpu_torch.models.mygan import DualDisc, Generator
     from vfd_gan_tpu_torch.models.stcnn import AutoEncoder
     from vfd_gan_tpu_torch.train.gan_engine import MyGanEngine
     from vfd_gan_tpu_torch.utils.checkpoint import load_state_dict
 
     flags, label = _dtype_flags(dtype)
-    root = tmp / f"runs_mygan{'_ae' if ae else ''}_{dtype or 'default'}"
+    root = tmp / f"runs_mygan{'_ae' if ae else ''}{tag}_{dtype or 'default'}"
     argv = ["--model", "mygan", "--batchsize", str(BATCH), "--nfr", str(NFR),
             "--isize", str(ISIZE), "--ngf", "32", "--ndf", "32",
-            "--flow_scale", "0.5", *flags, *(["--ae"] if ae else []),
+            "--flow_scale", "0.5", *flags, *(["--ae"] if ae else []), *extra,
             "--synthetic_data", str(steps),
             "--synthetic_test_batches", str(sweep_batches), "--ep", "1",
             "--freq", str(steps), "--device", "cuda",
@@ -1943,7 +1977,8 @@ def phase_train(tmp: Path, dtype: str | None = "float32", ae: bool = False,
     warm = 4 if steps > 6 else 1
     steady = engine.step_seconds[warm:]
     median = 1e3 * statistics.median(steady)
-    what = f"train{'-ae' if ae else ''}{'' if dtype == 'float32' else '-bf16'}"
+    what = (f"train{'-ae' if ae else ''}{tag}"
+            f"{'' if dtype == 'float32' else '-bf16'}")
     say(what, f"trainer.main b{BATCH} T{NFR} {ISIZE}^2 "
               f"{'--ae ' if ae else 'ngf=32 '}ndf=32 flow_scale 0.5 {label}: "
               f"{steps} steps + sweep in {wall:.1f} s; step median "
@@ -2741,6 +2776,454 @@ def phase_host_only(tmp: Path, device) -> dict:
     return counts
 
 
+# -- the MoE block and quant/ ----------------------------------------------
+
+MOE_EXPERTS, MOE_STEPS = 4, 4
+# the MoE step's CUDA-vs-CPU size (the supervised parity's Xception size)
+MOE_PARITY = (2, 8, 32, 1 / 16)
+# the float32 step's gradient against the CPU's float64 step, where a
+# control step must miss it: the gradient is ill-conditioned at this size
+# (tests/test_torch_port_moe.py: the CPU's float32 step 0.9% from its
+# float64 step, JAX's 19%)
+MOE_F64_RTOL = 0.1
+INT8_STEPS = 4
+# an int8 forward on the card against the same int8 model on the CPU (one
+# 64^2 clip), held site by site: int32 sums are exact on both (and
+# int8_matmul is held bit for bit), but the float32 pools, upsamples,
+# sigmoid and tanh round apart, and a value within an ulp of a .5 of the
+# int8 grid then quantises to the neighbouring int8 at the next site.  So
+# every site's int8 input must equal the CPU's but for elements one step
+# apart: at the first site with any, at most INT8_FIRST_FLIPS of them; at
+# any later
+# site, where the flips before it have moved whole regions of its input,
+# at most INT8_FLIP_SHARE (measured 1.2% in c2plus1d's last block).  The
+# masks are reported.
+INT8_FIRST_FLIPS, INT8_FLIP_SHARE, INT8_CPU_SIZE = 1e-3, 5e-2, 64
+# the int8 forward against the BN-folded float forward: the CPU tests'
+# bounds (tests/test_quant.py: max 0.12, mean 0.02), but for Xception at
+# full width.  With these weights (its head scaled to unit logit spread)
+# its 30 int8 sites in sequence put the mask 0.56-0.65 max / 0.054 mean
+# from the float forward at 128^2; at full width the JAX package's own
+# int8 Xception is as far from its float forward as the port's
+# (tests/test_torch_port_quant.py, 32^2, T4: mean 0.0120 both), so this is
+# the scheme's error at this depth.  Xception's mean is held to 0.1 and
+# its max only reported.
+INT8_FLOAT_MAX = {"mygan": 0.12, "clstm": 0.12, "c2plus1d": 0.12,
+                  "xception": float("inf")}
+INT8_FLOAT_MEAN = {"mygan": 0.02, "clstm": 0.02, "c2plus1d": 0.02,
+                   "xception": 0.1}
+
+
+def _moe_dispatch_line(cf: float = 2.0, width: int = 728) -> str:
+    """The MoE layer's token count at the reference size and the bytes of
+    its dispatch: JAX's one-hot ``(T, E, C)`` tensors against the port's
+    ``(E, C, D)`` buffers, float32."""
+    from vfd_gan_tpu_torch.parallel.moe import capacity
+
+    t = BATCH * NFR * (ISIZE // 16) ** 2
+    c = capacity(t, MOE_EXPERTS, cf)
+    dense = t * MOE_EXPERTS * c * 4
+    ours = 2 * MOE_EXPERTS * c * width * 4
+    return (f"T {t} tokens at width {width}, E {MOE_EXPERTS}, capacity "
+            f"{c}: a one-hot (T, E, C) dispatch tensor would hold "
+            f"{dense / 2 ** 20:.0f} MiB; the port's gather/scatter buffers "
+            f"(E, C, D) in and out hold {ours / 2 ** 20:.1f} MiB")
+
+
+def phase_moe_parity(tmp: Path) -> None:
+    """One ``--moe_experts 4`` Xception step on the card and on the CPU at
+    a small size, float32, from the same seeded weights and the same
+    augmented clip (dropout off).  The tokens' expert choices are read on
+    both devices; where any differs the card's step is run again with the
+    CPU's choices fed in (``MoEMlp.choice``) and that one is held.  Held:
+    the loss 1e-5, parameters within Adam's first-step envelope (2.5 lr),
+    BN statistics 1e-5, and the gradient (Adam's first moment) within
+    ``MOE_F64_RTOL`` of the CPU's float64 step (median tensor and whole,
+    relative L2), which the card's step on the clip reversed in time and
+    mirrored must miss."""
+    from vfd_gan_tpu_torch.config import Config
+    from vfd_gan_tpu_torch.ops.augment import (
+        _src_coords,
+        augment_gather,
+        staging_size,
+    )
+    from vfd_gan_tpu_torch.parallel.moe import capacity, route
+    from vfd_gan_tpu_torch.train.state import relative_distances
+    from vfd_gan_tpu_torch.train.supervised_engine import SupervisedEngine
+
+    b, t, isize, xwidth = MOE_PARITY
+    cfg = Config(model="xception", batchsize=b, nfr=t, isize=isize, ep=1,
+                 compute_dtype="float32", tensorboard=False,
+                 result_root=str(tmp), xwidth=xwidth,
+                 moe_experts=MOE_EXPERTS)
+    s = staging_size(isize)
+    rng = np.random.default_rng(5)
+    data = rng.integers(0, 256, (b, t, s, s, 3), dtype=np.uint8)
+    mask = np.zeros((b, t, s, s, 1), np.uint8)
+    mask[:, :, 4:s - 4, 5:s - 6] = 255
+    draws = (np.linspace(-0.17, 0.15, b).astype(np.float32),
+             np.arange(b) % 2, np.ones(b, np.int64), np.arange(b) % 2 == 0)
+    src_x, src_y = (c.contiguous() for c in _src_coords(
+        *(torch.from_numpy(np.asarray(v)) for v in draws), s, isize))
+
+    def step(device, choice=None, double=False, clip=data):
+        eng = SupervisedEngine(cfg, None, None, device=device)
+        for m in eng.model.modules():
+            if hasattr(m, "drop_rate"):
+                m.drop_rate = 0.0
+        moe = eng.model.moe
+        moe.choice = choice
+        if double:
+            eng.model.double()
+            moe.dtype = torch.float64
+            eng.net.optimizer = torch.optim.Adam(
+                eng.model.parameters(), lr=cfg.lr, betas=(cfg.beta1, 0.999))
+        seen = []
+
+        def read_choice(m, args):
+            # the routing moe_apply computes, from the weights before the
+            # step
+            x = args[0]
+            tokens = x.permute(0, 2, 3, 4, 1).reshape(-1, x.shape[1])
+            c = capacity(tokens.shape[0], MOE_EXPERTS, m.capacity_factor)
+            seen.append(route(tokens.to(m.dtype) @ m.router, c)[1].cpu())
+
+        hook = moe.register_forward_pre_hook(read_choice)
+        batch = [torch.from_numpy(v).to(device) for v in (clip, clip, mask)]
+        x, _, gt = augment_gather(*batch, src_x.to(device), src_y.to(device))
+        loss = float(eng._step(x.double() if double else x,
+                               gt)["loss/err/train"])
+        hook.remove()
+        return (loss, {k: v.cpu() for k, v in eng.model.state_dict().items()},
+                {k: v.cpu() for k, v in eng.net.first_moments().items()},
+                seen[0])
+
+    l_cpu, sd_cpu, m_cpu, ch_cpu = step(torch.device("cpu"))
+    cuda = torch.device("cuda")
+    l_gpu, sd_gpu, m_gpu, ch_gpu = step(cuda)
+    flips = int((ch_gpu != ch_cpu).sum())
+    if flips:
+        l_gpu, sd_gpu, m_gpu, _ = step(cuda, choice=ch_cpu.to(cuda))
+    _, _, m_f64, _ = step(torch.device("cpu"), double=True)
+    _, _, m_ctl, _ = step(cuda, clip=data[:, ::-1, :, ::-1].copy())
+    check(np.isfinite(l_gpu) and abs(l_gpu - l_cpu) <= 1e-5,
+          f"moe step loss: cuda {l_gpu} vs cpu {l_cpu}")
+    worst_param = worst_stat = 0.0
+    for k, v in sd_cpu.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        d = (sd_gpu[k] - v).abs().max().item()
+        if "running" in k:
+            check(d <= 1e-5, f"moe BN stat {k}: {d}")
+            worst_stat = max(worst_stat, d)
+        else:
+            check(d <= 2.5 * cfg.lr, f"moe param {k}: {d}")
+            worst_param = max(worst_param, d)
+    median, whole = relative_distances(m_gpu, m_f64)
+    cpu_median, cpu_whole = relative_distances(m_cpu, m_f64)
+    missed, _ = relative_distances(m_ctl, m_f64)
+    check(median <= MOE_F64_RTOL and whole <= MOE_F64_RTOL < missed,
+          f"moe gradient vs the CPU's float64 step: {median}, {whole}; "
+          f"control {missed}")
+    say("moe", f"CUDA vs CPU step, xception --moe_experts {MOE_EXPERTS} "
+               f"b{b} T{t} {isize}^2 xwidth {xwidth:g} float32: "
+               f"{flips} of {ch_cpu.numel()} tokens routed to another "
+               f"expert on the card"
+               f"{' (the step held with the CPU routing fed in)' if flips else ''}"
+               f"; loss {abs(l_gpu - l_cpu):.3g} apart, params max "
+               f"{worst_param:.3g} (<= 2.5 lr), BN stats {worst_stat:.3g}; "
+               f"gradient vs the CPU's float64 step median {median:.3g}, "
+               f"whole {whole:.3g} (<= {MOE_F64_RTOL}; the CPU's float32 "
+               f"{cpu_median:.3g}, {cpu_whole:.3g}; the control's median "
+               f"{missed:.3g})")
+
+
+def phase_moe(tmp: Path) -> dict:
+    """``--model xception --xwidth 1.0 --moe_experts 4`` at b8, T16, 128^2:
+    4 steps and a one-batch sweep in float32 and on the default command
+    line (bf16), each a main path (the augment kernel once per step, the
+    opening kernel in the sweep); then the CUDA-vs-CPU step.  Returns the
+    launch counts by run."""
+    say("moe", _moe_dispatch_line())
+    runs = {}
+    for dtype in ("float32", None):
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine, counts, sweep, ms, peak = phase_supervised_train(
+            tmp, "xception", dtype, steps=MOE_STEPS,
+            extra=("--xwidth", "1.0", "--moe_experts", str(MOE_EXPERTS)),
+            tag="-moe")
+        aux = {k: float(v) for k, v in engine.model.moe.aux.items()}
+        check(aux["load_balance_loss"] > 0 and 0 <= aux["dropped_frac"] < 1,
+              f"moe aux {aux}")
+        label = dtype or "bfloat16 (default)"
+        say("moe", f"xception --moe_experts {MOE_EXPERTS} {label}: step "
+                   f"median {ms:.1f} ms, {1e3 * BATCH / ms:.1f} clips/s, "
+                   f"peak {peak:.0f} MiB; last sweep batch's aux "
+                   f"{json.dumps(aux)}; augment launches "
+                   f"{counts['augment_gather']} over {MOE_STEPS} steps, "
+                   f"opening {counts['morphology_open']} in the sweep")
+        runs[f"xception --moe_experts {MOE_EXPERTS} {label}"] = counts
+        del engine
+    phase_moe_parity(tmp)
+    return runs
+
+
+def _int8_families():
+    from vfd_gan_tpu_torch.quant import qclstm, qmygan, qstcnn, qxception
+
+    return {"mygan": (qmygan.fold_generator, qmygan._forward),
+            "clstm": (qclstm.fold_convlstm, qclstm._forward),
+            "c2plus1d": (qstcnn.fold_autoencoder, qstcnn._forward),
+            "xception": (qxception.fold_xception, qxception._forward)}
+
+
+def _int8_gemm_bit_equal(q, x) -> int:
+    """Run ``q`` on ``x`` with every ``int8_matmul`` of a new (M, K, N)
+    shape held bit for bit against its plain version on the card (a
+    float64 matmul); returns the number of shapes."""
+    from vfd_gan_tpu_torch.ops import int8 as int8_ops
+
+    gemm, seen = int8_ops.int8_matmul, set()
+
+    def checked(a, b):
+        out = gemm(a, b)
+        shape = (a.shape[0], a.shape[1], b.shape[1])
+        if shape not in seen:
+            seen.add(shape)
+            check(torch.equal(out, int8_ops.int8_matmul_plain(a, b)),
+                  f"int8_matmul {shape} equals its plain version")
+        return out
+
+    # the wrapper's own count goes to the stand-in, off every main path
+    checked.launches = 0
+    int8_ops.int8_matmul = checked
+    try:
+        with torch.inference_mode():
+            q(x)
+    finally:
+        int8_ops.int8_matmul = gemm
+    return len(seen)
+
+
+def _int8_inputs(q, x) -> list:
+    """``q(x)`` and the int8 input of every conv site, on the host, in
+    order."""
+    from vfd_gan_tpu_torch.quant import qmygan
+
+    quant, seen = qmygan._quant, []
+
+    def recording(v, scale):
+        out = quant(v, scale)
+        seen.append(out.cpu())
+        return out
+
+    qmygan._quant = recording
+    try:
+        with torch.inference_mode():
+            out = q(x).cpu()
+    finally:
+        qmygan._quant = quant
+    return out, seen
+
+
+def _int8_infer_mp4(tmp: Path, path: Path) -> str:
+    """``cli.infer.main --quant int8`` on a synthetic 2-clip mp4 (cv2),
+    or why not."""
+    from vfd_gan_tpu_torch.cli import infer
+    from vfd_gan_tpu_torch.data.video_io import write_video
+
+    try:
+        import cv2  # noqa: F401
+    except ImportError:
+        return "cv2 does not import here: infer.main not run"
+    frames = np.random.default_rng(8).integers(
+        0, 256, (2 * NFR, ISIZE, ISIZE, 3), dtype=np.uint8)
+    video = tmp / "int8_infer" / "clip.mp4"
+    write_video(str(video), frames)
+    out = tmp / "int8_infer" / "out"
+    before = _counts()
+    infer.main(["--video", str(video), "--ckpt", str(path), "--out",
+                str(out), "--quant", "int8", "--device", "cuda"])
+    opened = _counts()["morphology_open"] - before["morphology_open"]
+    check(opened == 2, f"infer --quant int8 opened each of 2 clips: {opened}")
+    check(all((out / f).exists() for f in ("mask.mp4", "overlay.mp4",
+                                           "scores.csv")), "infer outputs")
+    return "infer.main --quant int8 on a 2-clip mp4: 2 opening launches"
+
+
+def phase_int8_serve(tmp: Path, paths: dict, f32_ms: dict,
+                     bf16_ms: dict) -> dict:
+    """``--quant int8`` serving of the four families at full width, one
+    main path (counts set to 0 before, read after): each seed-0 checkpoint
+    loaded and calibrated on 8 synthetic clips (``build_int8_serving``),
+    ``predict_clips`` on 8 uint8 clips (one opening launch each), one HTTP
+    request through ``serve --quant int8`` (MyGAN) and ``infer.main
+    --quant int8`` on an mp4 (MyGAN).  Then, off the path: every
+    ``int8_matmul`` shape of each forward bit-equal to its plain version,
+    the int8 forward against the CPU's and against the BN-folded float
+    forward, and the b8 int8 forward's time and peak memory beside the
+    float32 and bf16 forwards'."""
+    from vfd_gan_tpu_torch.cli.infer import _load, predict_clips
+    from vfd_gan_tpu_torch.ops.image import to_channel_first
+    from vfd_gan_tpu_torch.quant import build_int8_serving
+    from vfd_gan_tpu_torch.quant.qmygan import Convs
+
+    frames = np.random.default_rng(3).integers(
+        0, 256, (BATCH, NFR, ISIZE, ISIZE, 3), dtype=np.uint8)
+    models, calib_s = {}, {}
+    _reset_counts()                              # the int8 path starts
+    for family, path in paths.items():
+        model, _ = _load(str(path), torch.device("cuda"))
+        t0 = time.perf_counter()
+        models[family] = build_int8_serving(model, isize=ISIZE, nfr=NFR,
+                                            calib_clips=8)
+        torch.cuda.synchronize()
+        calib_s[family] = time.perf_counter() - t0
+        before = _counts()["morphology_open"]
+        pred, opened, scores = predict_clips(models[family], frames, "th")
+        check(_counts()["morphology_open"] - before == 1,
+              f"{family} int8 predict_clips opened once")
+        check(bool(torch.isfinite(pred).all()) and pred.shape == (
+            BATCH, NFR, ISIZE, ISIZE, 1), f"{family} int8 prediction")
+        del model
+    with _serving(paths["mygan"], extra=("--quant", "int8")) as (srv, base,
+                                                                 _):
+        check(srv.name.endswith("[int8]"), f"served name {srv.name}")
+        one = np.random.default_rng(4).uniform(
+            -1, 1, (1, NFR, ISIZE, ISIZE, 3)).astype(np.float32)
+        served_err = _served_vs_direct(base, srv.model, one)
+    mp4 = _int8_infer_mp4(tmp, paths["mygan"])
+    counts = _counts()                           # ... and ends
+    check(counts["int8_matmul"] > 0, "the int8 path ran the int8 GEMM")
+    say("int8-serve", f"four families calibrated (8 clips each: "
+                      + ", ".join(f"{k} {v:.1f} s" for k, v in
+                                  calib_s.items())
+                      + f") and served; one HTTP request through serve "
+                        f"--quant int8 ({served_err:.3g} from the direct "
+                        f"forward); {mp4}; launches {json.dumps(counts)}")
+
+    x1 = torch.rand((1, 3, NFR, ISIZE, ISIZE), device="cuda") * 2 - 1
+    small = (x1[:, :, :, :INT8_CPU_SIZE, :INT8_CPU_SIZE]).contiguous()
+    x8 = torch.rand((BATCH, 3, NFR, ISIZE, ISIZE), device="cuda") * 2 - 1
+    for family, q in models.items():
+        shapes = _int8_gemm_bit_equal(q, x8)
+        fold, forward = _int8_families()[family]
+        model, _ = _load(str(paths[family]), torch.device("cuda"))
+        sd = {k: v for k, v in model.state_dict().items()
+              if v.is_floating_point()}
+        with torch.inference_mode():
+            got = q(x1)
+            pack = fold(sd)
+            want = forward(pack, x1, Convs(pack))
+            err = (got - want).abs()
+        cpu_q = copy.deepcopy(q).to("cpu")
+        t0 = time.perf_counter()
+        on_cpu, cpu_sites = _int8_inputs(cpu_q, small.cpu())
+        cpu_s = time.perf_counter() - t0
+        on_gpu, gpu_sites = _int8_inputs(q, small)
+        cpu_err = (on_gpu - on_cpu).abs()
+        del model, cpu_q
+        check(err.max().item() < INT8_FLOAT_MAX[family]
+              and err.mean().item() < INT8_FLOAT_MEAN[family],
+              f"{family} int8 vs folded float max {err.max().item()}, mean "
+              f"{err.mean().item()}")
+        check(len(gpu_sites) == len(cpu_sites) > 0, f"{family} int8 sites")
+        flips, first = [], None
+        for i, (a, b) in enumerate(zip(gpu_sites, cpu_sites)):
+            d = (a.int() - b.int()).abs()
+            check(d.max().item() <= 1, f"{family} int8 site {i} input "
+                                       f"off by {d.max().item()}")
+            flips.append(d.float().mean().item())
+            if first is None and flips[-1]:
+                first = i
+        check(max(flips) <= INT8_FLIP_SHARE and (
+            first is None or flips[first] <= INT8_FIRST_FLIPS),
+            f"{family} int8 inputs flipped: {flips}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with torch.inference_mode():
+            ms = event_ms(lambda: q(x8), reps=5, calls=1, warmup=2)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        say("int8-serve",
+            f"{family}: {shapes} int8_matmul shapes bit-equal to the plain "
+            f"version; int8 vs BN-folded float forward (1 clip) max "
+            f"{err.max().item():.3g}, mean {err.mean().item():.3g} (< "
+            f"{INT8_FLOAT_MAX[family]}, {INT8_FLOAT_MEAN[family]}); CUDA vs "
+            f"CPU (1 "
+            f"clip at {INT8_CPU_SIZE}^2, the CPU {cpu_s:.1f} s): the int8 "
+            f"inputs of {len(flips)} sites equal but for "
+            f"{100 * max(flips):.3g}% of a site's elements one step apart "
+            f"(<= {100 * INT8_FLIP_SHARE:g}%; the first at site {first}: "
+            f"{100 * flips[first or 0]:.3g}%, <= "
+            f"{100 * INT8_FIRST_FLIPS:g}%), the masks max "
+            f"{cpu_err.max().item():.3g}, mean "
+            f"{cpu_err.mean().item():.3g} apart; b{BATCH} forward int8 "
+            f"{ms:.2f} ms (peak {peak:.0f} MiB above the inputs), float32 "
+            f"{f32_ms[family]:.2f}, bf16 {bf16_ms[family]:.2f}")
+    return {"int8 serve + infer": counts}
+
+
+def phase_int8_disc(tmp: Path) -> dict:
+    """MyGAN ``--int8_disc`` at the reference width, 4 steps and a
+    one-batch sweep in float32 and on the default command line (bf16),
+    each a main path; G's parameters after the float32 run against two
+    plain float32 runs of the same seed and steps (within 4 x their
+    spread: G's update has no D term, but cuDNN's atomics make card runs
+    differ).  Returns the launch counts by run."""
+    from vfd_gan_tpu_torch.models.layers import QConv3d
+
+    runs, g = {}, {}
+    for tag, dtype, extra in (("-int8disc", "float32", ("--int8_disc",)),
+                              ("-int8disc", None, ("--int8_disc",)),
+                              ("-plain1", "float32", ()),
+                              ("-plain2", "float32", ())):
+        gc.collect()
+        torch.cuda.empty_cache()
+        engine, counts, sweep, ms, peak = phase_train(
+            tmp, dtype, steps=INT8_STEPS, sweep_batches=1, extra=extra,
+            tag=tag)
+        quant = [m for m in engine.netd.modules() if isinstance(m, QConv3d)]
+        check(len(quant) == (18 if extra else 0),
+              f"{tag}: {len(quant)} int8 discriminator convs")
+        check((counts["int8_matmul"] > 0) == bool(extra),
+              f"{tag}: int8 GEMM launches {counts['int8_matmul']}")
+        if dtype == "float32":
+            g[tag] = {k: v.detach().cpu().clone() for k, v in
+                      engine.netg.state_dict().items()
+                      if v.is_floating_point() and "running" not in k}
+        if extra:
+            label = dtype or "bfloat16 (default)"
+            per_step = (counts["int8_matmul"]
+                        - sweep["int8_matmul"]) / INT8_STEPS
+            say("int8-disc", f"mygan --int8_disc {label}: step median "
+                             f"{ms:.1f} ms, peak {peak:.0f} MiB, int8 GEMM "
+                             f"launches {counts['int8_matmul']} "
+                             f"({per_step:g} per step, "
+                             f"{sweep['int8_matmul']} in the sweep)")
+            runs[f"mygan --int8_disc {label}"] = counts
+        del engine
+    say("int8-disc", "G after 4 steps with --int8_disc against two plain "
+                     "runs: " + _spread_close(
+                         "G", g["-int8disc"], g["-plain1"], g["-plain2"]))
+    return runs
+
+
+def run_slice_phases(tmp: Path, paths: dict, f32_ms: dict,
+                     bf16_ms: dict) -> dict:
+    """The MoE, int8-serve and int8-disc phases; returns the kernels'
+    launch counts by run."""
+    t0 = time.perf_counter()
+    runs = phase_moe(tmp)
+    runs.update(phase_int8_serve(tmp, paths, f32_ms, bf16_ms))
+    runs.update(phase_int8_disc(tmp))
+    say("slice-phases", f"--moe_experts, --quant int8, --int8_disc: "
+                        f"{time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def run_new_phases(tmp: Path, device, paths: dict, base: dict) -> dict:
     """The --accum, --remat, evaluate and host-only phases; returns the
     kernels' launch counts by run."""
@@ -2759,6 +3242,18 @@ def run_new_phases(tmp: Path, device, paths: dict, base: dict) -> dict:
     return runs
 
 
+def slice_only(name: str) -> None:
+    """``--slice-only``: the build, the checkpoints and this slice's
+    phases alone (the MoE block, int8 serving, --int8_disc), for a short
+    call while they are worked on; prints no result line."""
+    nan = {family: float("nan") for family in SERVED}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = run_slice_phases(Path(tmp), make_checkpoints(Path(tmp)), nan,
+                                nan)
+    say("slice-only", f"{name}: launches by run {json.dumps(runs)}; no "
+                      "result line (the full run prints it)")
+
+
 def main() -> None:
     start = time.perf_counter()
     name = phase_device()
@@ -2768,6 +3263,9 @@ def main() -> None:
     device = torch.device("cuda")
     resolve_device("cuda")               # TF32 off, as the entry points do
     phase_build()
+    if sys.argv[1:] == ["--slice-only"]:
+        slice_only(name)
+        return
     results = {"morphology_open": phase_kernel(device)}
     results.update(phase_flow_kernels(device))
     results["augment_gather"] = phase_augment_kernel(device)
@@ -2891,6 +3389,10 @@ def main() -> None:
             f"{model}-{dtype}": steps_ms[model][i:i + 2]
             for model in ("mygan", "clstm")
             for dtype, i in (("f32", 0), ("bf16", 2))})
+        gc.collect()
+        torch.cuda.empty_cache()
+        new_runs.update(run_slice_phases(Path(tmp), paths, f32_forward_ms,
+                                         bf16_forward_ms))
     # launches: each kernel's count on the main path that runs it (MyGAN's
     # trainer for the fused and opening kernels, its --flow_impl
     # two_kernel step for warp and refine, the clstm trainer for the

@@ -322,8 +322,29 @@ def test_serve_args_from_pth(tmp_path):
 
 @pytest.mark.parametrize("flag,value", [("--dp", "2"), ("--quant", "int8")])
 def test_serve_refuses_unported_options(tmp_path, flag, value):
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        serve(_args(_save_pth(tmp_path), flag, value))
+    if flag == "--dp":
+        with pytest.raises(SystemExit, match="ROADMAP.md"):
+            serve(_args(_save_pth(tmp_path), flag, value))
+        return
+    # ported since: the int8 forward is served (quant/qmygan.py), and
+    # tracks the float model as the JAX int8 server does
+    # (tests/test_quant.py: mean error below 0.02)
+    httpd = serve(_args(_save_pth(tmp_path), flag, value,
+                        "--calib_clips", "2"))
+    try:
+        srv = httpd.inference
+        assert srv.name == "Propose model[GAN] [int8]"
+        assert type(srv.model).__name__ == "Int8Model"
+        clips = _clips(12, 2)
+        got = srv.predict(clips, timeout=TIMEOUT)
+        with torch.no_grad():
+            want = to_channel_last(_port_model().eval()(
+                to_channel_first(torch.from_numpy(clips)))).numpy()
+        assert got.shape == want.shape
+        assert np.abs(got - want).mean() < 0.02
+    finally:
+        httpd.inference.close()
+        httpd.server_close()
 
 
 def test_serve_dtype_bfloat16_matches_the_jax_bf16_server(tmp_path):

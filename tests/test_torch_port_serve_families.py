@@ -244,3 +244,46 @@ def test_filename_dispatch_follows_the_jax_table(tmp_path, file_name,
 def test_load_still_exits_for(tmp_path, make, match):
     with pytest.raises(SystemExit, match=match):
         infer._load(make(tmp_path), torch.device("cpu"))
+
+
+# a port run of each kind: (trainer flags, the model class infer builds)
+_RUNS = {
+    "clstm": (["--model", "clstm", "--isize", "16", "--nfr", "8"],
+              ConvLSTMModel),
+    "mygan": (["--model", "mygan", "--isize", "64", "--nfr", "16", "--ngf",
+               "4", "--ndf", "4"], Generator),
+}
+
+
+@pytest.mark.parametrize("run", list(_RUNS))
+def test_load_takes_a_port_runs_latest_pt(tmp_path, run):
+    """A port run's ``weights/latest.pt`` (whose path holds the model's
+    name) loads by its structure, G of a GAN run, ``strict=True``, with
+    ``--dtype``; ``serve`` takes it too."""
+    from vfd_gan_tpu_torch.cli import trainer
+
+    flags, cls = _RUNS[run]
+    engine = trainer.main([
+        *flags, "--batchsize", "2", "--compute_dtype", "float32",
+        "--synthetic_data", "2", "--synthetic_test_batches", "1", "--ep",
+        "1", "--freq", "100", "--max_steps", "1", "--autosave_every", "1",
+        "--no-tensorboard", "--device", "cpu", "--result_root",
+        str(tmp_path)])
+    latest, = tmp_path.rglob("latest.pt")
+    assert run in str(latest)
+    want = (engine.netg if run == "mygan" else engine.model).state_dict()
+    model, name = infer._load(str(latest), torch.device("cpu"),
+                              torch.bfloat16)
+    assert type(model) is cls and not model.training
+    assert name == dict((f, n) for _, f, n in infer.DISPATCH)[run] + " [bf16]"
+    for k, v in want.items():
+        assert torch.equal(model.state_dict()[k], v), k
+    args = build_parser().parse_args(
+        ["--ckpt", str(latest), "--port", "0", "--isize", flags[3],
+         "--nfr", flags[5], "--max_batch", "1", "--device", "cpu"])
+    httpd = serve(args)
+    try:
+        assert httpd.inference.name == name[:-len(" [bf16]")]
+    finally:
+        httpd.inference.close()
+        httpd.server_close()

@@ -177,8 +177,13 @@ def test_trainer_runs_each_family_and_writes_loadable_pth(tmp_path, capsys,
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--model", "xception", "--moe_experts", "2"], "--moe_experts"),
+    # ported since: the engine is built and holds the option (the id is
+    # the refusal case's)
+    pytest.param(["--model", "xception", "--moe_experts", "2"], None,
+                 id="--model_xception_--moe_experts_2---moe_experts"),
     (["--model", "xception", "--pp", "2"], "parallelism"),
+    (["--model", "xception", "--moe_experts", "2", "--moe_shards", "2"],
+     "parallelism"),
     # ported since: the engine is built and holds the option (the id is
     # the refusal case's)
     pytest.param(["--model", "clstm", "--accum", "2"], None,
@@ -204,6 +209,9 @@ def test_trainer_refuses_what_the_supervised_port_does_not_run(
         elif "--accum" in extra:
             assert engine.cfg.accum == 2
             assert type(engine).__name__ == "SupervisedEngine"
+        elif "--moe_experts" in extra:
+            assert engine.model.moe.router.shape == (
+                engine.model.block11.rep[1].conv1.weight.shape[0], 2)
         else:
             assert engine.cfg.model == "ganomaly"
             assert type(engine).__name__ == "GanomalyEngine"

@@ -504,7 +504,8 @@ def test_trainer_runs_a_sweep_and_writes_loadable_pth(tmp_path, capsys):
     pytest.param(["--ref_mode_quirks"], None,
                  id="--ref_mode_quirks-train-mode test sweep"),
     pytest.param(["--host_flow"], None, id="--host_flow-host_flow"),
-    (["--int8_disc"], "quant"),
+    # ported since: the engine is built and holds the option
+    pytest.param(["--int8_disc"], None, id="--int8_disc-quant"),
 ], ids=lambda v: v if isinstance(v, str) else "_".join(v))
 def test_trainer_refuses_what_is_not_ported(tmp_path, capsys, extra, match):
     argv = _ARGS + extra + ["--device", "cpu", "--result_root", str(tmp_path)]
@@ -519,6 +520,10 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, capsys, extra, match):
                 video_to_flow_rgb_host,
             )
             assert engine._flow is video_to_flow_rgb_host
+        if extra[0] == "--int8_disc":
+            from vfd_gan_tpu_torch.models.layers import QConv3d
+            assert isinstance(engine.netd.spatdisc.dconv1.conv.spatial_conv,
+                              QConv3d)
         if extra[0] == "--compute_dtype":
             assert engine.netg.dconv1.bn.dtype == torch.bfloat16
             assert engine.netd.spatdisc.linear.dtype == torch.bfloat16
@@ -538,10 +543,11 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, capsys, extra, match):
 
 
 def test_unported_lost_exactly_the_five_ported_options():
-    """Left: what needs several devices, and quant/ (--int8_disc)."""
+    """Left: what needs several devices (--int8_disc and --moe_experts
+    with one shard are ported since)."""
     from vfd_gan_tpu_torch.train.engine_base import UNPORTED
 
-    assert set(UNPORTED) == {"int8_disc", "dp/sp/tp/pp", "moe_experts"}
+    assert set(UNPORTED) == {"dp/sp/tp/pp", "moe_shards"}
 
 
 def test_trainer_needs_a_card_for_cuda(tmp_path):

@@ -46,12 +46,16 @@ import os
 import numpy as np
 import torch
 
-from vfd_gan_tpu_torch.cli.infer import build_model
+from vfd_gan_tpu_torch.cli.infer import (
+    NAMES,
+    build_model,
+    load_run_model,
+    refuse_directory,
+)
 from vfd_gan_tpu_torch.eval.metrics import evaluate, pr_auc, roc_auc_with_eer
 from vfd_gan_tpu_torch.ops.augment import normalize_clips
 from vfd_gan_tpu_torch.ops.image import to_channel_first, to_channel_last
-from vfd_gan_tpu_torch.train.checkpoints import restore_checkpoint
-from vfd_gan_tpu_torch.utils.checkpoint import has_module, load_state_dict
+from vfd_gan_tpu_torch.utils.checkpoint import load_state_dict
 from vfd_gan_tpu_torch.utils.runtime import resolve_device
 
 
@@ -80,47 +84,23 @@ _SUBSTRING_DISPATCH = (
     ("xception", "xception", "XceptionNet"),
     ("clstm", "clstm", "ConvLSTM"),
 )
-_NAMES = {family: name for _, family, name in _SUBSTRING_DISPATCH}
-
-
-def _family_of(sd: dict) -> str:
-    """The family of a ``state_dict`` by its structure (the counterpart of
-    the JAX CLI's ``_model_from_params``)."""
-    if has_module(sd, "dconv1") and has_module(sd, "uconv1"):
-        return "mygan"
-    for family, module in (("c2plus1d", "down_sep1"), ("xception", "block1"),
-                           ("clstm", "clstm1")):
-        if has_module(sd, module):
-            return family
-    raise SystemExit("cannot infer model type from checkpoint structure")
 
 
 def load_model(ckpt: str, device: torch.device):
     """The model of one listed checkpoint, loaded ``strict=True``, in eval
     mode on ``device``, and its display name."""
-    if os.path.isdir(ckpt):
-        raise SystemExit(
-            f"{ckpt} is a directory: Orbax checkpoints need jax; convert it "
-            f"with `python -m vfd_gan_tpu.cli.export_torch --ckpt {ckpt}` "
-            "and pass the .pth it writes")
-    if ckpt.endswith(".pth"):
-        family = next((f for sub, f, _ in _SUBSTRING_DISPATCH
-                       if sub in ckpt), None)
-        if family is None:
-            raise SystemExit("Weight path not found.")   # test.py:134
-        sd = load_state_dict(ckpt)
-    else:
-        # a port run's full train state: G of a GAN run, else the model
-        tree = restore_checkpoint(ckpt)
-        net = tree.get("netG", tree.get("state"))
-        if not isinstance(net, dict) or "module" not in net:
-            raise SystemExit(f"{ckpt}: neither a .pth nor a port run's "
-                             "train state (weights/latest.pt)")
-        sd = net["module"]
-        family = _family_of(sd)
+    refuse_directory(ckpt)
+    if not ckpt.endswith(".pth"):
+        model, family = load_run_model(ckpt, device)
+        return model, NAMES[family]
+    family = next((f for sub, f, _ in _SUBSTRING_DISPATCH if sub in ckpt),
+                  None)
+    if family is None:
+        raise SystemExit("Weight path not found.")   # test.py:134
+    sd = load_state_dict(ckpt)
     model = build_model(family, sd, device, torch.float32)
     model.load_state_dict(sd, strict=True)
-    return model.eval(), _NAMES[family]
+    return model.eval(), NAMES[family]
 
 
 @torch.inference_mode()

@@ -1,9 +1,10 @@
 """Batch-inference server for a mask model (port of
 ``vfd_gan_tpu.cli.serve``).
 
-A long-lived process that loads one ``.pth`` model once (the MyGAN
-generator, the "c2plus1d" AutoEncoder, Xception-3D or the ConvLSTM, picked
-by the file name as ``cli.infer`` does), keeps it in
+A long-lived process that loads one model once (the MyGAN generator, the
+"c2plus1d" AutoEncoder, Xception-3D or the ConvLSTM, from a ``.pth`` by its
+file name or from a port run's ``weights/latest.pt`` by its structure, as
+``cli.infer`` does), keeps it in
 eval mode on one device, and **micro-batches concurrent requests**: a
 batcher thread drains a queue, packs up to ``--max_batch`` clips (padding
 the tail with zero clips so every forward has the same shape), runs the
@@ -34,8 +35,10 @@ Usage::
 
 ``--dtype bfloat16`` serves the model computing in bfloat16 from the
 checkpoint's float32 parameters, its name tagged `` [bf16]``, as the JAX
-server does; the wire format is unchanged.  ``--dp`` and ``--quant int8``
-exit with the ``ROADMAP.md`` item that holds them.
+server does; ``--quant int8 [--calib_plist | --calib_clips]`` serves the
+family's int8 forward (``quant/``; ``--dtype`` ignored), tagged
+`` [int8]``.  The wire format is unchanged.  ``--dp`` exits with the
+``ROADMAP.md`` item that holds it.
 """
 
 from __future__ import annotations
@@ -53,15 +56,18 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from vfd_gan_tpu_torch.cli.infer import add_quant_args
 from vfd_gan_tpu_torch.models import DTYPES
 from vfd_gan_tpu_torch.ops.image import to_channel_first, to_channel_last
+from vfd_gan_tpu_torch.utils.runtime import module_device
 
 
 def build_parser():
     p = argparse.ArgumentParser(description="mask-model inference server")
     p.add_argument("--ckpt", required=True,
                    help="reference-format .pth whose name holds netG, "
-                        "ganbase, mygan, c2plus1d, xception or clstm")
+                        "ganbase, mygan, c2plus1d, xception or clstm, or "
+                        "a port run's weights/latest.pt")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8790)
     p.add_argument("--isize", type=int, default=128)
@@ -76,9 +82,9 @@ def build_parser():
                    help="compute dtype (parameters stay float32; clips in "
                         "and masks out stay float32)")
     # Accepted so that JAX-server command lines fail with a pointer instead
-    # of an argparse error; only the defaults are ported.
+    # of an argparse error; only the default is ported.
     p.add_argument("--dp", type=int, default=1)
-    p.add_argument("--quant", choices=("none", "int8"), default="none")
+    add_quant_args(p)
     p.add_argument("--max_queued_clips", type=int, default=256,
                    help="admission bound before shedding load with 429s")
     p.add_argument("--video_root", default="",
@@ -112,7 +118,7 @@ class InferenceServer:
                  nfr: int, max_batch: int, max_wait_ms: float,
                  max_queued_clips: int = 256):
         self.model = model.eval()
-        self.device = next(model.parameters()).device
+        self.device = module_device(model)
         self.name = name
         self.isize, self.nfr = isize, nfr
         self.max_batch = max_batch
@@ -489,28 +495,20 @@ def make_handler(server: InferenceServer, video_root: str = "",
     return Handler
 
 
-# Serving options of the JAX server that the port does not have yet, and
-# the ROADMAP.md item that brings each.
-_NOT_PORTED = (
-    ("dp", 1, "--dp > 1", "Multi-card serving"),
-    ("quant", "none", "--quant int8", "int8 serving"),
-)
-
-
 def serve(args) -> ThreadingHTTPServer:
     """Build the server (used by main() and the tests)."""
-    from vfd_gan_tpu_torch.cli.infer import _load
+    from vfd_gan_tpu_torch.cli.infer import load_for_serving
     from vfd_gan_tpu_torch.utils.runtime import resolve_device
 
-    for field, default, flag, item in _NOT_PORTED:
-        if getattr(args, field) != default:
-            raise SystemExit(f"{flag} is not ported to PyTorch yet: see "
-                             f"ROADMAP.md, 'Modules still to port', "
-                             f"item '{item}'")
+    if args.dp != 1:
+        raise SystemExit("--dp > 1 is not ported to PyTorch yet: see "
+                         "ROADMAP.md, 'Modules still to port', item "
+                         "'Multi-card serving'")
     device = resolve_device(args.device)
     # --dtype bfloat16: the model rebuilt to compute in bfloat16 from the
-    # checkpoint's float32 parameters (JAX cli/serve.py:539-544)
-    model, name = _load(args.ckpt, device, DTYPES[args.dtype])
+    # checkpoint's float32 parameters (JAX cli/serve.py:539-544); --quant
+    # int8: the family's int8 forward (JAX cli/serve.py:518-537)
+    model, name = load_for_serving(args, device)
     inf = InferenceServer(model, name, isize=args.isize, nfr=args.nfr,
                           max_batch=args.max_batch,
                           max_wait_ms=args.max_wait_ms,

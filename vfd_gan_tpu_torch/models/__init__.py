@@ -19,12 +19,14 @@ def build_mask_model(name: str, cfg, *, dtype: torch.dtype = torch.float32,
     """The ``--model`` mask predictor (reference dispatch:
     lib/train_stcnn.py:52-66) computing in ``dtype``, with the reference
     init drawn from ``generator``.  As in JAX, only Xception reads
-    ``--ich`` and ``--xwidth`` (the others take the 3-channel clips)."""
+    ``--ich``, ``--xwidth`` and ``--moe_experts`` (the others take the
+    3-channel clips)."""
     kw = {"dtype": dtype, "device": device, "generator": generator}
     if name == "c2plus1d":
         return AutoEncoder(**kw)
     if name == "xception":
-        return Xception3D(cfg.ich, cfg.xwidth, **kw)
+        return Xception3D(cfg.ich, cfg.xwidth,
+                          moe_experts=getattr(cfg, "moe_experts", 0), **kw)
     if name == "clstm":
         return ConvLSTMModel(**kw)
     raise ValueError(f"unknown supervised model {name!r}; expected one of "

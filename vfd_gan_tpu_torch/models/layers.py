@@ -16,7 +16,8 @@ NCDHW ``(B, C, T, H, W)`` input.  Submodule names are the reference's, so
   BatchNorms (3-D, 2-D, 1-D) with eps 1e-5 and momentum 0.1, whose running
   statistics the eval forward uses.
 * ``Conv3d``, ``Conv2d``, ``ConvTranspose3d``, ``ConvTranspose2d``: torch's
-  convolutions, casting their weight and bias to their input's dtype.
+  convolutions, casting their weight and bias to their input's dtype;
+  ``QConv3d``, the int8 straight-through ``Conv3d`` of ``--int8_disc``.
 * ``dropout``: flax ``nn.Dropout``'s function with masks drawn from a
   ``torch.Generator``.
 
@@ -38,6 +39,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vfd_gan_tpu_torch.ops.convs import r2plus1d_mid_channels
+from vfd_gan_tpu_torch.quant.qdisc import qconv3d
 from vfd_gan_tpu_torch.utils.init import bn_scale_, dcgan_normal_, torch_default_
 
 
@@ -144,13 +146,32 @@ class ConvTranspose2d(_InputDtypeConv, nn.ConvTranspose2d):
                                   self.output_padding)
 
 
+class QConv3d(Conv3d):
+    """``Conv3d`` with the int8 forward and the float conv's backward of
+    ``quant/qdisc.py`` (``--int8_disc``): the weight cast to the input's
+    dtype as ``Conv3d`` casts it, then the bias added as ``Conv3d`` adds
+    it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = qconv3d(x, self.weight.to(x.dtype), self.stride, self.padding)
+        if self.bias is None:
+            return y
+        shape = (-1, *(1,) * (y.dim() - 2))
+        if x.dtype in (torch.float32, torch.float64):
+            return y + self.bias.view(shape)
+        return y.float() + self.bias.to(x.dtype).float().view(shape)
+
+
 def make_conv3d(cin: int, cout: int, kernel, padding=(0, 0, 0), *,
-                stride=(1, 1, 1), bias: bool = True, device=None,
+                stride=(1, 1, 1), bias: bool = True, quant: bool = False,
+                device=None,
                 generator: torch.Generator | None = None) -> Conv3d:
-    """``Conv3d`` with the reference init drawn from ``generator``: kernel
-    ~ N(0, 0.02), bias PyTorch's default over the kernel's fan-in."""
-    conv = Conv3d(cin, cout, tuple(kernel), stride=tuple(stride),
-                  padding=tuple(padding), bias=bias, device=device)
+    """``Conv3d`` (``QConv3d`` with ``quant``) with the reference init
+    drawn from ``generator``: kernel ~ N(0, 0.02), bias PyTorch's default
+    over the kernel's fan-in."""
+    conv = (QConv3d if quant else Conv3d)(
+        cin, cout, tuple(kernel), stride=tuple(stride),
+        padding=tuple(padding), bias=bias, device=device)
     if generator is not None:
         dcgan_normal_(conv.weight, generator)
         if bias:
@@ -162,23 +183,25 @@ def make_conv3d(cin: int, cout: int, kernel, padding=(0, 0, 0), *,
 class STConv(nn.Module):
     """Factored (2+1)D convolution, stride 1 with biases: spatial (1,kh,kw)
     conv -> BN -> ReLU -> temporal (kt,1,1) conv, intermediate width from
-    the R(2+1)D formula."""
+    the R(2+1)D formula.  ``quant`` (the discriminator's under
+    ``--int8_disc``) makes both convs ``QConv3d``, the spatial one only
+    with symmetric spatial padding, as the JAX STConv does."""
 
     def __init__(self, cin: int, cout: int,
                  kernel_size: Sequence[int] = (3, 3, 3),
                  padding: Sequence[int] = (0, 0, 0), *,
-                 dtype: torch.dtype = torch.float32, device=None,
-                 generator: torch.Generator | None = None):
+                 dtype: torch.dtype = torch.float32, quant: bool = False,
+                 device=None, generator: torch.Generator | None = None):
         super().__init__()
         kt, kh, kw = kernel_size
         pt, ph, pw = padding
         mid = r2plus1d_mid_channels(kt, kh, kw, cin, cout)
+        kw_ = {"device": device, "generator": generator}
         self.spatial_conv = make_conv3d(cin, mid, (1, kh, kw), (0, ph, pw),
-                                        device=device, generator=generator)
-        self.bn = VideoBatchNorm(mid, dtype=dtype, device=device,
-                                 generator=generator)
+                                        quant=quant and ph == pw, **kw_)
+        self.bn = VideoBatchNorm(mid, dtype=dtype, **kw_)
         self.temporal_conv = make_conv3d(mid, cout, (kt, 1, 1), (pt, 0, 0),
-                                         device=device, generator=generator)
+                                         quant=quant, **kw_)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.temporal_conv(F.relu(self.bn(self.spatial_conv(x))))
@@ -206,11 +229,12 @@ class DiscConvBlock(nn.Module):
 
     def __init__(self, cin: int, cout: int, kernel_size: Sequence[int],
                  padding: Sequence[int], *,
-                 dtype: torch.dtype = torch.float32, device=None,
-                 generator: torch.Generator | None = None):
+                 dtype: torch.dtype = torch.float32, quant: bool = False,
+                 device=None, generator: torch.Generator | None = None):
         super().__init__()
         kw = {"dtype": dtype, "device": device, "generator": generator}
-        self.conv = STConv(cin, cout, kernel_size, padding=padding, **kw)
+        self.conv = STConv(cin, cout, kernel_size, padding=padding,
+                           quant=quant, **kw)
         self.bn = VideoBatchNorm(cout, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,8 @@ blocks, each followed by a (2,1,1) pool, then a global spatial pool).  Each
 flattens its pooled features in NCDHW ``(C, T, H, W)`` order into a Linear
 and a float32 sigmoid and returns ``(score (B,), features)``.  The Linear
 input size follows the clip geometry, so the discriminators take
-``nfr`` and ``isize``.
+``nfr`` and ``isize``.  ``quant`` (``--int8_disc``) runs every
+discriminator conv int8 forward, float backward (``quant/qdisc.py``).
 
 ``dtype`` (float32 or bfloat16) is the compute dtype of
 ``models/layers.py``: parameters float32, each first conv in its float32
@@ -151,14 +152,15 @@ class SpatialDisc(nn.Module):
     """Spatial branch (reference SDisc, models/mygannet.py:119-162)."""
 
     def __init__(self, ndf: int = 32, isize: int = 128, *,
-                 dtype: torch.dtype = torch.float32, device=None,
-                 generator: torch.Generator | None = None):
+                 dtype: torch.dtype = torch.float32, quant: bool = False,
+                 device=None, generator: torch.Generator | None = None):
         super().__init__()
         kw = {"dtype": dtype, "device": device, "generator": generator}
         widths = [3] + [ndf * m for m in (1, 2, 4, 8, 16, 32)]
         for i in range(6):
             setattr(self, f"dconv{i + 1}", DiscConvBlock(
-                widths[i], widths[i + 1], (1, 3, 3), (0, 1, 1), **kw))
+                widths[i], widths[i + 1], (1, 3, 3), (0, 1, 1), quant=quant,
+                **kw))
         side = isize // 64
         self.linear = TorchLinear(widths[-1] * side * side, 1, **kw)
 
@@ -176,14 +178,15 @@ class TemporalDisc(nn.Module):
     models/mygannet.py:164-196)."""
 
     def __init__(self, ndf: int = 32, nfr: int = 16, *,
-                 dtype: torch.dtype = torch.float32, device=None,
-                 generator: torch.Generator | None = None):
+                 dtype: torch.dtype = torch.float32, quant: bool = False,
+                 device=None, generator: torch.Generator | None = None):
         super().__init__()
         kw = {"dtype": dtype, "device": device, "generator": generator}
         widths = [3, ndf, ndf * 2, ndf * 4]
         for i in range(3):
             setattr(self, f"dconv{i + 1}", DiscConvBlock(
-                widths[i], widths[i + 1], (3, 1, 1), (1, 0, 0), **kw))
+                widths[i], widths[i + 1], (3, 1, 1), (1, 0, 0), quant=quant,
+                **kw))
         self.linear = TorchLinear(widths[-1] * (nfr // 8), 1, **kw)
 
     def forward(self, x: torch.Tensor):
@@ -201,10 +204,11 @@ class DualDisc(nn.Module):
     ``(s_score, s_features, t_score, t_features)``."""
 
     def __init__(self, ndf: int = 32, nfr: int = 16, isize: int = 128, *,
-                 dtype: torch.dtype = torch.float32, device=None,
-                 generator: torch.Generator | None = None):
+                 dtype: torch.dtype = torch.float32, quant: bool = False,
+                 device=None, generator: torch.Generator | None = None):
         super().__init__()
-        kw = {"dtype": dtype, "device": device, "generator": generator}
+        kw = {"dtype": dtype, "quant": quant, "device": device,
+              "generator": generator}
         self.spatdisc = SpatialDisc(ndf, isize, **kw)
         self.tempdisc = TemporalDisc(ndf, nfr, **kw)
 

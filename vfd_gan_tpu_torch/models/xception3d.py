@@ -18,6 +18,12 @@ trainer's ``--xwidth``) scales every width as the JAX model does;
 ``torch.Generator`` passed to ``forward``.  ``dtype`` is the compute dtype
 of ``models/layers.py`` (the stem's first conv takes the float32 clip; the
 head casts to float32 before the sigmoid).
+
+``moe_experts`` > 0 (the trainer's ``--moe_experts``, no reference
+equivalent) puts a residual token-MoE block (``models/moe_block.py``,
+capacity factor ``moe_capacity``, 2.0 as in JAX) after the eight middle
+blocks, under the name ``moe``; it is built after every reference module,
+so the other modules' initial weights do not depend on it.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from vfd_gan_tpu_torch.models.layers import (
     dropout,
     make_conv3d,
 )
+from vfd_gan_tpu_torch.models.moe_block import MoEMlp
 from vfd_gan_tpu_torch.ops.resize import upsample_ncdhw
 
 N_MIDDLE_BLOCKS = 8
@@ -118,8 +125,10 @@ class Xception3D(nn.Module):
     ``(B, C, T, H, W)`` -> ``(B, 1, T, H, W)``."""
 
     def __init__(self, in_channels: int = 3, width_mult: float = 1.0, *,
-                 drop_rate: float = 0.25, dtype: torch.dtype = torch.float32,
-                 device=None, generator: torch.Generator | None = None):
+                 drop_rate: float = 0.25, moe_experts: int = 0,
+                 moe_capacity: float = 2.0,
+                 dtype: torch.dtype = torch.float32, device=None,
+                 generator: torch.Generator | None = None):
         super().__init__()
 
         def w(c: int) -> int:
@@ -149,6 +158,8 @@ class Xception3D(nn.Module):
                 widths[i], widths[i + 1], drop_rate=drop_rate, **bn))
         # with bias: PyTorch's default over the 3x3 taps, as the JAX head's
         self.conv_last = make_conv3d(w(32), 1, *_SPATIAL, **kw)
+        self.moe = MoEMlp(w(728), moe_experts, capacity_factor=moe_capacity,
+                          dtype=dtype, **kw) if moe_experts else None
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -156,6 +167,8 @@ class Xception3D(nn.Module):
         x = F.relu(self.bn2(self.conv2(x)))
         for i in range(1, 13):
             x = getattr(self, f"block{i}")(x)
+            if i == 3 + N_MIDDLE_BLOCKS and self.moe is not None:
+                x = self.moe(x)
         x = F.relu(self.bn3(self.conv3(x)))
         x = F.relu(self.bn4(self.conv4(x)))
         for i in range(1, 5):

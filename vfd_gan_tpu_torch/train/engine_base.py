@@ -58,24 +58,21 @@ from vfd_gan_tpu_torch.train.checkpoints import (
 )
 
 
-# JAX-engine options the port does not run yet: (is it set?, ROADMAP
-# item); ``GAN_ONLY`` are MyGAN's, which the supervised engine ignores as
-# the JAX one does
+# JAX-engine options the port does not run yet, all of them several-card
+# ones: (is it set?, ROADMAP item)
 UNPORTED = {
-    "int8_disc": (lambda c: c.int8_disc, "queue 1 item 15 (quant)"),
     "dp/sp/tp/pp": (lambda c: c.dp > 1 or c.sp > 1 or c.tp > 1 or c.pp > 1,
                     "queue 1 item 13 (parallelism)"),
-    "moe_experts": (lambda c: c.moe_experts > 0,
-                    "queue 1 item 13 (the MoE block)"),
+    "moe_shards": (lambda c: c.moe_shards > 1,
+                   "queue 1 item 13 (parallelism)"),
 }
-GAN_ONLY = ("int8_disc",)
 
 
-def refuse_unported(cfg, gan: bool) -> None:
+def refuse_unported(cfg) -> None:
     """Exit with the ROADMAP item of the first option set that the port
     does not run."""
     for flag, (is_set, item) in UNPORTED.items():
-        if (gan or flag not in GAN_ONLY) and is_set(cfg):
+        if is_set(cfg):
             raise SystemExit(f"--{flag}: not ported to vfd_gan_tpu_torch "
                              f"yet (ROADMAP.md {item}); use the JAX "
                              "trainer (python trainer.py)")
@@ -123,7 +120,7 @@ class EngineBase:
 
     def __init__(self, cfg, train_iter, test_iter, *, device: torch.device,
                  gan: bool):
-        refuse_unported(cfg, gan)
+        refuse_unported(cfg)
         self.cfg = cfg
         self.train_iter = train_iter
         self.test_iter = test_iter

@@ -42,8 +42,9 @@ net (``_gan_core``); ``--remat [--remat_blocks a,b]`` recomputes the
 Generator's block activations in the backward pass (not the ``--ae``
 AutoEncoder's, as in JAX); ``--host_flow`` computes every flow with cv2 on
 the host (``train/host_flow.py``; refused when the engine is built where
-cv2 does not import).  Options of the JAX engine that are not ported yet
-are refused with the ``ROADMAP.md`` item that holds them.
+cv2 does not import); ``--int8_disc`` runs D's convs int8 forward and
+float backward (``quant/qdisc.py``).  Options of the JAX engine that are
+not ported yet are refused with the ``ROADMAP.md`` item that holds them.
 """
 
 from __future__ import annotations
@@ -98,6 +99,7 @@ class MyGanEngine(EngineBase):
         self.g = NetState.create(netg.to(device), cfg.lr, cfg.beta1)
         self.d = NetState.create(
             DualDisc(cfg.ndf, cfg.nfr, cfg.isize, dtype=self.dtype,
+                     quant=cfg.int8_disc,
                      generator=init).to(device),
             cfg.lr, cfg.beta1)
         # augmentation draws and dropout masks
@@ -416,5 +418,6 @@ class MyGanEngine(EngineBase):
         init = torch.Generator().manual_seed(seed)
         self.d = NetState.create(
             DualDisc(cfg.ndf, cfg.nfr, cfg.isize, dtype=self.dtype,
+                     quant=cfg.int8_disc,
                      generator=init).to(self.device), cfg.lr, cfg.beta1)
         print("Reloading Net d")

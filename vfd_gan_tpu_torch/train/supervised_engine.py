@@ -23,6 +23,9 @@ float32 (JAX supervised_engine.py:37-39).
 ``--resume latest.pt`` restores the full train state
 (``EngineBase.restore_into``).  ``--accum k`` runs the step over k
 microbatches of the augmented batch with one optimizer step (``_step``).
+``--moe_experts N`` (Xception only) adds ``--moe_aux_w`` times the MoE
+block's load-balancing loss to each train-mode microbatch's loss, and the
+reported loss includes it, as in JAX.
 Under ``--ref_mode_quirks`` the reference's stuck-in-eval latch holds: its
 ``test()`` switches the model to eval mode and never back
 (lib/train_stcnn.py:143), so from step ``freq + 1`` on the model trains
@@ -109,9 +112,15 @@ class SupervisedEngine(EngineBase):
         k = self.cfg.accum
         self.net.optimizer.zero_grad(set_to_none=True)
         losses, preds = [], []
+        moe = getattr(model, "moe", None)
         for data_i, gt_i in zip(data.chunk(k), gt.chunk(k)):
             pred = to_channel_last(model(to_channel_first(data_i), drop_gen))
             loss = bce(pred, gt_i)
+            if moe is not None and model.training:
+                # the Switch load-balancing term, per microbatch (JAX
+                # supervised_engine.py:129-133); dropped_frac stays out
+                loss = loss + self.cfg.moe_aux_w * \
+                    moe.aux["load_balance_loss"]
             loss.backward()
             losses.append(loss.detach())
             preds.append(pred.detach())

@@ -26,3 +26,11 @@ def resolve_device(name: str) -> torch.device:
     elif device.type != "cpu":
         raise SystemExit(f"--device {name}: only cuda and cpu are supported")
     return device
+
+
+def module_device(module: torch.nn.Module) -> torch.device:
+    """The device of a module's first parameter, or of its first buffer
+    (an int8 serving model holds buffers only)."""
+    for t in module.parameters():
+        return t.device
+    return next(module.buffers()).device

@@ -168,7 +168,14 @@ XCEPTION_REPS = {"entry": ((0, 3), (1, 4)), "middle": ((1, 4, 7), (2, 5, 8)),
 
 def xception_state_dict(variables: dict) -> dict[str, np.ndarray]:
     """JAX ``Xception3D`` variables -> reference Xception ``state_dict``
-    (numpy; torch_export.xception_to_torch)."""
+    (numpy; torch_export.xception_to_torch).
+
+    An ``--moe_experts`` model's ``params["moe"]`` (no reference layout,
+    and ``xception_to_torch`` drops it) keeps its JAX names and layouts
+    under the port's ``moe.`` prefix: ``moe.router (C, E)``,
+    ``moe.experts_w1`` / ``moe.experts_w2`` ``(E, C, C)`` and
+    ``moe.experts_b1`` / ``moe.experts_b2`` ``(E, C)``
+    (``models/moe_block.py``)."""
     p, s = variables["params"], variables["batch_stats"]
     out: dict = {}
 
@@ -203,6 +210,8 @@ def xception_state_dict(variables: dict) -> dict[str, np.ndarray]:
         _bn(out, f"uconv{i}.bn", p[f"deconv{i}"]["bn"], s[f"deconv{i}"]["bn"])
     out["conv_last.weight"] = _spatial(p["head_kernel"])
     out["conv_last.bias"] = _f32(p["head_bias"])
+    for name, v in p.get("moe", {}).items():
+        out[f"moe.{name}"] = _f32(v)
     return out
 
 
