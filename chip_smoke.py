@@ -142,6 +142,27 @@ phases, one line each (or a few):
 25. int8-disc: MyGAN ``--int8_disc``, 4 steps and a sweep in float32 and
     bf16 (step median, peak, int8 GEMM launches), and G after them
     against two plain float32 runs (within 4 x their spread).
+26. dp: ``cli.trainer.main --dp 0`` at the reference width on the
+    default command line (bf16) resolves to the one card and says so;
+    then ``tools/dp_equivalence.py`` ranks: one NCCL rank runs 3 float32
+    MyGAN steps on the dp code path (synced BatchNorms, the synced flow
+    stretch, the sliced draws, the gradient and metric all-reduces), two
+    gloo ranks on this one card run MyGAN and clstm at b8 (4 per rank),
+    and this process runs the same steps twice on the plain path.  The
+    dp path at dp 1 (MyGAN and clstm, twice each) lies within
+    ``parallel/verify.py``'s K = 10 x the spread of the two plain runs
+    (+1e-5), and dp 2 within 10 x the spread of the two dp-1 runs, by
+    parameters and running statistics (not 4 x: the dp path's kernels
+    round otherwise, 3.5-6.1 x the atomics' spread on MyGAN; ``_dp_close``);
+    both gloo ranks hold the same parameters bit for bit, and each rank
+    launched the augment kernel once per step, the fused flow kernel 3
+    times per MyGAN step and the conv kernel as at dp 1 per clstm step;
+    step medians beside the plain runs', and the NCCL rank's all-reduce
+    milliseconds per step by caller;
+27. native: the host runtime on mp4 files written to disk (b8, T16,
+    staged 140^2 from 160^2): decode + pack ms per batch and the train
+    loop's wait per batch with a consumer holding each batch 150 ms,
+    with the library and with the Python forms, in turns.
 
 bfloat16, the JAX package's and the trainer's default compute dtype, runs
 beside float32: the conv kernel's bf16 form at the nine launches of a
@@ -177,7 +198,7 @@ and the int8 serve + infer path) starts with the launch counts of the
 kernels set to 0 and reads them after; the same counters hold the int8
 GEMM's calls (``int8_matmul``: cuBLASLt, no kernel of the port), printed
 on the phases' lines and not on the kernels line.  ``--slice-only``
-runs the build and phases 23-25 alone and prints no result line.  Then come one JSON line of kernel results
+runs the build and phases 26-27 alone and prints no result line.  Then come one JSON line of kernel results
 and, last, ``{"ok": true, "device": {...}}``.  Per kernel the JSON line
 holds its time (``ms``), its plain version's (``plain_ms``), the time of
 one PyTorch call that computes the same function where there is one
@@ -199,7 +220,8 @@ launches summed over one step of their path (``step_ms_sum``,
 ``step_bound_ms_sum``); each kernel also its nonzero launches on the
 other runs (``launches_on``: AnoGAN and GANomaly for the augment and
 opening kernels; every ``--accum``, ``--remat``, ``--host_flow``,
-evaluate, ``--moe_experts``, int8 serve and ``--int8_disc`` run).  Any failure raises: the script exits non-zero and
+evaluate, ``--moe_experts``, int8 serve and ``--int8_disc`` run, and
+each rank of the ``--dp`` runs).  Any failure raises: the script exits non-zero and
 prints no last line.  It does the same without a card, and outside a
 checkout of the repo.
 """
@@ -211,6 +233,7 @@ import collections
 import contextlib
 import copy
 import gc
+import io
 import json
 import math
 import signal
@@ -1266,46 +1289,23 @@ def phase_serve_bf16(paths: dict, f32_ms: dict) -> dict:
 
 def _wrappers() -> dict:
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
-    from vfd_gan_tpu_torch.ops import (
-        augment,
-        flow_fused,
-        flow_refine,
-        spatial_conv,
-        warp,
-    )
-    from vfd_gan_tpu_torch.ops.int8 import int8_matmul
-    from vfd_gan_tpu_torch.ops.morphology import open_planes_cuda
+    from vfd_gan_tpu_torch.ops import launches
 
-    # int8_matmul is cuBLASLt's int8 GEMM (quant/), no kernel of the port:
-    # counted beside the kernels, not on the kernels line
-    return {"morphology_open": open_planes_cuda,
-            "flow_fused": flow_fused.flow_refine_fused_cuda,
-            "flow_warp": warp.bilinear_warp_cuda,
-            "flow_refine": flow_refine.flow_refine_step_cuda,
-            "augment_gather": augment.augment_gather_cuda,
-            "conv3x3": spatial_conv.conv3x3_cuda,
-            "int8_matmul": int8_matmul}
+    return launches.wrappers()
 
 
 def _reset_counts() -> None:
-    for fn in _wrappers().values():
-        fn.launches = 0
-        if hasattr(fn, "launches_by_plane"):
-            fn.launches_by_plane.clear()
-            fn.fields = 0
-    _wrappers()["conv3x3"].launches_bf16 = 0
+    from vfd_gan_tpu_torch.ops import launches
+
+    launches.reset()
 
 
 def _counts() -> dict:
     """Launches per kernel, and for the solver kernels, which count them by
     plane as well, per ``"kernel@HxW"``."""
-    counts = {k: fn.launches for k, fn in _wrappers().items()}
-    # the conv wrapper counts its bfloat16 launches apart
-    counts["conv3x3_bf16"] = _wrappers()["conv3x3"].launches_bf16
-    for k, fn in _wrappers().items():
-        for (h, w), n in getattr(fn, "launches_by_plane", {}).items():
-            counts[f"{k}@{h}x{w}"] = n
-    return counts
+    from vfd_gan_tpu_torch.ops import launches
+
+    return launches.counts()
 
 
 def run_trainer(argv, engine_cls):
@@ -2470,17 +2470,19 @@ def _short_run(tmp: Path, tag: str, model: str, dtype: str | None,
     return engine, counts, sweep, median, (train_peak[0], peak)
 
 
-def _spread_close(what: str, got: dict, want: dict, again: dict) -> str:
-    """``got`` within 4 x the spread of two runs of the same thing
+def _spread_close(what: str, got: dict, want: dict, again: dict,
+                  factor: float = 4.0) -> str:
+    """``got`` within ``factor`` x the spread of two runs of the same thing
     (``want``, ``again``) plus 1e-5, by relative L2 distance, the median
     tensor's and the whole set's (``tools/step_reference.within_spread``);
     returns the readings."""
     from vfd_gan_tpu_torch.tools.step_reference import within_spread
 
-    dist, spread, ok = within_spread(got, want, again)
-    check(ok, f"{what}: {dist} within 4 x the spread {spread} + 1e-5")
-    return (f"{what} median {dist[0]:.3g}, whole {dist[1]:.3g} (two plain "
-            f"runs: {spread[0]:.3g}, {spread[1]:.3g})")
+    dist, spread, ok = within_spread(got, want, again, factor)
+    check(ok, f"{what}: {dist} within {factor:g} x the spread {spread} + "
+              f"1e-5")
+    return (f"{what} median {dist[0]:.3g}, whole {dist[1]:.3g} (two "
+            f"reference runs: {spread[0]:.3g}, {spread[1]:.3g})")
 
 
 def _buffers_as_plain(what: str, got: dict, want: dict, again: dict) -> str:
@@ -3211,6 +3213,233 @@ def phase_int8_disc(tmp: Path) -> dict:
     return runs
 
 
+# the dp phases: train steps per run
+DP_STEPS = 3
+
+
+def _dp_case(name: str, model: str, dp: int, **kw) -> dict:
+    """A ``tools/dp_equivalence.py`` case on the card: ``DP_STEPS`` float32
+    steps of ``model`` at the reference width, b8 global, no sweep;
+    ``dp`` 1 is a plain run (outside any group)."""
+    widths = ["--ngf", "32", "--ndf", "32", "--flow_scale", "0.5"] \
+        if model == "mygan" else []
+    argv = ["--model", model, "--batchsize", str(BATCH), "--nfr", str(NFR),
+            "--isize", str(ISIZE), *widths, "--compute_dtype", "float32",
+            "--synthetic_data", str(DP_STEPS), "--synthetic_test_batches",
+            "1", "--ep", "1", "--freq", "1000"]
+    return dict(kind="train", name=name, argv=argv, steps=DP_STEPS, dp=dp,
+                device="cuda", **kw)
+
+
+def _dp_close(what: str, got: dict, ref: dict, again: dict) -> str:
+    """A dp run's parameters and running statistics against two runs of
+    its reference: within ``parallel/verify.py``'s K (10) x their spread,
+    plus 1e-5 (``_spread_close``).  Not 4 x: the dp path's kernels round
+    otherwise than the reference's (the two-pass BatchNorm against
+    cuDNN's; cuDNN's algorithms at 4 clips a rank against 8), and on
+    MyGAN that lands 3.5-6.1 x the atomics' spread (PR 13's calls: 6.1e-5
+    to 7.1e-5 against spreads of 1.0e-5 to 1.8e-5), which the 4 x rule
+    fails whenever two plain runs happen to lie close."""
+    from vfd_gan_tpu_torch.parallel.verify import K
+
+    out = []
+    for kind in ("params", "buffers"):
+        keep = [k for k in ref[kind] if kind == "params" or "running" in k]
+        out.append(_spread_close(
+            f"{what} {kind}", {k: got[kind][k] for k in keep},
+            {k: ref[kind][k] for k in keep},
+            {k: again[kind][k] for k in keep}, factor=K))
+    return "; ".join(out)
+
+
+def _median_ms(result: dict) -> float:
+    return statistics.median(result["step_ms"][1:])
+
+
+def _collectives(result: dict) -> str:
+    return ", ".join(f"{k} {ms:.2f} ms x{n:g}" for k, (ms, n) in sorted(
+        result["collective_ms"].items()))
+
+
+def phase_dp(tmp: Path) -> dict:
+    """``--dp``: the trainer's ``--dp 0`` at the reference width on the
+    default command line (bf16) resolves to dp 1; a one-rank NCCL group
+    runs the dp code path (synced BatchNorms, the synced flow stretch,
+    the sliced draws, the gradient all-reduce) for MyGAN and clstm, held
+    against two plain runs of the same steps, and two gloo ranks on this
+    one card run MyGAN and clstm at b8 (4 per rank), held against two
+    dp-1 runs (``_dp_close``).  Returns the kernels' launches by run
+    (rank 0's; rank 1's beside them)."""
+    from vfd_gan_tpu_torch.cli import trainer
+    from vfd_gan_tpu_torch.tools import dp_equivalence as eq
+
+    t0 = time.perf_counter()
+    argv = ["--model", "mygan", "--batchsize", str(BATCH), "--nfr", str(NFR),
+            "--isize", str(ISIZE), "--ngf", "32", "--ndf", "32", "--dp", "0",
+            "--synthetic_data", "2", "--synthetic_test_batches", "1", "--ep",
+            "1", "--freq", "1000", "--device", "cuda", "--no-tensorboard",
+            "--result_root", str(tmp / "dp0")]
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        engine = trainer.main(argv)
+    check(engine is not None and engine.global_step == 2
+          and f"--dp 0 -> dp {torch.cuda.device_count()}" in said.getvalue(),
+          f"--dp 0 resolves to the visible cards and trains in this "
+          f"process: {said.getvalue()[-300:]}")
+    say("dp", f"trainer --dp 0 (bf16 default, b{BATCH} T{NFR} {ISIZE}^2): "
+              + said.getvalue().split(" >> --dp 0")[1].split("\n")[0].strip())
+    del engine
+
+    # the plain runs in this process (no group: the plain path), the dp
+    # runs in ranks of their own
+    plain = {m: tuple(eq.run_train(_dp_case(f"{m}.plain{i}", m, 1),
+                                   tmp / "dp_plain", solo=False)
+                      for i in (1, 2)) for m in ("mygan", "clstm")}
+    nccl, gloo = tmp / "dp_nccl", tmp / "dp_gloo"
+    # dp 1 on the dp path, twice each (the second MyGAN run with its
+    # all-reduces timed: the device synchronised around them, the same
+    # arithmetic)
+    eq.run([_dp_case("mygan.nccl1", "mygan", 2),
+            _dp_case("mygan.nccl1.timed", "mygan", 2,
+                     time_collectives=True),
+            _dp_case("clstm.nccl1", "clstm", 2),
+            _dp_case("clstm.nccl1.again", "clstm", 2)],
+           nccl, world=1, backend="nccl", timeout=300)
+    eq.run([_dp_case("mygan.gloo2", "mygan", 2),
+            _dp_case("clstm.gloo2", "clstm", 2)],
+           gloo, world=2, backend="gloo", timeout=300)
+
+    def load(root, name):
+        return torch.load(root / name, weights_only=False)
+
+    dp1 = {"mygan": (load(nccl, "mygan.nccl1.rank0.pt"),
+                     load(nccl, "mygan.nccl1.timed.rank0.pt")),
+           "clstm": (load(nccl, "clstm.nccl1.rank0.pt"),
+                     load(nccl, "clstm.nccl1.again.rank0.pt"))}
+    # each run against its reference: the dp path at dp 1 against the
+    # plain path, dp 2 against the dp path at dp 1
+    runs = {"mygan nccl1": (dp1["mygan"][0], plain["mygan"]),
+            "clstm nccl1": (dp1["clstm"][0], plain["clstm"]),
+            "mygan gloo2": (load(gloo, "mygan.gloo2.rank0.pt"),
+                            dp1["mygan"]),
+            "clstm gloo2": (load(gloo, "clstm.gloo2.rank0.pt"),
+                            dp1["clstm"])}
+    rank1 = {"mygan gloo2": load(gloo, "mygan.gloo2.rank1.pt"),
+             "clstm gloo2": load(gloo, "clstm.gloo2.rank1.pt")}
+    launches = {}
+    for what, (got, refs) in runs.items():
+        model = what.split()[0]
+        say("dp", _dp_close(what, got, *refs))
+        for name, res in ((what, got), *(((f"{what} rank1", rank1[what]),)
+                                         if what in rank1 else ())):
+            counts = res["launches"]
+            check(counts["augment_gather"] == DP_STEPS,
+                  f"{name}: the augment kernel once per step: {counts}")
+            check(model != "mygan" or counts["flow_fused"] == 3 * DP_STEPS,
+                  f"{name}: the fused flow kernel 3 times per step: "
+                  f"{counts}")
+            check(model != "clstm" or counts["conv3x3"]
+                  == DP_STEPS * CONV_LAUNCHES_PER_STEP,
+                  f"{name}: the conv kernel per step as at dp 1: {counts}")
+            launches[f"dp {name}"] = counts
+        for r in (got, rank1.get(what)):
+            if r is not None:
+                check(all(np.isfinite(v) for step in r["losses"]
+                          for v in step.values()), f"{what}: finite losses")
+    for what in rank1:
+        check(all(torch.equal(runs[what][0]["params"][k], v)
+                  for k, v in rank1[what]["params"].items()),
+              f"{what}: both ranks hold the same parameters bit for bit")
+    timed = {"nccl1": load(nccl, "mygan.nccl1.timed.rank0.pt")}
+    say("dp", "MyGAN float32 b8 step median ms (steps 2-3): plain "
+              f"{_median_ms(plain['mygan'][0]):.1f} / "
+              f"{_median_ms(plain['mygan'][1]):.1f}, dp path on one NCCL "
+              f"rank {_median_ms(runs['mygan nccl1'][0]):.1f}, 2 gloo ranks "
+              f"on one card {_median_ms(runs['mygan gloo2'][0]):.1f}; clstm "
+              f"plain {_median_ms(plain['clstm'][0]):.1f}, one NCCL rank "
+              f"{_median_ms(runs['clstm nccl1'][0]):.1f}, 2 gloo ranks "
+              f"{_median_ms(runs['clstm gloo2'][0]):.1f}")
+    for name, res in timed.items():
+        say("dp", f"MyGAN {name}: all-reduce ms and count per step, by "
+                  f"caller (device synchronised around each): "
+                  f"{_collectives(res)}")
+    say("dp", f"launches per rank under 2 gloo ranks: "
+              f"{json.dumps({k: v for k, v in launches.items()})}; "
+              f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _host_forms(plain: bool):
+    """The dataset's host runtime: the library (``plain`` False) or the
+    Python forms, for the block."""
+    from vfd_gan_tpu_torch.data import native
+
+    if not plain:
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    for name in ("pack_clips", "make_queue", "window_table"):
+        saved = getattr(native, name)
+        setattr(native, name, getattr(native, f"{name}_plain"))
+        stack.callback(setattr, native, name, saved)
+    return stack
+
+
+def phase_native(tmp: Path) -> None:
+    """The host runtime on real mp4 files: decode + pack ms per b8 batch,
+    and the train loop's wait per batch with a consumer that holds each
+    batch ~MyGAN's float32 step, with the library and with the Python
+    forms, in turns."""
+    from vfd_gan_tpu_torch.data import dataset, native
+    from vfd_gan_tpu_torch.data.synthetic import make_dataset
+    from vfd_gan_tpu_torch.ops.augment import staging_size
+
+    t0 = time.perf_counter()
+    train_list, _ = make_dataset(str(tmp / "mp4"), n_train=6, n_test=1,
+                                 frames=64, size=160)
+    say("native", f"library {native.build().name}; mp4 data written in "
+                  f"{time.perf_counter() - t0:.1f} s")
+    out = {}
+    for plain in (False, True, True, False):
+        with _host_forms(plain):
+            ds = dataset.MdfVideoDataset(train_list, NFR,
+                                         staging=staging_size(ISIZE))
+            it = dataset.ClipBatchIterator(ds, BATCH, seed=0, workers=4)
+            decode = []
+            for b in range(len(it)):
+                s0 = time.perf_counter()
+                it._assemble(list(range(b * BATCH, (b + 1) * BATCH)))
+                decode.append(1e3 * (time.perf_counter() - s0))
+            waits, got = [], 0
+            w0 = time.perf_counter()
+            for _ in it:
+                waits.append(1e3 * (time.perf_counter() - w0))
+                got += 1
+                time.sleep(0.15)            # the step holding the batch
+                w0 = time.perf_counter()
+        check(got == len(it) > 2, f"native: {got} batches of {len(it)}")
+        key = "python" if plain else "library"
+        out.setdefault(key, []).append((statistics.median(decode),
+                                        statistics.median(waits[1:]),
+                                        max(waits[1:])))
+    say("native", f"b{BATCH} T{NFR} staged {staging_size(ISIZE)}^2 from "
+                  f"{len(ds)} clips of 160^2 mp4 (4 decode threads): " +
+                  "; ".join(f"{k}: decode + pack {d:.1f} ms per batch, wait "
+                            f"median {w:.3f} ms (max {m:.3f})"
+                            for k, runs in out.items()
+                            for d, w, m in runs) +
+                  f"; {time.perf_counter() - t0:.1f} s")
+
+
+def run_dp_phases(tmp: Path) -> dict:
+    """The --dp and host-runtime phases; returns the kernels' launches by
+    run."""
+    t0 = time.perf_counter()
+    runs = phase_dp(tmp)
+    phase_native(tmp)
+    say("dp-phases", f"--dp, native: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def run_slice_phases(tmp: Path, paths: dict, f32_ms: dict,
                      bf16_ms: dict) -> dict:
     """The MoE, int8-serve and int8-disc phases; returns the kernels'
@@ -3243,13 +3472,11 @@ def run_new_phases(tmp: Path, device, paths: dict, base: dict) -> dict:
 
 
 def slice_only(name: str) -> None:
-    """``--slice-only``: the build, the checkpoints and this slice's
-    phases alone (the MoE block, int8 serving, --int8_disc), for a short
-    call while they are worked on; prints no result line."""
-    nan = {family: float("nan") for family in SERVED}
+    """``--slice-only``: the build and this slice's phases alone (--dp,
+    the host runtime), for a short call while they are worked on; prints
+    no result line."""
     with tempfile.TemporaryDirectory() as tmp:
-        runs = run_slice_phases(Path(tmp), make_checkpoints(Path(tmp)), nan,
-                                nan)
+        runs = run_dp_phases(Path(tmp))
     say("slice-only", f"{name}: launches by run {json.dumps(runs)}; no "
                       "result line (the full run prints it)")
 
@@ -3393,6 +3620,9 @@ def main() -> None:
         torch.cuda.empty_cache()
         new_runs.update(run_slice_phases(Path(tmp), paths, f32_forward_ms,
                                          bf16_forward_ms))
+        gc.collect()
+        torch.cuda.empty_cache()
+        new_runs.update(run_dp_phases(Path(tmp)))
     # launches: each kernel's count on the main path that runs it (MyGAN's
     # trainer for the fused and opening kernels, its --flow_impl
     # two_kernel step for warp and refine, the clstm trainer for the

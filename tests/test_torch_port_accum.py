@@ -69,6 +69,7 @@ from vfd_gan_tpu_torch.utils.weights import (
     dualdisc_state_dict,
     generator_state_dict,
 )
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 B, T, S, NGF, NDF, K = 2, 16, 64, 4, 4, 2
 ATOL = 1e-5

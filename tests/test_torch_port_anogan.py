@@ -77,6 +77,7 @@ from vfd_gan_tpu_torch.utils.weights import (
     anogan_discriminator_state_dict,
     anogan_generator_state_dict,
 )
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 B, T, S = 2, 16, 16
 ATOL = 1e-5

@@ -54,6 +54,7 @@ from vfd_gan_tpu_torch.ops import resize
 from vfd_gan_tpu_torch.ops.image import to_channel_first, to_channel_last
 from vfd_gan_tpu_torch.ops.spatial_conv import conv3x3, conv3x3_plain
 from vfd_gan_tpu_torch.utils import weights
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 BF16 = torch.bfloat16
 REL = 2.0 ** -7          # relative tolerance of the exact-rounding cases

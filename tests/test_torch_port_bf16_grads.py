@@ -54,6 +54,7 @@ from vfd_gan_tpu_torch.models import layers
 from vfd_gan_tpu_torch.ops import resize
 from vfd_gan_tpu_torch.ops.image import to_channel_first, to_channel_last
 from vfd_gan_tpu_torch.utils import weights
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 EXACT = 1e-4
 NOISE = 1.5

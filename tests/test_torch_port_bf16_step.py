@@ -74,6 +74,7 @@ from vfd_gan_tpu_torch.ops import augment, spatial_conv
 from vfd_gan_tpu_torch.train import supervised_engine
 from vfd_gan_tpu_torch.train.state import relative_distances
 from vfd_gan_tpu_torch.train.supervised_engine import SupervisedEngine
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 BF16 = torch.bfloat16
 LOSS_RTOL = 1e-2          # module docstring

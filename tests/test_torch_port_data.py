@@ -28,6 +28,7 @@ from vfd_gan_tpu_torch.data import video_io as pio
 from vfd_gan_tpu_torch.data.device_synthetic import DeviceSyntheticIterator
 from vfd_gan_tpu_torch.parallel import prefetch
 from vfd_gan_tpu_torch.parallel.prefetch import device_prefetch, to_device
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 FIELDS = ("data", "real", "mask", "label", "index")
 

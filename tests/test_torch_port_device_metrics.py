@@ -19,6 +19,7 @@ from vfd_gan_tpu.eval import device_metrics as jdm
 from vfd_gan_tpu_torch.cli import trainer
 from vfd_gan_tpu_torch.eval import device_metrics as dm
 from vfd_gan_tpu_torch.eval import metrics as host
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 
 def _cases():

@@ -51,6 +51,7 @@ from vfd_gan_tpu_torch.train.gan_engine import MyGanEngine
 from vfd_gan_tpu_torch.train.ganomaly_engine import GanomalyEngine
 from vfd_gan_tpu_torch.train.supervised_engine import SupervisedEngine
 from vfd_gan_tpu_torch.utils import weights
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 pytest.importorskip("cv2")
 CPU = torch.device("cpu")

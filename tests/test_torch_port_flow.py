@@ -31,6 +31,7 @@ from vfd_gan_tpu.ops.pallas.flow_refine import flow_refine_step_pallas
 from vfd_gan_tpu.ops.pallas.warp import bilinear_warp_pallas
 from vfd_gan_tpu_torch.ops import corr, flow, flow_fused, flow_refine, warp
 from vfd_gan_tpu_torch.ops import image, resize
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 
 def _t(x: np.ndarray) -> torch.Tensor:

@@ -62,6 +62,7 @@ from vfd_gan_tpu_torch.utils.weights import (
     ganomaly_discriminator_state_dict,
     ganomaly_generator_state_dict,
 )
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 B, T, S = 2, 8, 32
 N = B * T

@@ -20,6 +20,7 @@ from vfd_gan_tpu_torch.models.mygan import Generator
 from vfd_gan_tpu_torch.ops.image import to_channel_first, to_channel_last
 from vfd_gan_tpu_torch.utils.checkpoint import load_state_dict
 from vfd_gan_tpu_torch.utils.weights import generator_state_dict
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 NGF = 4
 SHAPE = (2, 16, 16, 16, 3)

@@ -26,6 +26,7 @@ from vfd_gan_tpu_torch.cli import trainer
 from vfd_gan_tpu_torch.models.layers import QConv3d
 from vfd_gan_tpu_torch.ops.image import to_channel_first, to_channel_last
 from vfd_gan_tpu_torch.quant.qdisc import qspatial_conv, qtemporal_conv
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 # case -> (x shape channel-last, JAX kernel shape, port function, JAX
 # function, the float conv's stride and padding)

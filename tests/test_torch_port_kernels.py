@@ -39,6 +39,7 @@ from vfd_gan_tpu.ops.pallas.augment import augment_gather_pallas
 from vfd_gan_tpu.ops.pallas.spatial_conv import conv3x3_pallas
 from vfd_gan_tpu_torch.ops import augment
 from vfd_gan_tpu_torch.ops.spatial_conv import conv3x3, conv3x3_plain
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = 1e-5
 GRAD_TOL = 1e-4

@@ -12,6 +12,7 @@ from sklearn import metrics as skm
 from vfd_gan_tpu.eval import metrics as jmetrics
 from vfd_gan_tpu_torch.eval import metrics
 from vfd_gan_tpu_torch.train.engine_base import EngineBase
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 
 def _case(name):

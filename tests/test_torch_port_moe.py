@@ -81,6 +81,7 @@ from vfd_gan_tpu_torch.train import supervised_engine
 from vfd_gan_tpu_torch.train.state import relative_distances
 from vfd_gan_tpu_torch.train.supervised_engine import SupervisedEngine
 from vfd_gan_tpu_torch.utils.weights import xception_state_dict
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 E, D, T = 4, 8, 16
 ATOL = 1e-5

@@ -19,6 +19,7 @@ from vfd_gan_tpu.ops.resize import upsample2x as jupsample2x
 from vfd_gan_tpu_torch.ops import convs, morphology
 from vfd_gan_tpu_torch.ops.image import threshold
 from vfd_gan_tpu_torch.ops.resize import upsample2x
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 # float32 on both sides, summed in a different order: a few ulps of the
 # O(1) outputs at these sizes, well inside 1e-5.

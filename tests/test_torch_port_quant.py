@@ -67,6 +67,7 @@ from vfd_gan_tpu_torch.quant import (
     qxception,
 )
 from vfd_gan_tpu_torch.utils import weights
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 # the int8 forward with equal operands and scales against JAX's, max and
 # mean: MyGAN, Xception and the ConvLSTM measured 6.0e-8 at most;

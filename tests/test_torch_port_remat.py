@@ -33,6 +33,7 @@ from vfd_gan_tpu_torch.models.mygan import Generator
 from vfd_gan_tpu_torch.ops.image import to_channel_last
 from vfd_gan_tpu_torch.train.state import relative_distances
 from vfd_gan_tpu_torch.utils.weights import generator_state_dict
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 NGF, B, T, S = 4, 2, 16, 16
 SELECTIONS = {"all": (), "dconv1,uconv1": ("dconv1", "uconv1"),

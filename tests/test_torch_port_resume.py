@@ -28,6 +28,7 @@ from vfd_gan_tpu_torch.train.checkpoints import (
     restore_checkpoint,
     save_checkpoint,
 )
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 _COMMON = ["--compute_dtype", "float32", "--no-tensorboard", "--device",
            "cpu", "--lr", "2e-4", "--seed", "3", "--workers", "1"]

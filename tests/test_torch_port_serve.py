@@ -36,6 +36,7 @@ from vfd_gan_tpu_torch.cli.serve import (
 from vfd_gan_tpu_torch.models.mygan import Generator
 from vfd_gan_tpu_torch.ops.image import to_channel_first, to_channel_last
 from vfd_gan_tpu_torch.utils.weights import generator_state_dict
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 NGF, T, S = 4, 16, 16
 TIMEOUT = 30

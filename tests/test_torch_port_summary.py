@@ -24,6 +24,7 @@ from vfd_gan_tpu_torch.config import Config
 from vfd_gan_tpu_torch.obs import summary
 from vfd_gan_tpu_torch.obs.profiling import profile_trace
 from vfd_gan_tpu_torch.obs.summary import SummaryLogger, _to_grid
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True, scope="module")

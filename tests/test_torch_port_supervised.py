@@ -41,6 +41,7 @@ from vfd_gan_tpu_torch.utils.weights import (
     convlstm_state_dict,
     xception_state_dict,
 )
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 ATOL = 1e-5
 LR = Config().lr

@@ -42,6 +42,7 @@ from vfd_gan_tpu.train.supervised_engine import (
 from vfd_gan_tpu_torch.ops import augment
 from vfd_gan_tpu_torch.train import supervised_engine
 from vfd_gan_tpu_torch.train.supervised_engine import SupervisedEngine
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 
 def _identity_dropout(self, inputs, *args, **kwargs):

@@ -58,6 +58,7 @@ from vfd_gan_tpu_torch.utils.weights import (
     dualdisc_state_dict,
     generator_state_dict,
 )
+from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 
 FEATURE_MATCHING_RTOL = 5e-3     # module docstring

@@ -24,12 +24,23 @@ on SIGTERM, exact ``--resume``, TensorBoard panels, ``--cache_gt_flow``,
 other choice exits with the ``ROADMAP.md`` item that holds it. ``--device``
 defaults to ``cuda`` and raises without a card; ``--flow_impl`` applies to
 MyGAN only.
+
+``--dp N`` trains data-parallel, the same function as ``--dp 1`` over the
+global batch (``parallel/mesh.py``): this command starts the N ranks
+itself, one process each (``launch_ranks``: NCCL on ``cuda``, each rank
+on its own card; gloo on ``--device cpu``) and exits non-zero if one
+fails.  N is resolved as in the JAX trainer: on ``cuda`` capped at the
+visible cards (``--dp 0``: all of them) and shrunk to a divisor of the
+microbatch; on the CPU it is the number of processes.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+
+import torch
 
 from vfd_gan_tpu_torch.config import parse_args
 from vfd_gan_tpu_torch.data.dataset import ClipBatchIterator, MdfVideoDataset
@@ -37,7 +48,15 @@ from vfd_gan_tpu_torch.data.device_synthetic import DeviceSyntheticIterator
 from vfd_gan_tpu_torch.models import SUPERVISED
 from vfd_gan_tpu_torch.ops.augment import staging_size
 from vfd_gan_tpu_torch.ops.flow import IMPLS
+from vfd_gan_tpu_torch.parallel.mesh import (
+    launch,
+    rank_device,
+    rank_env,
+    rank_group,
+    resolve_dp,
+)
 from vfd_gan_tpu_torch.train.anogan_engine import AnoGanEngine
+from vfd_gan_tpu_torch.train.engine_base import refuse_unported
 from vfd_gan_tpu_torch.train.gan_engine import MyGanEngine
 from vfd_gan_tpu_torch.train.ganomaly_engine import GanomalyEngine
 from vfd_gan_tpu_torch.train.supervised_engine import SupervisedEngine
@@ -80,6 +99,7 @@ def parse(argv):
                      help="how the flow refinement runs on the card")
     ns, rest = own.parse_known_args(argv)
     cfg = parse_args(rest)
+    refuse_unported(cfg)
     if not cfg.synthetic_data and (not cfg.tr_plist or not cfg.ts_plist):
         print("error: --tr_plist and --ts_plist are required "
               "(no hardcoded dataset defaults; or use --synthetic_data N)",
@@ -88,10 +108,13 @@ def parse(argv):
     return cfg, ns.device, ns.flow_impl
 
 
-def build_engine(argv):
-    """The engine for a command line, its iterators attached, not yet run."""
+def build_engine(argv, rank: int | None = None):
+    """The engine for a command line, its iterators attached, not yet run
+    (on rank ``rank``'s card in a ``--dp`` group)."""
     cfg, device_name, flow_impl = parse(argv)
     device = resolve_device(device_name)
+    if rank is not None:
+        device = rank_device(device, rank)
     train_iter, test_iter = build_iterators(cfg, device)
     if cfg.model == "mygan":
         return MyGanEngine(cfg, train_iter, test_iter, device=device,
@@ -105,14 +128,51 @@ def build_engine(argv):
     raise ValueError(f"unknown model {cfg.model!r}")
 
 
-def main(argv=None):
-    """Train; returns the engine (its step times and scores) when done."""
-    engine = build_engine(sys.argv[1:] if argv is None else list(argv))
+def launch_ranks(argv, world: int, backend: str,
+                 timeout: float | None = None) -> None:
+    """``argv``'s training as ``world`` ranks of one group over
+    ``backend`` (``"nccl"`` or ``"gloo"``; gloo also runs several ranks
+    on one card), each a ``python -m vfd_gan_tpu_torch.cli.trainer``
+    process; raises if a rank fails or ``timeout`` seconds pass.  The
+    command passes no timeout (a run lasts as long as it trains): a rank
+    that hangs makes its peers' next all-reduce fail after the group's
+    timeout (``parallel/mesh.rank_group``), which stops every rank."""
+    launch("vfd_gan_tpu_torch.cli.trainer", [*argv, "--dp", str(world)],
+           world, backend, timeout=timeout)
+
+
+def _train(engine):
     try:
         engine.train()
     finally:
         engine.close()
     return engine
+
+
+def main(argv=None):
+    """Train; returns the engine (its step times and scores) when done,
+    or None when ``--dp`` ran the training in ranks of their own."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    started = rank_env()
+    if started is not None:
+        # a rank that launch_ranks started
+        rank, world, init_method, backend = started
+        # the rank's card is set before its group forms: NCCL needs it
+        device = rank_device(resolve_device(parse(argv)[1]), rank)
+        if device.type == "cpu":
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        with rank_group(rank, world, init_method, backend):
+            return _train(build_engine(argv, rank))
+    cfg, device_name, _ = parse(argv)
+    kind = resolve_device(device_name).type
+    dp = resolve_dp(cfg, kind)
+    if dp > 1:
+        try:
+            launch_ranks(argv, dp, "nccl" if kind == "cuda" else "gloo")
+        except RuntimeError as e:
+            raise SystemExit(f"--dp {dp}: {e}") from None
+        return None
+    return _train(build_engine(argv))
 
 
 if __name__ == "__main__":

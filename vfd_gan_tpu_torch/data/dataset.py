@@ -108,6 +108,10 @@ class ClipBatchIterator:
     (numpy's ``default_rng``, as in the JAX package: both yield the same
     batches), so the iterator's state is two ints, ``epoch`` (which pass is
     next) and ``skip_batches`` (how far into that pass to fast-forward).
+
+    ``rows`` (set by a ``--dp`` engine): the indices of this rank's rows
+    within each batch; the order is the same on every rank and each
+    decodes only its rows.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
@@ -120,6 +124,8 @@ class ClipBatchIterator:
         self.seed = seed
         self.epoch = 0          # index of the next pass (shuffle-order key)
         self.skip_batches = 0   # fast-forward within the next pass (resume)
+        # a --dp rank's rows of each batch (None: all of them)
+        self.rows = None
         self._pool = None
 
     def __len__(self) -> int:
@@ -161,6 +167,9 @@ class ClipBatchIterator:
                 if stop.is_set():
                     return
                 idx = order[b * self.batch_size:(b + 1) * self.batch_size]
+                if self.rows is not None:
+                    # the same order on every rank; each decodes its rows
+                    idx = idx[np.asarray(self.rows)]
                 try:
                     if not q.put(self._assemble(idx), stop_event=stop):
                         return

@@ -45,6 +45,9 @@ class DeviceSyntheticIterator:
         self.device = torch.device(device)
         self.epoch = 0          # index of the next pass
         self.skip_batches = 0   # fast-forward within the next pass (resume)
+        # a --dp rank's rows of each batch (None: all of them): the whole
+        # batch is drawn and these rows kept
+        self.rows = None
 
     def _generator(self, epoch: int, i: int) -> torch.Generator:
         seed = int(np.random.SeedSequence(
@@ -110,4 +113,8 @@ class DeviceSyntheticIterator:
         self.skip_batches = 0
         self.epoch += 1
         for i in range(start, self.n_batches):
-            yield self.batch(epoch, i)
+            batch = self.batch(epoch, i)
+            if self.rows is not None:
+                rows = self.rows.to(self.device)
+                batch = {k: v[rows] for k, v in batch.items()}
+            yield batch

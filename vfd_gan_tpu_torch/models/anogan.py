@@ -42,6 +42,7 @@ from vfd_gan_tpu_torch.models.layers import (
     TorchLinear,
     VideoBatchNorm,
     dropout,
+    float32_or_wider,
     make_conv3d,
 )
 from vfd_gan_tpu_torch.ops.convs import avg_pool_ncdhw
@@ -66,6 +67,9 @@ def _transpose_conv(cin: int, cout: int, stride: int, out_pad: int, *,
 class AnoGenerator(nn.Module):
     """z -> video generator (reference NetG, anogan.py:39-79);
     ``generator`` seeds the reference init."""
+
+    # a parallel.mesh.DataParallel: dropout draws the global batch's masks
+    dp = None
 
     def __init__(self, nfr: int = 16, isize: int = 128, *,
                  drop_rate: float = 0.25, dtype: torch.dtype = torch.float32,
@@ -104,7 +108,7 @@ class AnoGenerator(nn.Module):
         """Dropout, then the transposed conv at slot ``i + 1`` and the conv
         at ``i + 2``; the transposed conv's biased sum is read in the
         stage input's dtype."""
-        x = dropout(x, self.drop_rate, self.training, generator)
+        x = dropout(x, self.drop_rate, self.training, generator, self.dp)
         y = layer[str(i + 1)](x).to(x.dtype)
         return layer[str(i + 2)](y)
 
@@ -121,7 +125,7 @@ class AnoGenerator(nn.Module):
                          0.01)
         x = F.leaky_relu(self.layer3["3"](self._up(self.layer3, 0, x, g)),
                          0.01)
-        return torch.sigmoid(self._up(self.layer3, 5, x, g).float())
+        return torch.sigmoid(float32_or_wider(self._up(self.layer3, 5, x, g)))
 
 
 class AnoDiscriminator(nn.Module):
@@ -159,6 +163,6 @@ class AnoDiscriminator(nn.Module):
         x = avg_pool_ncdhw(F.leaky_relu(l2["2"](x), 0.01), 2)
         x = avg_pool_ncdhw(F.leaky_relu(l2["6"](l2["5"](x)), 0.01), 2)
         features = x.flatten(1)
-        score = torch.sigmoid(self.fc["0"](features).float())
+        score = torch.sigmoid(float32_or_wider(self.fc["0"](features)))
         return score[:, 0], features
 

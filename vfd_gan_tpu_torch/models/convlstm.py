@@ -31,7 +31,11 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from vfd_gan_tpu_torch.models.layers import VideoBatchNorm, make_conv3d
+from vfd_gan_tpu_torch.models.layers import (
+    VideoBatchNorm,
+    float32_or_wider,
+    make_conv3d,
+)
 from vfd_gan_tpu_torch.ops.image import to_channel_first, to_channel_last
 from vfd_gan_tpu_torch.ops.spatial_conv import conv3x3
 from vfd_gan_tpu_torch.utils.init import torch_default_
@@ -118,4 +122,5 @@ class ConvLSTMModel(nn.Module):
             y = getattr(self, f"clstm{i}")(y)
             # the BN sees an NCDHW view of the channel-last hidden states
             y = to_channel_last(getattr(self, f"bn{i}")(to_channel_first(y)))
-        return torch.sigmoid(self.conv_last(to_channel_first(y)).float())
+        return torch.sigmoid(
+            float32_or_wider(self.conv_last(to_channel_first(y))))

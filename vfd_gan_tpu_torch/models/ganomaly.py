@@ -29,6 +29,7 @@ from vfd_gan_tpu_torch.models.layers import (
     Conv2d,
     ConvTranspose2d,
     FrameBatchNorm,
+    float32_or_wider,
 )
 from vfd_gan_tpu_torch.utils.init import dcgan_normal_
 
@@ -124,7 +125,7 @@ class DcganDecoder(nn.Module):
         x = F.relu(self.stem(z))
         for block in (*self.pyramid, *self.extra):
             x = F.relu(block(x))
-        return torch.tanh(self.final(x).float())
+        return torch.tanh(float32_or_wider(self.final(x)))
 
 
 class GanomalyGenerator(nn.Module):
@@ -167,7 +168,7 @@ class GanomalyDiscriminator(nn.Module):
 
     def forward(self, x: torch.Tensor):
         feat = self.trunk(x)
-        score = torch.sigmoid(self.classifier(feat).float())
+        score = torch.sigmoid(float32_or_wider(self.classifier(feat)))
         return score.reshape(-1), feat
 
 

@@ -43,12 +43,30 @@ from vfd_gan_tpu_torch.quant.qdisc import qconv3d
 from vfd_gan_tpu_torch.utils.init import bn_scale_, dcgan_normal_, torch_default_
 
 
+def float32_or_wider(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is in float64: the cast of the float32
+    heads and losses, which leaves a float64 run (the equivalence checks'
+    precision, ``tools/dp_equivalence.py``) in float64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 class _DtypeBatchNorm:
     """A torch BatchNorm (eps 1e-5, momentum 0.1, unbiased running
     variance: JAX ``TorchBatchNorm``'s semantics) with scale ~ N(1, 0.02):
     float32 statistics and normalisation (a bfloat16 input is read as
     float32 by torch's mixed-dtype BatchNorm), the result in ``dtype``
-    (models/layers.py:143-144 of the JAX package)."""
+    (models/layers.py:143-144 of the JAX package).
+
+    Bound to an active ``parallel.mesh.DataParallel`` (``dp``), a
+    train-mode forward takes its statistics over the ranks' global batch
+    in JAX's two-pass form (models/layers.py:113-134 of the JAX package):
+    the sum and the element count summed over the ranks give the mean,
+    then the summed ``(x - mean)^2`` the variance, the count the unbiased
+    running variance.  Both sums are ``DataParallel.bn_sum``, whose
+    backward sums the gradient over the ranks: without it each rank would
+    differentiate its own loss alone."""
+
+    dp = None
 
     def __init__(self, features: int, *, dtype: torch.dtype = torch.float32,
                  device=None, generator: torch.Generator | None = None):
@@ -58,9 +76,33 @@ class _DtypeBatchNorm:
             bn_scale_(self.weight, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dp = self.dp
+        if self.training and dp is not None and dp.active \
+                and dp.bn_stats != "local":
+            y = self._global_batch(x, dp)
+        else:
+            y = super().forward(x)
         if self.dtype != torch.float32:
-            return super().forward(x).to(self.dtype)
-        return super().forward(x)
+            return y.to(self.dtype)
+        return y
+
+    def _global_batch(self, x: torch.Tensor, dp) -> torch.Tensor:
+        xf = x if x.dtype in (torch.float32, torch.float64) else x.float()
+        c = xf.shape[1]
+        axes = [0, *range(2, xf.dim())]
+        shape = (1, c) + (1,) * (xf.dim() - 2)
+        sums = dp.bn_sum(torch.cat(
+            [xf.sum(axes), xf.new_full((1,), xf.numel() // c)]))
+        n = sums[c]
+        d = xf - (sums[:c] / n).view(shape)
+        var = dp.bn_sum((d * d).sum(axes)) / n
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(sums[:c] / n, alpha=m)
+            self.running_var.mul_(1 - m).add_(var * (n / (n - 1)), alpha=m)
+            self.num_batches_tracked.add_(1)
+        return d * torch.rsqrt(var + self.eps).view(shape) \
+            * self.weight.view(shape) + self.bias.view(shape)
 
 
 class VideoBatchNorm(_DtypeBatchNorm, nn.BatchNorm3d):
@@ -242,16 +284,22 @@ class DiscConvBlock(nn.Module):
 
 
 def dropout(y: torch.Tensor, rate: float, training: bool,
-            generator: torch.Generator | None = None) -> torch.Tensor:
+            generator: torch.Generator | None = None,
+            dp=None) -> torch.Tensor:
     """flax ``nn.Dropout``'s function: keep with probability 1 - rate and
     scale kept values by 1 / (1 - rate), the mask drawn from ``generator``
     on its device (so a CPU generator gives a card step the CPU's masks);
-    inert out of training mode or at rate 0."""
+    inert out of training mode or at rate 0.  Under an active ``dp``
+    (``parallel.mesh.DataParallel``) the global batch's mask is drawn and
+    this rank's rows kept."""
     if not training or rate == 0.0:
         return y
-    draw = y.device if generator is None else generator.device
-    keep = torch.rand(y.shape, generator=generator,
-                      device=draw).to(y.device) >= rate
+    if dp is not None:
+        keep = dp.rand(y.shape, generator, y.device) >= rate
+    else:
+        draw = y.device if generator is None else generator.device
+        keep = torch.rand(y.shape, generator=generator,
+                          device=draw).to(y.device) >= rate
     return torch.where(keep, y / (1.0 - rate),
                        torch.zeros((), dtype=y.dtype, device=y.device))
 

@@ -48,6 +48,7 @@ from vfd_gan_tpu_torch.models.layers import (
     GenConvBlock,
     TorchLinear,
     dropout,
+    float32_or_wider,
 )
 from vfd_gan_tpu_torch.ops.convs import avg_pool_ncdhw
 from vfd_gan_tpu_torch.ops.resize import upsample_ncdhw
@@ -87,6 +88,8 @@ class Generator(nn.Module):
 
     BLOCKS = ("dconv1", "dconv2", "dconv3", "dconv4", "dconv5", "uconv5",
               "uconv4", "uconv3", "uconv2", "uconv1")
+    # a parallel.mesh.DataParallel: dropout draws the global batch's masks
+    dp = None
 
     def __init__(self, ngf: int = 32, *, drop_rate: float = 0.25,
                  remat: bool = False, remat_blocks: tuple = (),
@@ -119,7 +122,8 @@ class Generator(nn.Module):
         """Decoder dropout (flax ``nn.Dropout``'s function: keep with
         probability 1 - rate, scale kept values by 1 / (1 - rate)), drawn
         from ``generator``; inert in eval mode or at rate 0."""
-        return dropout(y, self.drop_rate, self.training, generator)
+        return dropout(y, self.drop_rate, self.training, generator,
+                       self.dp)
 
     def block(self, name: str, x: torch.Tensor) -> torch.Tensor:
         """The conv block ``name`` on ``x``, rematerialized where
@@ -145,7 +149,7 @@ class Generator(nn.Module):
         y = upsample_ncdhw(self.drop(blk("uconv3", torch.cat([y, d3], 1)), g))
         y = upsample_ncdhw(self.drop(blk("uconv2", torch.cat([y, d2], 1)), g))
         y = blk("uconv1", torch.cat([y, d1], 1))
-        return torch.sigmoid(self.conv_last(y).float())
+        return torch.sigmoid(float32_or_wider(self.conv_last(y)))
 
 
 class SpatialDisc(nn.Module):
@@ -169,7 +173,7 @@ class SpatialDisc(nn.Module):
             x = avg_pool_ncdhw(getattr(self, f"dconv{i + 1}")(x), (1, 2, 2))
         features = x                                 # (B, C, T, s, s)
         x = avg_pool_ncdhw(x, (x.shape[2], 1, 1), 1)   # global temporal pool
-        score = torch.sigmoid(self.linear(x.flatten(1)).float())
+        score = torch.sigmoid(float32_or_wider(self.linear(x.flatten(1))))
         return score[:, 0], features
 
 
@@ -194,7 +198,7 @@ class TemporalDisc(nn.Module):
             x = avg_pool_ncdhw(getattr(self, f"dconv{i + 1}")(x), (2, 1, 1))
         features = x                                 # (B, C, T/8, H, W)
         x = avg_pool_ncdhw(x, (1, x.shape[3], x.shape[4]), 1)  # global spatial
-        score = torch.sigmoid(self.linear(x.flatten(1)).float())
+        score = torch.sigmoid(float32_or_wider(self.linear(x.flatten(1))))
         return score[:, 0], features
 
 

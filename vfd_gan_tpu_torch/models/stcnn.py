@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from vfd_gan_tpu_torch.models.layers import (
     VideoBatchNorm,
     dropout,
+    float32_or_wider,
     make_conv3d,
 )
 from vfd_gan_tpu_torch.ops.convs import avg_pool_ncdhw
@@ -40,6 +41,9 @@ UP = (256, 256, 128, 64)
 
 class C2Plus1dBlock(nn.Module):
     """Residual factored-conv block (reference mystcnn.py:6-49)."""
+
+    # a parallel.mesh.DataParallel: dropout draws the global batch's masks
+    dp = None
 
     def __init__(self, cin: int, cout: int, down_samp: bool, *,
                  drop_rate: float = 0.25, dtype: torch.dtype = torch.float32,
@@ -69,7 +73,8 @@ class C2Plus1dBlock(nn.Module):
             residual = avg_pool_ncdhw(self.conv(x), 2).to(x.dtype)
         else:
             y = upsample_ncdhw(y)
-            residual = dropout(x, self.drop_rate, self.training, generator)
+            residual = dropout(x, self.drop_rate, self.training,
+                               generator, self.dp)
             residual = self.conv(upsample_ncdhw(residual)).to(x.dtype)
         return self.conv_last(torch.cat([y, residual], 1))
 
@@ -111,4 +116,4 @@ class AutoEncoder(nn.Module):
         y = self.up_sep2(torch.cat([y, d3], 1), g)
         y = self.up_sep3(torch.cat([y, d2], 1), g)
         y = self.up_sep4(torch.cat([y, d1], 1), g)
-        return torch.sigmoid(self.conv_last(y).float())
+        return torch.sigmoid(float32_or_wider(self.conv_last(y)))

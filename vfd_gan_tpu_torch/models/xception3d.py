@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from vfd_gan_tpu_torch.models.layers import (
     VideoBatchNorm,
     dropout,
+    float32_or_wider,
     make_conv3d,
 )
 from vfd_gan_tpu_torch.models.moe_block import MoEMlp
@@ -103,6 +104,9 @@ class DeConvBlock(nn.Module):
     """(1,3,3) conv -> BN -> LeakyReLU(0.2) -> dropout -> (1,2,2) trilinear
     upsample (reference xception.py:74-89)."""
 
+    # a parallel.mesh.DataParallel: dropout draws the global batch's masks
+    dp = None
+
     def __init__(self, cin: int, cout: int, *, drop_rate: float = 0.25,
                  dtype: torch.dtype = torch.float32, device=None,
                  generator: torch.Generator | None = None):
@@ -116,7 +120,7 @@ class DeConvBlock(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         y = F.leaky_relu(self.bn(self.conv(x)), negative_slope=0.2)
-        y = dropout(y, self.drop_rate, self.training, generator)
+        y = dropout(y, self.drop_rate, self.training, generator, self.dp)
         return upsample_ncdhw(y, (1, 2, 2))
 
 
@@ -173,4 +177,4 @@ class Xception3D(nn.Module):
         x = F.relu(self.bn4(self.conv4(x)))
         for i in range(1, 5):
             x = getattr(self, f"uconv{i}")(x, generator)
-        return torch.sigmoid(self.conv_last(x).float())
+        return torch.sigmoid(float32_or_wider(self.conv_last(x)))

@@ -50,12 +50,15 @@ class RunDirs:
     runs: str
 
 
-def make_run_dirs(result_root: str, model: str, comment: str) -> RunDirs:
+def make_run_dirs(result_root: str, model: str, comment: str,
+                  create: bool = True) -> RunDirs:
+    """The run's directories, made unless ``create`` is false (a ``--dp``
+    rank that writes nothing)."""
     stamp = datetime.now().strftime("%b%d_%H-%M-%S")
     root = os.path.join(result_root, model, comment, stamp)
     dirs = RunDirs(root=root, weights=os.path.join(root, "weights"),
                    runs=os.path.join(root, "runs"))
-    for d in (dirs.root, dirs.weights, dirs.runs):
+    for d in (dirs.root, dirs.weights, dirs.runs) if create else ():
         os.makedirs(d, exist_ok=True)
     return dirs
 

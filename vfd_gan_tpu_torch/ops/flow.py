@@ -230,29 +230,56 @@ def flow_to_rgb(flow: torch.Tensor) -> torch.Tensor:
     return _hsv_to_rgb(ang * 0.5, v)
 
 
-def video_to_flow_rgb(video: torch.Tensor, scale: float = 1.0,
-                      streams: int = 1,
-                      impl: str = "fused") -> torch.Tensor:
-    """The reference ``video_to_flow`` on the device.
-
-    RGB video ``(B, T, H, W, 3)`` in [-1, 1] -> flow video of the same
-    shape in [-1, 1]: per-time-slab min-max to [0, 1] across the batch,
-    grayscale, Farneback flow over consecutive frames, HSV encoding, the
-    last flow frame duplicated to keep T frames.
-
-    ``streams > 1``: the batch is ``streams`` equal contiguous groups (gt
-    and predicted masks in one call) and each group's time slabs are
-    min-max normalised on their own, as the reference's one call per
-    stream does (models/mygannet.py:281-282).  ``scale < 1`` computes the
-    flow at ``max(8, int(scale * size))`` and upsamples the RGB."""
+def minmax_stretch(video: torch.Tensor, streams: int = 1,
+                   dp=None) -> torch.Tensor:
+    """RGB video ``(B, T, H, W, 3)`` with each (stream, time slab) min-max
+    normalised to [0, 1) over that stream's (B/s, H, W, C).  Under an
+    active ``dp`` (``parallel.mesh.DataParallel``) the batch is this
+    rank's slice of each stream and the min and the max are the global
+    batch's, one all-reduced MAX of ``(max, -min)``; the same arithmetic
+    otherwise."""
     b, t, h, w, _ = video.shape
     if b % streams:
         raise ValueError(f"batch {b} is not divisible by streams {streams}")
     grouped = video.reshape(streams, b // streams, t, h, w, 3)
     # per (stream, time slab): min and max over that stream's (B/s, H, W, C)
-    norm = minmax_normalize(grouped, dims=(1, 3, 4, 5)).reshape(b, t, h, w, 3)
-    gray = (0.299 * norm[..., 0] + 0.587 * norm[..., 1]
+    lo = grouped.amin(dim=(1, 3, 4, 5), keepdim=True)
+    hi = grouped.amax(dim=(1, 3, 4, 5), keepdim=True)
+    if dp is not None and dp.active:
+        both = dp.all_reduce_max_(torch.cat([hi, -lo]))
+        hi, lo = both[:streams], -both[streams:]
+    return ((grouped - lo) / (hi - lo + 1e-5)).reshape(b, t, h, w, 3)
+
+
+def stretch_gray(video: torch.Tensor, streams: int = 1,
+                 dp=None) -> torch.Tensor:
+    """The flow's input: ``minmax_stretch``, then luma times 255,
+    ``(B, T, H, W)``."""
+    norm = minmax_stretch(video, streams, dp)
+    return (0.299 * norm[..., 0] + 0.587 * norm[..., 1]
             + 0.114 * norm[..., 2]) * 255.0
+
+
+def video_to_flow_rgb(video: torch.Tensor, scale: float = 1.0,
+                      streams: int = 1, impl: str = "fused",
+                      dp=None) -> torch.Tensor:
+    """The reference ``video_to_flow`` on the device.
+
+    RGB video ``(B, T, H, W, 3)`` in [-1, 1] -> flow video of the same
+    shape in [-1, 1]: per-time-slab min-max to [0, 1] across the batch
+    (``minmax_stretch``), grayscale, Farneback flow over consecutive frames,
+    HSV encoding, the last flow frame duplicated to keep T frames.
+
+    ``streams > 1``: the batch is ``streams`` equal contiguous groups (gt
+    and predicted masks in one call) and each group's time slabs are
+    min-max normalised on their own, as the reference's one call per
+    stream does (models/mygannet.py:281-282).  ``scale < 1`` computes the
+    flow at ``max(8, int(scale * size))`` and upsamples the RGB.  ``dp``:
+    the batch is this rank's slice and the stretch is global (JAX's GSPMD
+    min-max, ops/flow.py:414-420 of the JAX package); the rest of the
+    flow is per field."""
+    b, t, h, w, _ = video.shape
+    gray = stretch_gray(video, streams, dp)
 
     fh, fw = h, w
     if scale < 1.0:

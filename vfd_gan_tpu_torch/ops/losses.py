@@ -29,5 +29,6 @@ def weighted_bce(pred: torch.Tensor, target: torch.Tensor,
 
 
 def bce(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    """``torch.nn.BCELoss``: the mean, each log floored at -100."""
-    return F.binary_cross_entropy(pred, target)
+    """``torch.nn.BCELoss``: the mean, each log floored at -100 (the
+    target read in the prediction's dtype)."""
+    return F.binary_cross_entropy(pred, target.to(pred.dtype))

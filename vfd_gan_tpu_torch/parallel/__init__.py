@@ -1,1 +1,2 @@
-"""Moving batches to the device."""
+"""Moving batches to the device, data parallelism across processes
+(``mesh``, ``verify``) and the MoE dispatch."""

@@ -41,11 +41,12 @@ def manual_gan_accum(engine, data: torch.Tensor, gt: torch.Tensor, k: int,
             for n in metrics[0]}
 
 
-def within_spread(got: dict, want: dict, again: dict):
+def within_spread(got: dict, want: dict, again: dict, factor: float = 4.0):
     """``got`` against ``want``, where ``again`` is a second run of what
     made ``want``: the relative L2 distances (median tensor, whole set) of
     ``got`` and of ``again`` from ``want``, and whether each of ``got``'s
-    is at most 4 x the spread plus 1e-5."""
+    is at most ``factor`` x the spread plus 1e-5."""
     spread = relative_distances(again, want)
     dist = relative_distances(got, want)
-    return dist, spread, all(d <= 4 * s + 1e-5 for d, s in zip(dist, spread))
+    return dist, spread, all(d <= factor * s + 1e-5
+                             for d, s in zip(dist, spread))

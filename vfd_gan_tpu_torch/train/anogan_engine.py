@@ -90,6 +90,7 @@ class AnoGanEngine(EngineBase):
         self.rng = torch.Generator(device=device).manual_seed(cfg.seed + 1)
         # the tensors of the last train step's panels (a panel step only)
         self._viz: dict | None = None
+        self._bind_dp()
         if cfg.resume:
             self.restore_into(cfg.resume, self._nets())
             print(f"\n Loaded pretrained G/D weights from {cfg.resume}\n")
@@ -110,11 +111,14 @@ class AnoGanEngine(EngineBase):
         cfg = self.cfg
         batch = to_device(batch, self.device)
         b, _, s = batch["data"].shape[:3]
-        params = sample_clip_params(self.rng, b, s, cfg.isize,
-                                    device=self.device)
+        params = self._mine(sample_clip_params(
+            self.rng, self._global(b), s, cfg.isize, device=self.device))
         data, real, gt = augment_clips(params, batch["data"], batch["real"],
                                        batch["mask"], cfg.isize)
-        z = torch.randn((b, Z_DIM), generator=self.rng, device=self.device)
+        real = real.to(self.input_dtype)
+        z, = self._mine((torch.randn((self._global(b), Z_DIM),
+                                     generator=self.rng, device=self.device),))
+        z = z.to(self.input_dtype)
         metrics, fake = self._ano_core(real, z, self.rng,
                                        not self.stuck_in_eval)
         # the panels' tensors, kept (not copied) on a panel step only
@@ -149,7 +153,7 @@ class AnoGanEngine(EngineBase):
         d_loss = bce(s_real, ones) + bce(s_fake, zeros)
         self.d.optimizer.zero_grad(set_to_none=True)
         d_loss.backward()
-        self.d.optimizer.step()
+        self._step_done(self.d)
 
         # G step through the updated D, whose BatchNorms update a third time
         s_fake_g, _ = netd(fake)
@@ -158,7 +162,7 @@ class AnoGanEngine(EngineBase):
         grads = torch.autograd.grad(g_loss, g_params)
         for p, grad in zip(g_params, grads):
             p.grad = grad
-        self.g.optimizer.step()
+        self._step_done(self.g)
 
         metrics = {"d/err_d/train": d_loss.detach(),
                    "g/err_g/train": g_loss.detach()}
@@ -185,10 +189,12 @@ class AnoGanEngine(EngineBase):
         batch = to_device(batch, self.device)
         data, real, gt = normalize_clips(batch["data"], batch["real"],
                                          batch["mask"])
+        data, real, gt = (x.to(self.input_dtype) for x in (data, real, gt))
         b = data.shape[0]
         ones = torch.ones(b, device=data.device)
         zeros = torch.zeros(b, device=data.device)
-        z = torch.randn((b, Z_DIM), generator=self.rng, device=self.device)
+        z = torch.randn((b, Z_DIM), generator=self.rng,
+                        device=self.device).to(self.input_dtype)
         self.netg.eval()
         self.netd.eval()
         fake = self.netg(z)

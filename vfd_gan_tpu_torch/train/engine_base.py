@@ -24,6 +24,17 @@
   Under ``--device_scoring`` the sweep's arrays stay on the device and
   ``eval/device_metrics.score_sweep`` scores them there (the EER as well);
   four scalars reach the host and no curve CSV is written.
+* ``--dp N`` (``cli/trainer.py`` starts the ranks): the engine finds its
+  place in the process group (``parallel/mesh.DataParallel``), binds it to
+  its nets' BatchNorms and dropout, gives the train iterator this rank's
+  rows of each global batch and draws the global batch's random numbers
+  (``_global``, ``_mine``).  Every rank runs the whole test sweep alone
+  (``DataParallel.local``), so the scores and the best-checkpoint choice
+  are dp 1's on every rank; rank 0 alone writes the run dir, summaries,
+  ``.pth`` files, curve CSVs and ``latest.pt``.  The logged metrics are
+  means over the ranks; a stop signal on any rank parks every rank at the
+  same step (an all-reduced MAX of the flag); ``--resume`` loads on every
+  rank.
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from vfd_gan_tpu_torch.obs.summary import (  # noqa: F401  (re-exported)
 )
 from vfd_gan_tpu_torch.ops.image import threshold
 from vfd_gan_tpu_torch.ops.morphology import video_open
+from vfd_gan_tpu_torch.parallel.mesh import DataParallel
 from vfd_gan_tpu_torch.parallel.prefetch import device_prefetch
 from vfd_gan_tpu_torch.train.checkpoints import (
     AsyncSaver,
@@ -59,12 +71,21 @@ from vfd_gan_tpu_torch.train.checkpoints import (
 
 
 # JAX-engine options the port does not run yet, all of them several-card
-# ones: (is it set?, ROADMAP item)
+# ones: (is it set?, ROADMAP item).  Under --dp > 1 three options need a
+# global reduction of their own: the MoE slot cumsum and capacity over the
+# global token axis (parallel/moe.py:76,85 of the JAX package), the int8
+# per-tensor absmax (quant/qdisc.py:36-38) and the host flow's batch.
 UNPORTED = {
-    "dp/sp/tp/pp": (lambda c: c.dp > 1 or c.sp > 1 or c.tp > 1 or c.pp > 1,
-                    "queue 1 item 13 (parallelism)"),
+    "sp/tp/pp": (lambda c: c.sp > 1 or c.tp > 1 or c.pp > 1,
+                 "queue 1 item 13 (parallelism)"),
     "moe_shards": (lambda c: c.moe_shards > 1,
                    "queue 1 item 13 (parallelism)"),
+    "moe_experts with --dp": (lambda c: c.dp > 1 and c.moe_experts > 0,
+                              "queue 1 item 13 (parallelism)"),
+    "int8_disc with --dp": (lambda c: c.dp > 1 and c.int8_disc,
+                            "queue 1 item 13 (parallelism)"),
+    "host_flow with --dp": (lambda c: c.dp > 1 and c.host_flow,
+                            "queue 1 item 13 (parallelism)"),
 }
 
 
@@ -125,10 +146,20 @@ class EngineBase:
         self.train_iter = train_iter
         self.test_iter = test_iter
         self.device = device
+        # this process's place in a --dp group (world 1 without one)
+        self.dp = DataParallel.current(device)
+        if hasattr(train_iter, "rows"):
+            train_iter.rows = self.dp.rows(cfg.batchsize, cfg.accum)
+        # what the train step casts its batch to: the nets' dtype
+        # (float64 under to_float64)
+        self.input_dtype = torch.float32
+        writes = self.dp.writes
         self.dirs = make_run_dirs(cfg.result_root, cfg.model,
-                                  run_comment(cfg, gan))
-        self.summary = SummaryLogger(self.dirs.runs, enabled=cfg.tensorboard)
-        dump_config(self.dirs.root, cfg)
+                                  run_comment(cfg, gan), create=writes)
+        self.summary = SummaryLogger(self.dirs.runs,
+                                     enabled=cfg.tensorboard and writes)
+        if writes:
+            dump_config(self.dirs.root, cfg)
         self.global_step = 0
         self.epoch = 0
         self.batch_in_epoch = 0
@@ -149,11 +180,42 @@ class EngineBase:
         self.scores: dict[str, float] = {}
         self.hists: dict[str, np.ndarray] = {}
         self._autosaver: AsyncSaver | None = None
-        print(f"\n SAVE PATH == {self.dirs.root} \n")
+        if writes:
+            print(f"\n SAVE PATH == {self.dirs.root} \n")
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _bind_dp(self) -> None:
+        """Point the nets' BatchNorms and dropout at the engine's group."""
+        for net in self._nets().values():
+            self.dp.bind(net.module)
+
+    def _global(self, b: int) -> int:
+        """The global batch's rows when this rank holds ``b`` of them."""
+        return b * self.dp.world if self.dp.active else b
+
+    def _mine(self, draws):
+        """This rank's rows of draws made for the global batch (the
+        augment parameters, AnoGAN's z): every rank draws them all from
+        the engine's generator, which so stays the same on every rank."""
+        return self.dp.take(draws, self.cfg.accum)
+
+    def _step_done(self, *nets) -> None:
+        """Average the nets' gradients over the ranks, then step each
+        net's optimizer."""
+        for net in nets:
+            self.dp.mean_grads(net.module)
+            net.optimizer.step()
+
+    def to_float64(self) -> None:
+        """Every net, its optimizer state and the train step's batch in
+        float64: the precision of the dp equivalence checks
+        (``tools/dp_equivalence.py``)."""
+        for net in self._nets().values():
+            net.module.to(torch.float64)
+        self.input_dtype = torch.float64
 
     def _batches(self, iterator):
         """``iterator``'s batches on the engine's device, copied ahead."""
@@ -187,6 +249,7 @@ class EngineBase:
                 self.step_seconds.append(time.perf_counter() - t0)
 
                 if self.global_step % cfg.freq == 0:
+                    metrics = self.dp.mean_metrics(metrics)
                     self.errors.update(
                         {k: float(v) for k, v in metrics.items()})
                     window = self.step_seconds[-cfg.freq:]
@@ -196,10 +259,11 @@ class EngineBase:
                         # panels exist only for TensorBoard: without a
                         # writer nothing is fetched from the device
                         self._update_train_videos()
-                    self.test()
+                    with self.dp.local():
+                        self.test()
                     self.flush_summary()
 
-                if cfg.autosave_every and \
+                if cfg.autosave_every and self.dp.writes and \
                         self.global_step % cfg.autosave_every == 0:
                     if cfg.autosave_async:
                         self._async_saver().save(latest, self._ckpt_tree())
@@ -212,11 +276,12 @@ class EngineBase:
                           f"[Stopped at max_steps={cfg.max_steps}]")
                     return
 
-                if stop_signal():
-                    # SIGTERM/SIGINT: park a checkpoint that resumes
-                    # exactly, and return instead of dying
+                if self.dp.any(stop_signal() is not None):
+                    # SIGTERM/SIGINT (on any rank): park a checkpoint that
+                    # resumes exactly, and return instead of dying
                     self._wait_autosave()
-                    save_checkpoint(latest, self._ckpt_tree())
+                    if self.dp.writes:
+                        save_checkpoint(latest, self._ckpt_tree())
                     print(f" >> Training model {cfg.model}."
                           f"[Interrupted by signal {stop_signal()}; "
                           f"saved '{latest}'; resume with --resume]")
@@ -375,6 +440,7 @@ class EngineBase:
             return nan, nan, nan
         if getattr(getattr(self, "cfg", None), "device_scoring", False):
             return self._score_on_device(gts, predicts, save_fn)
+        curves = self._curves_dir
         labels = np.asarray(gts, dtype=np.int32).ravel()
         preds = np.asarray(predicts).ravel()
         if (labels == labels.flat[0]).all():
@@ -383,10 +449,10 @@ class EngineBase:
             self.scores.update({"score/roc": nan, "score/pr": nan,
                                 "score/f1": nan})
             return nan, nan, nan
-        roc = evaluate(labels, preds, self.best_roc, self.epoch,
-                       self.dirs.root, metric="roc")
-        pr = evaluate(labels, preds, self.best_pr, self.epoch,
-                      self.dirs.root, metric="pr")
+        roc = evaluate(labels, preds, self.best_roc, self.epoch, curves,
+                       metric="roc")
+        pr = evaluate(labels, preds, self.best_pr, self.epoch, curves,
+                      metric="pr")
         f1 = evaluate(labels, preds, metric="f1_score")
         if roc > self.best_roc:
             self.best_roc = roc
@@ -426,9 +492,25 @@ class EngineBase:
                             "score/f1": f1, "score/eer": float(eer_v)})
         return roc, pr, f1
 
+    @property
+    def _writes(self) -> bool:
+        """Does this process write the run's files (rank 0 of a --dp
+        group, or no group)?"""
+        dp = getattr(self, "dp", None)
+        return dp is None or dp.writes
+
+    @property
+    def _curves_dir(self) -> str | None:
+        """Where the sweep's curve CSVs go: the run dir on the writing
+        rank, nowhere on the others."""
+        return self.dirs.root if self._writes else None
+
     def flush_summary(self) -> None:
         """Send the window's panels, scalars and scores to TensorBoard,
-        print the scalars and scores and append them to ``metrics.jsonl``."""
+        print the scalars and scores and append them to ``metrics.jsonl``
+        (the writing rank)."""
+        if not self._writes:
+            return
         self.summary.update(self.global_step,
                             color_videos=self.color_videos,
                             gray_videos=self.gray_videos,
@@ -445,7 +527,10 @@ class EngineBase:
 
     def _save_weights(self, head: str) -> None:
         """A best model as the reference's GAN engines save it: one
-        ``{head}_ep{NNNN}_{net}.pth`` per net (``netG``, ``netD``)."""
+        ``{head}_ep{NNNN}_{net}.pth`` per net (``netG``, ``netD``); the
+        writing rank alone."""
+        if not self._writes:
+            return
         for net, state in self._nets().items():
             save_pth(self.weight_path(
                 best_ckpt_name(head, self.epoch, net) + ".pth"),

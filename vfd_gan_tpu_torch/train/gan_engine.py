@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from vfd_gan_tpu_torch.models import DTYPES
+from vfd_gan_tpu_torch.models.layers import float32_or_wider as f32
 from vfd_gan_tpu_torch.models.mygan import DualDisc, Generator
 from vfd_gan_tpu_torch.models.stcnn import AutoEncoder
 from vfd_gan_tpu_torch.ops.augment import (
@@ -116,6 +117,7 @@ class MyGanEngine(EngineBase):
         self._gt_flow_cache: dict[int, torch.Tensor] = {}
         # the tensors of the last train step's panels (a panel step only)
         self._viz: dict | None = None
+        self._bind_dp()
         if cfg.resume:
             self.restore_into(cfg.resume, self._nets())
             print(f"\n Loaded pretrained G/D weights from {cfg.resume}\n")
@@ -133,7 +135,8 @@ class MyGanEngine(EngineBase):
 
     def _flow(self, video: torch.Tensor, streams: int = 1) -> torch.Tensor:
         return video_to_flow_rgb(video, scale=self.cfg.flow_scale,
-                                 streams=streams, impl=self.flow_impl)
+                                 streams=streams, impl=self.flow_impl,
+                                 dp=self.dp)
 
     def _disc(self, gt_3ch, gt_flow, pre_3ch, pre_flow):
         """Sequential real and fake D passes (the reference's two forward
@@ -148,10 +151,11 @@ class MyGanEngine(EngineBase):
         cfg = self.cfg
         batch = to_device(batch, self.device)
         b, _, s = batch["data"].shape[:3]
-        params = sample_clip_params(self.rng, b, s, cfg.isize,
-                                    device=self.device)
+        params = self._mine(sample_clip_params(
+            self.rng, self._global(b), s, cfg.isize, device=self.device))
         data, real, gt = augment_clips(params, batch["data"], batch["real"],
                                        batch["mask"], cfg.isize)
+        data, gt = data.to(self.input_dtype), gt.to(self.input_dtype)
         metrics = self._gan_core(data, gt, self.rng)
         if self._viz is not None:
             self._viz.update({"input": data, "real": real})
@@ -185,9 +189,8 @@ class MyGanEngine(EngineBase):
                        for name in metrics}
             viz = {name: torch.cat([v[name] for _, v in micro])
                    for name in viz}
-        # both gradients are in; now both updates
-        self.g.optimizer.step()
-        self.d.optimizer.step()
+        # both gradients are in (averaged over the ranks); now both updates
+        self._step_done(self.g, self.d)
         # the panels' tensors, kept (not copied) on a panel step only;
         # their thresholded and opened forms are made when flushed
         self._viz = viz if self.panel_step else None
@@ -239,8 +242,8 @@ class MyGanEngine(EngineBase):
         err_d.backward()
 
         with torch.no_grad():
-            err_g_adv_s = l2_loss(sf_r.float(), sf_f.float())
-            err_g_adv_t = l2_loss(tf_r.float(), tf_f.float())
+            err_g_adv_s = l2_loss(f32(sf_r), f32(sf_f))
+            err_g_adv_t = l2_loss(f32(tf_r), f32(tf_f))
             err_g_adv = err_g_adv_s + err_g_adv_t
             g_con = g_con_scaled.detach()
             metrics = {
@@ -288,6 +291,7 @@ class MyGanEngine(EngineBase):
         batch = to_device(batch, self.device)
         data, real, gt = normalize_clips(batch["data"], batch["real"],
                                          batch["mask"])
+        data, real, gt = (x.to(self.input_dtype) for x in (data, real, gt))
         self.netg.train(train_mode)
         self.netd.train(train_mode)
         pred = to_channel_last(self.netg(
@@ -343,8 +347,8 @@ class MyGanEngine(EngineBase):
         m_pre = video_open(t_pre, cfg.morph_plane)
         (s_r, sf_r, t_r, tf_r), (s_f, sf_f, t_f, tf_f) = self._disc(
             gt_3ch, gt_flow, pre_3ch, pre_flow)
-        err_g_adv_s = l2_loss(sf_r.float(), sf_f.float())
-        err_g_adv_t = l2_loss(tf_r.float(), tf_f.float())
+        err_g_adv_s = l2_loss(f32(sf_r), f32(sf_f))
+        err_g_adv_t = l2_loss(f32(tf_r), f32(tf_f))
         err_g_con = weighted_bce(pred, gt)
         err_d_real_s = bce(s_r, ones)
         err_d_real_t = bce(t_r, ones)
@@ -420,4 +424,5 @@ class MyGanEngine(EngineBase):
             DualDisc(cfg.ndf, cfg.nfr, cfg.isize, dtype=self.dtype,
                      quant=cfg.int8_disc,
                      generator=init).to(self.device), cfg.lr, cfg.beta1)
+        self._bind_dp()
         print("Reloading Net d")

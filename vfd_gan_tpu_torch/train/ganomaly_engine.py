@@ -41,6 +41,7 @@ from vfd_gan_tpu_torch.models.ganomaly import (
     GanomalyGenerator,
     ganomaly_anomaly_score,
 )
+from vfd_gan_tpu_torch.models.layers import float32_or_wider as f32
 from vfd_gan_tpu_torch.ops.augment import (
     augment_clips,
     normalize_clips,
@@ -82,6 +83,7 @@ class GanomalyEngine(EngineBase):
         self.rng = torch.Generator(device=device).manual_seed(cfg.seed + 1)
         # the tensors of the last train step's panels (a panel step only)
         self._viz: dict | None = None
+        self._bind_dp()
         if cfg.resume:
             self.restore_into(cfg.resume, self._nets())
             print(f"\n Loaded pretrained G/D weights from {cfg.resume}\n")
@@ -102,11 +104,11 @@ class GanomalyEngine(EngineBase):
         cfg = self.cfg
         batch = to_device(batch, self.device)
         b, _, s = batch["data"].shape[:3]
-        params = sample_clip_params(self.rng, b, s, cfg.isize,
-                                    device=self.device)
+        params = self._mine(sample_clip_params(
+            self.rng, self._global(b), s, cfg.isize, device=self.device))
         data, real, _ = augment_clips(params, batch["data"], batch["real"],
                                       batch["mask"], cfg.isize)
-        metrics, fake = self._ganomaly_core(fold(data))
+        metrics, fake = self._ganomaly_core(fold(data.to(self.input_dtype)))
         self._viz = {"input": data, "real": real,
                      "gen": unfold(fake, data.shape)} \
             if self.panel_step else None
@@ -129,7 +131,7 @@ class GanomalyEngine(EngineBase):
         with torch.no_grad():
             _, feat_real = netd(frames)
         _, feat_fake = netd(fake)
-        err_adv = l2_loss(feat_real.float(), feat_fake.float())
+        err_adv = l2_loss(f32(feat_real), f32(feat_fake))
         err_con = (fake - frames).abs().mean()
         err_enc = l2_loss(z_in, z_out)
         g_loss = err_adv * cfg.w_adv + err_con * cfg.w_con + err_enc * W_ENC
@@ -137,7 +139,7 @@ class GanomalyEngine(EngineBase):
         grads = torch.autograd.grad(g_loss, g_params)
         for p, grad in zip(g_params, grads):
             p.grad = grad
-        self.g.optimizer.step()
+        self._step_done(self.g)
 
         # D step on the pre-update fake, detached
         fake_sg = fake.detach()
@@ -147,7 +149,7 @@ class GanomalyEngine(EngineBase):
         d_loss = bce(s_real, ones) + bce(s_fake, zeros)
         self.d.optimizer.zero_grad(set_to_none=True)
         d_loss.backward()
-        self.d.optimizer.step()
+        self._step_done(self.d)
 
         metrics = {"g/err_g_adv/train": err_adv, "g/err_g_con/train": err_con,
                    "g/err_g_enc/train": err_enc, "g/err_g/train": g_loss,
@@ -171,6 +173,7 @@ class GanomalyEngine(EngineBase):
         batch = to_device(batch, self.device)
         data, _, _ = normalize_clips(batch["data"], batch["real"],
                                      batch["mask"])
+        data = data.to(self.input_dtype)
         self.netg.eval()
         fake, z_in, z_out = self.netg(fold(data))
         scores = ganomaly_anomaly_score(z_in, z_out)
@@ -197,7 +200,7 @@ class GanomalyEngine(EngineBase):
             roc = 0.0  # a degenerate split (no anomalies)
         else:
             roc = evaluate(labels, scores, self.best_roc, self.epoch,
-                           self.dirs.root, metric="roc")
+                           self._curves_dir, metric="roc")
         if roc > self.best_roc:
             self.best_roc = roc
             self._save_weights("roc")

@@ -71,6 +71,7 @@ class SupervisedEngine(EngineBase):
         self.rng = torch.Generator(device=device).manual_seed(cfg.seed + 1)
         # the tensors of the last train step's panels (a panel step only)
         self._viz: dict | None = None
+        self._bind_dp()
         if cfg.resume:
             self.restore_into(cfg.resume, self._nets())
             print(f"\n Loaded pretrained weights from {cfg.resume}\n")
@@ -86,10 +87,11 @@ class SupervisedEngine(EngineBase):
         cfg = self.cfg
         batch = to_device(batch, self.device)
         b, _, s = batch["data"].shape[:3]
-        params = sample_clip_params(self.rng, b, s, cfg.isize,
-                                    device=self.device)
+        params = self._mine(sample_clip_params(
+            self.rng, self._global(b), s, cfg.isize, device=self.device))
         data, real, gt = augment_clips(params, batch["data"], batch["real"],
                                        batch["mask"], cfg.isize)
+        data, gt = data.to(self.input_dtype), gt.to(self.input_dtype)
         metrics = self._step(data, gt, self.rng)
         if self._viz is not None:
             self._viz.update({"data": data, "real": real})
@@ -130,7 +132,7 @@ class SupervisedEngine(EngineBase):
                     p.grad.div_(k)
             loss = sum(losses[1:], losses[0]) / k
             pred = torch.cat(preds)
-        self.net.optimizer.step()
+        self._step_done(self.net)
         self._viz = {"gt": gt, "pred": pred.detach()} \
             if self.panel_step else None
         return {"loss/err/train": loss.detach()}
@@ -155,6 +157,7 @@ class SupervisedEngine(EngineBase):
         batch = to_device(batch, self.device)
         data, real, gt = normalize_clips(batch["data"], batch["real"],
                                          batch["mask"])
+        data, real, gt = (x.to(self.input_dtype) for x in (data, real, gt))
         self.model.eval()
         pred = to_channel_last(self.model(to_channel_first(data)))
         t_pre = threshold(pred)
@@ -184,6 +187,8 @@ class SupervisedEngine(EngineBase):
         return roc, pr, f1
 
     def _save_weights(self, head: str) -> None:
+        if not self._writes:
+            return
         best = self.best_roc if head == "roc" else self.best_pr
         name = f"{head}-{best:.4f}_step{self.global_step:04d}"
         save_pth(self.weight_path(name + ".pth"), self.model, self.epoch)
