@@ -3369,6 +3369,206 @@ def phase_dp(tmp: Path) -> dict:
     return launches
 
 
+# the parallel phase: train steps per run, and its gloo ranks' join timeout
+PAR_STEPS = 3
+PAR_JOIN_S = 400
+# its runs: model, the options on top of the reference width's b8 float32
+PAR_RUNS = {"moe": ("xception", ["--moe_experts", str(MOE_EXPERTS)]),
+            "int8_disc": ("mygan", ["--int8_disc"]),
+            "pp": ("xception", ["--pp", "2", "--pp_micro", "2"]),
+            "host_flow": ("mygan", ["--host_flow"])}
+
+
+def _par_case(name: str, run: str, dp: int, **kw) -> dict:
+    """A ``tools/dp_equivalence.py`` case of ``PAR_RUNS[run]`` on the card:
+    ``PAR_STEPS`` float32 steps at the reference width, b8 global."""
+    model, extra = PAR_RUNS[run]
+    case = _dp_case(name, model, dp, **kw)
+    case["argv"] += extra
+    case["steps"] = PAR_STEPS
+    return case
+
+
+def _farthest(got: dict, want: dict, n: int = 4) -> str:
+    """The ``n`` parameters and running statistics of ``got`` whose
+    differences from ``want``'s are largest (L2), with their relative
+    distances: where a whole-set distance comes from."""
+    rows = []
+    for kind in ("params", "buffers"):
+        for k, w in want[kind].items():
+            if kind == "params" or "running" in k:
+                w = w.double()
+                d = float((got[kind][k].double() - w).norm())
+                rows.append((d, d / max(float(w.norm()), 1e-30), k))
+    return ", ".join(f"{k} {d:.3g} ({r:.3g})"
+                     for d, r, k in sorted(rows)[::-1][:n])
+
+
+def _serve_replicas(paths: dict) -> None:
+    """``serve --dp``'s replicas: the MyGAN generator served by two
+    replicas on this one card against one replica, the same b8 batches;
+    the scores within 1e-5, each server's b8 batch p50."""
+    from vfd_gan_tpu_torch.cli.infer import _load
+    from vfd_gan_tpu_torch.cli.serve import InferenceServer
+
+    model, _ = _load(str(paths["mygan"]), torch.device("cuda"))
+    kw = dict(isize=ISIZE, nfr=NFR, max_batch=BATCH, max_wait_ms=2.0)
+    one = InferenceServer(model, "one", **kw)
+    two = InferenceServer(model, "two", devices=["cuda:0", "cuda:0"], **kw)
+    try:
+        check(two.replicas[0] is model and two.replicas[1] is not model,
+              "two replicas: the model and a copy")
+        rng = np.random.default_rng(31)
+        p50, worst = {}, 0.0
+        for srv in (one, two, two, one):
+            times = []
+            for i in range(6):
+                clips = rng.uniform(-1, 1, (BATCH, NFR, ISIZE, ISIZE, 3)
+                                    ).astype(np.float32)
+                t0 = time.perf_counter()
+                got = srv.forward(clips)
+                times.append(1e3 * (time.perf_counter() - t0))
+                if srv is two:
+                    want = one.forward(clips)
+                    worst = max(worst, float(np.abs(
+                        got[..., 0].reshape(BATCH, NFR, -1).mean(axis=2)
+                        - want[..., 0].reshape(BATCH, NFR, -1).mean(axis=2)
+                    ).max()))
+            p50.setdefault(srv.name, []).append(
+                statistics.median(times[1:]))
+        check(worst <= 1e-5, f"serve --dp: two replicas' frame scores "
+                             f"within 1e-5 of one replica's: {worst:.3g}")
+        stats = two.stats()
+        check(stats["replicas"] == 2, f"/stats counts 2 replicas: {stats}")
+        say("parallel", f"serve MyGAN b{BATCH} float32, one replica vs two "
+                        f"on cuda:0 (4 rows each): frame scores within "
+                        f"{worst:.3g}; b8 forward p50 ms "
+                        f"{json.dumps({k: [round(v, 3) for v in vs] for k, vs in p50.items()})}, "
+                        f"replica forward ms {stats['replica_forward_ms']}")
+    finally:
+        one.close()
+        two.close()
+
+
+def phase_parallel(tmp: Path, paths: dict) -> dict:
+    """``serve --dp`` with two replicas on this card; then two gloo ranks
+    on this card at the reference width (b8 T16 128^2, float32, 4 clips a
+    rank): xception ``--moe_experts 4 --dp 2``, MyGAN ``--int8_disc --dp
+    2`` and xception ``--pp 2 --pp_micro 2``, each held within
+    ``parallel/verify.py``'s K (10) x the spread of two one-process
+    reference runs (``--pp``'s: the chain run per microbatch in this
+    process) that differ by the BatchNorms' reduction order alone
+    (``dp_equivalence.OneProcess``; two runs of one arithmetic on this
+    card can be bit-equal, and a 3-step float32 Xception amplifies any
+    reduction order's round-off); MyGAN ``--host_flow --dp 2`` where cv2
+    imports (its flows of a b8 video bit-equal to the dp-1 flows, and a
+    run).  Returns the kernels' launches by run (rank 0's and rank
+    1's)."""
+    from vfd_gan_tpu_torch.tools import dp_equivalence as eq
+
+    t0 = time.perf_counter()
+    _serve_replicas(paths)
+    try:
+        import cv2  # noqa: F401
+        have_cv2 = True
+    except ImportError:
+        have_cv2 = False
+    held = tuple(r for r in ("moe", "int8_disc", "pp") if r in PAR_RUNS)
+    # the references in this process (--pp's: the chain per microbatch):
+    # the plain run, and the same run with its BatchNorms in the dp path's
+    # two-pass arithmetic, whose distance from it (the reduction order
+    # alone) is the yardstick of the gate
+    refs = {run: tuple(eq.run_train(_par_case(f"{run}.ref{i}", run, 1,
+                                              **kw), tmp / "par_ref",
+                                    solo=True)
+                       for i, kw in ((1, {}), (2, {"arith": "dp"})))
+            for run in held}
+    gloo = tmp / "par_gloo"
+    video = np.random.default_rng(5).uniform(
+        -1, 1, (2 * BATCH, NFR, ISIZE, ISIZE, 3)).astype(np.float32)
+    np.save(tmp / "par_video.npy", video)
+    cases = [_par_case(f"{run}.gloo2", run, 2, time_collectives=True)
+             for run in held]
+    if have_cv2:
+        cases += [_par_case("host_flow.gloo2", "host_flow", 2,
+                            time_collectives=True),
+                  dict(kind="flow", name="host_flow.flow", host=True,
+                       video=str(tmp / "par_video.npy"), streams=2,
+                       device="cuda")]
+    eq.run(cases, gloo, world=2, backend="gloo", timeout=PAR_JOIN_S)
+
+    def load(name, rank=0):
+        return torch.load(gloo / f"{name}.rank{rank}.pt", weights_only=False)
+
+    launches, lines = {}, []
+    for run in held + (("host_flow",) if have_cv2 else ()):
+        got, other = load(f"{run}.gloo2"), load(f"{run}.gloo2", 1)
+        for kind in ("params", "buffers"):
+            unequal = [k for k, v in got[kind].items()
+                       if not torch.equal(v, other[kind][k])]
+            check(not unequal, f"{run}: both ranks hold the same {kind} "
+                               f"bit for bit: {unequal[:8]}")
+        if run in refs:
+            first = sorted(got["losses"][0])[0]
+            say("parallel", f"{run}: {first} per step "
+                            f"{[round(x[first], 6) for x in got['losses']]}"
+                            f" (references "
+                            f"{[round(x[first], 6) for x in refs[run][0]['losses']]}, "
+                            f"{[round(x[first], 6) for x in refs[run][1]['losses']]});"
+                            f" the tensors farthest from the reference: "
+                            f"{_farthest(got, refs[run][0])}")
+            say("parallel", _dp_close(f"{run} gloo2", got, *refs[run]))
+        for r, res in enumerate((got, other)):
+            check(all(np.isfinite(v) for step in res["losses"]
+                      for v in step.values()), f"{run}: finite losses")
+            counts = res["launches"]
+            check(counts["augment_gather"] == PAR_STEPS,
+                  f"{run}: the augment kernel once per step: {counts}")
+            check(PAR_RUNS[run][0] != "mygan" or run == "host_flow"
+                  or counts["flow_fused"] == 3 * PAR_STEPS,
+                  f"{run}: the fused flow kernel 3 times per step: {counts}")
+            launches[f"parallel {run}" + (" rank1" if r else "")] = counts
+        if run == "moe":
+            lines.append(f"moe: dropped fraction per step (global) "
+                         f"{got['moe_dropped']}, one process "
+                         f"{refs['moe'][0]['moe_dropped']}")
+        ref = refs[run][0] if run in refs else {}
+        ref_ms = _median_ms(ref) if ref else float("nan")
+        lines.append(f"{run}: step median ms one process {ref_ms:.1f}, 2 "
+                     f"gloo ranks {_median_ms(got):.1f}; peak MiB one "
+                     f"process {ref.get('peak_mib', math.nan):.0f}, "
+                     f"ranks {got.get('peak_mib', math.nan):.0f} / "
+                     f"{other.get('peak_mib', math.nan):.0f}"
+                     + (f"; parameters held between gathers per rank "
+                        f"{got['held']} / {other['held']} of "
+                        f"{sum(v.numel() for v in got['params'].values())}"
+                        if "held" in got else "")
+                     + f"; collectives per step {_collectives(got)}"
+                     + (f"; hand-offs per step {got['hand_offs']}; stage "
+                        f"1's waits in them (the bubble), per step: "
+                        + ", ".join(f"{k} {ms:.2f} ms x{n:g}" for k, (ms, n)
+                                    in sorted(other["collective_ms"].items())
+                                    if "_hand" in k or k.startswith(
+                                        "forward/"))
+                        if "hand_offs" in got else ""))
+    for line in lines:
+        say("parallel", line)
+    if have_cv2:
+        parts = [load("host_flow.flow", r)["flow"].cpu().numpy()
+                 for r in (0, 1)]
+        both = np.concatenate([p.reshape(2, BATCH // 2, *p.shape[1:])
+                               for p in parts], axis=1)
+        alone = load("host_flow.flow")["flow_alone"].cpu().numpy()
+        check(np.array_equal(both.reshape(alone.shape), alone),
+              "--host_flow: the dp 2 flows bit-equal to the dp 1 flows")
+        say("parallel", f"--host_flow dp 2 flows of a b{BATCH} x 2-stream "
+                        f"video bit-equal to dp 1's")
+    else:
+        say("parallel", "cv2 does not import: --host_flow not run")
+    say("parallel", f"{time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _host_forms(plain: bool):
     """The dataset's host runtime: the library (``plain`` False) or the
     Python forms, for the block."""
@@ -3430,13 +3630,15 @@ def phase_native(tmp: Path) -> None:
                   f"; {time.perf_counter() - t0:.1f} s")
 
 
-def run_dp_phases(tmp: Path) -> dict:
-    """The --dp and host-runtime phases; returns the kernels' launches by
-    run."""
+def run_dp_phases(tmp: Path, paths: dict) -> dict:
+    """The --dp, host-runtime and parallel phases; returns the kernels'
+    launches by run."""
     t0 = time.perf_counter()
     runs = phase_dp(tmp)
     phase_native(tmp)
-    say("dp-phases", f"--dp, native: {time.perf_counter() - t0:.1f} s")
+    runs.update(phase_parallel(tmp, paths))
+    say("dp-phases", f"--dp, native, parallel: "
+                     f"{time.perf_counter() - t0:.1f} s")
     return runs
 
 
@@ -3472,11 +3674,11 @@ def run_new_phases(tmp: Path, device, paths: dict, base: dict) -> dict:
 
 
 def slice_only(name: str) -> None:
-    """``--slice-only``: the build and this slice's phases alone (--dp,
-    the host runtime), for a short call while they are worked on; prints
-    no result line."""
+    """``--slice-only``: the build and this slice's phase alone (serve
+    --dp, --dp with the three options, --pp), for a short call while it
+    is worked on; prints no result line."""
     with tempfile.TemporaryDirectory() as tmp:
-        runs = run_dp_phases(Path(tmp))
+        runs = phase_parallel(Path(tmp), make_checkpoints(Path(tmp)))
     say("slice-only", f"{name}: launches by run {json.dumps(runs)}; no "
                       "result line (the full run prints it)")
 
@@ -3622,7 +3824,7 @@ def main() -> None:
                                          bf16_forward_ms))
         gc.collect()
         torch.cuda.empty_cache()
-        new_runs.update(run_dp_phases(Path(tmp)))
+        new_runs.update(run_dp_phases(Path(tmp), paths))
     # launches: each kernel's count on the main path that runs it (MyGAN's
     # trainer for the fused and opening kernels, its --flow_impl
     # two_kernel step for warp and refine, the clstm trainer for the

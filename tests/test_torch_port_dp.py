@@ -44,7 +44,10 @@ fails the tests and is killed, and no rank outlives the module.
   correlations' bfloat16 operands round on either side of a boundary).
 * the trainer's ``--dp 2`` command (rank 0 alone writes; SIGTERM parks
   both ranks at one step), a failing rank and a hung rank, the refusals
-  that name ROADMAP queue 1 item 13, ``auto_dp`` and the rank rows.
+  that name ROADMAP queue 1 item 13 (``--sp``, ``--tp``, ``--moe_shards``)
+  and the commands it held until they were ported (``--dp 2`` with
+  ``--moe_experts``, ``--int8_disc`` and ``--host_flow``; ``--pp 2``),
+  ``auto_dp`` and the rank rows.
 """
 
 import os
@@ -343,17 +346,52 @@ def test_sigterm_parks_every_rank_at_one_step(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--model", "xception", "--moe_experts", "2", "--dp", "2"],
-    ["--model", "mygan", "--isize", "64", "--nfr", "16", "--int8_disc",
-     "--dp", "2"],
-    ["--model", "mygan", "--isize", "64", "--nfr", "16", "--host_flow",
-     "--dp", "2"],
-    ["--sp", "2"], ["--tp", "2"], ["--model", "xception", "--pp", "2"],
+    ["--sp", "2"], ["--tp", "2"],
     ["--model", "xception", "--moe_experts", "2", "--moe_shards", "2"],
 ], ids=lambda v: "_".join(v))
 def test_trainer_refuses_with_queue_1_item_13(tmp_path, extra):
     with pytest.raises(SystemExit, match="queue 1 item 13"):
         trainer.main(_CLI + extra + ["--result_root", str(tmp_path)])
+
+
+_SMALL = {"xception": ["--xwidth", "0.0625", "--isize", "32"],
+          "mygan": ["--isize", "64", "--nfr", "16", "--ngf", "2", "--ndf",
+                    "2"]}
+
+
+@pytest.mark.parametrize("extra", [
+    ["--model", "xception", "--moe_experts", "2", "--dp", "2"],
+    ["--model", "mygan", "--isize", "64", "--nfr", "16", "--int8_disc",
+     "--dp", "2"],
+    ["--model", "mygan", "--isize", "64", "--nfr", "16", "--host_flow",
+     "--dp", "2"],
+    ["--model", "xception", "--pp", "2"],
+], ids=lambda v: "_".join(v))
+def test_trainer_runs_what_queue_1_item_13_held(tmp_path, capfd, extra):
+    """The options that ``--dp`` refused until it had their global
+    reductions, and ``--pp``, at a small width: the command starts its
+    ranks (``--pp 2``: two stages), each trains to the end, rank 0 alone
+    writes the run, and a ``--pp`` run's ``latest.pt`` is a plain
+    Xception's train state (``infer._load``, ``strict=True``)."""
+    if "--host_flow" in extra:
+        pytest.importorskip("cv2")
+    before = set(_children())
+    model = extra[1]
+    argv = _CLI + extra + _SMALL[model] + ["--result_root", str(tmp_path),
+                                           "--autosave_every", "2"]
+    assert trainer.main(argv) is None
+    out = capfd.readouterr().out
+    assert out.count("[Done]") == 2 and out.count("SAVE PATH") == 1, out
+    runs = list((tmp_path / model).rglob("args.txt"))
+    assert len(runs) == 1
+    latest, = (tmp_path / model).rglob("latest.pt")
+    assert torch.load(latest, weights_only=False)["step"] == 2
+    if "--pp" in extra:
+        from vfd_gan_tpu_torch.cli import infer
+
+        net, name = infer._load(str(latest), torch.device("cpu"))
+        assert type(net).__name__ == "Xception3D"
+    assert set(_children()) <= before
 
 
 @pytest.mark.parametrize("batch, requested, n", [

@@ -324,8 +324,20 @@ def test_serve_args_from_pth(tmp_path):
 @pytest.mark.parametrize("flag,value", [("--dp", "2"), ("--quant", "int8")])
 def test_serve_refuses_unported_options(tmp_path, flag, value):
     if flag == "--dp":
-        with pytest.raises(SystemExit, match="ROADMAP.md"):
-            serve(_args(_save_pth(tmp_path), flag, value))
+        # ported since: two replicas on the CPU serve the one-replica
+        # predictions (test_serve_dp_replicas_equal_one_replica)
+        httpd = serve(_args(_save_pth(tmp_path), flag, value))
+        try:
+            srv = httpd.inference
+            assert len(srv.replicas) == 2 and srv.replicas[0] is srv.model
+            clips = _clips(12, 2)
+            want = to_channel_last(_port_model()(to_channel_first(
+                torch.from_numpy(clips)))).detach().numpy()
+            np.testing.assert_allclose(srv.predict(clips, timeout=TIMEOUT),
+                                       want, atol=1e-6)
+        finally:
+            httpd.inference.close()
+            httpd.server_close()
         return
     # ported since: the int8 forward is served (quant/qmygan.py), and
     # tracks the float model as the JAX int8 server does
@@ -346,6 +358,63 @@ def test_serve_refuses_unported_options(tmp_path, flag, value):
     finally:
         httpd.inference.close()
         httpd.server_close()
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_serve_dp_replicas_equal_one_replica(tmp_path, quant):
+    """``--dp 2 --device cpu``: two replicas, each batch split into two
+    row slices; the predictions are ``--dp 1``'s within 1e-6 (under
+    ``--quant int8`` too: the int8 model copied), over HTTP as well, and
+    ``/stats`` counts the replicas and times each."""
+    extra = ("--quant", "int8", "--calib_clips", "2") if quant == "int8" \
+        else ()
+    one = serve(_args(_save_pth(tmp_path), "--max_batch", "4", *extra))
+    two = serve(_args(_save_pth(tmp_path), "--max_batch", "4", "--dp", "2",
+                      *extra))
+    http, base = _start_http(two.inference)
+    try:
+        assert [str(d) for d in two.inference.devices] == ["cpu", "cpu"]
+        if quant == "int8":
+            assert type(two.inference.replicas[1]).__name__ == "Int8Model"
+        clips = _clips(13, 3)
+        want = one.inference.predict(clips, timeout=TIMEOUT)
+        got = two.inference.predict(clips, timeout=TIMEOUT)
+        np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
+        out = _post(f"{base}/predict", clips.tobytes(),
+                    {"X-Clip-Count": "3"})
+        np.testing.assert_allclose(
+            out["frame_scores"],
+            want[..., 0].reshape(3, T, -1).mean(axis=2), atol=1e-6)
+        with urllib.request.urlopen(f"{base}/stats", timeout=TIMEOUT) as r:
+            stats = json.loads(r.read())
+        assert stats["replicas"] == 2
+        assert len(stats["replica_forward_ms"]) == 2
+        assert all(ms > 0 for ms in stats["replica_forward_ms"])
+        assert one.inference.stats()["replicas"] == 1
+    finally:
+        http.shutdown()
+        http.server_close()
+        for h in (one, two):
+            h.inference.close()
+            h.server_close()
+
+
+def test_serve_dp_exits_name_their_reasons(tmp_path):
+    """JAX's words for a batch that does not split over the replicas, and
+    the visible count for more replicas than cards; never fewer replicas
+    than asked."""
+    with pytest.raises(SystemExit,
+                       match=r"--max_batch 3 must be divisible by dp=2"):
+        serve(_args(_save_pth(tmp_path), "--max_batch", "3", "--dp", "2"))
+    from vfd_gan_tpu_torch.cli.serve import replica_devices
+
+    cards = torch.cuda.device_count()
+    with pytest.raises(SystemExit,
+                       match=rf"--dp {cards + 1}: only {cards} CUDA"):
+        replica_devices(torch.device("cuda"), cards + 1)
+    with pytest.raises(SystemExit, match="must be >= 1"):
+        replica_devices(torch.device("cpu"), 0)
+    assert replica_devices(torch.device("cpu"), 3) == [torch.device("cpu")] * 3
 
 
 def test_serve_dtype_bfloat16_matches_the_jax_bf16_server(tmp_path):

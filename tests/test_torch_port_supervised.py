@@ -182,7 +182,11 @@ def test_trainer_runs_each_family_and_writes_loadable_pth(tmp_path, capsys,
     # the refusal case's)
     pytest.param(["--model", "xception", "--moe_experts", "2"], None,
                  id="--model_xception_--moe_experts_2---moe_experts"),
-    (["--model", "xception", "--pp", "2"], "parallelism"),
+    # ported since: the engine is built and holds the option (the id is
+    # the refusal case's); built in one process, it runs the chain per
+    # microbatch (the command starts a rank a stage)
+    pytest.param(["--model", "xception", "--pp", "2"], None,
+                 id="--model_xception_--pp_2-parallelism"),
     (["--model", "xception", "--moe_experts", "2", "--moe_shards", "2"],
      "parallelism"),
     # ported since: the engine is built and holds the option (the id is
@@ -210,6 +214,10 @@ def test_trainer_refuses_what_the_supervised_port_does_not_run(
         elif "--accum" in extra:
             assert engine.cfg.accum == 2
             assert type(engine).__name__ == "SupervisedEngine"
+        elif "--pp" in extra:
+            assert engine.pipe.grid is None
+            assert engine.pipe.gpipe.n_micro == 2
+            assert len(engine.pipe.owned) == 8
         elif "--moe_experts" in extra:
             assert engine.model.moe.router.shape == (
                 engine.model.block11.rep[1].conv1.weight.shape[0], 2)

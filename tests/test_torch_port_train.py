@@ -544,13 +544,11 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, capsys, extra, match):
 
 def test_unported_lost_exactly_the_five_ported_options():
     """Left: what needs several devices (--int8_disc and --moe_experts
-    with one shard are ported since; --dp since, but not with the three
-    options whose dp needs a global reduction of its own)."""
+    with one shard are ported since; --dp since, and since with the three
+    options whose dp needs a global reduction of its own; --pp since)."""
     from vfd_gan_tpu_torch.train.engine_base import UNPORTED
 
-    assert set(UNPORTED) == {"sp/tp/pp", "moe_shards",
-                             "moe_experts with --dp", "int8_disc with --dp",
-                             "host_flow with --dp"}
+    assert set(UNPORTED) == {"sp/tp", "moe_shards"}
 
 
 def test_trainer_needs_a_card_for_cuda(tmp_path):

@@ -37,14 +37,26 @@ Usage::
 checkpoint's float32 parameters, its name tagged `` [bf16]``, as the JAX
 server does; ``--quant int8 [--calib_plist | --calib_clips]`` serves the
 family's int8 forward (``quant/``; ``--dtype`` ignored), tagged
-`` [int8]``.  The wire format is unchanged.  ``--dp`` exits with the
-``ROADMAP.md`` item that holds it.
+`` [int8]``.  The wire format is unchanged.
+
+``--dp N`` serves data-parallel in this one process (JAX: the variables
+replicated over a 1-D ``dp`` mesh, the fixed batch sharded along its
+rows): a copy of the served model (the int8 one under ``--quant int8``)
+on each of ``cuda:0 .. cuda:N-1`` (``--device cpu``: N copies on the
+CPU), each padded batch split into N equal row slices, every replica's
+forward launched on its own card's stream before any is read back, the
+results concatenated in row order.  ``--max_batch`` must divide by N, and
+N may not pass the visible cards; ``/stats`` adds ``replicas`` and each
+replica's median forward ms.  ``InferenceServer(..., devices=[...])``
+takes the replicas' devices directly (two on one card, for instance).
 """
 
 from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
+import copy
 import hmac
 import json
 import os
@@ -81,9 +93,9 @@ def build_parser():
     p.add_argument("--dtype", choices=tuple(DTYPES), default="float32",
                    help="compute dtype (parameters stay float32; clips in "
                         "and masks out stay float32)")
-    # Accepted so that JAX-server command lines fail with a pointer instead
-    # of an argparse error; only the default is ported.
-    p.add_argument("--dp", type=int, default=1)
+    p.add_argument("--dp", type=int, default=1,
+                   help="replicas, one per card (--device cpu: on the "
+                        "CPU); --max_batch must divide by it")
     add_quant_args(p)
     p.add_argument("--max_queued_clips", type=int, default=256,
                    help="admission bound before shedding load with 429s")
@@ -112,13 +124,26 @@ class _Work:
 
 
 class InferenceServer:
-    """Owns the model, its device and the batcher thread."""
+    """Owns the model's replicas, their devices and the batcher thread."""
 
     def __init__(self, model: torch.nn.Module, name: str, *, isize: int,
                  nfr: int, max_batch: int, max_wait_ms: float,
-                 max_queued_clips: int = 256):
+                 max_queued_clips: int = 256, devices=None):
         self.model = model.eval()
         self.device = module_device(model)
+        # one replica per device, the model itself on the first (JAX
+        # cli/serve.py: the variables replicated over the dp mesh)
+        devices = [self.device] if devices is None else [
+            torch.device(d) for d in devices]
+        if max_batch % len(devices):
+            raise SystemExit(f"--max_batch {max_batch} must be divisible "
+                             f"by dp={len(devices)}")
+        self.replicas = [self.model if i == 0 and d == self.device
+                         else copy.deepcopy(self.model).to(d).eval()
+                         for i, d in enumerate(devices)]
+        self.devices = devices
+        # each replica's forward times (ms), the last 1000
+        self.replica_ms: list[list[float]] = [[] for _ in devices]
         self.name = name
         self.isize, self.nfr = isize, nfr
         self.max_batch = max_batch
@@ -143,9 +168,27 @@ class InferenceServer:
 
     @torch.inference_mode()
     def forward(self, clips: np.ndarray) -> np.ndarray:
-        """``(b, T, H, W, 3)`` float32 clips -> ``(b, T, H, W, 1)`` masks."""
-        x = to_channel_first(torch.from_numpy(clips).to(self.device))
-        return to_channel_last(self.model(x)).cpu().numpy()
+        """``(b, T, H, W, 3)`` float32 clips -> ``(b, T, H, W, 1)`` masks;
+        with several replicas ``b`` splits into equal row slices, one a
+        replica, all launched before any is read back."""
+        x = torch.from_numpy(clips)
+        if len(self.replicas) == 1:
+            return to_channel_last(self.replicas[0](to_channel_first(
+                x.to(self.device)))).cpu().numpy()
+        launched = []
+        for model, device, part in zip(self.replicas, self.devices,
+                                       x.chunk(len(self.replicas))):
+            timer = _ReplicaTimer(device)
+            with timer:
+                y = to_channel_last(model(to_channel_first(
+                    part.to(device, non_blocking=True))))
+            launched.append((y, timer))
+        out = np.concatenate([y.cpu().numpy() for y, _ in launched])
+        with self._stats_lock:
+            for times, (_, timer) in zip(self.replica_ms, launched):
+                times.append(timer.ms())
+                del times[:-1000]
+        return out
 
     # -- batcher ------------------------------------------------------------
     def _batch_loop(self) -> None:
@@ -249,9 +292,13 @@ class InferenceServer:
             lat = sorted(self.latencies_ms)
             pct = (lambda p: lat[min(len(lat) - 1, int(p * len(lat)))]
                    if lat else 0.0)
+            med = [sorted(t)[len(t) // 2] if t else 0.0
+                   for t in self.replica_ms]
             return {
                 "model": self.name,
                 "device": str(self.device),
+                "replicas": len(self.replicas),
+                "replica_forward_ms": med,
                 "requests": self.requests,
                 "clips": self.clips,
                 "batches": self.batches,
@@ -265,6 +312,40 @@ class InferenceServer:
     def close(self) -> None:
         self._stop.set()
         self._batcher.join(timeout=2)
+
+
+class _ReplicaTimer:
+    """A replica's forward, timed: its card made the current device for
+    the block, CUDA events on that card's current stream (read once the
+    output has been copied back); the host's clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.guard = torch.cuda.device(device) if self.cuda \
+            else contextlib.nullcontext()
+
+    def __enter__(self):
+        self.guard.__enter__()
+        if self.cuda:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        else:
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.cuda:
+            self.end.record()
+        else:
+            self.t1 = time.perf_counter()
+        return self.guard.__exit__(*exc)
+
+    def ms(self) -> float:
+        if self.cuda:
+            self.end.synchronize()
+            return self.start.elapsed_time(self.end)
+        return (self.t1 - self.t0) * 1e3
 
 
 def make_handler(server: InferenceServer, video_root: str = "",
@@ -495,16 +576,27 @@ def make_handler(server: InferenceServer, video_root: str = "",
     return Handler
 
 
+def replica_devices(device: torch.device, dp: int) -> list:
+    """``--dp``'s replica devices: ``cuda:0 .. cuda:dp-1`` (never fewer
+    than asked: more than the visible cards exits), or ``dp`` times the
+    CPU."""
+    if dp < 1:
+        raise SystemExit(f"--dp {dp}: must be >= 1")
+    if device.type != "cuda":
+        return [device] * dp
+    cards = torch.cuda.device_count()
+    if dp > cards:
+        raise SystemExit(f"--dp {dp}: only {cards} CUDA device(s) visible")
+    return [torch.device("cuda", i) for i in range(dp)]
+
+
 def serve(args) -> ThreadingHTTPServer:
     """Build the server (used by main() and the tests)."""
     from vfd_gan_tpu_torch.cli.infer import load_for_serving
     from vfd_gan_tpu_torch.utils.runtime import resolve_device
 
-    if args.dp != 1:
-        raise SystemExit("--dp > 1 is not ported to PyTorch yet: see "
-                         "ROADMAP.md, 'Modules still to port', item "
-                         "'Multi-card serving'")
     device = resolve_device(args.device)
+    devices = replica_devices(device, args.dp)
     # --dtype bfloat16: the model rebuilt to compute in bfloat16 from the
     # checkpoint's float32 parameters (JAX cli/serve.py:539-544); --quant
     # int8: the family's int8 forward (JAX cli/serve.py:518-537)
@@ -512,7 +604,8 @@ def serve(args) -> ThreadingHTTPServer:
     inf = InferenceServer(model, name, isize=args.isize, nfr=args.nfr,
                           max_batch=args.max_batch,
                           max_wait_ms=args.max_wait_ms,
-                          max_queued_clips=args.max_queued_clips)
+                          max_queued_clips=args.max_queued_clips,
+                          devices=devices)
     httpd = ThreadingHTTPServer(
         (args.host, args.port),
         make_handler(inf, video_root=args.video_root,
@@ -526,7 +619,8 @@ def main(argv=None) -> None:
     httpd = serve(args)
     host, port = httpd.server_address
     print(f"serving {httpd.inference.name} on http://{host}:{port} "
-          f"({httpd.inference.device}, batch {args.max_batch}, "
+          f"({', '.join(map(str, httpd.inference.devices))}, batch "
+          f"{args.max_batch}, "
           f"wait {args.max_wait_ms} ms)")
     try:
         httpd.serve_forever()

@@ -32,6 +32,12 @@ on its own card; gloo on ``--device cpu``) and exits non-zero if one
 fails.  N is resolved as in the JAX trainer: on ``cuda`` capped at the
 visible cards (``--dp 0``: all of them) and shrunk to a divisor of the
 microbatch; on the CPU it is the number of processes.
+
+``--pp N [--pp_micro M]`` (Xception) pipelines the eight middle blocks
+over N stages (``parallel/pp_xception.py``, GPipe with M microbatches,
+default N): the command starts ``dp x N`` ranks, each stage a process
+(on ``cuda`` one card each: N must not pass the visible cards, and dp is
+capped at the cards left per stage).
 """
 
 from __future__ import annotations
@@ -128,17 +134,17 @@ def build_engine(argv, rank: int | None = None):
     raise ValueError(f"unknown model {cfg.model!r}")
 
 
-def launch_ranks(argv, world: int, backend: str,
-                 timeout: float | None = None) -> None:
-    """``argv``'s training as ``world`` ranks of one group over
+def launch_ranks(argv, dp: int, backend: str,
+                 timeout: float | None = None, pp: int = 1) -> None:
+    """``argv``'s training as ``dp x pp`` ranks of one group over
     ``backend`` (``"nccl"`` or ``"gloo"``; gloo also runs several ranks
     on one card), each a ``python -m vfd_gan_tpu_torch.cli.trainer``
     process; raises if a rank fails or ``timeout`` seconds pass.  The
     command passes no timeout (a run lasts as long as it trains): a rank
-    that hangs makes its peers' next all-reduce fail after the group's
+    that hangs makes its peers' next collective fail after the group's
     timeout (``parallel/mesh.rank_group``), which stops every rank."""
-    launch("vfd_gan_tpu_torch.cli.trainer", [*argv, "--dp", str(world)],
-           world, backend, timeout=timeout)
+    launch("vfd_gan_tpu_torch.cli.trainer", [*argv, "--dp", str(dp)],
+           dp * pp, backend, timeout=timeout)
 
 
 def _train(engine):
@@ -166,11 +172,13 @@ def main(argv=None):
     cfg, device_name, _ = parse(argv)
     kind = resolve_device(device_name).type
     dp = resolve_dp(cfg, kind)
-    if dp > 1:
+    if dp * cfg.pp > 1:
         try:
-            launch_ranks(argv, dp, "nccl" if kind == "cuda" else "gloo")
+            launch_ranks(argv, dp, "nccl" if kind == "cuda" else "gloo",
+                         pp=cfg.pp)
         except RuntimeError as e:
-            raise SystemExit(f"--dp {dp}: {e}") from None
+            what = f"--dp {dp}" + (f" --pp {cfg.pp}" if cfg.pp > 1 else "")
+            raise SystemExit(f"{what}: {e}") from None
         return None
     return _train(build_engine(argv))
 

@@ -119,6 +119,11 @@ class Config:
                 raise ValueError(msg)
         return self
 
+    @property
+    def n_pp_micro(self) -> int:
+        """The GPipe microbatch count (``--pp_micro``, default pp)."""
+        return self.pp_micro if self.pp_micro else self.pp
+
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "Config":
         known = {f.name for f in dataclasses.fields(cls)}

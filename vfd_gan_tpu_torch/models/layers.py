@@ -192,10 +192,14 @@ class QConv3d(Conv3d):
     """``Conv3d`` with the int8 forward and the float conv's backward of
     ``quant/qdisc.py`` (``--int8_disc``): the weight cast to the input's
     dtype as ``Conv3d`` casts it, then the bias added as ``Conv3d`` adds
-    it."""
+    it.  Bound to a ``parallel.mesh.DataParallel`` (``dp``), the
+    activation scale is the global batch's."""
+
+    dp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = qconv3d(x, self.weight.to(x.dtype), self.stride, self.padding)
+        y = qconv3d(x, self.weight.to(x.dtype), self.stride, self.padding,
+                    self.dp)
         if self.bias is None:
             return y
         shape = (-1, *(1,) * (y.dim() - 2))

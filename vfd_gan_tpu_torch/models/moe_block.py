@@ -19,7 +19,10 @@ dropped fraction) on ``self.aux``: the supervised engine adds
 ``--moe_aux_w`` times the loss to a train-mode objective, as the JAX
 engine sums the ``moe_aux`` collection.  ``choice``, when set, routes the
 next forwards by those expert indices instead of the router's argmax
-(``parallel.moe.moe_apply``).
+(``parallel.moe.moe_apply``).  Bound to a ``parallel.mesh.DataParallel``
+(``dp``, ``--dp``) and active, a forward routes over the global token
+axis (the test sweep runs with ``dp`` inactive: every rank runs it
+whole).
 """
 
 from __future__ import annotations
@@ -34,6 +37,9 @@ from vfd_gan_tpu_torch.utils.init import dcgan_normal_
 
 class MoEMlp(nn.Module):
     """Top-1 token MoE over NCDHW features with a residual add."""
+
+    # a parallel.mesh.DataParallel: the routing's global token axis
+    dp = None
 
     def __init__(self, channels: int, n_experts: int, *,
                  capacity_factor: float = 2.0,
@@ -66,6 +72,7 @@ class MoEMlp(nn.Module):
         tokens = x.permute(0, 2, 3, 4, 1).reshape(-1, c).to(self.dtype)
         y, self.aux = moe_apply(self._experts, self.router, tokens,
                                 capacity_factor=self.capacity_factor,
-                                choice=self.choice)
+                                choice=self.choice,
+                                dp=self.dp)
         y = y.to(x.dtype).view(x.shape[0], *x.shape[2:], c)
         return x + y.permute(0, 4, 1, 2, 3)

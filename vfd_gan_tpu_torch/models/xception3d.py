@@ -24,6 +24,10 @@ equivalent) puts a residual token-MoE block (``models/moe_block.py``,
 capacity factor ``moe_capacity``, 2.0 as in JAX) after the eight middle
 blocks, under the name ``moe``; it is built after every reference module,
 so the other modules' initial weights do not depend on it.
+
+``front`` (stem and entry blocks), ``middle_blocks`` and ``back`` (exit
+block to head) are the three parts that ``--pp`` runs apart
+(``parallel/pp_xception.py``, JAX ``Xception3D.front``/``back``).
 """
 
 from __future__ import annotations
@@ -165,16 +169,35 @@ class Xception3D(nn.Module):
         self.moe = MoEMlp(w(728), moe_experts, capacity_factor=moe_capacity,
                           dtype=dtype, **kw) if moe_experts else None
 
-    def forward(self, x: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+    def middle_blocks(self) -> list:
+        """The eight identity middle blocks, in order (``--pp`` pipelines
+        them, ``parallel/pp_xception.py``)."""
+        return [getattr(self, f"block{i + 4}")
+                for i in range(N_MIDDLE_BLOCKS)]
+
+    def front(self, x: torch.Tensor) -> torch.Tensor:
+        """The stem and the three entry blocks."""
         x = F.relu(self.bn1(self.conv1(x)))
         x = F.relu(self.bn2(self.conv2(x)))
-        for i in range(1, 13):
+        for i in range(1, 4):
             x = getattr(self, f"block{i}")(x)
-            if i == 3 + N_MIDDLE_BLOCKS and self.moe is not None:
-                x = self.moe(x)
+        return x
+
+    def back(self, x: torch.Tensor,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+        """The exit block, convs 3-4, the decoder and the head."""
+        x = self.block12(x)
         x = F.relu(self.bn3(self.conv3(x)))
         x = F.relu(self.bn4(self.conv4(x)))
         for i in range(1, 5):
             x = getattr(self, f"uconv{i}")(x, generator)
         return torch.sigmoid(float32_or_wider(self.conv_last(x)))
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        x = self.front(x)
+        for block in self.middle_blocks():
+            x = block(x)
+        if self.moe is not None:
+            x = self.moe(x)
+        return self.back(x, generator)

@@ -245,7 +245,7 @@ def minmax_stretch(video: torch.Tensor, streams: int = 1,
     # per (stream, time slab): min and max over that stream's (B/s, H, W, C)
     lo = grouped.amin(dim=(1, 3, 4, 5), keepdim=True)
     hi = grouped.amax(dim=(1, 3, 4, 5), keepdim=True)
-    if dp is not None and dp.active:
+    if dp is not None and dp.synced("stretch"):
         both = dp.all_reduce_max_(torch.cat([hi, -lo]))
         hi, lo = both[:streams], -both[streams:]
     return ((grouped - lo) / (hi - lo + 1e-5)).reshape(b, t, h, w, 3)

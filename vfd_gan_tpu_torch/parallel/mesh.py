@@ -10,7 +10,11 @@ hand:
 * BatchNorm statistics (``models/layers.py``): the mean, then
   ``mean((x - mu)^2)``, each summed over the ranks by ``all_reduce_sum``,
   whose backward sums the gradient over the ranks as well;
-* the flow's per-(stream, time-slab) min-max stretch (``ops/flow.py``);
+* the flow's per-(stream, time-slab) min-max stretch (``ops/flow.py``,
+  and ``train/host_flow.py`` under ``--host_flow``);
+* the MoE layer's capacity, slots and load-balancing means over the
+  global token axis (``parallel/moe.py``), and ``--int8_disc``'s
+  per-tensor absmax (``quant/qdisc.py``);
 * the gradients, one flattened all-reduce-mean per net before its Adam
   step (``mean_grads``), and the logged metrics (``mean_metrics``);
 * the random draws: every rank draws the global batch's numbers from the
@@ -21,7 +25,8 @@ Rank ``r`` holds rows ``[r B/dp, (r+1) B/dp)`` of the global batch; under
 ``--accum k`` its rows of each of the k microbatches (JAX
 ``accum_regroup``: dp divides the microbatch).  The collectives are
 ``all_reduce`` (SUM and MAX) alone, which gloo also runs on CUDA tensors
-(several ranks on one card).
+(several ranks on one card).  Under ``--pp`` (``parallel/pipeline.py``)
+the group of a rank's dp peers is a subgroup of the world (``group``).
 
 ``DataParallel`` is one process's place in the group; an engine makes one
 from the process group it finds (``DataParallel.current``) and binds it to
@@ -62,36 +67,44 @@ def auto_dp(batchsize: int, requested: int = 0,
 
 def resolve_dp(cfg, device_type: str) -> int:
     """``--dp`` as the JAX engine resolves it: dp divides the microbatch
-    (``batchsize // accum``).  On ``cuda`` the request is capped at the
-    visible cards and ``--dp 0`` means all of them; on the CPU the request
-    is the number of processes to start (``--dp 0``: one)."""
+    (``batchsize // accum``; under ``--pp`` the GPipe microbatch).  On
+    ``cuda`` the request is capped at the visible cards left after the
+    ``--pp`` stages and ``--dp 0`` means all of them; on the CPU the
+    request is the number of processes to start (``--dp 0``: one)."""
+    pp = max(1, cfg.pp)
+    micro = cfg.n_pp_micro if pp > 1 else max(1, cfg.accum)
     if device_type == "cuda":
-        n = max(1, torch.cuda.device_count())
+        cards = max(1, torch.cuda.device_count())
+        if pp > cards:
+            raise SystemExit(f"--pp {pp}: {pp} stages need {pp} cards, "
+                             f"{cards} visible")
+        n = cards // pp
     else:
         n = max(1, cfg.dp)
-    dp = auto_dp(cfg.batchsize // max(1, cfg.accum), cfg.dp, n)
+    dp = auto_dp(cfg.batchsize // micro, cfg.dp, n)
     if device_type == "cuda" or dp != max(1, cfg.dp):
         print(f" >> --dp {cfg.dp} -> dp {dp} ({n} {device_type} "
-              f"device(s), microbatch {cfg.batchsize // max(1, cfg.accum)})",
-              flush=True)
+              f"device(s){f' per stage of --pp {pp}' if pp > 1 else ''}, "
+              f"microbatch {cfg.batchsize // micro})", flush=True)
     return dp
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """The sum over the ranks; its backward is the sum over the ranks of
-    the gradient (each rank's loss reads the sum)."""
+    """The sum over the ranks of ``group``; its backward is the sum over
+    the ranks of the gradient (each rank's loss reads the sum)."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.detach().clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, grad):
         g = grad.detach().contiguous().clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
 class DataParallel:
@@ -102,28 +115,45 @@ class DataParallel:
     of a single process.  At world size 1 in a group the collectives still
     run: the dp code path of one rank.
 
+    ``rank`` and ``world`` are the place and size in the dp group
+    (``group``: None for the whole process group; under ``--pp`` the
+    subgroup of the ranks of one pipeline stage).  ``writes``: does this
+    process write the run's files (default: dp rank 0).
+
     ``bn_stats``: ``"global"`` (training: BatchNorm statistics over the
     ranks, their backward summed over the ranks too); the two controls of
     the equivalence checks (``tools/dp_equivalence.py``), never training
     options: ``"local"`` (each rank's own statistics) and ``"forward"``
     (summed over the ranks in the forward only, as a plain
     ``dist.all_reduce`` there would: each rank's gradient then misses the
-    other ranks' share)."""
+    other ranks' share).  ``local_ops``: the other controls, the names of
+    the reductions left to each rank (``"moe"``, ``"absmax"``,
+    ``"stretch"``; ``synced``)."""
 
     def __init__(self, rank: int = 0, world: int = 1, grouped: bool = False,
                  device: torch.device | str = "cpu",
-                 bn_stats: str = "global"):
+                 bn_stats: str = "global", group=None,
+                 writes: bool | None = None):
         self.rank = rank
         self.world = world
         self.grouped = grouped
         self.device = torch.device(device)
         self.bn_stats = bn_stats
+        self.local_ops: frozenset = frozenset()
+        self.group = group
+        self._writes = rank == 0 if writes is None else writes
+        # the microbatches whose slices make up this rank's rows of the
+        # batch that a forward sees: 1 (under --accum each forward is one
+        # microbatch), under --pp the GPipe microbatches (its back runs
+        # on all of them at once)
+        self.forward_micro = 1
         self._on = True
 
     @classmethod
     def current(cls, device: torch.device | str = "cpu") -> "DataParallel":
-        """This process's place in the process group set up, if any."""
-        if dist.is_available() and dist.is_initialized():
+        """This process's place in the process group set up, if any
+        (none inside ``alone``)."""
+        if dist.is_available() and dist.is_initialized() and not _ALONE:
             return cls(dist.get_rank(), dist.get_world_size(), True, device)
         return cls(device=device)
 
@@ -134,7 +164,12 @@ class DataParallel:
     @property
     def writes(self) -> bool:
         """Does this process write files (rank 0, or no group)?"""
-        return self.rank == 0
+        return self._writes
+
+    def synced(self, op: str) -> bool:
+        """Does the reduction ``op`` run over the ranks (active, and not
+        left local by a control)?"""
+        return self.active and op not in self.local_ops
 
     @contextlib.contextmanager
     def local(self):
@@ -179,7 +214,8 @@ class DataParallel:
              device) -> torch.Tensor:
         """Uniform draws for this rank's slice of a global tensor: the
         global tensor's (``world`` times the rows of ``shape``) drawn
-        from ``generator`` on its device, this rank's rows kept and moved
+        from ``generator`` on its device, this rank's rows kept
+        (``rows``, the forward's ``forward_micro`` microbatches) and moved
         to ``device``."""
         draw = device if generator is None else generator.device
         if not self.active:
@@ -188,27 +224,28 @@ class DataParallel:
         n = shape[0]
         full = torch.rand((self.world * n, *shape[1:]), generator=generator,
                           device=draw)
-        return full[self.rank * n:(self.rank + 1) * n].to(device)
+        rows = self.rows(self.world * n, self.forward_micro)
+        return full[rows.to(full.device)].to(device)
 
     # -- collectives -------------------------------------------------------
     def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over the ranks, differentiable (identity when
         not active)."""
-        return _AllReduceSum.apply(x) if self.active else x
+        return _AllReduceSum.apply(x, self.group) if self.active else x
 
     def bn_sum(self, x: torch.Tensor) -> torch.Tensor:
         """A BatchNorm's sum over the ranks, as ``bn_stats`` says."""
         if self.bn_stats == "forward" and self.active:
             local = x.detach()
             total = local.clone()
-            dist.all_reduce(total)
+            dist.all_reduce(total, group=self.group)
             return x + (total - local)
         return self.all_reduce_sum(x)
 
     def all_reduce_max_(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` replaced by its elementwise maximum over the ranks."""
         if self.active:
-            dist.all_reduce(x, op=dist.ReduceOp.MAX)
+            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group)
         return x
 
     def mean_grads(self, module: torch.nn.Module) -> None:
@@ -220,7 +257,7 @@ class DataParallel:
         if not grads:
             return
         flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=self.group)
         flat.div_(self.world)
         offset = 0
         for g in grads:
@@ -235,17 +272,36 @@ class DataParallel:
         names = sorted(metrics)
         flat = torch.stack([metrics[k].detach().to(torch.float64)
                             for k in names])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=self.group)
         flat.div_(self.world)
         return {k: flat[i].to(metrics[k].dtype) for i, k in enumerate(names)}
 
     def any(self, flag: bool) -> bool:
-        """Is ``flag`` set on any rank (an all-reduced MAX)?"""
+        """Is ``flag`` set on any rank of the whole process group (an
+        all-reduced MAX; under ``--pp`` the stages too)?"""
         if not self.active:
             return bool(flag)
         t = torch.tensor([1.0 if flag else 0.0], device=self.device)
-        self.all_reduce_max_(t)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
         return bool(t.item() > 0)
+
+
+# -- one process alone inside a group ----------------------------------------
+
+_ALONE = False
+
+
+@contextlib.contextmanager
+def alone():
+    """A block in which ``DataParallel.current`` finds no group: an engine
+    built there computes as one process (a rank's dp-1 reference in the
+    equivalence checks), and creates no subgroup."""
+    global _ALONE
+    was, _ALONE = _ALONE, True
+    try:
+        yield
+    finally:
+        _ALONE = was
 
 
 # -- starting the ranks -----------------------------------------------------

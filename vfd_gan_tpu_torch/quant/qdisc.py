@@ -14,6 +14,11 @@ forwards, ``--int8_disc`` (port of ``vfd_gan_tpu.quant.qdisc``).
   the float conv's where the forward would have been without
   quantisation.
 
+Under ``--dp`` (an active ``parallel.mesh.DataParallel``) the
+activation's absmax is the global tensor's: one all-reduced MAX before
+the quantiser, outside autograd (the backward is the float conv's).  The
+per-channel weight scales are equal on every rank already.
+
 In the MyGAN step G's loss has no D term (the adversarial value is
 detached telemetry), so quantising D changes only D's trajectory and the
 loss telemetry, never G's update or the scored masks.
@@ -26,9 +31,12 @@ import torch
 from vfd_gan_tpu_torch.quant.qmygan import conv_i8, quantize_weight
 
 
-def _dyn_scale(x: torch.Tensor) -> torch.Tensor:
-    """Per-tensor absmax / 127 in float32 (1 for an all-zero tensor)."""
-    absmax = x.float().abs().amax()
+def _dyn_scale(x: torch.Tensor, dp=None) -> torch.Tensor:
+    """Per-tensor absmax / 127 in float32 (1 for an all-zero tensor); the
+    absmax over the ranks under an active ``dp``."""
+    absmax = x.detach().float().abs().amax()
+    if dp is not None and dp.synced("absmax"):
+        absmax = dp.all_reduce_max_(absmax.reshape(1))[0]
     return torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
 
 
@@ -45,11 +53,11 @@ def _float_conv_grads(x, w, g, stride, padding):
 
 class _QConv3d(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, stride, padding):
+    def forward(ctx, x, w, stride, padding, dp):
         ctx.save_for_backward(x, w)
         ctx.stride, ctx.padding = stride, padding
         w_q, s_w = quantize_weight(w)
-        return conv_i8(x, _dyn_scale(x), w_q, s_w, stride=stride,
+        return conv_i8(x, _dyn_scale(x, dp), w_q, s_w, stride=stride,
                        padding=padding).to(x.dtype)
 
     @staticmethod
@@ -57,14 +65,15 @@ class _QConv3d(torch.autograd.Function):
         x, w = ctx.saved_tensors
         dx, dw = _float_conv_grads(x, w, g.to(x.dtype), ctx.stride,
                                    ctx.padding)
-        return dx.to(x.dtype), dw.to(w.dtype), None, None
+        return dx.to(x.dtype), dw.to(w.dtype), None, None, None
 
 
 def qconv3d(x: torch.Tensor, weight: torch.Tensor, stride=(1, 1, 1),
-            padding=(0, 0, 0)) -> torch.Tensor:
+            padding=(0, 0, 0), dp=None) -> torch.Tensor:
     """Int8 forward / float-STE backward of ``F.conv3d(x, weight, None,
-    stride, padding)`` (NCDHW, symmetric padding)."""
-    return _QConv3d.apply(x, weight, tuple(stride), tuple(padding))
+    stride, padding)`` (NCDHW, symmetric padding); ``dp``: the group whose
+    global tensor sets the activation scale."""
+    return _QConv3d.apply(x, weight, tuple(stride), tuple(padding), dp)
 
 
 def qspatial_conv(x: torch.Tensor, weight: torch.Tensor, stride: int,

@@ -35,6 +35,13 @@
   means over the ranks; a stop signal on any rank parks every rank at the
   same step (an all-reduced MAX of the flag); ``--resume`` loads on every
   rank.
+* ``--pp N`` (Xception; ``parallel/pp_xception.py``): the ranks form a
+  ``dp x pp`` grid (``parallel/pipeline.stage_grid``); the engine's
+  ``dp`` is its stage's dp subgroup, rank 0 of the whole group writes,
+  and ``_whole_state`` gives every rank every stage's blocks while a
+  checkpoint is written.  Each rank's rows are its slice of each GPipe
+  microbatch (``micro``), as under ``--accum`` of each accumulation
+  microbatch.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ from vfd_gan_tpu_torch.obs.summary import (  # noqa: F401  (re-exported)
 from vfd_gan_tpu_torch.ops.image import threshold
 from vfd_gan_tpu_torch.ops.morphology import video_open
 from vfd_gan_tpu_torch.parallel.mesh import DataParallel
+from vfd_gan_tpu_torch.parallel.pipeline import stage_grid
 from vfd_gan_tpu_torch.parallel.prefetch import device_prefetch
 from vfd_gan_tpu_torch.train.checkpoints import (
     AsyncSaver,
@@ -71,21 +79,12 @@ from vfd_gan_tpu_torch.train.checkpoints import (
 
 
 # JAX-engine options the port does not run yet, all of them several-card
-# ones: (is it set?, ROADMAP item).  Under --dp > 1 three options need a
-# global reduction of their own: the MoE slot cumsum and capacity over the
-# global token axis (parallel/moe.py:76,85 of the JAX package), the int8
-# per-tensor absmax (quant/qdisc.py:36-38) and the host flow's batch.
+# ones: (is it set?, ROADMAP item).
 UNPORTED = {
-    "sp/tp/pp": (lambda c: c.sp > 1 or c.tp > 1 or c.pp > 1,
-                 "queue 1 item 13 (parallelism)"),
+    "sp/tp": (lambda c: c.sp > 1 or c.tp > 1,
+              "queue 1 item 13 (parallelism)"),
     "moe_shards": (lambda c: c.moe_shards > 1,
                    "queue 1 item 13 (parallelism)"),
-    "moe_experts with --dp": (lambda c: c.dp > 1 and c.moe_experts > 0,
-                              "queue 1 item 13 (parallelism)"),
-    "int8_disc with --dp": (lambda c: c.dp > 1 and c.int8_disc,
-                            "queue 1 item 13 (parallelism)"),
-    "host_flow with --dp": (lambda c: c.dp > 1 and c.host_flow,
-                            "queue 1 item 13 (parallelism)"),
 }
 
 
@@ -146,10 +145,22 @@ class EngineBase:
         self.train_iter = train_iter
         self.test_iter = test_iter
         self.device = device
-        # this process's place in a --dp group (world 1 without one)
+        # this process's place in a --dp group (world 1 without one);
+        # under --pp its stage's dp subgroup of the dp x pp grid
         self.dp = DataParallel.current(device)
+        self.grid = None
+        if cfg.pp > 1 and self.dp.grouped:
+            self.grid = stage_grid(cfg.pp)
+            self.dp = DataParallel(self.grid.dp_index, self.grid.dp_size,
+                                   True, device, group=self.grid.dp_group,
+                                   writes=self.grid.rank == 0)
+        # the microbatches whose rows split over the dp ranks: --accum's,
+        # or --pp's GPipe microbatches
+        self.micro = cfg.n_pp_micro if cfg.pp > 1 else cfg.accum
+        if cfg.pp > 1:
+            self.dp.forward_micro = self.micro
         if hasattr(train_iter, "rows"):
-            train_iter.rows = self.dp.rows(cfg.batchsize, cfg.accum)
+            train_iter.rows = self.dp.rows(cfg.batchsize, self.micro)
         # what the train step casts its batch to: the nets' dtype
         # (float64 under to_float64)
         self.input_dtype = torch.float32
@@ -200,7 +211,7 @@ class EngineBase:
         """This rank's rows of draws made for the global batch (the
         augment parameters, AnoGAN's z): every rank draws them all from
         the engine's generator, which so stays the same on every rank."""
-        return self.dp.take(draws, self.cfg.accum)
+        return self.dp.take(draws, self.micro)
 
     def _step_done(self, *nets) -> None:
         """Average the nets' gradients over the ranks, then step each
@@ -208,6 +219,13 @@ class EngineBase:
         for net in nets:
             self.dp.mean_grads(net.module)
             net.optimizer.step()
+
+    @contextlib.contextmanager
+    def _whole_state(self):
+        """This rank's train state whole for the block (every rank enters
+        it at the same step; under ``--pp`` the stages' blocks are
+        gathered, and released after it)."""
+        yield
 
     def to_float64(self) -> None:
         """Every net, its optimizer state and the train step's batch in
@@ -225,8 +243,10 @@ class EngineBase:
 
     # -- the training loop -------------------------------------------------
     def train(self) -> None:
-        print(f" >> Training model {self.cfg.model}.")
         with self._graceful_shutdown() as stop_signal:
+            # said once the handlers are in place: a launcher that signals
+            # on this line finds them there
+            print(f" >> Training model {self.cfg.model}.", flush=True)
             self._train_loop(stop_signal)
 
     def _train_loop(self, stop_signal) -> None:
@@ -263,12 +283,14 @@ class EngineBase:
                         self.test()
                     self.flush_summary()
 
-                if cfg.autosave_every and self.dp.writes and \
+                if cfg.autosave_every and \
                         self.global_step % cfg.autosave_every == 0:
-                    if cfg.autosave_async:
-                        self._async_saver().save(latest, self._ckpt_tree())
-                    else:
-                        save_checkpoint(latest, self._ckpt_tree())
+                    with self._whole_state():
+                        if self.dp.writes and cfg.autosave_async:
+                            self._async_saver().save(latest,
+                                                     self._ckpt_tree())
+                        elif self.dp.writes:
+                            save_checkpoint(latest, self._ckpt_tree())
 
                 if cfg.max_steps and self.global_step >= cfg.max_steps:
                     self._wait_autosave()
@@ -280,8 +302,9 @@ class EngineBase:
                     # SIGTERM/SIGINT (on any rank): park a checkpoint that
                     # resumes exactly, and return instead of dying
                     self._wait_autosave()
-                    if self.dp.writes:
-                        save_checkpoint(latest, self._ckpt_tree())
+                    with self._whole_state():
+                        if self.dp.writes:
+                            save_checkpoint(latest, self._ckpt_tree())
                     print(f" >> Training model {cfg.model}."
                           f"[Interrupted by signal {stop_signal()}; "
                           f"saved '{latest}'; resume with --resume]")

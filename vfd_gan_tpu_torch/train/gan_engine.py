@@ -49,6 +49,8 @@ not ported yet are refused with the ``ROADMAP.md`` item that holds them.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -111,7 +113,10 @@ class MyGanEngine(EngineBase):
             # sweeps); where cv2 does not import, exit now, not at the
             # first step
             require_cv2()
-            self._flow = video_to_flow_rgb_host
+            # under --dp the slabs' extrema over the ranks
+            self._flow = functools.partial(video_to_flow_rgb_host,
+                                           dp=self.dp) \
+                if self.dp.grouped else video_to_flow_rgb_host
         # --cache_gt_flow: clip index -> its (T, H, W, 3) gt flow video on
         # the device
         self._gt_flow_cache: dict[int, torch.Tensor] = {}

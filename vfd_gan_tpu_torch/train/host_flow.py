@@ -9,6 +9,11 @@ consecutive pair, hue = angle in degrees / 2, saturation 255, value = the
 frame's min-max normalised magnitude, the last flow frame repeated, RGB in
 [-1, 1].  ``--flow_scale`` does not apply.
 
+Under ``--dp`` each rank holds its rows of each stream, and the
+per-(stream, time-slab) min and max are the global stream's: the rank's
+``2 x streams x T`` extrema are all-reduced (one MAX of the maxima and the
+negated minima), then each rank normalises and runs cv2 on its own clips.
+
 cv2 is imported on use; ``require_cv2`` lets an engine refuse the option
 when it is built, where cv2 does not import (a PyTorch-only install).
 """
@@ -30,26 +35,39 @@ def require_cv2() -> None:
             "--host_flow to compute the flow on the device") from e
 
 
-def host_video_to_flow_rgb(video: np.ndarray, streams: int = 1) -> np.ndarray:
+def slab_extrema(video: np.ndarray, streams: int = 1):
+    """``(lo, hi)``, each ``(streams, T)`` float32: the min and the max of
+    every (stream, time slab) of ``(B, T, H, W, 3)`` over that stream's
+    batch (lib/utils.py:96)."""
+    b, t = video.shape[:2]
+    if b % streams:
+        raise ValueError(f"batch {b} does not split into {streams} streams")
+    grouped = video.reshape(streams, b // streams, t, -1)
+    return grouped.min(axis=(1, 3)), grouped.max(axis=(1, 3))
+
+
+def host_video_to_flow_rgb(video: np.ndarray, streams: int = 1,
+                           extrema=None) -> np.ndarray:
     """numpy RGB video ``(B, T, H, W, 3)`` in [-1, 1] -> its flow RGB video.
 
     ``streams``: the number of contiguous batch groups whose time slabs are
     min-max normalised apart (the reference calls its flow once per video
-    stream, models/mygannet.py:281-282)."""
+    stream, models/mygannet.py:281-282).  ``extrema``: the ``(lo, hi)`` of
+    ``slab_extrema`` to normalise by (the global batch's under ``--dp``),
+    else this video's own."""
     import cv2
 
     video = np.asarray(video, np.float32)
     b, t, h, w, _ = video.shape
-    if b % streams:
-        raise ValueError(f"batch {b} does not split into {streams} streams")
+    lo, hi = slab_extrema(video, streams) if extrema is None else extrema
     g = b // streams
     # per-time-slab min-max over one stream's batch (lib/utils.py:96)
     norm = np.empty_like(video)
     for s in range(streams):
         for j in range(t):
             slab = video[s * g:(s + 1) * g, j]
-            lo, hi = slab.min(), slab.max()
-            norm[s * g:(s + 1) * g, j] = (slab - lo) / (hi - lo + 1e-5)
+            norm[s * g:(s + 1) * g, j] = (slab - lo[s, j]) / (
+                hi[s, j] - lo[s, j] + 1e-5)
     gray = (norm[..., 0] * 0.299 + norm[..., 1] * 0.587
             + norm[..., 2] * 0.114) * 255.0
     gray = gray.astype(np.uint8)
@@ -71,10 +89,23 @@ def host_video_to_flow_rgb(video: np.ndarray, streams: int = 1) -> np.ndarray:
     return out * 2.0 - 1.0
 
 
-def video_to_flow_rgb_host(video: torch.Tensor,
-                           streams: int = 1) -> torch.Tensor:
+def video_to_flow_rgb_host(video: torch.Tensor, streams: int = 1,
+                           dp=None) -> torch.Tensor:
     """``host_video_to_flow_rgb`` of a tensor: copied to the host, the flow
-    made there, copied back to the tensor's device as float32."""
-    out = host_video_to_flow_rgb(video.detach().float().cpu().numpy(),
-                                 streams)
-    return torch.from_numpy(out).to(video.device)
+    made there, copied back to the tensor's device as float32 (float64
+    for a float64 tensor).  Under an
+    active ``dp`` (``parallel.mesh.DataParallel``) the tensor holds this
+    rank's rows of each stream, and the slabs' extrema are the global
+    batch's."""
+    host = video.detach().float().cpu().numpy()
+    extrema = None
+    if dp is not None and dp.synced("stretch"):
+        lo, hi = slab_extrema(host, streams)
+        both = torch.from_numpy(np.stack([hi, -lo])).to(dp.device)
+        both = dp.all_reduce_max_(both).cpu().numpy()
+        extrema = (-both[1], both[0])
+    out = torch.from_numpy(host_video_to_flow_rgb(host, streams, extrema))
+    # float64 in a float64 run (the equivalence checks; the values are
+    # float32's)
+    return out.to(video.device, torch.float64 if video.dtype == torch.float64
+                  else torch.float32)

@@ -25,7 +25,11 @@ float32 (JAX supervised_engine.py:37-39).
 microbatches of the augmented batch with one optimizer step (``_step``).
 ``--moe_experts N`` (Xception only) adds ``--moe_aux_w`` times the MoE
 block's load-balancing loss to each train-mode microbatch's loss, and the
-reported loss includes it, as in JAX.
+reported loss includes it, as in JAX.  ``--pp N [--pp_micro M]``
+(Xception only) runs the train forward and backward through
+``parallel/pp_xception.XceptionPipeline`` (GPipe over the eight middle
+blocks, their BatchNorm statistics per microbatch); the sweep and the
+checkpoints see the whole model, its stages gathered first.
 Under ``--ref_mode_quirks`` the reference's stuck-in-eval latch holds: its
 ``test()`` switches the model to eval mode and never back
 (lib/train_stcnn.py:143), so from step ``freq + 1`` on the model trains
@@ -52,6 +56,7 @@ from vfd_gan_tpu_torch.ops.image import (
 )
 from vfd_gan_tpu_torch.ops.losses import bce
 from vfd_gan_tpu_torch.ops.morphology import video_open
+from vfd_gan_tpu_torch.parallel.pp_xception import XceptionPipeline
 from vfd_gan_tpu_torch.parallel.prefetch import to_device
 from vfd_gan_tpu_torch.train.checkpoints import save_pth
 from vfd_gan_tpu_torch.train.engine_base import EngineBase, SweepAccumulator
@@ -71,10 +76,17 @@ class SupervisedEngine(EngineBase):
         self.rng = torch.Generator(device=device).manual_seed(cfg.seed + 1)
         # the tensors of the last train step's panels (a panel step only)
         self._viz: dict | None = None
+        # --pp: the middle chain pipelined over the grid's stages (none in
+        # a process alone: the chain run per microbatch)
+        self.pipe = XceptionPipeline(self.model, self.grid,
+                                     cfg.n_pp_micro) if cfg.pp > 1 else None
         self._bind_dp()
         if cfg.resume:
             self.restore_into(cfg.resume, self._nets())
             print(f"\n Loaded pretrained weights from {cfg.resume}\n")
+        if self.pipe is not None:
+            # the other stages' blocks leave this rank (loaded whole first)
+            self.pipe.release(self.net.optimizer)
 
     def _nets(self) -> dict:
         return {"state": self.net}
@@ -115,8 +127,10 @@ class SupervisedEngine(EngineBase):
         self.net.optimizer.zero_grad(set_to_none=True)
         losses, preds = [], []
         moe = getattr(model, "moe", None)
+        forward = model if self.pipe is None else self.pipe.forward
         for data_i, gt_i in zip(data.chunk(k), gt.chunk(k)):
-            pred = to_channel_last(model(to_channel_first(data_i), drop_gen))
+            pred = to_channel_last(forward(to_channel_first(data_i),
+                                           drop_gen))
             loss = bce(pred, gt_i)
             if moe is not None and model.training:
                 # the Switch load-balancing term, per microbatch (JAX
@@ -124,6 +138,8 @@ class SupervisedEngine(EngineBase):
                 loss = loss + self.cfg.moe_aux_w * \
                     moe.aux["load_balance_loss"]
             loss.backward()
+            if self.pipe is not None:
+                self.pipe.backward()
             losses.append(loss.detach())
             preds.append(pred.detach())
         if k > 1:
@@ -164,7 +180,17 @@ class SupervisedEngine(EngineBase):
         m_pre = video_open(t_pre, self.cfg.morph_plane)
         return bce(pred, gt), gt, pred, t_pre, m_pre, data, real
 
+    def _whole_state(self):
+        if self.pipe is None:
+            return super()._whole_state()
+        return self.pipe.whole(self.net.optimizer)
+
     def test(self) -> tuple[float, float, float]:
+        # the sweep and a best checkpoint see every stage's blocks
+        with self._whole_state():
+            return self._test()
+
+    def _test(self) -> tuple[float, float, float]:
         sweep = SweepAccumulator(device=self.cfg.device_scoring)
         for batch in self._batches(self.test_iter):
             err, gt, pred, t_pre, m_pre, data, real = \
