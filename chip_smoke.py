@@ -162,7 +162,22 @@ phases, one line each (or a few):
 27. native: the host runtime on mp4 files written to disk (b8, T16,
     staged 140^2 from 160^2): decode + pack ms per batch and the train
     loop's wait per batch with a consumer holding each batch 150 ms,
-    with the library and with the Python forms, in turns.
+    with the library and with the Python forms, in turns;
+28. parallel (``phase_parallel``): serve with two replicas on the card,
+    and the ``--dp`` options and ``--pp`` in two gloo ranks on it;
+29. sp (``phase_sp``): two gloo ranks on the one card shard MyGAN's
+    frames (``--sp 2``) at the reference width, nfr 32 (every level local)
+    and nfr 16 (the bottleneck gathered), float32 and bf16, 3 steps and a
+    one-batch sweep each, held within ``parallel/verify.py``'s K = 10 x
+    the spread of two one-process sp 1 runs (the plain run and its
+    two-pass BatchNorm twin); both ranks one replica bit for bit; each
+    rank's launches (augment 1 a step, fused flow 3 a step, the opening 1
+    a sweep batch); step medians, peak MiB per rank and sweep ms beside sp
+    1's; the frame-axis exchanges per step, and in one more run each
+    timed with the device synchronised around it; the fused kernel on
+    each rank's halo'd fields of a b8 x 2-stream flow against its plain
+    version, and the plain path's flow bit-equal to sp 1's.  Every line
+    carries the card's name and power limit.
 
 bfloat16, the JAX package's and the trainer's default compute dtype, runs
 beside float32: the conv kernel's bf16 form at the nine launches of a
@@ -198,7 +213,7 @@ and the int8 serve + infer path) starts with the launch counts of the
 kernels set to 0 and reads them after; the same counters hold the int8
 GEMM's calls (``int8_matmul``: cuBLASLt, no kernel of the port), printed
 on the phases' lines and not on the kernels line.  ``--slice-only``
-runs the build and phases 26-27 alone and prints no result line.  Then come one JSON line of kernel results
+runs the build and phase 29 alone and prints no result line.  Then come one JSON line of kernel results
 and, last, ``{"ok": true, "device": {...}}``.  Per kernel the JSON line
 holds its time (``ms``), its plain version's (``plain_ms``), the time of
 one PyTorch call that computes the same function where there is one
@@ -221,7 +236,7 @@ launches summed over one step of their path (``step_ms_sum``,
 other runs (``launches_on``: AnoGAN and GANomaly for the augment and
 opening kernels; every ``--accum``, ``--remat``, ``--host_flow``,
 evaluate, ``--moe_experts``, int8 serve and ``--int8_disc`` run, and
-each rank of the ``--dp`` runs).  Any failure raises: the script exits non-zero and
+each rank of the ``--dp`` and ``--sp`` runs).  Any failure raises: the script exits non-zero and
 prints no last line.  It does the same without a card, and outside a
 checkout of the repo.
 """
@@ -339,7 +354,9 @@ def bound(nbytes: float, flop: float,
             "bound_by": "bytes" if by_bytes >= by_flop else "operations"}
 
 
-def phase_device() -> str:
+def phase_device() -> tuple[str, str]:
+    """The card's name, and its name and power limit as nvidia-smi gives
+    them (printed on a line of their own)."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False: "
                          "this needs an NVIDIA card")
@@ -350,8 +367,9 @@ def phase_device() -> str:
         capture_output=True, text=True, timeout=60, check=True)
     say("device", f"torch {torch.__version__} cuda {torch.version.cuda}; "
                   f"{name}; count {torch.cuda.device_count()}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
-    return name
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    return name, card
 
 
 def import_port():
@@ -3569,6 +3587,221 @@ def phase_parallel(tmp: Path, paths: dict) -> dict:
     return launches
 
 
+# the sp phase: train steps per run, the gloo ranks' join timeout, and its
+# runs: (nfr, compute dtype) of MyGAN at the reference width (b8, 128^2,
+# ngf = ndf = 32, flow_scale 0.5)
+SP_STEPS = 3
+SP_JOIN_S = 500
+SP_RUNS = ((32, "float32"), (16, "float32"), (32, "bfloat16"),
+           (16, "bfloat16"))
+# the zero-halo control (each shard padded as if alone) at nfr 32, where
+# every level is sharded: it must land outside the K x spread limit
+SP_CONTROLS = ((32, "float32"), (32, "bfloat16"))
+
+
+def _sp_case(name: str, nfr: int, dtype: str, sp: int, **kw) -> dict:
+    """A ``tools/dp_equivalence.py`` case of MyGAN at the reference width:
+    ``SP_STEPS`` steps of a b8 clip of ``nfr`` frames in ``dtype`` and a
+    one-batch test sweep, over ``sp`` frame shards (1: in this process)."""
+    argv = ["--model", "mygan", "--batchsize", str(BATCH), "--nfr",
+            str(nfr), "--isize", str(ISIZE), "--ngf", "32", "--ndf", "32",
+            "--flow_scale", "0.5", "--compute_dtype", dtype, "--sp",
+            str(sp), "--synthetic_data", str(SP_STEPS),
+            "--synthetic_test_batches", "1", "--ep", "1", "--freq", "1000"]
+    return dict(dict(kind="train", name=name, argv=argv, steps=SP_STEPS,
+                     dp=1 if sp == 1 else 2, device="cuda", sweep=True,
+                     first_grads=True), **kw)
+
+
+def _scores_close(got: dict, ref: dict, again: dict) -> str:
+    """An sp 2 run's sweep scores against its sp 1 reference: each within
+    ``parallel/verify.py``'s K (10) x the two reference runs' spread plus
+    1e-5, as ``_dp_close`` holds the parameters; returns the readings."""
+    from vfd_gan_tpu_torch.parallel.verify import K
+
+    out = []
+    check(set(got["scores"]) == set(ref["scores"]),
+          f"sp scores: the same keys {sorted(got['scores'])}")
+    for k, want in sorted(ref["scores"].items()):
+        d = abs(got["scores"][k] - want)
+        spread = abs(again["scores"][k] - want)
+        check(math.isfinite(want) and d <= K * spread + 1e-5,
+              f"sp scores: {k} {got['scores'][k]!r} against sp 1's "
+              f"{want!r}: {d:.3g} within {K:g} x the spread {spread:.3g} "
+              f"+ 1e-5")
+        out.append(f"{k} {got['scores'][k]:.6f} (sp 1 {want:.6f}, "
+                   f"{again['scores'][k]:.6f})")
+    return "sweep scores sp 2 " + ", ".join(out)
+
+
+def _per_step(counts: dict, timed: bool = False) -> str:
+    """A run's frame-axis exchanges per step by kind (and their ms)."""
+    return ", ".join(f"{k} {n:g}" + (f" ({ms:.2f} ms)" if timed else "")
+                     for k, (n, ms) in sorted(counts.items()))
+
+
+def phase_sp(tmp: Path, card: str) -> dict:
+    """``--sp 2``: two gloo ranks on this one card shard the frames of
+    MyGAN at the reference width (b8, 128^2, ngf = ndf = 32, flow_scale
+    0.5), at nfr 32 (every level local) and nfr 16 (the bottleneck
+    gathered), in float32 and in bf16, ``SP_STEPS`` steps and a one-batch
+    sweep each, each held within ``parallel/verify.py``'s K (10) x the
+    spread of two one-process sp 1 runs of the same steps (the plain run
+    and the same run in the grid's two-pass BatchNorm arithmetic,
+    ``_dp_close``; and the first step's gradient, read from Adam's first
+    moment, where Adam's steps of about lr times a sign make the
+    parameters blind to a wrong gradient),
+    and its sweep's scores likewise; both ranks hold one replica, bit for
+    bit; each rank launches the augment kernel once per step, the fused
+    flow kernel 3 times per step and the opening once per sweep batch,
+    and every augment and opening call on the rank's own inputs (its
+    frames; the sweep's gathered planes, and blobs of their shape and
+    layout: a young G's masks are empty) is held bit for bit against its
+    plain version (``dp_equivalence._held_kernels``; the plain versions
+    run inside the timed steps and sweep).  The zero-halo control at nfr
+    32 in float32 and bf16 must fail that gate.  One more float32 nfr 32 run times each halo exchange
+    (the device synchronised around it).  A b8 x 2-stream mask video's
+    flow at sp 2: every fused kernel call on the halo'd fields against its
+    plain version, and the plain path's flow bit-equal to sp 1's.
+    Returns the kernels' launches by run (each rank's)."""
+    from vfd_gan_tpu_torch.parallel.verify import K
+    from vfd_gan_tpu_torch.tools import dp_equivalence as eq
+    from vfd_gan_tpu_torch.tools.step_reference import within_spread
+
+    t0 = time.perf_counter()
+    refs = {}
+    for nfr, dtype in SP_RUNS:
+        tag = f"nfr{nfr} {dtype}"
+        refs[tag] = tuple(
+            eq.run_train(_sp_case(f"sp1.{nfr}.{dtype}.{i}", nfr, dtype, 1,
+                                  **kw), tmp / "sp_ref", solo=True)
+            for i, kw in ((1, {}), (2, {"arith": "dp"})))
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_refs = time.perf_counter() - t0
+    np.save(tmp / "sp_video.npy", _mask_batch("cuda", 2 * BATCH, 3)
+            .cpu().numpy())
+    cases = [_sp_case(f"sp2.{nfr}.{dtype}", nfr, dtype, 2,
+                      hold_kernels=True) for nfr, dtype in SP_RUNS]
+    cases += [_sp_case(f"sp2.halo.{nfr}.{dtype}", nfr, dtype, 2,
+                       local_ops=["halo"], sweep=False)
+              for nfr, dtype in SP_CONTROLS]
+    cases += [_sp_case("sp2.timed", 32, "float32", 2, time_collectives=True,
+                       sweep=False),
+              dict(kind="flow", name="sp2.flow", video=str(
+                  tmp / "sp_video.npy"), streams=2, sp=2, scale=0.5,
+                   plain_path=True, device="cuda")]
+    gloo = tmp / "sp_gloo"
+    t1 = time.perf_counter()
+    eq.run(cases, gloo, world=2, backend="gloo", timeout=SP_JOIN_S)
+    t_ranks = time.perf_counter() - t1
+
+    def load(name, rank=0):
+        return torch.load(gloo / f"{name}.rank{rank}.pt", weights_only=False)
+
+    launches = {}
+    for nfr, dtype in SP_RUNS:
+        tag = f"nfr{nfr} {dtype}"
+        got, other = load(f"sp2.{nfr}.{dtype}"), load(f"sp2.{nfr}.{dtype}", 1)
+        for kind in ("params", "buffers"):
+            unequal = [k for k, v in got[kind].items()
+                       if not torch.equal(v, other[kind][k])]
+            check(not unequal, f"sp {tag}: both ranks hold the same {kind} "
+                               f"bit for bit: {unequal[:8]}")
+        for r, res in enumerate((got, other)):
+            check(all(np.isfinite(v) for step in res["losses"]
+                      for v in step.values()), f"sp {tag}: finite losses")
+            counts, sweep = res["launches"], res["sweep_launches"]
+            check(counts["augment_gather"] == SP_STEPS,
+                  f"sp {tag}: the augment kernel once per step: {counts}")
+            check(counts["flow_fused"] == 3 * SP_STEPS,
+                  f"sp {tag}: the fused flow kernel 3 times per step: "
+                  f"{counts}")
+            check(sweep["morphology_open"] == 1,
+                  f"sp {tag}: the opening once per sweep batch: {sweep}")
+            total = {k: counts.get(k, 0) + sweep.get(k, 0)
+                     for k in set(counts) | set(sweep)}
+            launches[f"sp {tag}" + (" rank1" if r else "")] = total
+            held = res["kernel_vs_plain"]
+            for name, calls in (("augment_gather", SP_STEPS),
+                                ("morphology_open", 1),
+                                ("morphology_open_blobs", 1)):
+                check(len(held.get(name, ())) == calls
+                      and all(c[0] == 0 for c in held[name]),
+                      f"sp {tag} rank {r}: {name} bit-equal to its plain "
+                      f"version on each of its {calls} call(s) on the "
+                      f"rank's inputs: {held.get(name)}")
+            blobs = held["morphology_open_blobs"][0]
+            check(0.05 < blobs[3] < 0.95, f"sp {tag}: the blobs' opening "
+                                          f"neither empty nor full: {blobs}")
+        ref, again = refs[tag]
+        say("sp", f"{card}: {tag} sp 2 " + _dp_close(f"{tag}", got, ref,
+                                                     again)
+            + "; " + _spread_close(
+                f"{tag} first gradient", got["first_exp_avg"],
+                ref["first_exp_avg"], again["first_exp_avg"], factor=K))
+        say("sp", f"{card}: {tag} " + _scores_close(got, ref, again))
+        opened, blobs = (held[k][0] for k in ("morphology_open",
+                                              "morphology_open_blobs"))
+        say("sp", f"{card}: {tag}: the augment kernel on each rank's "
+                  f"{held['augment_gather'][0][1]} uint8 frames and the "
+                  f"opening on the sweep's {opened[1]} gathered masks "
+                  f"(fill {opened[2]:.4f} -> {opened[3]:.4f}) bit-equal to "
+                  f"their plain versions; the opening on blobs of that "
+                  f"shape and layout (fill {blobs[2]:.4f} -> "
+                  f"{blobs[3]:.4f}) too")
+        say("sp", f"{card}: {tag}: step median ms sp 1 "
+                  f"{_median_ms(ref):.1f} (two-pass BatchNorms "
+                  f"{_median_ms(again):.1f}), sp 2 (2 gloo ranks on one "
+                  f"card) {_median_ms(got):.1f} / {_median_ms(other):.1f}; "
+                  f"peak MiB sp 1 {ref.get('peak_mib', math.nan):.0f}, sp 2 "
+                  f"per rank {got.get('peak_mib', math.nan):.0f} / "
+                  f"{other.get('peak_mib', math.nan):.0f}; sweep "
+                  f"(1 batch) ms sp 1 {ref['sweep_ms']:.1f}, sp 2 "
+                  f"{got['sweep_ms']:.1f}; exchanges per step "
+                  f"{_per_step(got['sp_counts'])}; launches per rank "
+                  f"(steps + sweep) {json.dumps(launches[f'sp {tag}'])}")
+    for nfr, dtype in SP_CONTROLS:
+        tag = f"nfr{nfr} {dtype}"
+        ref, again = refs[tag]
+        control = load(f"sp2.halo.{nfr}.{dtype}")
+        readings, past = [], {}
+        for kind in ("params", "first_exp_avg", "exp_avg"):
+            dist, spread, _ = within_spread(control[kind], ref[kind],
+                                            again[kind], K)
+            past[kind] = max(d / (K * s + 1e-5) for d, s in zip(dist, spread))
+            readings.append(
+                f"{kind} median {dist[0]:.3g}, whole {dist[1]:.3g} (two "
+                f"reference runs: {spread[0]:.3g}, {spread[1]:.3g}): "
+                f"{past[kind]:.3g} x the limit")
+        check(max(past.values()) > 1,
+              f"sp {tag}: the zero-halo control fails the gate that the "
+              f"sp 2 runs pass (K {K:g} x the spread + 1e-5): {readings}")
+        say("sp", f"{card}: {tag} zero-halo control " + "; ".join(readings))
+    timed = load("sp2.timed")
+    say("sp", f"{card}: nfr32 float32 sp 2, each exchange timed with the "
+              f"device synchronised around it, per step: "
+              f"{_per_step(timed['sp_counts'], True)}; step median "
+              f"{_median_ms(timed):.1f} ms (synchronised)")
+    flow, flow1 = load("sp2.flow"), load("sp2.flow", 1)
+    worst = max(c[1] for f in (flow, flow1) for c in f["kernel_vs_plain"])
+    biggest = max(c[0] for f in (flow, flow1) for c in f["kernel_vs_plain"])
+    check(worst <= 1e-3, f"sp flow: the fused kernel on the halo'd fields "
+                         f"against its plain version, q99 {worst} px")
+    both = torch.cat([flow["flow_plain"], flow1["flow_plain"]], 1)
+    check(torch.equal(both, flow["flow_alone_plain"]),
+          "sp flow: the plain path's flow at sp 2 bit-equal to sp 1's")
+    say("sp", f"{card}: flow of a {2 * BATCH} x {NFR}-frame 128^2 2-stream "
+              f"mask video at scale 0.5, sp 2: the fused kernel on each "
+              f"rank's halo'd fields ({len(flow['kernel_vs_plain'])} calls a "
+              f"rank, fields {[c[2][0] for c in flow['kernel_vs_plain']]}) "
+              f"against its plain version: q99 {worst:.3g} px, max "
+              f"{biggest:.3g} px; the plain path's flow bit-equal to sp 1's")
+    say("sp", f"{card}: sp 1 references {t_refs:.1f} s, gloo ranks "
+              f"{t_ranks:.1f} s, phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _host_forms(plain: bool):
     """The dataset's host runtime: the library (``plain`` False) or the
     Python forms, for the block."""
@@ -3673,19 +3906,18 @@ def run_new_phases(tmp: Path, device, paths: dict, base: dict) -> dict:
     return runs
 
 
-def slice_only(name: str) -> None:
-    """``--slice-only``: the build and this slice's phase alone (serve
-    --dp, --dp with the three options, --pp), for a short call while it
-    is worked on; prints no result line."""
+def slice_only(name: str, card: str) -> None:
+    """``--slice-only``: the build and this slice's phase alone (``--sp``),
+    for a short call while it is worked on; prints no result line."""
     with tempfile.TemporaryDirectory() as tmp:
-        runs = phase_parallel(Path(tmp), make_checkpoints(Path(tmp)))
+        runs = phase_sp(Path(tmp), card)
     say("slice-only", f"{name}: launches by run {json.dumps(runs)}; no "
                       "result line (the full run prints it)")
 
 
 def main() -> None:
     start = time.perf_counter()
-    name = phase_device()
+    name, card = phase_device()
     import_port()
     from vfd_gan_tpu_torch.utils.runtime import resolve_device
 
@@ -3693,7 +3925,7 @@ def main() -> None:
     resolve_device("cuda")               # TF32 off, as the entry points do
     phase_build()
     if sys.argv[1:] == ["--slice-only"]:
-        slice_only(name)
+        slice_only(name, card)
         return
     results = {"morphology_open": phase_kernel(device)}
     results.update(phase_flow_kernels(device))
@@ -3825,6 +4057,9 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         new_runs.update(run_dp_phases(Path(tmp), paths))
+        gc.collect()
+        torch.cuda.empty_cache()
+        new_runs.update(phase_sp(Path(tmp), card))
     # launches: each kernel's count on the main path that runs it (MyGAN's
     # trainer for the fused and opening kernels, its --flow_impl
     # two_kernel step for warp and refine, the clstm trainer for the

@@ -5,7 +5,7 @@ against JAX's step on a 2-device mesh.
 Two groups of 2 ranks are started once for the module, side by side
 (``ranks``; the ranks run ``vfd_gan_tpu_torch.tools.dp_equivalence``, so
 no rank imports JAX, this file or ``conftest.py``), each meeting through a
-file under the test's tmp dir, with a join timeout of 110 s: a hung rank
+file under the test's tmp dir, with a join timeout of 300 s: a hung rank
 fails the tests and is killed, and no rank outlives the module.
 
 * float64 (the nets, Adam's state and the batch; ``EngineBase.
@@ -81,7 +81,9 @@ from vfd_gan_tpu_torch.utils.weights import (
 from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 BOUND = 1e-9
-JOIN_S = 110.0
+# a hung rank's bound: the c2plus1d group ran past 110 s once the tier
+# also ran tests/test_torch_port_sp.py's ranks and JAX compiles beside it
+JOIN_S = 300.0
 # the float32 MyGAN step against JAX: b2 (one clip per rank), T16, 64^2
 B, T, S, NGF, NDF = 2, 16, 64, 4, 4
 _COMMON = ["--compute_dtype", "float32", "--synthetic_data", "2",
@@ -176,7 +178,14 @@ def _flow_video() -> np.ndarray:
 
 
 class _Ranks:
-    """The module's groups of 2 ranks, each running in the background."""
+    """The module's groups of 2 ranks, each running in the background.
+
+    ``start`` returns once the group's ranks are spawned, and the ranks
+    write to a log file of their own: a test that counts this process's
+    children or captures its output never sees a group spawned while it
+    runs (on a loaded host a thread's spawn could come after the first
+    test's count began, and its ranks' ``SAVE PATH`` lines then landed in
+    that test's captured output)."""
 
     def __init__(self, root):
         self.root = root
@@ -184,17 +193,24 @@ class _Ranks:
         self.threads = []
 
     def start(self, cases) -> None:
-        thread = threading.Thread(target=self._run, args=(cases,),
-                                  daemon=True)
+        spawned = threading.Event()
+        thread = threading.Thread(
+            target=self._run, args=(cases, len(self.threads), spawned),
+            daemon=True)
         thread.start()
         self.threads.append(thread)
+        spawned.wait(JOIN_S)
 
-    def _run(self, cases):
+    def _run(self, cases, index: int, spawned: threading.Event):
         try:
-            eq.run(cases, self.root / f"group{len(self.threads)}", world=2,
-                   backend="gloo", timeout=JOIN_S)
+            eq.run(cases, self.root / f"group{index}", world=2,
+                   backend="gloo", timeout=JOIN_S,
+                   log=self.root / f"group{index}.log",
+                   on_spawn=lambda pids: spawned.set())
         except Exception as e:          # reported by every result()
             self.errors.append(e)
+        finally:
+            spawned.set()
 
     def join(self) -> None:
         for thread in self.threads:
@@ -266,16 +282,22 @@ _CLI = ["--model", "clstm", "--batchsize", "4", "--nfr", "8", "--isize",
 
 
 def _children() -> list[int]:
-    """Live child processes of this process."""
+    """Live child processes of this process, but for the module's own
+    ranks (``tools/dp_equivalence`` processes), which come and go as
+    their groups run."""
     me, kids = os.getpid(), []
     for pid in filter(str.isdigit, os.listdir("/proc")):
         try:
             with open(f"/proc/{pid}/stat") as f:
                 fields = f.read().rsplit(")", 1)[1].split()
+            if int(fields[1]) != me or fields[0] == "Z":
+                continue
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                if eq.ENTRY.encode() in f.read():
+                    continue
         except OSError:
             continue
-        if int(fields[1]) == me and fields[0] != "Z":
-            kids.append(int(pid))
+        kids.append(int(pid))
     return kids
 
 

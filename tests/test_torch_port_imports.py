@@ -63,7 +63,8 @@ def test_port_imports_without_jax_or_cv2():
         "data.video_io", "data.native", "data.dataset", "data.synthetic",
         "parallel.prefetch", "obs.summary", "obs.profiling",
         "cli.evaluate_models", "cli.export_torch", "cli.frames",
-        "train.host_flow",
+        "train.host_flow", "parallel.mesh", "parallel.temporal",
+        "parallel.sp_generator", "tools.dp_equivalence",
     )} <= names
 
 

@@ -33,6 +33,15 @@ fails.  N is resolved as in the JAX trainer: on ``cuda`` capped at the
 visible cards (``--dp 0``: all of them) and shrunk to a divisor of the
 microbatch; on the CPU it is the number of processes.
 
+``--sp N`` (MyGAN) shards each clip's frames over N ranks
+(``parallel/temporal.py``, ``parallel/sp_generator.py``): the command
+starts ``dp x N`` ranks, rank ``d N + k`` holding rows ``d`` and frames
+``k`` of each batch (on ``cuda`` one card each: ``dp N`` must fit the
+visible cards; on ``--device cpu`` processes).  Its options
+``--accum``, ``--remat``, ``--int8_disc``, ``--host_flow``, ``--ae``,
+``--cache_gt_flow`` and ``--ref_mode_quirks`` are refused under it, and
+so is ``--sp`` for the other five families.
+
 ``--pp N [--pp_micro M]`` (Xception) pipelines the eight middle blocks
 over N stages (``parallel/pp_xception.py``, GPipe with M microbatches,
 default N): the command starts ``dp x N`` ranks, each stage a process
@@ -135,8 +144,10 @@ def build_engine(argv, rank: int | None = None):
 
 
 def launch_ranks(argv, dp: int, backend: str,
-                 timeout: float | None = None, pp: int = 1) -> None:
-    """``argv``'s training as ``dp x pp`` ranks of one group over
+                 timeout: float | None = None, pp: int = 1,
+                 sp: int = 1) -> None:
+    """``argv``'s training as ``dp x pp`` (or ``dp x sp``) ranks of one
+    group over
     ``backend`` (``"nccl"`` or ``"gloo"``; gloo also runs several ranks
     on one card), each a ``python -m vfd_gan_tpu_torch.cli.trainer``
     process; raises if a rank fails or ``timeout`` seconds pass.  The
@@ -144,7 +155,7 @@ def launch_ranks(argv, dp: int, backend: str,
     that hangs makes its peers' next collective fail after the group's
     timeout (``parallel/mesh.rank_group``), which stops every rank."""
     launch("vfd_gan_tpu_torch.cli.trainer", [*argv, "--dp", str(dp)],
-           dp * pp, backend, timeout=timeout)
+           dp * pp * sp, backend, timeout=timeout)
 
 
 def _train(engine):
@@ -172,12 +183,13 @@ def main(argv=None):
     cfg, device_name, _ = parse(argv)
     kind = resolve_device(device_name).type
     dp = resolve_dp(cfg, kind)
-    if dp * cfg.pp > 1:
+    if dp * cfg.pp * cfg.sp > 1:
         try:
             launch_ranks(argv, dp, "nccl" if kind == "cuda" else "gloo",
-                         pp=cfg.pp)
+                         pp=cfg.pp, sp=cfg.sp)
         except RuntimeError as e:
-            what = f"--dp {dp}" + (f" --pp {cfg.pp}" if cfg.pp > 1 else "")
+            what = f"--dp {dp}" + (f" --pp {cfg.pp}" if cfg.pp > 1 else "") \
+                + (f" --sp {cfg.sp}" if cfg.sp > 1 else "")
             raise SystemExit(f"{what}: {e}") from None
         return None
     return _train(build_engine(argv))

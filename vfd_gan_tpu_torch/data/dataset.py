@@ -111,7 +111,9 @@ class ClipBatchIterator:
 
     ``rows`` (set by a ``--dp`` engine): the indices of this rank's rows
     within each batch; the order is the same on every rank and each
-    decodes only its rows.
+    decodes only its rows.  ``frames`` (set by an ``--sp`` engine): the
+    slice of this rank's frames, kept of each decoded clip (``label``'s
+    too).
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
@@ -124,8 +126,10 @@ class ClipBatchIterator:
         self.seed = seed
         self.epoch = 0          # index of the next pass (shuffle-order key)
         self.skip_batches = 0   # fast-forward within the next pass (resume)
-        # a --dp rank's rows of each batch (None: all of them)
+        # a --dp rank's rows of each batch (None: all of them), an --sp
+        # rank's frames of each clip
         self.rows = None
+        self.frames = None
         self._pool = None
 
     def __len__(self) -> int:
@@ -139,15 +143,19 @@ class ClipBatchIterator:
             items = list(self._pool.map(self.dataset.__getitem__, indices))
         else:
             items = [self.dataset[i] for i in indices]
-        return {
+        batch = {
             "data": native.pack_clips([it[0] for it in items]),
             "real": native.pack_clips([it[1] for it in items]),
             "mask": native.pack_clips([it[2] for it in items]),
             "label": np.stack([it[3] for it in items]),
-            # global clip ids: the key of per-clip caches across the
-            # shuffled sweeps (--cache_gt_flow); not a reference field
-            "index": np.asarray(indices, np.int32),
         }
+        if self.frames is not None:
+            batch = {k: np.ascontiguousarray(v[:, self.frames])
+                     for k, v in batch.items()}
+        # global clip ids: the key of per-clip caches across the shuffled
+        # sweeps (--cache_gt_flow); not a reference field
+        batch["index"] = np.asarray(indices, np.int32)
+        return batch
 
     def __iter__(self):
         order = np.arange(len(self.dataset))

@@ -45,9 +45,11 @@ class DeviceSyntheticIterator:
         self.device = torch.device(device)
         self.epoch = 0          # index of the next pass
         self.skip_batches = 0   # fast-forward within the next pass (resume)
-        # a --dp rank's rows of each batch (None: all of them): the whole
-        # batch is drawn and these rows kept
+        # a --dp rank's rows of each batch (None: all of them) and an
+        # --sp rank's frames of each clip (a slice): the whole batch is
+        # drawn and these rows and frames kept
         self.rows = None
+        self.frames = None
 
     def _generator(self, epoch: int, i: int) -> torch.Generator:
         seed = int(np.random.SeedSequence(
@@ -117,4 +119,7 @@ class DeviceSyntheticIterator:
             if self.rows is not None:
                 rows = self.rows.to(self.device)
                 batch = {k: v[rows] for k, v in batch.items()}
+            if self.frames is not None:
+                batch = {k: v[:, self.frames].contiguous()
+                         for k, v in batch.items()}
             yield batch

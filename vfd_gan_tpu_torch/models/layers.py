@@ -141,17 +141,21 @@ class _InputDtypeConv:
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._in_dtype(x, self._conv)
+
+    def _in_dtype(self, x: torch.Tensor, conv) -> torch.Tensor:
+        """``conv(x, weight, bias)`` in ``x``'s dtype, as above."""
         if x.dtype in (torch.float32, torch.float64):
-            return self._conv(x, self.weight, self.bias)
+            return conv(x, self.weight, self.bias)
         w = self.weight.to(x.dtype)
         if x.device.type == "cpu":
             # the same function from float32 kernels: products of the
             # rounded operands and float32 sums, rounded once.  oneDNN's
             # bfloat16 conv3d returned NaN weight gradients now and then
             # on one x86 host, where 3 taps outreach a 2-frame time axis
-            y = self._conv(x.float(), w.float(), None).to(x.dtype)
+            y = conv(x.float(), w.float(), None).to(x.dtype)
         else:
-            y = self._conv(x, w, None)
+            y = conv(x, w, None)
         if self.bias is None:
             return y
         return y.float() + self.bias.to(x.dtype).float().view(
@@ -163,6 +167,13 @@ class Conv3d(_InputDtypeConv, nn.Conv3d):
 
     def _conv(self, x, weight, bias):
         return self._conv_forward(x, weight, bias)
+
+    def valid_t(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv with no padding over T (its own over H and W): a
+        frame-sharded block that holds its halo frames (``--sp``)."""
+        pad = (0, *self.padding[1:])
+        return self._in_dtype(x, lambda x, w, b: F.conv3d(
+            x, w, b, self.stride, pad, self.dilation, self.groups))
 
 
 class Conv2d(_InputDtypeConv, nn.Conv2d):
@@ -231,7 +242,14 @@ class STConv(nn.Module):
     conv -> BN -> ReLU -> temporal (kt,1,1) conv, intermediate width from
     the R(2+1)D formula.  ``quant`` (the discriminator's under
     ``--int8_disc``) makes both convs ``QConv3d``, the spatial one only
-    with symmetric spatial padding, as the JAX STConv does."""
+    with symmetric spatial padding, as the JAX STConv does.
+
+    Bound to a ``parallel.mesh.SeqParallel`` (``sp``, ``--sp``) in a
+    sharded segment, the input is this rank's frames: the spatial conv is
+    frame-local, and the temporal conv runs VALID over T on the block
+    padded with ``pt`` halo frames a side (``sp.halo``)."""
+
+    sp = None
 
     def __init__(self, cin: int, cout: int,
                  kernel_size: Sequence[int] = (3, 3, 3),
@@ -250,7 +268,11 @@ class STConv(nn.Module):
                                          quant=quant, **kw_)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.temporal_conv(F.relu(self.bn(self.spatial_conv(x))))
+        y = F.relu(self.bn(self.spatial_conv(x)))
+        pt = self.temporal_conv.padding[0]
+        if self.sp is None or not self.sp.sharded or not pt:
+            return self.temporal_conv(y)
+        return self.temporal_conv.valid_t(self.sp.halo(y, pt))
 
 
 class GenConvBlock(nn.Module):
@@ -289,17 +311,18 @@ class DiscConvBlock(nn.Module):
 
 def dropout(y: torch.Tensor, rate: float, training: bool,
             generator: torch.Generator | None = None,
-            dp=None) -> torch.Tensor:
+            dp=None, frame_dim: int | None = None) -> torch.Tensor:
     """flax ``nn.Dropout``'s function: keep with probability 1 - rate and
     scale kept values by 1 / (1 - rate), the mask drawn from ``generator``
     on its device (so a CPU generator gives a card step the CPU's masks);
     inert out of training mode or at rate 0.  Under an active ``dp``
     (``parallel.mesh.DataParallel``) the global batch's mask is drawn and
-    this rank's rows kept."""
+    this rank's rows kept (and under ``--sp``, ``y``'s axis ``frame_dim``
+    holding this rank's frames, its frames)."""
     if not training or rate == 0.0:
         return y
     if dp is not None:
-        keep = dp.rand(y.shape, generator, y.device) >= rate
+        keep = dp.rand(y.shape, generator, y.device, frame_dim) >= rate
     else:
         draw = y.device if generator is None else generator.device
         keep = torch.rand(y.shape, generator=generator,

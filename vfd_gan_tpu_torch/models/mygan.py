@@ -29,6 +29,25 @@ input size follows the clip geometry, so the discriminators take
 ``nfr`` and ``isize``.  ``quant`` (``--int8_disc``) runs every
 discriminator conv int8 forward, float backward (``quant/qdisc.py``).
 
+Under ``--sp`` (``parallel.mesh.SeqParallel`` bound as ``sp``, whose
+frame-axis operations they call) each net takes this rank's frames.  The
+Generator's levels stay sharded while a level's shard count can pool by 2
+alone; where it cannot (an odd count, or fewer than 2 frames: at ``nfr
+16, sp 2`` the 1-frame shards of ``dconv4``'s output), the frames are
+gathered and the coarser levels run replicated on every sp peer, as
+GSPMD reshards there, and the decoder splits them again once its upsample
+reaches a sharded level; its x2 upsample takes T on the global grid, its
+3x3x3 head one halo frame a side, and its dropout masks are the global
+``(B, T)`` clip's.  ``SpatialDisc``'s convs and pools are frame-local and
+its global temporal pool a sum over the sp peers; ``TemporalDisc``'s
+(3,1,1) convs take halos, its (2,1,1) pools stay local while a shard's
+count is even (else gathered, as in the Generator), and its Linear reads
+the gathered pooled features.  Both return each clip's score on every sp
+peer and this rank's frames of their features.  A replicated segment's
+BatchNorms take their statistics over the dp peers of the rank's shard
+(each element once, ``parallel/mesh.DataParallel.bn_sum``), and its
+gradients reach the sharded levels through the gather's backward.
+
 ``dtype`` (float32 or bfloat16) is the compute dtype of
 ``models/layers.py``: parameters float32, each first conv in its float32
 input's dtype, the rest from the first BatchNorm on in ``dtype``; the
@@ -40,6 +59,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from vfd_gan_tpu_torch.models.layers import (
@@ -51,7 +71,7 @@ from vfd_gan_tpu_torch.models.layers import (
     float32_or_wider,
 )
 from vfd_gan_tpu_torch.ops.convs import avg_pool_ncdhw
-from vfd_gan_tpu_torch.ops.resize import upsample_ncdhw
+from vfd_gan_tpu_torch.ops.resize import _resize_axis, upsample_ncdhw
 from vfd_gan_tpu_torch.utils.init import dcgan_normal_
 
 
@@ -90,6 +110,8 @@ class Generator(nn.Module):
               "uconv4", "uconv3", "uconv2", "uconv1")
     # a parallel.mesh.DataParallel: dropout draws the global batch's masks
     dp = None
+    # a parallel.mesh.SeqParallel (--sp): x is this rank's frames
+    sp = None
 
     def __init__(self, ngf: int = 32, *, drop_rate: float = 0.25,
                  remat: bool = False, remat_blocks: tuple = (),
@@ -136,6 +158,9 @@ class Generator(nn.Module):
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """Mask video ``(B, 1, T, H, W)``; ``generator`` draws the dropout
         masks of a train-mode forward."""
+        sp = _shards(self)
+        if sp is not None:
+            return self._forward_sp(x, sp, generator)
         blk = self.block
         d1 = blk("dconv1", x)
         d2 = blk("dconv2", avg_pool_ncdhw(d1, 2))
@@ -151,9 +176,82 @@ class Generator(nn.Module):
         y = blk("uconv1", torch.cat([y, d1], 1))
         return torch.sigmoid(float32_or_wider(self.conv_last(y)))
 
+    def _forward_sp(self, x: torch.Tensor, sp,
+                    generator: torch.Generator | None) -> torch.Tensor:
+        """``forward`` on this rank's frames ``x`` (``--sp``)."""
+
+        def run(name, h, sharded):
+            with sp.segment(sharded):
+                return self.block(name, h)
+
+        def pool(h, sharded):
+            if sharded and h.shape[2] % 2:
+                h, sharded = sp.gather(h), False
+            return avg_pool_ncdhw(h, 2), sharded
+
+        def up(h, sharded, to_sharded):
+            if sharded:
+                return _upsample2x_sp(h, sp)
+            h = upsample_ncdhw(h)
+            return sp.split(h) if to_sharded else h
+
+        def drop(h, sharded):
+            return dropout(h, self.drop_rate, self.training, generator,
+                           self.dp, frame_dim=2 if sharded else None)
+
+        h, sharded = x, True
+        skips = []
+        for name in ("dconv1", "dconv2", "dconv3", "dconv4", "dconv5"):
+            if skips:
+                h, sharded = pool(h, sharded)
+            h = run(name, h, sharded)
+            skips.append((h, sharded))
+        y, y_sharded = skips.pop()
+        y = run("uconv5", y, y_sharded)
+        for name, (skip, skip_sharded) in zip(
+                ("uconv4", "uconv3", "uconv2", "uconv1"), reversed(skips)):
+            y = up(drop(y, y_sharded), y_sharded, skip_sharded)
+            y_sharded = skip_sharded
+            y = run(name, torch.cat([y, skip], 1), y_sharded)
+        # the 3x3x3 head: one halo frame a side, SAME over H and W
+        return torch.sigmoid(float32_or_wider(
+            self.conv_last.valid_t(sp.halo(y, 1))))
+
+
+def _shards(module: nn.Module):
+    """The ``SeqParallel`` that ``module`` shards its frames over
+    (``--sp``), or None: unbound, or its ``on`` off."""
+    sp = module.sp
+    return sp if sp is not None and sp.on else None
+
+
+def _upsample2x_sp(x: torch.Tensor, sp) -> torch.Tensor:
+    """x2 over (T, H, W) of this shard's NCDHW frames: T on the global
+    grid (``sp.upsample2x_t``), H and W local, as ``ops/resize.
+    upsample_ncdhw`` computes them in ``x``'s dtype."""
+    y = sp.upsample2x_t(x)
+    t, h, w = y.shape[2:]
+    if y.dtype in (torch.float32, torch.float64):
+        # T kept (its weights are exactly 1 and 0)
+        return F.interpolate(y, size=(t, 2 * h, 2 * w), mode="trilinear",
+                             align_corners=True)
+    return _resize_axis(_resize_axis(y, 3, 2 * h, True), 4, 2 * w, True)
+
+
+def _temporal_mean_sp(x: torch.Tensor, sp) -> torch.Tensor:
+    """The global temporal mean of this rank's frames of ``x`` (NCDHW),
+    kept as a 1-frame axis: the sp peers' float32 (float64) sums summed,
+    over T, rounded once to ``x``'s dtype (``avg_pool_ncdhw``'s
+    arithmetic)."""
+    wide = x if x.dtype == torch.float64 else x.float()
+    total = sp.sum(wide.sum(2, keepdim=True))
+    return (total / (x.shape[2] * sp.size)).to(x.dtype)
+
 
 class SpatialDisc(nn.Module):
     """Spatial branch (reference SDisc, models/mygannet.py:119-162)."""
+
+    sp = None
 
     def __init__(self, ndf: int = 32, isize: int = 128, *,
                  dtype: torch.dtype = torch.float32, quant: bool = False,
@@ -172,7 +270,11 @@ class SpatialDisc(nn.Module):
         for i in range(6):
             x = avg_pool_ncdhw(getattr(self, f"dconv{i + 1}")(x), (1, 2, 2))
         features = x                                 # (B, C, T, s, s)
-        x = avg_pool_ncdhw(x, (x.shape[2], 1, 1), 1)   # global temporal pool
+        sp = _shards(self)
+        if sp is None:
+            x = avg_pool_ncdhw(x, (x.shape[2], 1, 1), 1)   # global temporal
+        else:
+            x = _temporal_mean_sp(x, sp)
         score = torch.sigmoid(float32_or_wider(self.linear(x.flatten(1))))
         return score[:, 0], features
 
@@ -180,6 +282,8 @@ class SpatialDisc(nn.Module):
 class TemporalDisc(nn.Module):
     """Temporal branch over the flow video (reference TDisc,
     models/mygannet.py:164-196)."""
+
+    sp = None
 
     def __init__(self, ndf: int = 32, nfr: int = 16, *,
                  dtype: torch.dtype = torch.float32, quant: bool = False,
@@ -194,10 +298,24 @@ class TemporalDisc(nn.Module):
         self.linear = TorchLinear(widths[-1] * (nfr // 8), 1, **kw)
 
     def forward(self, x: torch.Tensor):
-        for i in range(3):
-            x = avg_pool_ncdhw(getattr(self, f"dconv{i + 1}")(x), (2, 1, 1))
+        sp = _shards(self)
+        if sp is None:
+            for i in range(3):
+                x = avg_pool_ncdhw(getattr(self, f"dconv{i + 1}")(x),
+                                   (2, 1, 1))
+        else:
+            sharded = True
+            for i in range(3):
+                with sp.segment(sharded):
+                    x = getattr(self, f"dconv{i + 1}")(x)
+                if sharded and x.shape[2] % 2:
+                    x, sharded = sp.gather(x), False
+                x = avg_pool_ncdhw(x, (2, 1, 1))
         features = x                                 # (B, C, T/8, H, W)
         x = avg_pool_ncdhw(x, (1, x.shape[3], x.shape[4]), 1)  # global spatial
+        if sp is not None and sharded:
+            # the Linear reads (C, T/8) of the whole clip
+            x = sp.gather(x)
         score = torch.sigmoid(float32_or_wider(self.linear(x.flatten(1))))
         return score[:, 0], features
 

@@ -236,8 +236,9 @@ def minmax_stretch(video: torch.Tensor, streams: int = 1,
     normalised to [0, 1) over that stream's (B/s, H, W, C).  Under an
     active ``dp`` (``parallel.mesh.DataParallel``) the batch is this
     rank's slice of each stream and the min and the max are the global
-    batch's, one all-reduced MAX of ``(max, -min)``; the same arithmetic
-    otherwise."""
+    batch's, one all-reduced MAX of ``(max, -min)`` over the ranks that
+    hold these frames (under ``--sp`` the dp peers of the rank's shard:
+    ``DataParallel.stretch_group``); the same arithmetic otherwise."""
     b, t, h, w, _ = video.shape
     if b % streams:
         raise ValueError(f"batch {b} is not divisible by streams {streams}")
@@ -246,7 +247,7 @@ def minmax_stretch(video: torch.Tensor, streams: int = 1,
     lo = grouped.amin(dim=(1, 3, 4, 5), keepdim=True)
     hi = grouped.amax(dim=(1, 3, 4, 5), keepdim=True)
     if dp is not None and dp.synced("stretch"):
-        both = dp.all_reduce_max_(torch.cat([hi, -lo]))
+        both = dp.all_reduce_max_(torch.cat([hi, -lo]), dp.stretch_group)
         hi, lo = both[:streams], -both[streams:]
     return ((grouped - lo) / (hi - lo + 1e-5)).reshape(b, t, h, w, 3)
 
@@ -277,7 +278,10 @@ def video_to_flow_rgb(video: torch.Tensor, scale: float = 1.0,
     flow at ``max(8, int(scale * size))`` and upsamples the RGB.  ``dp``:
     the batch is this rank's slice and the stretch is global (JAX's GSPMD
     min-max, ops/flow.py:414-420 of the JAX package); the rest of the
-    flow is per field."""
+    flow is per field.  Under ``--sp`` (``dp.sp`` on) ``video`` is this
+    rank's frames: the pair of its last frame takes the next shard's
+    first gray frame (a right halo of one), and the last shard duplicates
+    its own last flow frame."""
     b, t, h, w, _ = video.shape
     gray = stretch_gray(video, streams, dp)
 
@@ -286,11 +290,21 @@ def video_to_flow_rgb(video: torch.Tensor, scale: float = 1.0,
         fh, fw = max(8, int(h * scale)), max(8, int(w * scale))
         gray = resize_bilinear(gray[..., None], (fh, fw))[..., 0]
 
-    prev = gray[:, :-1].reshape(b * (t - 1), fh, fw)
-    cur = gray[:, 1:].reshape(b * (t - 1), fh, fw)
-    flow = farneback_flow(prev, cur, impl=impl).reshape(b, t - 1, fh, fw, 2)
+    sp = getattr(dp, "sp", None)
+    if sp is not None and sp.on:
+        if t < 2:
+            raise ValueError(f"--sp: a shard of {t} frame(s) has no frame "
+                             "pair of its own (nfr / sp must be >= 2)")
+        nxt = sp.halo(gray, 1, 1, left=False)
+        if sp.index < sp.size - 1:
+            gray = nxt
+    n = gray.shape[1] - 1
+    prev = gray[:, :-1].reshape(b * n, fh, fw)
+    cur = gray[:, 1:].reshape(b * n, fh, fw)
+    flow = farneback_flow(prev, cur, impl=impl).reshape(b, n, fh, fw, 2)
     rgb = flow_to_rgb(flow)
     if (fh, fw) != (h, w):
         rgb = resize_bilinear(rgb, (h, w))
-    rgb = torch.cat([rgb, rgb[:, -1:]], dim=1)
+    if n < t:
+        rgb = torch.cat([rgb, rgb[:, -1:]], dim=1)
     return rgb * 2.0 - 1.0

@@ -32,6 +32,15 @@ the group of a rank's dp peers is a subgroup of the world (``group``).
 from the process group it finds (``DataParallel.current``) and binds it to
 its nets' BatchNorm and dropout modules.  ``launch`` starts the ranks of
 one command, ``rank_group`` joins a started rank to its group.
+
+Under ``--sp N`` (``vfd_gan_tpu.parallel.mesh.make_mesh``'s ``(dp, sp)``
+mesh, its batch sharded ``P("dp", "sp")``) the ranks form a ``SpGrid``:
+dp outer, sp inner, rank ``d sp + k`` holding rows ``[d B/dp, (d+1)
+B/dp)`` and frames ``[k T/sp, (k+1) T/sp)``.  Its ``DataParallel`` keeps
+the rows' place (``rank`` d of ``world`` dp) and reduces over the whole
+grid (BatchNorm statistics, gradients, metrics: ``size`` dp sp ranks);
+its ``SeqParallel`` (``sp``) is the rank's place in its row, with the
+groups of the frame axis (``parallel/temporal.py``).
 """
 
 from __future__ import annotations
@@ -47,6 +56,8 @@ import time
 
 import torch
 import torch.distributed as dist
+
+from vfd_gan_tpu_torch.parallel import temporal
 
 # what ``launch`` tells each rank: its rendezvous and the backend
 ENV_INIT = "VFD_DP_INIT"
@@ -69,23 +80,30 @@ def resolve_dp(cfg, device_type: str) -> int:
     """``--dp`` as the JAX engine resolves it: dp divides the microbatch
     (``batchsize // accum``; under ``--pp`` the GPipe microbatch).  On
     ``cuda`` the request is capped at the visible cards left after the
-    ``--pp`` stages and ``--dp 0`` means all of them; on the CPU the
-    request is the number of processes to start (``--dp 0``: one)."""
+    ``--pp`` stages or the ``--sp`` shards (``make_mesh``: ``dp sp``
+    must fit the devices) and ``--dp 0`` means all of them; on the CPU
+    the request is the number of processes to start (``--dp 0``: one)."""
     pp = max(1, cfg.pp)
+    sp = max(1, cfg.sp)
     micro = cfg.n_pp_micro if pp > 1 else max(1, cfg.accum)
     if device_type == "cuda":
         cards = max(1, torch.cuda.device_count())
         if pp > cards:
             raise SystemExit(f"--pp {pp}: {pp} stages need {pp} cards, "
                              f"{cards} visible")
-        n = cards // pp
+        if sp > cards:
+            raise SystemExit(f"--sp {sp}: {sp} frame shards need {sp} "
+                             f"cards, {cards} visible")
+        n = cards // (pp * sp)
     else:
         n = max(1, cfg.dp)
     dp = auto_dp(cfg.batchsize // micro, cfg.dp, n)
     if device_type == "cuda" or dp != max(1, cfg.dp):
+        per = (f" per stage of --pp {pp}" if pp > 1 else
+               f" per shard of --sp {sp}" if sp > 1 else "")
         print(f" >> --dp {cfg.dp} -> dp {dp} ({n} {device_type} "
-              f"device(s){f' per stage of --pp {pp}' if pp > 1 else ''}, "
-              f"microbatch {cfg.batchsize // micro})", flush=True)
+              f"device(s){per}, microbatch {cfg.batchsize // micro})",
+              flush=True)
     return dp
 
 
@@ -105,6 +123,11 @@ class _AllReduceSum(torch.autograd.Function):
         g = grad.detach().contiguous().clone()
         dist.all_reduce(g, group=ctx.group)
         return g, None
+
+
+# the default group of ``DataParallel``'s collectives: the place's own
+# (whose value may be None, the whole process group)
+_OWN_GROUP = object()
 
 
 class DataParallel:
@@ -128,7 +151,15 @@ class DataParallel:
     ``dist.all_reduce`` there would: each rank's gradient then misses the
     other ranks' share).  ``local_ops``: the other controls, the names of
     the reductions left to each rank (``"moe"``, ``"absmax"``,
-    ``"stretch"``; ``synced``)."""
+    ``"stretch"``; ``synced``); under ``--sp`` also ``"bn_sp"`` (the
+    BatchNorm statistics of the sharded segments over the rank's frames
+    alone), ``"stretch_grid"`` (the stretch's MAX over the whole grid,
+    which mixes frames) and ``"halo"`` (``SeqParallel``: zero halos).
+
+    ``sp``: the rank's ``SeqParallel`` on a ``(dp, sp)`` grid (``None``
+    without one).  Then ``rank`` and ``world`` place the rows, ``group``
+    (None) is the whole grid, and ``size``, dp sp ranks, divides the
+    gradients' and metrics' sums."""
 
     def __init__(self, rank: int = 0, world: int = 1, grouped: bool = False,
                  device: torch.device | str = "cpu",
@@ -147,6 +178,7 @@ class DataParallel:
         # microbatch), under --pp the GPipe microbatches (its back runs
         # on all of them at once)
         self.forward_micro = 1
+        self.sp = None
         self._on = True
 
     @classmethod
@@ -162,6 +194,21 @@ class DataParallel:
         return self.grouped and self._on
 
     @property
+    def size(self) -> int:
+        """The ranks that the gradients and metrics are averaged over:
+        ``world``, times the frame shards under ``--sp``."""
+        return self.world * (self.sp.size if self.sp is not None else 1)
+
+    @property
+    def stretch_group(self):
+        """The ranks whose rows the flow's stretch takes its extrema over:
+        those that hold this rank's frames (under ``--sp`` the dp peers of
+        its shard; the ``"stretch_grid"`` control: the whole grid)."""
+        if self.sp is None or "stretch_grid" in self.local_ops:
+            return self.group
+        return self.sp.peers_group
+
+    @property
     def writes(self) -> bool:
         """Does this process write files (rank 0, or no group)?"""
         return self._writes
@@ -174,19 +221,29 @@ class DataParallel:
     @contextlib.contextmanager
     def local(self):
         """A block in which this process computes as if alone (the test
-        sweep: every rank runs it whole)."""
+        sweep: every rank runs it whole; under ``--sp`` the nets take
+        whole clips, and ``parallel/sp_generator.generator_forward_sp``
+        alone shards the frames)."""
         on, self._on = self._on, False
+        sp_on = self.sp.on if self.sp is not None else False
+        if self.sp is not None:
+            self.sp.on = False
         try:
             yield
         finally:
             self._on = on
+            if self.sp is not None:
+                self.sp.on = sp_on
 
     def bind(self, module: torch.nn.Module) -> torch.nn.Module:
         """Point every submodule with a ``dp`` attribute (BatchNorms,
-        dropout) at this group."""
+        dropout) at this group, and every one with an ``sp`` attribute
+        (the modules that shard frames) at its ``SeqParallel``."""
         for m in module.modules():
             if hasattr(m, "dp"):
                 m.dp = self
+            if hasattr(m, "sp"):
+                m.sp = self.sp
         return module
 
     # -- the rank's rows of the global batch -------------------------------
@@ -211,41 +268,65 @@ class DataParallel:
         return tuple(t[rows.to(t.device)] for t in tensors)
 
     def rand(self, shape, generator: torch.Generator | None,
-             device) -> torch.Tensor:
+             device, frame_dim: int | None = None) -> torch.Tensor:
         """Uniform draws for this rank's slice of a global tensor: the
         global tensor's (``world`` times the rows of ``shape``) drawn
         from ``generator`` on its device, this rank's rows kept
         (``rows``, the forward's ``forward_micro`` microbatches) and moved
-        to ``device``."""
+        to ``device``.  ``frame_dim``: the axis of ``shape`` that holds
+        this rank's frames under ``--sp`` (the global tensor has ``sp``
+        times as many; this rank's are kept)."""
         draw = device if generator is None else generator.device
         if not self.active:
             return torch.rand(shape, generator=generator,
                               device=draw).to(device)
         n = shape[0]
-        full = torch.rand((self.world * n, *shape[1:]), generator=generator,
-                          device=draw)
+        full_shape = [self.world * n, *shape[1:]]
+        if frame_dim is not None and self.sp is not None:
+            full_shape[frame_dim] *= self.sp.size
+        full = torch.rand(full_shape, generator=generator, device=draw)
         rows = self.rows(self.world * n, self.forward_micro)
-        return full[rows.to(full.device)].to(device)
+        full = full[rows.to(full.device)]
+        if frame_dim is not None and self.sp is not None:
+            full = full[(slice(None),) * frame_dim
+                        + (self.sp.frame_slice(full_shape[frame_dim]),)]
+        return full.to(device)
 
     # -- collectives -------------------------------------------------------
-    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over the ranks, differentiable (identity when
-        not active)."""
-        return _AllReduceSum.apply(x, self.group) if self.active else x
+    def all_reduce_sum(self, x: torch.Tensor,
+                       group=_OWN_GROUP) -> torch.Tensor:
+        """The sum of ``x`` over the ranks (of ``group``; by default this
+        place's ``group``), differentiable (identity when not active)."""
+        if not self.active:
+            return x
+        return _AllReduceSum.apply(
+            x, self.group if group is _OWN_GROUP else group)
 
     def bn_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """A BatchNorm's sum over the ranks, as ``bn_stats`` says."""
+        """A BatchNorm's sum over the ranks, as ``bn_stats`` says.  Under
+        ``--sp`` over the whole grid, but in a segment that runs replicated
+        on the sp peers (``SeqParallel.replicated``: each holds all of
+        its rows' frames) over the dp peers of the rank's shard, so that
+        each element counts once (and with the ``"bn_sp"`` control in
+        every segment)."""
+        group = self.group
+        if self.sp is not None and (self.sp.replicated
+                                    or "bn_sp" in self.local_ops):
+            group = self.sp.peers_group
         if self.bn_stats == "forward" and self.active:
             local = x.detach()
             total = local.clone()
-            dist.all_reduce(total, group=self.group)
+            dist.all_reduce(total, group=group)
             return x + (total - local)
-        return self.all_reduce_sum(x)
+        return self.all_reduce_sum(x, group)
 
-    def all_reduce_max_(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` replaced by its elementwise maximum over the ranks."""
+    def all_reduce_max_(self, x: torch.Tensor,
+                        group=_OWN_GROUP) -> torch.Tensor:
+        """``x`` replaced by its elementwise maximum over the ranks (of
+        ``group``; by default this place's ``group``)."""
         if self.active:
-            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group)
+            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group
+                            if group is _OWN_GROUP else group)
         return x
 
     def mean_grads(self, module: torch.nn.Module) -> None:
@@ -258,7 +339,7 @@ class DataParallel:
             return
         flat = torch.cat([g.reshape(-1) for g in grads])
         dist.all_reduce(flat, group=self.group)
-        flat.div_(self.world)
+        flat.div_(self.size)
         offset = 0
         for g in grads:
             g.copy_(flat[offset:offset + g.numel()].view_as(g))
@@ -273,7 +354,7 @@ class DataParallel:
         flat = torch.stack([metrics[k].detach().to(torch.float64)
                             for k in names])
         dist.all_reduce(flat, group=self.group)
-        flat.div_(self.world)
+        flat.div_(self.size)
         return {k: flat[i].to(metrics[k].dtype) for i, k in enumerate(names)}
 
     def any(self, flag: bool) -> bool:
@@ -302,6 +383,180 @@ def alone():
         yield
     finally:
         _ALONE = was
+
+
+# -- the (dp, sp) grid of --sp ----------------------------------------------
+
+class SeqParallel:
+    """One rank's place on the frame axis of a ``(dp, sp)`` grid: shard
+    ``index`` of ``size``, holding frames ``[index T/size, (index+1)
+    T/size)`` of its rows.  Its groups: ``group``, the sp peers of its dp
+    row (global ranks ``ranks``, in shard order; the halos' neighbours,
+    the gathers and sums over the frame axis); ``prev_group`` and
+    ``next_group``, the two-rank groups with the shards before and after
+    it (None at an edge), where the halos pass; ``peers_group``, the dp
+    peers of its shard (the ranks that hold its frames of the other rows).
+
+    The modules that shard frames are bound to it (``DataParallel.bind``:
+    their ``sp``) and call the frame axis's operations through it:
+    ``halo``, ``upsample2x_t``, ``gather``, ``split`` and ``sum``
+    (``parallel/temporal.py``).
+
+    ``on``: the nets shard their frames (off in the test sweep, whose nets
+    take whole clips, but for ``generator_forward_sp``).  ``replicated``:
+    a segment of a net runs on the gathered frames, the same on every sp
+    peer (``segment``).  ``local_ops``: ``{"halo"}``, the control whose
+    halos are zeros, each shard padded as if alone.  ``counts``: the
+    exchanges made by kind, ``[calls, ms]``; with ``timed`` the device is
+    synchronised around each one and the ms are summed."""
+
+    def __init__(self, index: int, size: int, group, ranks: list[int],
+                 prev_group=None, next_group=None, peers_group=None,
+                 device: torch.device | str = "cpu"):
+        self.index, self.size = index, size
+        self.group, self.ranks = group, list(ranks)
+        self.prev_group, self.next_group = prev_group, next_group
+        self.peers_group = peers_group
+        self.device = torch.device(device)
+        self.on = True
+        self.replicated = False
+        self.local_ops: frozenset = frozenset()
+        self.timed = False
+        self.counts: dict[str, list] = {}
+
+    def frame_slice(self, frames: int) -> slice:
+        """This shard's frames of a clip of ``frames``."""
+        if frames % self.size:
+            raise ValueError(f"{frames} frames do not split over "
+                             f"sp={self.size}")
+        n = frames // self.size
+        return slice(self.index * n, (self.index + 1) * n)
+
+    @property
+    def sharded(self) -> bool:
+        """Do the nets hold this rank's frames alone here (``on``, and not
+        in a replicated segment)?"""
+        return self.on and not self.replicated
+
+    # -- the frame axis's operations (parallel/temporal.py) ------------------
+    def halo(self, block: torch.Tensor, halo: int, dim: int = 2,
+             left: bool = True, right: bool = True) -> torch.Tensor:
+        """``block`` with ``halo`` frames of each neighbour shard around
+        it (``temporal.halo_exchange``)."""
+        return temporal.halo_exchange(block, halo, self, dim, left, right)
+
+    def upsample2x_t(self, block: torch.Tensor,
+                     dim: int = 2) -> torch.Tensor:
+        """This shard's frames of the x2 upsample over T
+        (``temporal.upsample2x_t_sp``)."""
+        return temporal.upsample2x_t_sp(block, self, dim)
+
+    def gather(self, block: torch.Tensor, dim: int = 2) -> torch.Tensor:
+        """Every shard's frames on every peer (``temporal.gather_frames``)."""
+        return temporal.gather_frames(block, self, dim)
+
+    def split(self, x: torch.Tensor, dim: int = 2) -> torch.Tensor:
+        """This shard's frames of a clip every peer holds whole."""
+        size = x.shape[dim] // self.size
+        return x.narrow(dim, self.index * size, size)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the sp peers of the row; its backward is
+        the same sum of the gradient (each peer's loss reads the sum)."""
+        with self.count("sum"):
+            return _AllReduceSum.apply(x, self.group)
+
+    @contextlib.contextmanager
+    def segment(self, sharded: bool):
+        """A block of a net that runs on sharded (``sharded``) or on
+        gathered, replicated frames."""
+        was, self.replicated = self.replicated, not sharded
+        try:
+            yield
+        finally:
+            self.replicated = was
+
+    @contextlib.contextmanager
+    def sharding(self):
+        """A block in which the nets shard their frames (``on``)."""
+        was, self.on = self.on, True
+        try:
+            yield
+        finally:
+            self.on = was
+
+    @contextlib.contextmanager
+    def count(self, kind: str):
+        """One exchange of ``kind``, counted (and timed with ``timed``)."""
+        if self.timed and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self.timed and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            entry = self.counts.setdefault(kind, [0, 0.0])
+            entry[0] += 1
+            if self.timed:
+                entry[1] += 1e3 * (time.perf_counter() - t0)
+
+
+class SpGrid:
+    """This process's place in the ``(dp, sp)`` grid of the process
+    group: dp outer, sp inner (JAX ``make_mesh``'s axis order), rank ``d
+    sp + k``.  Every rank builds every subgroup, in one order
+    (``dist.new_group`` is a collective of the whole group); ``sp_grid``
+    makes one per process and sp size."""
+
+    def __init__(self, sp: int):
+        self.rank = dist.get_rank()
+        world = dist.get_world_size()
+        if world % sp:
+            raise ValueError(f"{world} ranks do not split into sp={sp} "
+                             "frame shards")
+        self.sp, self.dp = sp, world // sp
+        self.dp_index, self.sp_index = self.rank // sp, self.rank % sp
+        self.peers_group = self.row_group = None
+        self.prev_group = self.next_group = None
+        for k in range(sp):
+            g = dist.new_group([d * sp + k for d in range(self.dp)])
+            if k == self.sp_index:
+                self.peers_group = g
+        for d in range(self.dp):
+            g = dist.new_group([d * sp + k for k in range(sp)])
+            if d == self.dp_index:
+                self.row_group = g
+            for k in range(sp - 1):
+                g = dist.new_group([d * sp + k, d * sp + k + 1])
+                if d == self.dp_index and k == self.sp_index:
+                    self.next_group = g
+                if d == self.dp_index and k + 1 == self.sp_index:
+                    self.prev_group = g
+
+    def data_parallel(self, device) -> DataParallel:
+        """This rank's ``DataParallel``: its rows' place, the whole grid
+        to reduce over, rank 0 of the grid writing, and its
+        ``SeqParallel``."""
+        dp = DataParallel(self.dp_index, self.dp, True, device,
+                          writes=self.rank == 0)
+        dp.sp = SeqParallel(
+            self.sp_index, self.sp, self.row_group,
+            [self.dp_index * self.sp + k for k in range(self.sp)],
+            self.prev_group, self.next_group, self.peers_group, device)
+        return dp
+
+
+_SP_GRIDS: dict = {}
+
+
+def sp_grid(sp: int) -> SpGrid:
+    """This process's grid for ``sp`` frame shards (made once per process
+    group)."""
+    key = (sp, id(dist.group.WORLD))
+    if key not in _SP_GRIDS:
+        _SP_GRIDS[key] = SpGrid(sp)
+    return _SP_GRIDS[key]
 
 
 # -- starting the ranks -----------------------------------------------------
@@ -341,7 +596,9 @@ def rank_group(rank: int, world: int, init_method: str, backend: str,
 
 
 def launch(entry: str, argv: list[str], world: int, backend: str, *,
-           timeout: float | None = None, env: dict | None = None) -> None:
+           timeout: float | None = None, env: dict | None = None,
+           log: str | os.PathLike | None = None,
+           on_spawn=None) -> None:
     """Run ``python -m entry *argv`` as ``world`` ranks of one group over
     ``backend`` (``"nccl"`` or ``"gloo"``), meeting through a file in a
     fresh temporary directory, and wait for all of them.
@@ -350,7 +607,9 @@ def launch(entry: str, argv: list[str], world: int, backend: str, *,
     seconds passing (the join timeout), which kills every rank.  Either
     raises ``RuntimeError``; no rank is left running.  SIGTERM and SIGINT
     sent to this process are passed on to the ranks, which park together
-    (``EngineBase``) and exit 0."""
+    (``EngineBase``) and exit 0.  ``log``: a file that takes the ranks'
+    output (else they write to this process's); ``on_spawn(pids)`` is
+    called once every rank is started."""
     # the ranks import this package from where this process found it
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
@@ -361,9 +620,17 @@ def launch(entry: str, argv: list[str], world: int, backend: str, *,
                 "PYTHONPATH": path,
                 ENV_INIT: "file://" + os.path.join(rdv, "rendezvous"),
                 ENV_BACKEND: backend}
-        procs = [subprocess.Popen([sys.executable, "-m", entry, *argv],
-                                  env={**base, "RANK": str(r)})
-                 for r in range(world)]
+        out = open(log, "a") if log is not None else None
+        try:
+            procs = [subprocess.Popen([sys.executable, "-m", entry, *argv],
+                                      env={**base, "RANK": str(r)},
+                                      stdout=out, stderr=out)
+                     for r in range(world)]
+        finally:
+            if out is not None:
+                out.close()          # the ranks hold their own copies
+        if on_spawn is not None:
+            on_spawn([p.pid for p in procs])
         forwarded = {}
 
         def forward(sig, _frame):

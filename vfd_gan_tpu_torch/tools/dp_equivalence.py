@@ -36,27 +36,48 @@ in order and writes ``DIR/{name}.rank{r}.pt``.  A case is one of
   form the ``dp x pp`` grid of the whole group, and a reference runs the
   chain per microbatch in one process.  ``save``: the train state after
   the steps written there (rank 0), as ``latest.pt`` is.
+  ``first_grads``: Adam's first moments after the first step
+  (``first_exp_avg``: ``1 - beta1`` times the gradient of the first step,
+  taken at the weights every run starts from).
+  ``hold_kernels``: every call of the augment gather's and the opening's
+  kernels, in the steps and the sweep, held against its plain version on
+  the same inputs (``_held_kernels``; the result's ``kernel_vs_plain``).
 * ``{"name", "kind": "gan_core", "argv", "state": path, "data": path,
-  "gt": path, "flows": path}``: one MyGAN ``_gan_core`` step from the
-  given state dicts on this rank's rows of the given global batch, with
-  dropout off and this rank's rows of the given flows (both streams) in
-  place of the flow.
+  "gt": path, "flows": path, "float64": bool}``: one MyGAN ``_gan_core``
+  step from the given state dicts on this rank's rows of the given global
+  batch, with dropout off and this rank's rows of the given flows (both
+  streams) in place of the flow (``float64``: nets, state and inputs).
 * ``{"name", "kind": "flow", "video": path, "streams": s, "host":
   bool}``: this rank's rows of each stream of a global video through
   ``minmax_stretch`` and ``video_to_flow_rgb`` (``host``: through
   ``--host_flow``'s cv2 flow); also the whole video alone on rank 0.
+  ``"plain_path": true`` (with ``"scale"``): the kernel path with each
+  fused-kernel call held against its plain version, then the plain path
+  (``_flow_paths``).
 * ``{"name", "kind": "pp_core", "argv", "state": path, "batch": path,
   "draws": path}``: one supervised step of a ``--pp`` command line from
   the given state dict, on the given global batch with the given augment
   draws and dropout off (``run_pp_core``).
 * ``{"name", "kind": "handoff", "n_micro"}``: the GPipe schedule of a
   toy block a stage, whose outputs are channels-last (``run_handoff``).
+* ``{"name", "kind": "temporal", "inputs": path}``: the frame-axis ops of
+  ``parallel/temporal.py`` on this rank's frames, the group one sp row
+  (``run_temporal``); ``{"name", "kind": "sp_generator", "ngf", "state",
+  "x"}``: ``generator_forward_sp`` likewise (``run_sp_generator``).
+
+``--sp``: a train case's ``argv`` with ``--sp N`` runs on the group as a
+``(dp, sp)`` grid (``dp`` 2 in the case: in the group), and its result
+holds the frame axis's exchanges per step (``sp_counts``); its
+``local_ops`` may name the sp controls (``"halo"``, ``"bn_sp"``,
+``"stretch_grid"``); a flow case with ``"sp": N`` takes this rank's rows
+and frames; a gan_core case its frames of the given batch and flows.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import hashlib
 import json
 import os
@@ -67,6 +88,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 from vfd_gan_tpu_torch.cli import trainer
 from vfd_gan_tpu_torch.ops import launches
@@ -83,6 +105,7 @@ from vfd_gan_tpu_torch.parallel.mesh import (
     rank_device,
     rank_env,
     rank_group,
+    sp_grid,
 )
 
 ENTRY = "vfd_gan_tpu_torch.tools.dp_equivalence"
@@ -161,10 +184,10 @@ class OneProcess(DataParallel):
         super().__init__(0, 1, True, device)
         self.local_ops = frozenset({"moe", "absmax", "stretch"})
 
-    def all_reduce_sum(self, x):
+    def all_reduce_sum(self, x, group=None):
         return x
 
-    def all_reduce_max_(self, x):
+    def all_reduce_max_(self, x, group=None):
         return x
 
     def mean_grads(self, module) -> None:
@@ -189,14 +212,18 @@ def _standin_flow(engine, smooth: bool = True):
 
     def flow(video, streams=1):
         dp = engine.dp
+        sp = dp.sp if dp.sp is not None and dp.sp.on else None
         b = video.shape[0] // streams
         n = b * dp.world if dp.active else b
-        field = torch.rand((streams, n, *video.shape[1:]),
+        t = video.shape[1] * (sp.size if sp is not None else 1)
+        field = torch.rand((streams, n, t, *video.shape[2:]),
                            generator=torch.Generator().manual_seed(7),
                            dtype=video.dtype) * 2 - 1
         rows = dp.rows(n)
         if rows is not None:
             field = field[:, rows]
+        if sp is not None:
+            field = field[:, :, sp.frame_slice(t)]
         if not smooth:
             return own(video, streams) + field.reshape(video.shape) * 0.5
         gray = stretch_gray(video, streams, dp) / 255.0
@@ -253,6 +280,11 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
         engine.dp.bn_stats = case.get("bn_stats", "global")
         if "local_ops" in case:
             engine.dp.local_ops = frozenset(case["local_ops"])
+            if engine.dp.sp is not None:
+                engine.dp.sp.local_ops = engine.dp.local_ops
+        sp = engine.dp.sp
+        if sp is not None:
+            sp.timed = bool(case.get("time_collectives"))
         moe = getattr(getattr(engine, "model", None), "moe", None)
         if "moe_capacity" in case:
             moe.capacity_factor = case["moe_capacity"]
@@ -267,7 +299,10 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
         timing = _timed_collectives(engine.device, collectives) \
             if case.get("time_collectives") else contextlib.nullcontext()
         batches = engine._batches(engine.train_iter)
-        with timing:
+        held = {}
+        holding = (lambda: _held_kernels(held)) \
+            if case.get("hold_kernels") else contextlib.nullcontext
+        with timing, holding():
             for _, batch in zip(range(case["steps"]), batches):
                 t0 = time.perf_counter()
                 engine.global_step += 1
@@ -276,6 +311,10 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
                 step_ms.append(1e3 * (time.perf_counter() - t0))
                 metrics = engine.dp.mean_metrics(metrics)
                 losses.append({k: float(v) for k, v in metrics.items()})
+                if case.get("first_grads") and len(losses) == 1:
+                    # Adam's first moment after one step: (1 - beta1)
+                    # times the first gradient, from the same weights
+                    first = _state(engine)["exp_avg"]
                 if moe is not None:
                     dropped.append(float(moe.aux["dropped_frac"].detach()))
         # under --pp every stage's blocks, gathered while read
@@ -283,6 +322,11 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
             out = _state(engine)
             if "save" in case and engine.dp.writes:
                 save_checkpoint(case["save"], engine._ckpt_tree())
+        if sp is not None:
+            # the frame axis's exchanges per step: [calls, ms]
+            out["sp_counts"] = {k: [n / len(step_ms), ms / len(step_ms)]
+                                for k, (n, ms) in sp.counts.items()}
+            sp.counts.clear()
         out.update(losses=losses, rng=engine.rng.get_state(),
                    step_ms=step_ms, launches=launches.counts(),
                    moe_dropped=dropped, collective_ms={
@@ -299,15 +343,99 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
         if "save" in case and not solo:
             dist.barrier()              # written before any rank reads it
         if case.get("sweep"):
-            with engine.dp.local():
+            launches.reset()
+            t0 = time.perf_counter()
+            with engine.dp.local(), holding():
                 engine.test()
+            engine._sync()
+            out["sweep_ms"] = 1e3 * (time.perf_counter() - t0)
+            out["sweep_launches"] = launches.counts()
+            if sp is not None:
+                out["sweep_sp_counts"] = {k: list(v)
+                                          for k, v in sp.counts.items()}
             out["scores"] = {k: float(v) for k, v in engine.scores.items()}
             out["saved"] = sorted(
                 p.name for p in Path(engine.dirs.weights).glob("*.pth")) \
                 if engine._writes else None
+        if case.get("hold_kernels"):
+            out["kernel_vs_plain"] = held
+        if case.get("first_grads"):
+            out["first_exp_avg"] = first
         return out
     finally:
         engine.close()
+
+
+def _blobs(shape, device) -> torch.Tensor:
+    """A binary channel-last ``(B, T, H, W, C)`` mask of blobs about 4
+    frames by 8 pixels across: a coarse uniform field, seeded, upsampled
+    and thresholded at 0.5."""
+    b, t, h, w, c = shape
+    g = torch.Generator(device=device).manual_seed(0)
+    coarse = torch.rand((b * c, 1, max(1, t // 4), max(1, h // 8),
+                         max(1, w // 8)), generator=g, device=device)
+    field = F.interpolate(coarse, size=(t, h, w), mode="trilinear")
+    return (field > 0.5).float().reshape(b, c, t, h, w).permute(
+        0, 2, 3, 4, 1)
+
+
+@contextlib.contextmanager
+def _held_kernels(record: dict):
+    """A block in which every call of the augment gather
+    (``ops/augment.augment_gather``, on a CUDA batch its kernel) and of
+    the opening (``ops/morphology.morphology_open``, on a CUDA video its
+    kernel) is also computed by the plain version on the same inputs:
+    ``record[name]`` gets each call's largest absolute difference and
+    input shape (and for the opening its input's and output's fill); each
+    opening is also held on ``_blobs`` of its input's shape and layout
+    (``morphology_open_blobs``).  The kernel's output on the path's input
+    is the one returned, and only its launch is counted."""
+    from vfd_gan_tpu_torch.ops import augment, morphology
+
+    gather, opening = augment.augment_gather, morphology.morphology_open
+
+    def held_gather(*args):
+        outs = gather(*args)
+        want = augment.augment_gather_plain(*args)
+        record.setdefault("augment_gather", []).append(
+            (max(float((o - w).abs().max()) for o, w in zip(outs, want)),
+             tuple(args[0].shape)))
+        return outs
+
+    def plain_opening(video, k, axes):
+        moved = video.float().movedim(axes, (-2, -1))
+        want = morphology.open_planes_plain(
+            moved.reshape(-1, *moved.shape[-2:]), k)
+        return want.reshape(moved.shape).movedim((-2, -1), axes)
+
+    def held_opening(video, k=5, spatial_axes=(-3, -2)):
+        out = opening(video, k, spatial_axes)
+        axes = tuple(ax % video.dim() for ax in spatial_axes)
+        want = plain_opening(video, k, axes)
+        record.setdefault("morphology_open", []).append(
+            (float((out.float() - want).abs().max()), tuple(video.shape),
+             float(video.float().mean()), float(want.mean())))
+        # a young G's masks may be empty: the same call on blobs of the
+        # same shape and layout too, its launch not counted
+        blobs = torch.empty_like(video).copy_(_blobs(video.shape,
+                                                     video.device))
+        kernel = morphology.open_planes_cuda
+        n = kernel.launches
+        got = opening(blobs, k, spatial_axes)
+        kernel.launches = n
+        want = plain_opening(blobs, k, axes)
+        record.setdefault("morphology_open_blobs", []).append(
+            (float((got.float() - want).abs().max()), tuple(video.shape),
+             float(blobs.float().mean()), float(want.mean())))
+        return out
+
+    augment.augment_gather = held_gather
+    morphology.morphology_open = held_opening
+    try:
+        yield
+    finally:
+        augment.augment_gather = gather
+        morphology.morphology_open = opening
 
 
 def run_gan_core(case: dict, root: Path) -> dict:
@@ -324,6 +452,14 @@ def run_gan_core(case: dict, root: Path) -> dict:
         data, gt = engine.dp.take((data, gt))
         # this rank's rows of each stream of the injected flows
         local = torch.cat([engine.dp.take((f,))[0] for f in flows.chunk(2)])
+        sp = engine.dp.sp
+        if sp is not None:
+            # and its frames
+            data, gt, local = (x[:, sp.frame_slice(x.shape[1])]
+                               for x in (data, gt, local))
+        if case.get("float64"):
+            engine.to_float64()
+            data, gt, local = (x.double() for x in (data, gt, local))
         engine._flow = lambda video, streams=1: local
         metrics = engine.dp.mean_metrics(engine._gan_core(data, gt))
         return {**_state(engine),
@@ -360,8 +496,14 @@ def run_flow(case: dict, dp: DataParallel) -> dict:
     video = torch.from_numpy(np.load(case["video"])).to(
         case.get("device", "cpu"))
     s = case["streams"]
+    if case.get("sp", 1) > 1:
+        # the whole group one (dp, sp) grid: this rank's rows and frames
+        dp = sp_grid(case["sp"]).data_parallel(video.device)
+        video_t = video.shape[1]
     groups = video.chunk(s)
     mine = torch.cat([dp.take((g,))[0] for g in groups])
+    if dp.sp is not None:
+        mine = mine[:, dp.sp.frame_slice(video_t)]
     if case.get("host"):
         # --host_flow: cv2 on the host, the slabs' extrema over the ranks
         from vfd_gan_tpu_torch.train.host_flow import video_to_flow_rgb_host
@@ -370,11 +512,121 @@ def run_flow(case: dict, dp: DataParallel) -> dict:
         if dp.rank == 0:
             out["flow_alone"] = video_to_flow_rgb_host(video, s)
         return out
+    if case.get("plain_path"):
+        return _flow_paths(mine, video, s, dp, case.get("scale", 1.0))
     out = {"norm": minmax_stretch(mine, s, dp),
            "flow": video_to_flow_rgb(mine, streams=s, dp=dp)}
     if dp.rank == 0:
         out["norm_alone"] = minmax_stretch(video, s)
         out["flow_alone"] = video_to_flow_rgb(video, streams=s)
+    return out
+
+
+def _flow_paths(mine, video, streams: int, dp, scale: float) -> dict:
+    """This rank's flow on its kernel path, the fused kernel's every call
+    held against its plain version on the same fields (under ``--sp`` the
+    halo'd ones: max and q99 of the difference, px, and the call's
+    fields); then the flow on the plain path (the fused solver's plain
+    version), and on rank 0 the whole video's on the plain path."""
+    from vfd_gan_tpu_torch.ops import flow as flow_mod
+    from vfd_gan_tpu_torch.ops.flow_fused import flow_refine_fused_plain
+
+    kernel = flow_mod.flow_refine_fused
+    calls = []
+
+    def held(p1, p2, flow, winsize, iterations):
+        out = kernel(p1, p2, flow, winsize, iterations)
+        err = (out - flow_refine_fused_plain(p1, p2, flow, winsize,
+                                             iterations)).abs().flatten()
+        q99 = float(err.float().kthvalue(max(1, int(0.99 * err.numel())))
+                    .values)
+        calls.append((float(err.max()), q99, tuple(p1.shape)))
+        return out
+
+    result = {}
+    try:
+        flow_mod.flow_refine_fused = held
+        result["flow"] = video_to_flow_rgb(mine, scale, streams, dp=dp)
+        flow_mod.flow_refine_fused = flow_refine_fused_plain
+        result["flow_plain"] = video_to_flow_rgb(mine, scale, streams, dp=dp)
+        if dp.rank == 0:
+            result["flow_alone_plain"] = video_to_flow_rgb(video, scale,
+                                                           streams)
+    finally:
+        flow_mod.flow_refine_fused = kernel
+    result["kernel_vs_plain"] = calls
+    return result
+
+
+def _sp_row(device):
+    """This rank's ``SeqParallel`` on a 1-D sp grid of the whole group."""
+    return sp_grid(dist.get_world_size()).data_parallel(device).sp
+
+
+def run_temporal(case: dict) -> dict:
+    """``parallel/temporal.py``'s ops on this rank's frames (axis 1) of
+    the channel-last float32 clip ``x`` of ``case["inputs"]`` (npz; the
+    temporal kernel ``k`` ``(kt, Cin, Cout)`` as JAX lays it out), the
+    whole group one sp row; then, in float64, each op's gradient of
+    ``sum(op(x) * w)`` for the fixed weights ``w_<op>`` of the op's global
+    output (this rank's part)."""
+    from vfd_gan_tpu_torch.parallel import temporal as tp
+
+    sp = _sp_row("cpu")
+    inputs = dict(np.load(case["inputs"]))
+    x = torch.from_numpy(inputs["x"])
+    mine = x[:, sp.frame_slice(x.shape[1])]
+    kernel = torch.from_numpy(inputs["k"]).permute(2, 1, 0)[..., None,
+                                                            None]
+
+    def conv(block):
+        # NCDHW in and out, the rank's frames on axis 1 of channel-last
+        y = tp.temporal_conv_sp(block.permute(0, 4, 1, 2, 3),
+                                kernel.to(block.dtype), sp)
+        return y.permute(0, 2, 3, 4, 1)
+
+    ops = {"halo": lambda b: tp.halo_exchange(b, 1, sp, 1),
+           "upsample": lambda b: tp.upsample2x_t_sp(b, sp, 1),
+           "pool": lambda b: tp.avg_pool2x_t_sp(b, sp, 1),
+           "conv": conv}
+    out = {}
+    for name, op in ops.items():
+        out[name] = op(mine)
+        block = mine.double().requires_grad_(True)
+        y = op(block)
+        w = torch.from_numpy(inputs[f"w_{name}"])
+        per = w.shape[1] // sp.size
+        (y * w[:, sp.index * per:(sp.index + 1) * per]).sum().backward()
+        out[f"{name}_grad"] = block.grad
+    out["counts"] = {k: v[0] for k, v in sp.counts.items()}
+    return out
+
+
+def run_sp_generator(case: dict) -> dict:
+    """``generator_forward_sp`` of the Generator (``case["ngf"]``) loaded
+    from ``case["state"]`` on this rank's frames of the clip ``case["x"]``
+    (npy, ``(B, T, H, W, 3)``), in float32 and in float64 (``mask64``),
+    the whole group one sp row; rank 0 also runs the unsharded eval
+    Generator (``alone``, ``alone64``)."""
+    from vfd_gan_tpu_torch.models.mygan import Generator
+    from vfd_gan_tpu_torch.parallel.sp_generator import generator_forward_sp
+
+    sp = _sp_row("cpu")
+    netg = Generator(case["ngf"])
+    netg.load_state_dict(torch.load(case["state"]), strict=True)
+    # the unsharded reference: a Generator that is never bound to sp
+    whole = copy.deepcopy(netg).eval()
+    x = torch.from_numpy(np.load(case["x"])).permute(0, 4, 1, 2, 3)
+    out = {}
+    with torch.no_grad():
+        for tag, dtype in (("", torch.float32), ("64", torch.float64)):
+            netg.to(dtype)
+            whole.to(dtype)
+            clip = x.to(dtype)
+            mine = clip[:, :, sp.frame_slice(x.shape[2])]
+            out[f"mask{tag}"] = generator_forward_sp(netg, mine, sp)
+            if sp.index == 0:
+                out[f"alone{tag}"] = whole(clip)
     return out
 
 
@@ -437,6 +689,10 @@ def run_cases(cases: list[dict], out: Path) -> None:
             result = run_pp_core(case, out)
         elif kind == "handoff":
             result = run_handoff(case)
+        elif kind == "temporal":
+            result = run_temporal(case)
+        elif kind == "sp_generator":
+            result = run_sp_generator(case)
         else:
             result = run_flow(case, dp)
         if solo:
@@ -461,15 +717,18 @@ def run_cases(cases: list[dict], out: Path) -> None:
 
 
 def run(cases: list[dict], out: str | os.PathLike, world: int = 2,
-        backend: str = "gloo", timeout: float = 120.0) -> None:
+        backend: str = "gloo", timeout: float = 120.0, *,
+        log: str | os.PathLike | None = None, on_spawn=None) -> None:
     """``cases`` run by ``world`` ranks over ``backend``, their results in
-    ``out``; raises if a rank fails or the join ``timeout`` passes."""
+    ``out``; raises if a rank fails or the join ``timeout`` passes.
+    ``log`` and ``on_spawn``: ``parallel/mesh.launch``'s (the ranks'
+    output to a file; called with their pids once they are started)."""
     out = Path(out)
     out.mkdir(parents=True, exist_ok=True)
     spec = out / "cases.json"
     spec.write_text(json.dumps(cases))
     launch(ENTRY, ["--cases", str(spec), "--out", str(out)], world, backend,
-           timeout=timeout)
+           timeout=timeout, log=log, on_spawn=on_spawn)
 
 
 def main(argv=None) -> None:

@@ -35,6 +35,13 @@
   means over the ranks; a stop signal on any rank parks every rank at the
   same step (an all-reduced MAX of the flag); ``--resume`` loads on every
   rank.
+* ``--sp N`` (MyGAN; ``parallel/mesh.SpGrid``): the ranks form a ``dp
+  x sp`` grid; the engine's ``dp`` places its rows and reduces over the
+  whole grid, its ``dp.sp`` places its frames, and the train iterator
+  gives this rank its rows' frames (``frames``).  The nets are bound to
+  both and shard their frames in the train step; the test sweep runs
+  whole on every rank but for G's forward
+  (``parallel/sp_generator.generator_forward_sp`` over the rank's row).
 * ``--pp N`` (Xception; ``parallel/pp_xception.py``): the ranks form a
   ``dp x pp`` grid (``parallel/pipeline.stage_grid``); the engine's
   ``dp`` is its stage's dp subgroup, rank 0 of the whole group writes,
@@ -66,7 +73,7 @@ from vfd_gan_tpu_torch.obs.summary import (  # noqa: F401  (re-exported)
 )
 from vfd_gan_tpu_torch.ops.image import threshold
 from vfd_gan_tpu_torch.ops.morphology import video_open
-from vfd_gan_tpu_torch.parallel.mesh import DataParallel
+from vfd_gan_tpu_torch.parallel.mesh import DataParallel, sp_grid
 from vfd_gan_tpu_torch.parallel.pipeline import stage_grid
 from vfd_gan_tpu_torch.parallel.prefetch import device_prefetch
 from vfd_gan_tpu_torch.train.checkpoints import (
@@ -79,12 +86,24 @@ from vfd_gan_tpu_torch.train.checkpoints import (
 
 
 # JAX-engine options the port does not run yet, all of them several-card
-# ones: (is it set?, ROADMAP item).
+# ones: (is it set?, ROADMAP item).  --sp runs for MyGAN alone.
 UNPORTED = {
-    "sp/tp": (lambda c: c.sp > 1 or c.tp > 1,
-              "queue 1 item 13 (parallelism)"),
     "moe_shards": (lambda c: c.moe_shards > 1,
                    "queue 1 item 13 (parallelism)"),
+    "tp": (lambda c: c.tp > 1, "queue 1 item 13 (parallelism)"),
+    "sp": (lambda c: c.sp > 1 and c.model != "mygan",
+           "queue 1 item 13b (--sp for the other five families)"),
+}
+
+# MyGAN's options that --sp does not run yet: (is it set?)
+SP_UNPORTED = {
+    "accum": lambda c: c.accum > 1,
+    "remat": lambda c: c.remat,
+    "int8_disc": lambda c: c.int8_disc,
+    "host_flow": lambda c: c.host_flow,
+    "ae": lambda c: c.ae,
+    "cache_gt_flow": lambda c: c.cache_gt_flow,
+    "ref_mode_quirks": lambda c: c.ref_mode_quirks,
 }
 
 
@@ -96,6 +115,18 @@ def refuse_unported(cfg) -> None:
             raise SystemExit(f"--{flag}: not ported to vfd_gan_tpu_torch "
                              f"yet (ROADMAP.md {item}); use the JAX "
                              "trainer (python trainer.py)")
+    if cfg.sp > 1:
+        for flag, is_set in SP_UNPORTED.items():
+            if is_set(cfg):
+                raise SystemExit(
+                    f"--sp with --{flag}: not ported to vfd_gan_tpu_torch "
+                    "yet (ROADMAP.md queue 1 item 13c, MyGAN's options "
+                    "under --sp); use the JAX trainer (python trainer.py)")
+        if cfg.nfr // cfg.sp < 2:
+            raise SystemExit(
+                f"--sp {cfg.sp}: a shard of nfr / sp = {cfg.nfr // cfg.sp} "
+                "frame(s); the port's flow needs 2 frames a shard (a frame "
+                "pair of its own)")
 
 
 def host_arrays(tensors: dict) -> dict:
@@ -149,6 +180,8 @@ class EngineBase:
         # under --pp its stage's dp subgroup of the dp x pp grid
         self.dp = DataParallel.current(device)
         self.grid = None
+        if cfg.sp > 1 and self.dp.grouped:
+            self.dp = sp_grid(cfg.sp).data_parallel(device)
         if cfg.pp > 1 and self.dp.grouped:
             self.grid = stage_grid(cfg.pp)
             self.dp = DataParallel(self.grid.dp_index, self.grid.dp_size,
@@ -161,6 +194,8 @@ class EngineBase:
             self.dp.forward_micro = self.micro
         if hasattr(train_iter, "rows"):
             train_iter.rows = self.dp.rows(cfg.batchsize, self.micro)
+        if self.dp.sp is not None and hasattr(train_iter, "frames"):
+            train_iter.frames = self.dp.sp.frame_slice(cfg.nfr)
         # what the train step casts its batch to: the nets' dtype
         # (float64 under to_float64)
         self.input_dtype = torch.float32

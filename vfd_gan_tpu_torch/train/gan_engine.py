@@ -45,6 +45,14 @@ the host (``train/host_flow.py``; refused when the engine is built where
 cv2 does not import); ``--int8_disc`` runs D's convs int8 forward and
 float backward (``quant/qdisc.py``).  Options of the JAX engine that are
 not ported yet are refused with the ``ROADMAP.md`` item that holds them.
+
+``--sp N`` (``parallel/mesh.SpGrid``): each rank holds its rows' frames
+of the batch; G, the flow and D shard them (``models/mygan.py``,
+``ops/flow.py``), each rank's G loss is the mean over its frames, D's
+scores and losses are each clip's on every sp peer of its row, and the
+gradients and metrics are averaged over the whole grid, which gives sp
+1's step (every collective's backward is its forward's adjoint, so the
+grid's sum of the ranks' gradients is that of the sum of their losses).
 """
 
 from __future__ import annotations
@@ -73,6 +81,7 @@ from vfd_gan_tpu_torch.ops.image import (
 from vfd_gan_tpu_torch.ops.losses import bce, l2_loss, weighted_bce
 from vfd_gan_tpu_torch.ops.morphology import video_open
 from vfd_gan_tpu_torch.parallel.prefetch import to_device
+from vfd_gan_tpu_torch.parallel.sp_generator import generator_forward_sp
 from vfd_gan_tpu_torch.train.engine_base import (
     EngineBase,
     SweepAccumulator,
@@ -299,8 +308,7 @@ class MyGanEngine(EngineBase):
         data, real, gt = (x.to(self.input_dtype) for x in (data, real, gt))
         self.netg.train(train_mode)
         self.netd.train(train_mode)
-        pred = to_channel_last(self.netg(
-            to_channel_first(data), self.rng if train_mode else None))
+        pred = self._predict(data, train_mode)
         gt_3ch = gray2rgb(gt)
         pre_3ch = gray2rgb(pred)
         if gt_flow is None:
@@ -311,6 +319,18 @@ class MyGanEngine(EngineBase):
             pre_flow = self._flow(pre_3ch, streams=1)
         return self._eval_tail(data, gt, pred, gt_3ch, pre_3ch, gt_flow,
                                pre_flow, real)
+
+    def _predict(self, data: torch.Tensor, train_mode: bool) -> torch.Tensor:
+        """G's mask of the sweep's whole clips ``data``.  Under ``--sp``
+        (G in eval mode) each rank of a row takes its frames through
+        ``generator_forward_sp`` and the row's frames are gathered."""
+        sp = self.dp.sp
+        if sp is None or train_mode:
+            return to_channel_last(self.netg(
+                to_channel_first(data), self.rng if train_mode else None))
+        mine = data[:, sp.frame_slice(data.shape[1])]
+        pred = generator_forward_sp(self.netg, to_channel_first(mine), sp)
+        return to_channel_last(sp.gather(pred))
 
     def _eval_step_impl(self, batch: dict):
         """Test step (reference MyGAN.test body, models/mygannet.py:
