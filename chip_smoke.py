@@ -167,7 +167,7 @@ phases, one line each (or a few):
     and the ``--dp`` options and ``--pp`` in two gloo ranks on it;
 29. sp (``phase_sp``): two gloo ranks on the one card shard MyGAN's
     frames (``--sp 2``) at the reference width, nfr 32 (every level local)
-    and nfr 16 (the bottleneck gathered), float32 and bf16, 3 steps and a
+    and nfr 16 (the bottleneck gathered), float32 and bf16, 2 steps and a
     one-batch sweep each, held within ``parallel/verify.py``'s K = 10 x
     the spread of two one-process sp 1 runs (the plain run and its
     two-pass BatchNorm twin); both ranks one replica bit for bit; each
@@ -177,7 +177,27 @@ phases, one line each (or a few):
     timed with the device synchronised around it; the fused kernel on
     each rank's halo'd fields of a b8 x 2-stream flow against its plain
     version, and the plain path's flow bit-equal to sp 1's.  Every line
-    carries the card's name and power limit.
+    carries the card's name and power limit.  The gate also reads the
+    running statistics after the first step and the first gradient of
+    the layers that take a halo, and says how far each lands the
+    zero-halo control past it;
+30. sp-families (``phase_sp_families``): two gloo ranks on the card run
+    ``--sp 2`` for Xception (float32, bf16, bf16 ``--moe_experts 4``),
+    GANomaly (float32, bf16) and MyGAN at nfr 16 in bf16 with
+    ``--accum 2 --int8_disc --cache_gt_flow`` and with
+    ``--ref_mode_quirks`` (a sweep after step 1 as well), 2 steps and a
+    one-batch sweep each, each held by the same gate against two
+    one-process sp 1 runs (parameters, running statistics, the first
+    step's gradient and running statistics, every sweep's scores; the
+    MoE run also its first step's kept tokens); every augment and opening
+    call on a rank's inputs bit-equal to its plain version, every fused
+    flow call within 1e-3 px of it; the shard-local BatchNorm controls
+    (Xception, float32 and bf16) and the per-shard MoE slots (float32,
+    against two sp 1 runs of ``--moe_experts 4`` in float32) must fail
+    the gate.  The states are held by sketches (65536 elements a
+    tensor) and no best checkpoint is written: a card call may write 45
+    GiB, and whole states of full-width Xception (203M parameters) pass
+    it.
 
 bfloat16, the JAX package's and the trainer's default compute dtype, runs
 beside float32: the conv kernel's bf16 form at the nine launches of a
@@ -213,7 +233,7 @@ and the int8 serve + infer path) starts with the launch counts of the
 kernels set to 0 and reads them after; the same counters hold the int8
 GEMM's calls (``int8_matmul``: cuBLASLt, no kernel of the port), printed
 on the phases' lines and not on the kernels line.  ``--slice-only``
-runs the build and phase 29 alone and prints no result line.  Then come one JSON line of kernel results
+runs the build and phases 29-30 alone and prints no result line.  Then come one JSON line of kernel results
 and, last, ``{"ok": true, "device": {...}}``.  Per kernel the JSON line
 holds its time (``ms``), its plain version's (``plain_ms``), the time of
 one PyTorch call that computes the same function where there is one
@@ -714,13 +734,50 @@ def phase_augment_kernel(device) -> dict:
         lambda: augment.augment_gather_plain(*streams, src_x, src_y))
     say("augment", f"train shape: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms"
                    f" (plain/kernel/kernel/plain {order})")
+    lib_ms = _augment_grid_sample_ms(streams, src_x, src_y)
     # the three uint8 streams and the two coordinate maps in, three
     # float32 clips out; per output value one scaling
     nbytes = sum(t.numel() * t.element_size() for t in (
         *streams, src_x, src_y)) + 4 * 7 * BATCH * NFR * ISIZE * ISIZE
     return {"max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
-            "library_ms": None,
+            "library_ms": lib_ms,
             **bound(nbytes, 7 * BATCH * NFR * ISIZE * ISIZE)}
+
+
+def _augment_grid_sample_ms(streams, src_x, src_y) -> float:
+    """``F.grid_sample`` (nearest, zero padding, align_corners) of the
+    seven channels as one float32 clip of frames, on a grid normalised
+    from the floored source coordinates ahead of the timing: the one
+    PyTorch call that computes the gather (the scaling, elementwise,
+    after it).  Only timed here; its outputs, scaled, against the
+    kernel's."""
+    from vfd_gan_tpu_torch.ops import augment
+
+    b, t, s = streams[0].shape[:3]
+    isize = src_x.shape[-1]
+    clip = torch.cat(streams, -1).float()
+    frames = clip.permute(0, 1, 4, 2, 3).reshape(b * t, -1, s, s) \
+        .contiguous()
+    grid = torch.stack([2 * src_x / (s - 1) - 1, 2 * src_y / (s - 1) - 1],
+                       dim=-1)
+    grid = grid[:, None].expand(b, t, isize, isize, 2).reshape(
+        b * t, isize, isize, 2).contiguous()
+    sample = lambda: torch.nn.functional.grid_sample(  # noqa: E731
+        frames, grid, mode="nearest", padding_mode="zeros",
+        align_corners=True)
+    ms = event_ms(sample)
+    out = sample().reshape(b, t, -1, isize, isize).permute(0, 1, 3, 4, 2)
+    cut = np.cumsum([0] + [v.shape[-1] for v in streams])
+    got = (augment.scale_video(out[..., cut[0]:cut[1]]),
+           augment.scale_video(out[..., cut[1]:cut[2]]),
+           augment.scale_mask(out[..., cut[2]:cut[3]]))
+    want = augment.augment_gather_cuda(*streams, src_x, src_y)
+    apart = sum(int((g != w).sum()) for g, w in zip(got, want))
+    say("augment", f"train shape: F.grid_sample (nearest) on a precomputed "
+                   f"grid of the float32 clip {ms:.4f} ms; scaled, "
+                   f"{apart} of {sum(w.numel() for w in want)} values apart "
+                   f"from the kernel's")
+    return ms
 
 
 # The 3x3 conv kernel's cases: id -> (N, H, W, Cin, Cout, flip, launches per
@@ -3387,8 +3444,10 @@ def phase_dp(tmp: Path) -> dict:
     return launches
 
 
-# the parallel phase: train steps per run, and its gloo ranks' join timeout
-PAR_STEPS = 3
+# the parallel phase: train steps per run (2: with 3, and 3 in the sp
+# phases, the script took 1081 s of its 1200 s), and its gloo ranks' join
+# timeout
+PAR_STEPS = 2
 PAR_JOIN_S = 400
 # its runs: model, the options on top of the reference width's b8 float32
 PAR_RUNS = {"moe": ("xception", ["--moe_experts", str(MOE_EXPERTS)]),
@@ -3590,13 +3649,20 @@ def phase_parallel(tmp: Path, paths: dict) -> dict:
 # the sp phase: train steps per run, the gloo ranks' join timeout, and its
 # runs: (nfr, compute dtype) of MyGAN at the reference width (b8, 128^2,
 # ngf = ndf = 32, flow_scale 0.5)
-SP_STEPS = 3
+# (2, as in the parallel phase: the script keeps inside its time)
+SP_STEPS = 2
 SP_JOIN_S = 500
 SP_RUNS = ((32, "float32"), (16, "float32"), (32, "bfloat16"),
            (16, "bfloat16"))
 # the zero-halo control (each shard padded as if alone) at nfr 32, where
 # every level is sharded: it must land outside the K x spread limit
 SP_CONTROLS = ((32, "float32"), (32, "bfloat16"))
+# the sp runs' states are held by sketches of SKETCH elements a tensor
+# (``tools/dp_equivalence._sketch``; the ranks' replicas by a digest of
+# the whole state), and their best checkpoints are not written: whole
+# states of full-width Xception (203M parameters, 0.8 GB a kind) written
+# by every run and rank would put tens of GB on the disk in one call
+SKETCH = 65536
 
 
 def _sp_case(name: str, nfr: int, dtype: str, sp: int, **kw) -> dict:
@@ -3610,19 +3676,67 @@ def _sp_case(name: str, nfr: int, dtype: str, sp: int, **kw) -> dict:
             "--synthetic_test_batches", "1", "--ep", "1", "--freq", "1000"]
     return dict(dict(kind="train", name=name, argv=argv, steps=SP_STEPS,
                      dp=1 if sp == 1 else 2, device="cuda", sweep=True,
-                     first_grads=True), **kw)
+                     first_grads=True, sample=SKETCH, no_pth=True), **kw)
 
 
-def _scores_close(got: dict, ref: dict, again: dict) -> str:
+def _roc_by_frames(got: float, want: float, frames) -> str:
+    """A frame-level ROC held through the scores it is computed from.
+    GANomaly's sweep scores a few hundred frames, so its ROC moves in
+    steps of 1 / (positives x negatives): where the frames' scores lie
+    close, a rounding of one run swaps a pair, and the spread of two runs
+    is no yardstick (the sp 2 bf16 ROC once lay 15.7 x the two sp 1
+    runs' 0.000391 from theirs: a handful of pairs).  So ``frames`` (the
+    sp 2 run's, its reference's and the reference's twin's labels and
+    min-max normalised frame scores) holds the scores within
+    ``parallel/verify.py``'s K (10) x the references' spread plus 1e-5 by
+    relative L2 (``_spread_close``, as the parameters are held), and the
+    ROC within what those scores allow: apart from the reference's by no
+    more than the share of (positive, negative) pairs whose reference
+    scores lie within twice the largest score's move, the only pairs that
+    move can reorder."""
+    from vfd_gan_tpu_torch.parallel.verify import K
+
+    mine, ref, again = frames
+    labels = ref["labels"]
+    check(torch.equal(mine["labels"], labels)
+          and torch.equal(again["labels"], labels),
+          "sp frame scores: the same frames' labels in the same order")
+    line = _spread_close("sp frame scores",
+                         {"scores": mine["scores"].double()},
+                         {"scores": ref["scores"].double()},
+                         {"scores": again["scores"].double()}, factor=K)
+    moved = float((mine["scores"].double()
+                   - ref["scores"].double()).abs().max())
+    pos = labels > 0.5
+    gaps = (ref["scores"].double()[pos][:, None]
+            - ref["scores"].double()[~pos][None, :])
+    near = int((gaps.abs() <= 2 * moved).sum())
+    d = abs(got - want)
+    check(math.isfinite(want) and d <= near / gaps.numel() + 1e-12,
+          f"sp scores: score/roc {got!r} against sp 1's {want!r}: {d:.3g} "
+          f"within the {near} of {gaps.numel()} frame pairs whose sp 1 "
+          f"scores lie within 2 x the largest move {moved:.3g}")
+    return (f"score/roc {got:.6f} (sp 1 {want:.6f}) through its "
+            f"{len(labels)} frames' scores: {line}, largest move "
+            f"{moved:.3g}, the ROC moved by {d * gaps.numel():.1f} of the "
+            f"{near} pairs within 2 x that")
+
+
+def _scores_close(got: dict, ref: dict, again: dict, frames=None) -> str:
     """An sp 2 run's sweep scores against its sp 1 reference: each within
     ``parallel/verify.py``'s K (10) x the two reference runs' spread plus
-    1e-5, as ``_dp_close`` holds the parameters; returns the readings."""
+    1e-5, as ``_dp_close`` holds the parameters; a frame-level ROC, where
+    ``frames`` has its frames' scores, through them (``_roc_by_frames``);
+    returns the readings."""
     from vfd_gan_tpu_torch.parallel.verify import K
 
     out = []
     check(set(got["scores"]) == set(ref["scores"]),
           f"sp scores: the same keys {sorted(got['scores'])}")
     for k, want in sorted(ref["scores"].items()):
+        if frames is not None and k == "score/roc":
+            out.append(_roc_by_frames(got["scores"][k], want, frames))
+            continue
         d = abs(got["scores"][k] - want)
         spread = abs(again["scores"][k] - want)
         check(math.isfinite(want) and d <= K * spread + 1e-5,
@@ -3666,7 +3780,6 @@ def phase_sp(tmp: Path, card: str) -> dict:
     Returns the kernels' launches by run (each rank's)."""
     from vfd_gan_tpu_torch.parallel.verify import K
     from vfd_gan_tpu_torch.tools import dp_equivalence as eq
-    from vfd_gan_tpu_torch.tools.step_reference import within_spread
 
     t0 = time.perf_counter()
     refs = {}
@@ -3703,11 +3816,8 @@ def phase_sp(tmp: Path, card: str) -> dict:
     for nfr, dtype in SP_RUNS:
         tag = f"nfr{nfr} {dtype}"
         got, other = load(f"sp2.{nfr}.{dtype}"), load(f"sp2.{nfr}.{dtype}", 1)
-        for kind in ("params", "buffers"):
-            unequal = [k for k, v in got[kind].items()
-                       if not torch.equal(v, other[kind][k])]
-            check(not unequal, f"sp {tag}: both ranks hold the same {kind} "
-                               f"bit for bit: {unequal[:8]}")
+        check(got["digest"] == other["digest"],
+              f"sp {tag}: both ranks hold the same state bit for bit")
         for r, res in enumerate((got, other)):
             check(all(np.isfinite(v) for step in res["losses"]
                       for v in step.values()), f"sp {tag}: finite losses")
@@ -3735,11 +3845,11 @@ def phase_sp(tmp: Path, card: str) -> dict:
             check(0.05 < blobs[3] < 0.95, f"sp {tag}: the blobs' opening "
                                           f"neither empty nor full: {blobs}")
         ref, again = refs[tag]
-        say("sp", f"{card}: {tag} sp 2 " + _dp_close(f"{tag}", got, ref,
-                                                     again)
+        say("sp", f"{card}: {tag} sp 2 " + _gate(tag, got, ref, again)
             + "; " + _spread_close(
-                f"{tag} first gradient", got["first_exp_avg"],
-                ref["first_exp_avg"], again["first_exp_avg"], factor=K))
+                f"{tag} first_exp_avg_halo",
+                *(GATE_KINDS["first_exp_avg_halo"](r)
+                  for r in (got, ref, again)), factor=K))
         say("sp", f"{card}: {tag} " + _scores_close(got, ref, again))
         opened, blobs = (held[k][0] for k in ("morphology_open",
                                               "morphology_open_blobs"))
@@ -3765,15 +3875,9 @@ def phase_sp(tmp: Path, card: str) -> dict:
         tag = f"nfr{nfr} {dtype}"
         ref, again = refs[tag]
         control = load(f"sp2.halo.{nfr}.{dtype}")
-        readings, past = [], {}
-        for kind in ("params", "first_exp_avg", "exp_avg"):
-            dist, spread, _ = within_spread(control[kind], ref[kind],
-                                            again[kind], K)
-            past[kind] = max(d / (K * s + 1e-5) for d, s in zip(dist, spread))
-            readings.append(
-                f"{kind} median {dist[0]:.3g}, whole {dist[1]:.3g} (two "
-                f"reference runs: {spread[0]:.3g}, {spread[1]:.3g}): "
-                f"{past[kind]:.3g} x the limit")
+        past, readings = _past_limit(control, ref, again, (
+            "params", "buffers", "first_exp_avg", "first_buffers",
+            "first_exp_avg_halo", "exp_avg"))
         check(max(past.values()) > 1,
               f"sp {tag}: the zero-halo control fails the gate that the "
               f"sp 2 runs pass (K {K:g} x the spread + 1e-5): {readings}")
@@ -3799,6 +3903,324 @@ def phase_sp(tmp: Path, card: str) -> dict:
               f"{biggest:.3g} px; the plain path's flow bit-equal to sp 1's")
     say("sp", f"{card}: sp 1 references {t_refs:.1f} s, gloo ranks "
               f"{t_ranks:.1f} s, phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# the reading of the gate that the bf16 zero-halo control met by 1.8x in
+# the first step's gradient: the running statistics after step 1,
+# which read the first forward's batch statistics, and the first gradient
+# of the layers that take a halo (MyGAN's temporal convs and G's head)
+def _halo_layer(key: str) -> bool:
+    return ".temporal_conv." in key or key.startswith("netG.conv_last.")
+
+
+def _running(tensors: dict) -> dict:
+    return {k: v for k, v in tensors.items() if "running" in k}
+
+
+GATE_KINDS = {
+    "params": lambda r: r["params"],
+    "buffers": lambda r: _running(r["buffers"]),
+    "first_exp_avg": lambda r: r["first_exp_avg"],
+    "first_buffers": lambda r: _running(r["first_buffers"]),
+    "exp_avg": lambda r: r["exp_avg"],
+    "first_exp_avg_halo": lambda r: {k: v for k, v in
+                                     r["first_exp_avg"].items()
+                                     if _halo_layer(k)},
+}
+
+
+def _gate(what: str, got: dict, ref: dict, again: dict,
+          kinds=("params", "buffers", "first_exp_avg",
+                 "first_buffers")) -> str:
+    """An sp run held within ``parallel/verify.py``'s K (10) x the spread
+    of two one-process sp 1 runs plus 1e-5 in each of ``kinds``
+    (``GATE_KINDS``: parameters and running statistics after the steps,
+    the first step's gradient and running statistics); the readings."""
+    from vfd_gan_tpu_torch.parallel.verify import K
+
+    return "; ".join(_spread_close(
+        f"{what} {kind}", GATE_KINDS[kind](got), GATE_KINDS[kind](ref),
+        GATE_KINDS[kind](again), factor=K) for kind in kinds)
+
+
+def _past_limit(control: dict, ref: dict, again: dict, kinds) -> tuple:
+    """Each reading of a control against the gate: ``{kind: its distance
+    over K x the spread + 1e-5}`` (the larger of median and whole) and
+    the lines that say them."""
+    from vfd_gan_tpu_torch.parallel.verify import K
+    from vfd_gan_tpu_torch.tools.step_reference import within_spread
+
+    past, lines = {}, []
+    for kind in kinds:
+        dist, spread, _ = within_spread(GATE_KINDS[kind](control),
+                                        GATE_KINDS[kind](ref),
+                                        GATE_KINDS[kind](again), K)
+        past[kind] = max(d / (K * s + 1e-5) for d, s in zip(dist, spread))
+        lines.append(f"{kind} median {dist[0]:.3g}, whole {dist[1]:.3g} "
+                     f"(two reference runs: {spread[0]:.3g}, "
+                     f"{spread[1]:.3g}): {past[kind]:.3g} x the limit")
+    return past, lines
+
+
+# the sp-families phase's train steps per run (the phase and the script
+# keep inside their times: 3 steps here and in the parallel and sp
+# phases put the script at 1081 s of its 1200 s)
+SPF_STEPS = 2
+# the MoE runs' capacity factor: at JAX's 2.0 a train step drops no token,
+# so the order of the slots, and the per-shard control, would not show;
+# at 0.5 (C = T/8 with 4 experts) at least half the tokens drop
+SPF_MOE_CAPACITY = 0.5
+# the fused flow kernel against its plain version on a rank's fields: the
+# flow phase's bound (px)
+FUSED_PX = 1e-3
+# the sp-families phase: (name, model, compute dtype, options, case
+# settings) at the reference width, b8 128^2, SPF_STEPS steps and a
+# one-batch sweep (MyGAN's option runs: nfr 16 bf16, a sweep after step 1
+# as well)
+SPF_RUNS = (
+    ("xception f32", "xception", "float32", ["--xwidth", "1.0"], {}),
+    ("xception bf16", "xception", "bfloat16", ["--xwidth", "1.0"], {}),
+    ("xception moe4 bf16", "xception", "bfloat16",
+     ["--xwidth", "1.0", "--moe_experts", str(MOE_EXPERTS)],
+     {"moe_capacity": SPF_MOE_CAPACITY}),
+    # its sp 1 runs, the references of the float32 MoE control
+    ("xception moe4 f32", "xception", "float32",
+     ["--xwidth", "1.0", "--moe_experts", str(MOE_EXPERTS)],
+     {"moe_capacity": SPF_MOE_CAPACITY}),
+    ("ganomaly f32", "ganomaly", "float32", [], {}),
+    ("ganomaly bf16", "ganomaly", "bfloat16", [], {}),
+    ("mygan accum2+int8_disc+cache_gt_flow bf16", "mygan", "bfloat16",
+     ["--accum", "2", "--int8_disc", "--cache_gt_flow"], {"sweep_at": [1]}),
+    ("mygan ref_mode_quirks bf16", "mygan", "bfloat16",
+     ["--ref_mode_quirks"], {"sweep_at": [1]}),
+)
+# the runs that are references alone (no sp 2 run of their own)
+SPF_REFS_ONLY = ("xception moe4 f32",)
+# the controls that must fail the gate: (run, the reduction left local).
+# The per-shard MoE slots keep what the global order keeps wherever the
+# tokens spread evenly over the shards, so in bf16 they part from sp 1
+# by about bf16's own routing flips (3.7% of the tokens between the two
+# sp 1 runs, 6.9% for the control: 0.19x the limit, measured): the MoE
+# control runs in float32
+SPF_CONTROLS = (("xception f32", "bn_sp"), ("xception bf16", "bn_sp"),
+                ("xception moe4 f32", "moe"))
+
+
+def _kept_apart(got, ref) -> float:
+    """The share of tokens whose first-step kept flag differs from
+    ``ref``'s (``got``: one run's ``first_routing``, or an sp row's, its
+    ranks' frames side by side)."""
+    if isinstance(got, (list, tuple)):
+        got = torch.cat([g["kept"] for g in got], 1)
+    else:
+        got = got["kept"]
+    return float((got != ref["kept"]).float().mean())
+
+
+def _routing_gate(what: str, ranks: list, ref: dict, again: dict,
+                  control: bool = False) -> tuple:
+    """The MoE routing's reading: the share of tokens kept otherwise than
+    by sp 1 in the first step, within K (10) x the share between the two
+    sp 1 runs (round-off flips near an expert's capacity) plus 1e-3;
+    returns (its distance over that limit, the line that says it)."""
+    from vfd_gan_tpu_torch.parallel.verify import K
+
+    apart = _kept_apart([r["first_routing"] for r in ranks],
+                        ref["first_routing"])
+    spread = _kept_apart(again["first_routing"], ref["first_routing"])
+    past = apart / (K * spread + 1e-3)
+    if not control:
+        check(past <= 1, f"{what}: MoE tokens kept otherwise than sp 1's "
+                         f"{apart:.3g} within {K:g} x {spread:.3g} + 1e-3")
+    return past, (f"{what} first-step kept set: {apart:.4g} of the tokens "
+                  f"apart from sp 1's (two reference runs: {spread:.4g}): "
+                  f"{past:.3g} x the limit")
+
+
+def _spf_case(tag: str, sp: int, **kw) -> dict:
+    """A ``tools/dp_equivalence.py`` case of the ``SPF_RUNS`` run ``tag``
+    over ``sp`` frame shards (1: in this process)."""
+    _, model, dtype, extra, settings = next(r for r in SPF_RUNS
+                                            if r[0] == tag)
+    widths = ["--ngf", "32", "--ndf", "32", "--flow_scale", "0.5"] \
+        if model == "mygan" else []
+    argv = ["--model", model, "--batchsize", str(BATCH), "--nfr", str(NFR),
+            "--isize", str(ISIZE), *widths, *extra, "--compute_dtype",
+            dtype, "--sp", str(sp), "--synthetic_data", str(SPF_STEPS),
+            "--synthetic_test_batches", "1", "--ep", "1", "--freq", "1000"]
+    name = f"spf.{tag.replace(' ', '_')}.sp{sp}"
+    return {**dict(kind="train", name=name, argv=argv, steps=SPF_STEPS,
+                   dp=1 if sp == 1 else 2, device="cuda", sweep=True,
+                   first_grads=True, sample=SKETCH, no_pth=True),
+            **settings, **kw}
+
+
+def phase_sp_families(tmp: Path, card: str) -> dict:
+    """``--sp 2`` for Xception and GANomaly, and MyGAN's ``--accum``,
+    ``--int8_disc``, ``--cache_gt_flow`` and ``--ref_mode_quirks`` under
+    it: two gloo ranks on this one card at the reference width (b8,
+    128^2, nfr 16; Xception ``--xwidth 1.0``, also ``--moe_experts 4``;
+    MyGAN ngf = ndf = 32, flow_scale 0.5), ``SPF_STEPS`` steps and a
+    one-batch sweep each (MyGAN's option runs a sweep after step 1 too:
+    it fills the gt-flow cache, and under ``--ref_mode_quirks`` it moves
+    G's and D's statistics and the dropout generator before step 2).
+    Each run is held within ``parallel/verify.py``'s K (10) x the spread
+    of two one-process sp 1 runs (the plain run and its two-pass
+    BatchNorm twin) in its parameters and running statistics, the first
+    step's gradient and running statistics (``_gate``) and its sweeps'
+    scores; both ranks hold one replica bit for bit; every augment,
+    opening and fused-flow call on a rank's own inputs is bit-equal to
+    its plain version (the opening also on blobs of the gathered masks'
+    shape); each rank's launches.  The shard-local BatchNorm control
+    (Xception, float32 and bf16) and the per-shard MoE slots must fail
+    the gate.  Returns the kernels' launches by run (each rank's)."""
+    from vfd_gan_tpu_torch.tools import dp_equivalence as eq
+
+    t0 = time.perf_counter()
+    refs = {}
+    for tag, *_ in SPF_RUNS:
+        refs[tag] = tuple(
+            eq.run_train(_spf_case(tag, 1, name=_spf_case(tag, 1)["name"]
+                                   + f".{i}", **kw), tmp / "spf_ref",
+                         solo=True)
+            for i, kw in ((1, {}), (2, {"arith": "dp"})))
+        gc.collect()
+        torch.cuda.empty_cache()
+    t_refs = time.perf_counter() - t0
+    runs = [r for r in SPF_RUNS if r[0] not in SPF_REFS_ONLY]
+    cases = [_spf_case(tag, 2, hold_kernels=True) for tag, *_ in runs]
+    cases += [_spf_case(tag, 2, name=_spf_case(tag, 2)["name"] + f".{op}",
+                        local_ops=[op], sweep=False)
+              for tag, op in SPF_CONTROLS]
+    gloo = tmp / "spf_gloo"
+    t1 = time.perf_counter()
+    eq.run(cases, gloo, world=2, backend="gloo", timeout=SP_JOIN_S)
+    t_ranks = time.perf_counter() - t1
+
+    def load(name, rank=0):
+        return torch.load(gloo / f"{name}.rank{rank}.pt", weights_only=False)
+
+    launches = {}
+    for tag, model, *_ in runs:
+        case = _spf_case(tag, 2)
+        sweeps = 1 + len(case.get("sweep_at", ()))
+        got, other = load(case["name"]), load(case["name"], 1)
+        check(got["digest"] == other["digest"],
+              f"spf {tag}: both ranks hold the same state bit for bit")
+        micro = 2 if "--accum" in case["argv"] else 1
+        for r, res in enumerate((got, other)):
+            check(all(np.isfinite(v) for step in res["losses"]
+                      for v in step.values()), f"spf {tag}: finite losses")
+            counts = res["launches"]
+            sweep = {k: res["sweep_launches"].get(k, 0)
+                     + res["mid_sweep_launches"].get(k, 0)
+                     for k in res["sweep_launches"]}
+            check(counts["augment_gather"] == SPF_STEPS,
+                  f"spf {tag}: the augment kernel once per step: {counts}")
+            flows = 3 * micro * SPF_STEPS if model == "mygan" else 0
+            check(counts["flow_fused"] == flows,
+                  f"spf {tag}: the fused flow kernel {flows} times in "
+                  f"{SPF_STEPS} steps: {counts}")
+            openings = 0 if model == "ganomaly" else sweeps
+            check(sweep["morphology_open"] == openings,
+                  f"spf {tag}: the opening once per sweep batch "
+                  f"({openings}): {sweep}")
+            total = {k: counts.get(k, 0) + sweep.get(k, 0)
+                     for k in set(counts) | set(sweep)}
+            launches[f"sp-families {tag}" + (" rank1" if r else "")] = total
+            held = res["kernel_vs_plain"]
+            want = {"augment_gather": SPF_STEPS,
+                    "morphology_open": openings,
+                    "morphology_open_blobs": openings,
+                    "flow_fused": flows + (sweep["flow_fused"]
+                                           if model == "mygan" else 0)}
+            for name, calls in want.items():
+                # the fused solver within FUSED_PX of its plain version
+                # (bit-equal but for one call of 24 at 1.04e-6 px,
+                # measured), the others bit-equal
+                tol = FUSED_PX if name == "flow_fused" else 0.0
+                check(len(held.get(name, ())) == calls
+                      and all(c[0] <= tol for c in held.get(name, ())),
+                      f"spf {tag} rank {r}: {name} within {tol:g} of its "
+                      f"plain version on each of its {calls} call(s) on "
+                      f"the rank's inputs: {held.get(name)}")
+            if openings:
+                blobs = held["morphology_open_blobs"][0]
+                check(0.05 < blobs[3] < 0.95,
+                      f"spf {tag}: the blobs' opening neither empty nor "
+                      f"full: {blobs}")
+        ref, again = refs[tag]
+        say("sp-families", f"{card}: {tag} sp 2 "
+            + _gate(tag, got, ref, again))
+        scores = [*got["sweeps"], got["scores"]]
+        # GANomaly's frame-level ROC is held through its frames' scores
+        frames = zip(got["frame_scores"], ref["frame_scores"],
+                     again["frame_scores"], strict=True) \
+            if model == "ganomaly" else [None] * len(scores)
+        for i, (mine, want_s, again_s, by) in enumerate(zip(
+                scores, [*ref["sweeps"], ref["scores"]],
+                [*again["sweeps"], again["scores"]], frames, strict=True)):
+            say("sp-families", f"{card}: {tag} sweep {i + 1}: "
+                + _scores_close({"scores": mine}, {"scores": want_s},
+                                {"scores": again_s}, by))
+        held = got["kernel_vs_plain"]
+        say("sp-families", f"{card}: {tag}: bit-equal to their plain "
+            f"versions on each rank's inputs: the augment kernel on "
+            f"{held['augment_gather'][0][1]} uint8 frames"
+            + (f", the opening on the sweep's "
+               f"{held['morphology_open'][0][1]} gathered masks (fill "
+               f"{held['morphology_open'][0][2]:.4f} -> "
+               f"{held['morphology_open'][0][3]:.4f}; on blobs "
+               f"{held['morphology_open_blobs'][0][2]:.4f} -> "
+               f"{held['morphology_open_blobs'][0][3]:.4f})"
+               if model != "ganomaly" else "")
+            + (f", and the fused flow on {len(held['flow_fused'])} calls' "
+               f"halo'd fields {sorted({c[1] for c in held['flow_fused']})}"
+               f" within {FUSED_PX:g} px ("
+               f"{sum(c[0] > 0 for c in held['flow_fused'])} not bit-equal,"
+               f" max {max(c[0] for c in held['flow_fused']):.3g} px)"
+               if model == "mygan" else ""))
+        extra = ""
+        if "--moe_experts" in case["argv"]:
+            say("sp-families", f"{card}: {tag} " + _routing_gate(
+                tag, [got, other], ref, again)[1])
+            extra = (f"; MoE dropped fraction per step sp 2 "
+                     f"{got['moe_dropped']} (sp 1 {ref['moe_dropped']}), "
+                     f"the sweep's eval forward {got['sweep_moe_dropped']} "
+                     f"(sp 1 {ref['sweep_moe_dropped']})")
+        say("sp-families", f"{card}: {tag}: step median ms sp 1 "
+                           f"{_median_ms(ref):.1f} (two-pass BatchNorms "
+                           f"{_median_ms(again):.1f}), sp 2 (2 gloo ranks "
+                           f"on one card) {_median_ms(got):.1f} / "
+                           f"{_median_ms(other):.1f} "
+                           f"({_median_ms(got) / _median_ms(ref):.2f}x); "
+                           f"peak MiB sp 1 "
+                           f"{ref.get('peak_mib', math.nan):.0f}, sp 2 per "
+                           f"rank {got.get('peak_mib', math.nan):.0f}; "
+                           f"sweep ms sp 1 {ref['sweep_ms']:.1f}, sp 2 "
+                           f"{got['sweep_ms']:.1f}; launches per rank "
+                           f"(steps + sweeps) "
+                           f"{json.dumps(launches[f'sp-families {tag}'])}"
+                           + extra)
+    kinds = ("params", "buffers", "first_exp_avg", "first_buffers",
+             "exp_avg")
+    for tag, op in SPF_CONTROLS:
+        ref, again = refs[tag]
+        name = _spf_case(tag, 2)["name"] + f".{op}"
+        control = load(name)
+        past, lines = _past_limit(control, ref, again, kinds)
+        if op == "moe":
+            past["kept"], line = _routing_gate(
+                tag, [control, load(name, 1)], ref, again, control=True)
+            lines.append(line)
+        check(max(past.values()) > 1,
+              f"spf {tag}: the {op} control fails the gate that the sp 2 "
+              f"run passes: {lines}")
+        say("sp-families", f"{card}: {tag} {op} control " + "; ".join(lines))
+    say("sp-families", f"{card}: sp 1 references {t_refs:.1f} s, gloo "
+                       f"ranks {t_ranks:.1f} s, phase "
+                       f"{time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -3907,10 +4329,14 @@ def run_new_phases(tmp: Path, device, paths: dict, base: dict) -> dict:
 
 
 def slice_only(name: str, card: str) -> None:
-    """``--slice-only``: the build and this slice's phase alone (``--sp``),
-    for a short call while it is worked on; prints no result line."""
+    """``--slice-only``: the build and the ``--sp`` phases alone (``sp``,
+    ``sp-families``), for a short call while they are worked on; prints
+    no result line."""
     with tempfile.TemporaryDirectory() as tmp:
         runs = phase_sp(Path(tmp), card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs.update(phase_sp_families(Path(tmp), card))
     say("slice-only", f"{name}: launches by run {json.dumps(runs)}; no "
                       "result line (the full run prints it)")
 
@@ -4060,6 +4486,9 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         new_runs.update(phase_sp(Path(tmp), card))
+        gc.collect()
+        torch.cuda.empty_cache()
+        new_runs.update(phase_sp_families(Path(tmp), card))
     # launches: each kernel's count on the main path that runs it (MyGAN's
     # trainer for the fused and opening kernels, its --flow_impl
     # two_kernel step for warp and refine, the clstm trainer for the

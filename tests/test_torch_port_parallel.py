@@ -255,7 +255,7 @@ def ranks(tmp_path_factory, jax_init):
     np.savez(root / "draws.npz", **draws)
     torch.save({k: torch.from_numpy(np.array(v)) for k, v in
                 xception_state_dict(jax_init[1]).items()}, root / "state.pt")
-    core = dict(kind="pp_core", name="pp_core",
+    core = dict(kind="step_core", name="pp_core",
                 argv=[*XCEPTION, "--pp", "2", "--pp_micro", "2"],
                 state=str(root / "state.pt"), batch=str(root / "batch.npz"),
                 draws=str(root / "draws.npz"))

@@ -48,10 +48,12 @@ groups take ~35 s alone and several times that in the tier).
   ``g/err_g_adv_s``, where JAX's float32 is the one off, is held to the
   port's float64 sp 2 step within the gate's rtol.
 * the trainer's ``--dp 2 --sp 2`` command (rank 0 alone writes), the
-  refusals: ``--sp`` for the other five families (ROADMAP
-  queue 1 item 13b), with ``--tp`` or ``--moe_shards`` (item 13), with
-  each MyGAN option it does not run yet (item 13c), and on ``cuda`` past
-  the visible cards.
+  refusals: ``--sp`` for c2plus1d, AnoGAN and clstm (ROADMAP queue 1
+  item 13b), with ``--tp`` or ``--moe_shards`` (item 13), with each MyGAN
+  option it does not run yet (item 13c), and on ``cuda`` past the visible
+  cards.  Xception, GANomaly and MyGAN's ``--accum``, ``--int8_disc``,
+  ``--cache_gt_flow`` and ``--ref_mode_quirks`` under ``--sp``:
+  ``tests/test_torch_port_sp_families.py``.
 """
 
 import os
@@ -579,11 +581,11 @@ def test_trainer_dp2_sp2_runs_and_rank0_alone_writes(tmp_path, capfd):
     assert set(_children()) <= before
 
 
+# the families --sp does not run yet (Xception and GANomaly run since:
+# tests/test_torch_port_sp_families.py)
 _FAMILY = {"clstm": ["--nfr", "8", "--isize", "16"],
            "c2plus1d": ["--nfr", "16", "--isize", "16"],
-           "xception": ["--nfr", "8", "--isize", "32", "--xwidth", "0.0625"],
-           "anogan": ["--nfr", "8", "--isize", "16"],
-           "ganomaly": ["--nfr", "8", "--isize", "16"]}
+           "anogan": ["--nfr", "8", "--isize", "16"]}
 
 
 @pytest.mark.parametrize("family", list(_FAMILY))
@@ -605,10 +607,10 @@ def test_sp_with_tp_or_moe_shards_is_refused_with_item_13(tmp_path, extra):
                       str(tmp_path)])
 
 
-@pytest.mark.parametrize("option", [
-    ["--accum", "2"], ["--remat"], ["--int8_disc"], ["--host_flow"],
-    ["--ae"], ["--cache_gt_flow"], ["--ref_mode_quirks"]],
-    ids=lambda v: v[0][2:])
+# --accum, --int8_disc, --cache_gt_flow and --ref_mode_quirks run under
+# --sp since (tests/test_torch_port_sp_families.py)
+@pytest.mark.parametrize("option", [["--remat"], ["--host_flow"], ["--ae"]],
+                         ids=lambda v: v[0][2:])
 def test_sp_refuses_the_mygan_options_it_does_not_run(tmp_path, option):
     with pytest.raises(SystemExit, match=rf"--sp with {option[0]}: .*"
                                          r"queue 1 item 13c"):

@@ -204,12 +204,24 @@ class QConv3d(Conv3d):
     ``quant/qdisc.py`` (``--int8_disc``): the weight cast to the input's
     dtype as ``Conv3d`` casts it, then the bias added as ``Conv3d`` adds
     it.  Bound to a ``parallel.mesh.DataParallel`` (``dp``), the
-    activation scale is the global batch's."""
+    activation scale is the global batch's (under ``--sp`` the MAX over
+    the whole grid, in a replicated segment too, where the sp peers hold
+    the same frames)."""
 
     dp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = qconv3d(x, self.weight.to(x.dtype), self.stride, self.padding,
+        return self._q(x, self.padding)
+
+    def valid_t(self, x: torch.Tensor) -> torch.Tensor:
+        """The int8 conv with no padding over T: a frame-sharded block that
+        holds its halo frames (``--sp``), quantised by the global tensor's
+        scale (the halos are frames of it, the edges' zeros move no
+        absmax)."""
+        return self._q(x, (0, *self.padding[1:]))
+
+    def _q(self, x: torch.Tensor, padding) -> torch.Tensor:
+        y = qconv3d(x, self.weight.to(x.dtype), self.stride, padding,
                     self.dp)
         if self.bias is None:
             return y

@@ -21,8 +21,10 @@ engine sums the ``moe_aux`` collection.  ``choice``, when set, routes the
 next forwards by those expert indices instead of the router's argmax
 (``parallel.moe.moe_apply``).  Bound to a ``parallel.mesh.DataParallel``
 (``dp``, ``--dp``) and active, a forward routes over the global token
-axis (the test sweep runs with ``dp`` inactive: every rank runs it
-whole).
+axis; under ``--sp`` its input is the rank's frames of its rows, and in
+the ``--sp`` test sweep (``dp`` inactive, each rank of a row its frames
+of the whole batch) it routes over the row.  ``routing`` keeps the last
+forward's slots and kept flags.
 """
 
 from __future__ import annotations
@@ -59,6 +61,9 @@ class MoEMlp(nn.Module):
                 dcgan_normal_(w, generator)
         self.aux: dict | None = None
         self.choice: torch.Tensor | None = None
+        # the last forward's routing: each token's slot and kept flag,
+        # (B, T, H, W)
+        self.routing: dict = {}
 
     def _experts(self, h: torch.Tensor) -> torch.Tensor:
         d = h.dtype
@@ -70,9 +75,13 @@ class MoEMlp(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = x.shape[1]
         tokens = x.permute(0, 2, 3, 4, 1).reshape(-1, c).to(self.dtype)
+        record = {}
         y, self.aux = moe_apply(self._experts, self.router, tokens,
                                 capacity_factor=self.capacity_factor,
-                                choice=self.choice,
-                                dp=self.dp)
+                                choice=self.choice, dp=self.dp,
+                                rows=x.shape[0], record=record)
+        # each token's routing in the tokens' (B, T, H, W) layout
+        self.routing = {k: v.view(x.shape[0], *x.shape[2:])
+                        for k, v in record.items()}
         y = y.to(x.dtype).view(x.shape[0], *x.shape[2:], c)
         return x + y.permute(0, 4, 1, 2, 3)

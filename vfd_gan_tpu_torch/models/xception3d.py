@@ -25,6 +25,11 @@ capacity factor ``moe_capacity``, 2.0 as in JAX) after the eight middle
 blocks, under the name ``moe``; it is built after every reference module,
 so the other modules' initial weights do not depend on it.
 
+Every op is frame-local, so under ``--sp`` (frames sharded over ranks)
+the net runs on a rank's frames as it is: its BatchNorms sum over the
+grid, its decoder dropout keeps the rank's frames of the global mask and
+the MoE block routes over the global token axis.
+
 ``front`` (stem and entry blocks), ``middle_blocks`` and ``back`` (exit
 block to head) are the three parts that ``--pp`` runs apart
 (``parallel/pp_xception.py``, JAX ``Xception3D.front``/``back``).
@@ -124,7 +129,10 @@ class DeConvBlock(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         y = F.leaky_relu(self.bn(self.conv(x)), negative_slope=0.2)
-        y = dropout(y, self.drop_rate, self.training, generator, self.dp)
+        # frames on axis 2: under --sp each rank keeps its frames of the
+        # global (B, T) mask
+        y = dropout(y, self.drop_rate, self.training, generator, self.dp,
+                    frame_dim=2)
         return upsample_ncdhw(y, (1, 2, 2))
 
 

@@ -19,16 +19,22 @@ gradients), without the ``2 T^2`` elements of the one-hot tensors at
 cf = 2: here the buffers are ``(E, C, D)``.  Several devices (the
 ``ep`` mesh axis, ``--moe_shards > 1``) are not ported.
 
-Under ``--dp`` (an active ``parallel.mesh.DataParallel``) each rank holds
-one contiguous block of the global token axis (its rows of the batch,
-batch-major), and the layer is the global one, as GSPMD makes JAX's: C
-counts the global tokens; a token's slot is its arrival index among all
-ranks' tokens that chose its expert, so rank r offsets its own count by
-the per-expert counts of ranks < r (one all-reduced ``(world, E)``
-table); the load-balancing fractions and mean probabilities and the
-dropped fraction are global means (the probabilities' sum over the ranks
-differentiable, ``DataParallel.all_reduce_sum``).  The experts run per
-row, so each rank runs its own kept tokens.
+Under ``--dp`` and ``--sp`` (an active ``parallel.mesh.DataParallel``,
+and its ``SeqParallel``) the layer is the global one, as GSPMD makes
+JAX's.  JAX lists the tokens by ``x.reshape(-1, C)`` over ``(B, T, H,
+W)``: a rank holds, for each of its rows, the frames of its shard, so its
+tokens are one block of each of its rows' (the whole row without
+``--sp``).  C counts the global tokens; a token's slot is its arrival
+index among all the tokens that chose its expert, so each of the rank's
+rows offsets its own count by the tokens of the rows before it (every
+shard's) and of its row on the shards before this one: one all-reduced
+``(rows, shards, E)`` count table over the grid.  The load-balancing
+fractions and mean probabilities and the dropped fraction are global means
+(the probabilities' sum over the ranks differentiable,
+``DataParallel.all_reduce_sum``).  The experts run per token, so each
+rank runs its own kept tokens.  In the ``--sp`` test sweep (every rank the
+whole batch, the row's ranks each their frames, ``dp`` not active) the
+table is the row's, summed over the row's shards (``SeqParallel.sum``).
 """
 
 from __future__ import annotations
@@ -43,40 +49,78 @@ def capacity(n_tokens: int, n_experts: int, capacity_factor: float) -> int:
     return max(1, math.ceil(capacity_factor * n_tokens / n_experts))
 
 
-def _synced(dp) -> bool:
-    return dp is not None and dp.synced("moe")
+class _Place:
+    """Where a rank's tokens lie in the global token axis: its rows'
+    indices among ``n_rows`` global rows, its shard ``shard`` of
+    ``shards`` of each row's frames, and ``total``, the sum over the
+    ranks that hold the rest (differentiable)."""
+
+    def __init__(self, rows, n_rows: int, shard: int, shards: int, total):
+        self.rows, self.n_rows = rows, n_rows
+        self.shard, self.shards = shard, shards
+        self.total = total
 
 
-def route(logits: torch.Tensor, c: int, choice=None, dp=None):
+def _place(dp, n_local_rows: int) -> _Place | None:
+    """This rank's ``_Place`` under ``dp``, or None when it routes alone
+    (no group, or the ``"moe"`` control: each rank's slots counted
+    alone)."""
+    if dp is None or "moe" in dp.local_ops:
+        return None
+    sp = dp.sp if dp.sp is not None and dp.sp.sharded else None
+    shard, shards = (sp.index, sp.size) if sp is not None else (0, 1)
+    if dp.active:
+        n = n_local_rows * dp.world
+        return _Place(dp.rows(n, dp.forward_micro), n, shard, shards,
+                      dp.all_reduce_sum)
+    if sp is not None:
+        # the sweep: every rank holds every row, the row's shards split
+        # its frames
+        return _Place(torch.arange(n_local_rows), n_local_rows, shard,
+                      shards, sp.sum)
+    return None
+
+
+def route(logits: torch.Tensor, c: int, choice=None,
+          place: _Place | None = None):
     """Top-1 routing of ``(T, E)`` logits with capacity ``c``: ``(probs
-    (T, E) float32 (float64 in a float64 run), choice (T,), slot (T,), kept (T,) bool, before (E,),
-    counts (E,))``.  A token's slot is its arrival index among the tokens
-    that chose its expert: under an active ``dp``, among every rank's
-    tokens, the ranks in order, so ``before`` holds the earlier ranks'
-    tokens per expert (else zeros); ``counts``: the tokens that chose
-    each expert, over the ranks.  ``choice`` replaces the argmax where
-    given."""
+    (T, E) float32 (float64 in a float64 run), choice (T,), slot (T,),
+    kept (T,) bool, local (T,), counts (E,))``.  A token's slot is its
+    arrival index among the tokens that chose its expert: under ``place``
+    among every rank's tokens in the global order (the rank's ``T`` tokens
+    are ``len(place.rows)`` rows of equal blocks); ``local``: its arrival
+    index among this rank's tokens; ``counts``: the tokens that chose each
+    expert, over the ranks.  ``choice`` replaces the argmax where given."""
     probs = torch.softmax(logits if logits.dtype == torch.float64
                           else logits.float(), dim=-1)
     if choice is None:
         choice = torch.argmax(probs, dim=-1)
-    onehot = torch.nn.functional.one_hot(choice, probs.shape[-1])
+    e = probs.shape[-1]
+    onehot = torch.nn.functional.one_hot(choice, e)
     arrival = torch.cumsum(onehot, dim=0)
+    local = (arrival * onehot - 1).amax(dim=-1)
     counts = arrival[-1]
-    before = torch.zeros_like(counts)
-    if _synced(dp):
-        # every rank's counts in its row of a (world, E) table, summed
-        table = counts.new_zeros((dp.world, counts.shape[0]))
-        table[dp.rank] = counts
-        table = dp.all_reduce_sum(table)
-        before, counts = table[:dp.rank].sum(dim=0), table.sum(dim=0)
-        arrival = arrival + before
-    slot = (arrival * onehot - 1).amax(dim=-1)
-    return probs, choice, slot, slot < c, before, counts
+    if place is None:
+        return probs, choice, local, local < c, local, counts
+    # each local row's tokens per expert, in the (rows, shards, E) table
+    per_row = onehot.view(len(place.rows), -1, e)
+    arrival = torch.cumsum(per_row, dim=1)
+    table = counts.new_zeros((place.n_rows, place.shards, e))
+    table[place.rows.to(table.device), place.shard] = arrival[:, -1]
+    table = place.total(table)
+    # the tokens before each row (every shard's) and, in its row, before
+    # this shard
+    row_sums = table.sum(dim=1)
+    rows_before = torch.cumsum(row_sums, dim=0) - row_sums
+    before = rows_before + table[:, :place.shard].sum(dim=1)
+    arrival = arrival + before[place.rows.to(table.device)][:, None]
+    slot = (arrival.view(-1, e) * onehot - 1).amax(dim=-1)
+    return probs, choice, slot, slot < c, local, row_sums.sum(dim=0)
 
 
 def moe_apply(expert_fn, router_w: torch.Tensor, x: torch.Tensor, *,
-              capacity_factor: float = 1.25, choice=None, dp=None):
+              capacity_factor: float = 1.25, choice=None, dp=None,
+              rows: int = 1, record: dict | None = None):
     """Top-1 MoE layer over tokens ``x (T, D)``.
 
     ``expert_fn(h (E, C, D)) -> (E, C, D_out)`` runs every expert on its
@@ -85,42 +129,50 @@ def moe_apply(expert_fn, router_w: torch.Tensor, x: torch.Tensor, *,
     product.  ``choice`` (T,), when given, replaces the router's argmax
     (to hold the layer on one device against another device's routing);
     the gate is still read from this device's probabilities.  ``dp``: a
-    ``parallel.mesh.DataParallel``; when active, ``x`` is this rank's
-    block of the global token axis and the layer is the global one.
+    ``parallel.mesh.DataParallel``; when active (or under ``--sp`` in the
+    sweep), ``x`` is this rank's part of the global token axis: ``rows``
+    batch rows of ``T / rows`` tokens each (each row's tokens of the
+    rank's frames), and the layer is the global one.
+    ``record``: a dict that gets the tokens' ``slot`` and ``kept``.
 
     Returns ``(y (T, D_out), aux)`` with ``aux = {"load_balance_loss",
     "dropped_frac"}``, both float32 scalars."""
     t, d = x.shape
     e = router_w.shape[-1]
-    synced = _synced(dp)
-    n = t * dp.world if synced else t          # the global token count
+    place = _place(dp, rows)
+    n = t                                       # the global token count
+    if place is not None:
+        n = t // len(place.rows) * place.n_rows * place.shards
     c = capacity(n, e, capacity_factor)
     logits = x.to(torch.promote_types(x.dtype, router_w.dtype)) @ router_w
-    probs, choice, slot, kept, before, counts = route(logits, c, choice, dp)
+    probs, choice, slot, kept, local, counts = route(logits, c, choice,
+                                                     place)
+    if record is not None:
+        record.update(slot=slot.detach(), kept=kept.detach())
     gate = probs.gather(1, choice[:, None])[:, 0]
 
     # this rank's buffer holds its own kept tokens, each at its arrival
-    # index among this rank's tokens (below its global slot, so below c;
-    # below t as well): (E, min(c, t), D) under dp, (E, c, D) alone.  A
-    # dropped token reads the last row of its expert and is multiplied by
-    # zero, as its all-zero row of the JAX dispatch tensor gives it
-    rows = min(c, t) if synced else c
-    local = slot - before[choice]
+    # index among this rank's tokens (at most its global slot, so below
+    # c; below t as well): (E, min(c, t), D) with a group, (E, c, D)
+    # alone.  A dropped token reads the last row of its expert and is
+    # multiplied by zero, as its all-zero row of the JAX dispatch tensor
+    # gives it
+    rows = min(c, t) if place is not None else c
     row = choice * rows + local.clamp(0, rows - 1)
     h = x.new_zeros((e * rows, d)).index_copy(0, row[kept], x[kept])
     y_e = expert_fn(h.view(e, rows, d))
     y = y_e.reshape(e * rows, -1)[row] * kept[:, None].to(x.dtype)
     y = y * gate[:, None].to(x.dtype)
 
-    if not synced:
+    if place is None:
         frac = torch.nn.functional.one_hot(choice, e).float().mean(dim=0)
         aux = {"load_balance_loss": e * torch.sum(frac * probs.mean(dim=0)),
                "dropped_frac": 1.0 - kept.float().mean()}
         return y, aux
     # the global means: the probabilities' sums and the kept count summed
     # over the ranks in one all-reduce (differentiable)
-    sums = dp.all_reduce_sum(torch.cat([probs.sum(dim=0),
-                                        kept.float().sum()[None]]))
+    sums = place.total(torch.cat([probs.sum(dim=0),
+                                  kept.float().sum()[None]]))
     frac = counts.float() / n
     aux = {"load_balance_loss": e * torch.sum(frac * (sums[:e] / n)),
            "dropped_frac": 1.0 - sums[e] / n}

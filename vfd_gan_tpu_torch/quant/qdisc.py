@@ -17,7 +17,11 @@ forwards, ``--int8_disc`` (port of ``vfd_gan_tpu.quant.qdisc``).
 Under ``--dp`` (an active ``parallel.mesh.DataParallel``) the
 activation's absmax is the global tensor's: one all-reduced MAX before
 the quantiser, outside autograd (the backward is the float conv's).  The
-per-channel weight scales are equal on every rank already.
+per-channel weight scales are equal on every rank already.  Under ``--sp``
+the MAX runs over the whole grid: each rank holds its frames (or, in a
+replicated segment, its row's gathered frames, which the MAX counts
+twice to no effect), and a temporal conv's halo'd block adds only frames
+of the global tensor and zeros.
 
 In the MyGAN step G's loss has no D term (the adversarial value is
 detached telemetry), so quantising D changes only D's trajectory and the

@@ -38,10 +38,20 @@ in order and writes ``DIR/{name}.rank{r}.pt``.  A case is one of
   the steps written there (rank 0), as ``latest.pt`` is.
   ``first_grads``: Adam's first moments after the first step
   (``first_exp_avg``: ``1 - beta1`` times the gradient of the first step,
-  taken at the weights every run starts from).
-  ``hold_kernels``: every call of the augment gather's and the opening's
-  kernels, in the steps and the sweep, held against its plain version on
-  the same inputs (``_held_kernels``; the result's ``kernel_vs_plain``).
+  taken at the weights every run starts from), and the running
+  statistics after it (``first_buffers``, read from the first step's
+  forward).  ``sweep_at``: the steps after which a test sweep runs (each
+  one's scores in ``sweeps``), its effects carried into the next steps;
+  ``frame_scores``: each sweep's per-frame labels and scores, where the
+  engine keeps them (GANomaly's), the sweeps between the steps first.
+  ``sample: n``: each state kind's tensors sketched to ``n`` elements
+  (``_sketch``; ``digest``, not in a reference: the whole state's);
+  ``no_pth``: the sweeps' best checkpoints recorded by head (``saved``),
+  not written (the card's full-width cases, to keep what a run writes
+  small).  ``hold_kernels``: every call of the augment gather's, the
+  opening's and the fused flow solver's kernels, in the steps and the
+  sweeps, held against its plain version on the same inputs
+  (``_held_kernels``; the result's ``kernel_vs_plain``).
 * ``{"name", "kind": "gan_core", "argv", "state": path, "data": path,
   "gt": path, "flows": path, "float64": bool}``: one MyGAN ``_gan_core``
   step from the given state dicts on this rank's rows of the given global
@@ -54,10 +64,11 @@ in order and writes ``DIR/{name}.rank{r}.pt``.  A case is one of
   ``"plain_path": true`` (with ``"scale"``): the kernel path with each
   fused-kernel call held against its plain version, then the plain path
   (``_flow_paths``).
-* ``{"name", "kind": "pp_core", "argv", "state": path, "batch": path,
-  "draws": path}``: one supervised step of a ``--pp`` command line from
-  the given state dict, on the given global batch with the given augment
-  draws and dropout off (``run_pp_core``).
+* ``{"name", "kind": "step_core", "argv", "state": path,
+  "batch": path, "draws": path}``: one supervised or GANomaly step of a
+  ``--pp`` or ``--sp`` command line from the given state dict, on this
+  rank's part of the given global batch with the given augment draws and
+  dropout off (``run_step_core``).
 * ``{"name", "kind": "handoff", "n_micro"}``: the GPipe schedule of a
   toy block a stage, whose outputs are channels-last (``run_handoff``).
 * ``{"name", "kind": "temporal", "inputs": path}``: the frame-axis ops of
@@ -114,19 +125,46 @@ ENTRY = "vfd_gan_tpu_torch.tools.dp_equivalence"
 KINDS = ("params", "buffers", "exp_avg", "exp_avg_sq", "losses")
 
 
-def _state(engine) -> dict:
-    """Parameters, buffers and Adam moments of every net, on the CPU."""
+def _frame_scores(engine) -> dict | None:
+    """The last sweep's per-frame labels and scores as tensors, where the
+    engine keeps them (``GanomalyEngine.frame_scores``), else None."""
+    kept = getattr(engine, "frame_scores", None)
+    return None if kept is None else {k: torch.as_tensor(v)
+                                      for k, v in kept.items()}
+
+
+def _state(engine, sample: int | None = None) -> dict:
+    """Parameters, buffers and Adam moments of every net, on the CPU;
+    with ``sample``, each tensor of more than ``sample`` elements
+    sketched where it lies (``_sketch``)."""
+    def take(t):
+        t = t.detach()
+        return (_sketch(t, sample) if sample else t).cpu().clone()
+
     out = {"params": {}, "buffers": {}, "exp_avg": {}, "exp_avg_sq": {}}
     for net_name, net in engine._nets().items():
         for k, p in net.module.named_parameters():
-            out["params"][f"{net_name}.{k}"] = p.detach().cpu().clone()
+            out["params"][f"{net_name}.{k}"] = take(p)
             st = net.optimizer.state.get(p, {})
             for m in ("exp_avg", "exp_avg_sq"):
                 if m in st:
-                    out[m][f"{net_name}.{k}"] = st[m].detach().cpu().clone()
+                    out[m][f"{net_name}.{k}"] = take(st[m])
         for k, b in net.module.named_buffers():
-            out["buffers"][f"{net_name}.{k}"] = b.detach().cpu().clone()
+            out["buffers"][f"{net_name}.{k}"] = take(b)
     return out
+
+
+def _sketch(t: torch.Tensor, n: int) -> torch.Tensor:
+    """``t`` if it has at most ``n`` elements, else ``n`` of its elements
+    at fixed random places (the same places for a tensor of the same size
+    in every run): relative distances between runs read from the sketches
+    estimate the whole tensors' while a 203M-parameter Xception's state
+    shrinks from 0.8 GB a kind to ~0.1 MB a tensor."""
+    if t.numel() <= n:
+        return t
+    where = torch.randint(t.numel(), (n,),
+                          generator=torch.Generator().manual_seed(t.numel()))
+    return t.flatten()[where.to(t.device)]
 
 
 def _digest(result: dict) -> str:
@@ -299,7 +337,13 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
         timing = _timed_collectives(engine.device, collectives) \
             if case.get("time_collectives") else contextlib.nullcontext()
         batches = engine._batches(engine.train_iter)
-        held = {}
+        sample = case.get("sample")
+        if case.get("no_pth"):
+            # the best checkpoints' names are recorded, not written
+            saved_heads = []
+            engine._save_weights = saved_heads.append
+        held, sweeps, swept, frame_scores = {}, [], {}, []
+        sweep_at = set(case.get("sweep_at", ()))
         holding = (lambda: _held_kernels(held)) \
             if case.get("hold_kernels") else contextlib.nullcontext
         with timing, holding():
@@ -313,13 +357,43 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
                 losses.append({k: float(v) for k, v in metrics.items()})
                 if case.get("first_grads") and len(losses) == 1:
                     # Adam's first moment after one step: (1 - beta1)
-                    # times the first gradient, from the same weights
-                    first = _state(engine)["exp_avg"]
+                    # times the first gradient, from the same weights; and
+                    # the running statistics that step's forward moved
+                    first_state = _state(engine, sample)
+                    first = first_state["exp_avg"]
+                    first_buffers = first_state["buffers"]
                 if moe is not None:
                     dropped.append(float(moe.aux["dropped_frac"].detach()))
+                    if len(losses) == 1:
+                        # the first step's routing: each token's slot and
+                        # kept flag, this rank's (rows, frames, H, W)
+                        first_routing = {k: v.cpu() for k, v in
+                                         moe.routing.items()}
+                if len(losses) in sweep_at:
+                    # a periodic test sweep between the steps, as the
+                    # loop runs it at --freq: what it changes (the train
+                    # mode nets of --ref_mode_quirks, the --cache_gt_flow
+                    # cache) carries into the next steps
+                    before = launches.counts()
+                    with engine.dp.local():
+                        engine.test()
+                    sweeps.append({k: float(v)
+                                   for k, v in engine.scores.items()})
+                    frame_scores.append(_frame_scores(engine))
+                    # its launches apart from the steps'
+                    for k, n in launches.counts().items():
+                        swept[k] = swept.get(k, 0) + n - before.get(k, 0)
+                if not solo and engine.dp.grouped:
+                    # the ranks start the next step together: what one
+                    # did between the steps (a state read, a sweep) is
+                    # not timed in another's step
+                    dist.barrier()
         # under --pp every stage's blocks, gathered while read
         with engine._whole_state():
-            out = _state(engine)
+            out = _state(engine, sample)
+            if sample and not solo:
+                # the whole state's digest (the ranks' replicas held equal)
+                out["digest"] = _digest(_state(engine))
             if "save" in case and engine.dp.writes:
                 save_checkpoint(case["save"], engine._ckpt_tree())
         if sp is not None:
@@ -327,8 +401,12 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
             out["sp_counts"] = {k: [n / len(step_ms), ms / len(step_ms)]
                                 for k, (n, ms) in sp.counts.items()}
             sp.counts.clear()
-        out.update(losses=losses, rng=engine.rng.get_state(),
-                   step_ms=step_ms, launches=launches.counts(),
+        counted = launches.counts()
+        out.update(losses=losses, rng=engine.rng.get_state(), sweeps=sweeps,
+                   frame_scores=frame_scores,
+                   step_ms=step_ms, mid_sweep_launches=swept,
+                   launches={k: n - swept.get(k, 0)
+                             for k, n in counted.items()},
                    moe_dropped=dropped, collective_ms={
                        k: (ms / len(step_ms), n / len(step_ms))
                        for k, (ms, n) in collectives.items()})
@@ -354,13 +432,22 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
                 out["sweep_sp_counts"] = {k: list(v)
                                           for k, v in sp.counts.items()}
             out["scores"] = {k: float(v) for k, v in engine.scores.items()}
+            frame_scores.append(_frame_scores(engine))
+            if moe is not None:
+                # the eval forward's routing over the sweep's last batch
+                out["sweep_moe_dropped"] = float(moe.aux["dropped_frac"])
             out["saved"] = sorted(
                 p.name for p in Path(engine.dirs.weights).glob("*.pth")) \
                 if engine._writes else None
+            if case.get("no_pth"):
+                out["saved"] = saved_heads
         if case.get("hold_kernels"):
             out["kernel_vs_plain"] = held
         if case.get("first_grads"):
             out["first_exp_avg"] = first
+            out["first_buffers"] = first_buffers
+        if moe is not None and losses:
+            out["first_routing"] = first_routing
         return out
     finally:
         engine.close()
@@ -382,17 +469,29 @@ def _blobs(shape, device) -> torch.Tensor:
 @contextlib.contextmanager
 def _held_kernels(record: dict):
     """A block in which every call of the augment gather
-    (``ops/augment.augment_gather``, on a CUDA batch its kernel) and of
-    the opening (``ops/morphology.morphology_open``, on a CUDA video its
-    kernel) is also computed by the plain version on the same inputs:
+    (``ops/augment.augment_gather``, on a CUDA batch its kernel), of the
+    opening (``ops/morphology.morphology_open``, on a CUDA video its
+    kernel) and of the fused flow solver (``ops/flow.flow_refine_fused``,
+    on CUDA fields its kernel; under ``--sp`` the rank's halo'd fields) is
+    also computed by the plain version on the same inputs:
     ``record[name]`` gets each call's largest absolute difference and
     input shape (and for the opening its input's and output's fill); each
     opening is also held on ``_blobs`` of its input's shape and layout
     (``morphology_open_blobs``).  The kernel's output on the path's input
     is the one returned, and only its launch is counted."""
     from vfd_gan_tpu_torch.ops import augment, morphology
+    from vfd_gan_tpu_torch.ops import flow as flow_mod
+    from vfd_gan_tpu_torch.ops.flow_fused import flow_refine_fused_plain
 
     gather, opening = augment.augment_gather, morphology.morphology_open
+    fused = flow_mod.flow_refine_fused
+
+    def held_fused(p1, p2, flow, winsize, iterations):
+        out = fused(p1, p2, flow, winsize, iterations)
+        want = flow_refine_fused_plain(p1, p2, flow, winsize, iterations)
+        record.setdefault("flow_fused", []).append(
+            (float((out - want).abs().max()), tuple(p1.shape)))
+        return out
 
     def held_gather(*args):
         outs = gather(*args)
@@ -431,11 +530,13 @@ def _held_kernels(record: dict):
 
     augment.augment_gather = held_gather
     morphology.morphology_open = held_opening
+    flow_mod.flow_refine_fused = held_fused
     try:
         yield
     finally:
         augment.augment_gather = gather
         morphology.morphology_open = opening
+        flow_mod.flow_refine_fused = fused
 
 
 def run_gan_core(case: dict, root: Path) -> dict:
@@ -630,23 +731,37 @@ def run_sp_generator(case: dict) -> dict:
     return out
 
 
-def run_pp_core(case: dict, root: Path) -> dict:
-    """One supervised train step of ``argv`` (``--pp``) from the given
-    state dict on the given batch, with the augment draws given (the
-    global batch's) and dropout off; every rank's state whole after it."""
-    from vfd_gan_tpu_torch.train import supervised_engine
+def run_step_core(case: dict, root: Path) -> dict:
+    """One train step of a supervised or GANomaly command line (``--pp``,
+    ``--sp``) from the given state dict (a net's, or ``{net: state
+    dict}``), on this rank's rows (and under ``--sp`` frames) of the given
+    global batch with the given augment draws (the global batch's) and
+    dropout off; every rank's state whole after it (``state``: the
+    model's, or each net's keys prefixed ``{net}.``), the step's
+    ``metrics``, and with an MoE block its ``routing`` (each token's slot
+    and kept flag, this rank's ``(rows, frames, H, W)``)."""
+    import sys as _sys
 
     engine = trainer.build_engine(
         [*case["argv"], "--device", "cpu", "--no-tensorboard",
          "--result_root", str(root / case["name"])])
-    drawn = supervised_engine.sample_clip_params
+    module = _sys.modules[type(engine).__module__]
+    drawn = module.sample_clip_params
+    nets = engine._nets()
     try:
+        state = torch.load(case["state"])
         with engine._whole_state():
-            engine.model.load_state_dict(torch.load(case["state"]),
-                                         strict=True)
-        for m in engine.model.modules():
-            if hasattr(m, "drop_rate"):
-                m.drop_rate = 0.0
+            if set(state) == set(nets):
+                for name, net in nets.items():
+                    net.module.load_state_dict(state[name], strict=True)
+            else:
+                engine.model.load_state_dict(state, strict=True)
+        for net in nets.values():
+            for m in net.module.modules():
+                if hasattr(m, "drop_rate"):
+                    m.drop_rate = 0.0
+        if "moe_capacity" in case:
+            engine.model.moe.capacity_factor = case["moe_capacity"]
         batch = {k: torch.from_numpy(v)
                  for k, v in np.load(case["batch"]).items()}
         draws = np.load(case["draws"])
@@ -654,18 +769,37 @@ def run_pp_core(case: dict, root: Path) -> dict:
                  torch.from_numpy(draws["flip"]).long(),
                  torch.from_numpy(draws["crop"]).long(),
                  torch.from_numpy(draws["pick"]))
-        supervised_engine.sample_clip_params = lambda *a, **k: given
+        module.sample_clip_params = lambda *a, **k: given
+        dp = engine.dp
+        if dp.active:
+            batch = {k: v[dp.rows(v.shape[0], engine.micro)]
+                     for k, v in batch.items()}
+        if dp.sp is not None:
+            batch = {k: v[:, dp.sp.frame_slice(v.shape[1])]
+                     for k, v in batch.items()}
         engine.global_step = 1
-        metrics = engine.dp.mean_metrics(engine._train_step_impl(
-            {k: v[engine.dp.rows(v.shape[0], engine.micro)]
-             if engine.dp.active else v for k, v in batch.items()}))
+        metrics = dp.mean_metrics(engine._train_step_impl(batch))
         with engine._whole_state():
-            state = {k: v.detach().clone() for k, v in
-                     engine.model.state_dict().items()}
-        return {"state": state, "loss": float(metrics["loss/err/train"]),
-                "hand_offs": engine.pipe.gpipe.hand_offs}
+            if len(nets) == 1:
+                state = {k: v.detach().clone() for k, v in
+                         engine.model.state_dict().items()}
+            else:
+                state = {f"{name}.{k}": v.detach().clone()
+                         for name, net in nets.items()
+                         for k, v in net.module.state_dict().items()}
+        out = {"state": state,
+               "metrics": {k: float(v) for k, v in metrics.items()}}
+        if "loss/err/train" in metrics:
+            out["loss"] = out["metrics"]["loss/err/train"]
+        pipe = getattr(engine, "pipe", None)
+        if pipe is not None:
+            out["hand_offs"] = pipe.gpipe.hand_offs
+        moe = getattr(getattr(engine, "model", None), "moe", None)
+        if moe is not None:
+            out["routing"] = dict(moe.routing)
+        return out
     finally:
-        supervised_engine.sample_clip_params = drawn
+        module.sample_clip_params = drawn
         engine.close()
 
 
@@ -685,8 +819,8 @@ def run_cases(cases: list[dict], out: Path) -> None:
             result = run_train(case, out, solo)
         elif kind == "gan_core":
             result = run_gan_core(case, out)
-        elif kind == "pp_core":
-            result = run_pp_core(case, out)
+        elif kind == "step_core":
+            result = run_step_core(case, out)
         elif kind == "handoff":
             result = run_handoff(case)
         elif kind == "temporal":
@@ -703,7 +837,10 @@ def run_cases(cases: list[dict], out: Path) -> None:
         if "ref" in case:
             short = {"digest": _digest(result),
                      **{k: result[k] for k in ("scores", "saved", "held",
-                                               "hand_offs") if k in result}}
+                                               "hand_offs", "sweeps",
+                                               "frame_scores",
+                                               "moe_dropped")
+                        if k in result}}
             if dp.rank == 0:
                 # the reference was written before this case began: every
                 # rank finished it before it joined this case's first

@@ -35,13 +35,15 @@
   means over the ranks; a stop signal on any rank parks every rank at the
   same step (an all-reduced MAX of the flag); ``--resume`` loads on every
   rank.
-* ``--sp N`` (MyGAN; ``parallel/mesh.SpGrid``): the ranks form a ``dp
-  x sp`` grid; the engine's ``dp`` places its rows and reduces over the
-  whole grid, its ``dp.sp`` places its frames, and the train iterator
-  gives this rank its rows' frames (``frames``).  The nets are bound to
-  both and shard their frames in the train step; the test sweep runs
-  whole on every rank but for G's forward
-  (``parallel/sp_generator.generator_forward_sp`` over the rank's row).
+* ``--sp N`` (MyGAN, Xception, GANomaly; ``parallel/mesh.SpGrid``): the
+  ranks form a ``dp x sp`` grid; the engine's ``dp`` places its rows and
+  reduces over the whole grid, its ``dp.sp`` places its frames, and the
+  train iterator gives this rank its rows' frames (``frames``).  The nets
+  are bound to both and shard their frames in the train step; the test
+  sweep runs whole on every rank but for the mask or score forward, which
+  takes the rank's frames and gathers the row's
+  (``parallel/sp_generator.generator_forward_sp`` for MyGAN's G,
+  ``sharded_forward`` for the others).
 * ``--pp N`` (Xception; ``parallel/pp_xception.py``): the ranks form a
   ``dp x pp`` grid (``parallel/pipeline.stage_grid``); the engine's
   ``dp`` is its stage's dp subgroup, rank 0 of the whole group writes,
@@ -86,24 +88,22 @@ from vfd_gan_tpu_torch.train.checkpoints import (
 
 
 # JAX-engine options the port does not run yet, all of them several-card
-# ones: (is it set?, ROADMAP item).  --sp runs for MyGAN alone.
+# ones: (is it set?, ROADMAP item).  --sp runs for MyGAN, Xception and
+# GANomaly.
+SP_FAMILIES = ("mygan", "xception", "ganomaly")
 UNPORTED = {
     "moe_shards": (lambda c: c.moe_shards > 1,
                    "queue 1 item 13 (parallelism)"),
     "tp": (lambda c: c.tp > 1, "queue 1 item 13 (parallelism)"),
-    "sp": (lambda c: c.sp > 1 and c.model != "mygan",
-           "queue 1 item 13b (--sp for the other five families)"),
+    "sp": (lambda c: c.sp > 1 and c.model not in SP_FAMILIES,
+           "queue 1 item 13b (--sp for c2plus1d, anogan and clstm)"),
 }
 
 # MyGAN's options that --sp does not run yet: (is it set?)
 SP_UNPORTED = {
-    "accum": lambda c: c.accum > 1,
     "remat": lambda c: c.remat,
-    "int8_disc": lambda c: c.int8_disc,
     "host_flow": lambda c: c.host_flow,
     "ae": lambda c: c.ae,
-    "cache_gt_flow": lambda c: c.cache_gt_flow,
-    "ref_mode_quirks": lambda c: c.ref_mode_quirks,
 }
 
 
@@ -115,7 +115,7 @@ def refuse_unported(cfg) -> None:
             raise SystemExit(f"--{flag}: not ported to vfd_gan_tpu_torch "
                              f"yet (ROADMAP.md {item}); use the JAX "
                              "trainer (python trainer.py)")
-    if cfg.sp > 1:
+    if cfg.sp > 1 and cfg.model == "mygan":
         for flag, is_set in SP_UNPORTED.items():
             if is_set(cfg):
                 raise SystemExit(
@@ -123,10 +123,14 @@ def refuse_unported(cfg) -> None:
                     "yet (ROADMAP.md queue 1 item 13c, MyGAN's options "
                     "under --sp); use the JAX trainer (python trainer.py)")
         if cfg.nfr // cfg.sp < 2:
+            # JAX asks only that sp divide nfr; MyGAN's flow pairs frames
+            # (Xception's and GANomaly's ops are frame-local and run at
+            # one frame a shard)
             raise SystemExit(
-                f"--sp {cfg.sp}: a shard of nfr / sp = {cfg.nfr // cfg.sp} "
-                "frame(s); the port's flow needs 2 frames a shard (a frame "
-                "pair of its own)")
+                f"--sp {cfg.sp}: a MyGAN shard of nfr / sp = "
+                f"{cfg.nfr // cfg.sp} frame; the port's flow needs 2 frames "
+                "a shard, a frame pair of its own (ROADMAP.md queue 1 item "
+                "13c); use the JAX trainer (python trainer.py)")
 
 
 def host_arrays(tensors: dict) -> dict:
@@ -247,6 +251,24 @@ class EngineBase:
         augment parameters, AnoGAN's z): every rank draws them all from
         the engine's generator, which so stays the same on every rank."""
         return self.dp.take(draws, self.micro)
+
+    def sharded_forward(self, forward, x: torch.Tensor,
+                        dim: int = 2) -> torch.Tensor:
+        """``forward(x)`` of the sweep's whole clips ``x`` (frames on axis
+        ``dim``, of ``x`` and of the result, or of each result of a
+        tuple).  Under ``--sp`` each rank of a row runs ``forward`` on its
+        frames, with its nets sharding them (a frame-local net; the MoE
+        block then routes over the row), and the row's results are
+        gathered, so that every rank holds the whole result (the opening
+        after it is k x k over (T, H) and runs on whole clips only)."""
+        sp = self.dp.sp
+        if sp is None:
+            return forward(x)
+        with sp.sharding():
+            out = forward(sp.split(x, dim))
+        if isinstance(out, tuple):
+            return tuple(sp.gather(o, dim) for o in out)
+        return sp.gather(out, dim)
 
     def _step_done(self, *nets) -> None:
         """Average the nets' gradients over the ranks, then step each

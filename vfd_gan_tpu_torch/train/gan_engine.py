@@ -53,6 +53,13 @@ scores and losses are each clip's on every sp peer of its row, and the
 gradients and metrics are averaged over the whole grid, which gives sp
 1's step (every collective's backward is its forward's adjoint, so the
 grid's sum of the ranks' gradients is that of the sum of their losses).
+Under it ``--accum k`` steps each microbatch's rows on the rank's frames
+(its flow's stretch per microbatch, over the shard's dp peers),
+``--int8_disc`` quantises by the grid's absmax (``quant/qdisc.py``), and
+the sweep runs whole on every rank but for G's eval forward, so the
+``--cache_gt_flow`` cache and ``--ref_mode_quirks``' train-mode G (whole
+on every rank, its dropout drawn from the engine's generator, which
+every rank holds alike) are sp 1's.
 """
 
 from __future__ import annotations

@@ -22,6 +22,12 @@ batch, ``(B, T, H, W, C) -> (B*T, C, H, W)``.  One train step:
   does with or without ``--device_scoring``: they are B*T values per
   batch.
 
+``--sp N``: each rank steps on its frames of its rows (every op works
+on single frames; the L1, L2 and BCE means over equal slices and the
+BatchNorm statistics summed over the grid give sp 1's step); the sweep
+scores the rank's frames and gathers the row's scores back into ``(B,
+T)`` order before the min-max over the whole sweep.
+
 The nets compute in ``--compute_dtype`` (bfloat16 by default, float32
 parameters and Adam state): each encoder's first two convs take the
 float32 frames, the latents and the anomaly scores are in the compute
@@ -83,6 +89,9 @@ class GanomalyEngine(EngineBase):
         self.rng = torch.Generator(device=device).manual_seed(cfg.seed + 1)
         # the tensors of the last train step's panels (a panel step only)
         self._viz: dict | None = None
+        # the last sweep's frame labels and min-max normalised scores, the
+        # inputs of its ROC
+        self.frame_scores: dict[str, np.ndarray] | None = None
         self._bind_dp()
         if cfg.resume:
             self.restore_into(cfg.resume, self._nets())
@@ -175,9 +184,15 @@ class GanomalyEngine(EngineBase):
                                      batch["mask"])
         data = data.to(self.input_dtype)
         self.netg.eval()
-        fake, z_in, z_out = self.netg(fold(data))
-        scores = ganomaly_anomaly_score(z_in, z_out)
-        return scores.reshape(data.shape[:2]), unfold(fake, data.shape)
+
+        def forward(clips):
+            fake, z_in, z_out = self.netg(fold(clips))
+            scores = ganomaly_anomaly_score(z_in, z_out)
+            return scores.reshape(clips.shape[:2]), unfold(fake, clips.shape)
+
+        # --sp: the rank's frames, the row's scores gathered back into
+        # (B, T) order, to pair with batch["label"]
+        return self.sharded_forward(forward, data, dim=1)
 
     def test(self) -> float:
         """Frame-level ROC of the sweep's min-max normalised scores
@@ -196,6 +211,7 @@ class GanomalyEngine(EngineBase):
         labels = torch.cat([v.cpu() for v in all_labels]).numpy()
         lo, hi = scores.min(), scores.max()
         scores = ((scores - lo) / (hi - lo + 1e-12)).float().numpy()
+        self.frame_scores = {"labels": labels, "scores": scores}
         if len(np.unique(labels)) < 2:
             roc = 0.0  # a degenerate split (no anomalies)
         else:

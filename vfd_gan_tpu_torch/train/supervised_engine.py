@@ -34,8 +34,15 @@ Under ``--ref_mode_quirks`` the reference's stuck-in-eval latch holds: its
 ``test()`` switches the model to eval mode and never back
 (lib/train_stcnn.py:143), so from step ``freq + 1`` on the model trains
 without dropout and normalises by frozen BatchNorm running statistics
-(gradients still flow).  Options of the JAX engine that are not ported
-yet are refused with the ``ROADMAP.md`` item that holds them.
+(gradients still flow).  ``--sp N`` (Xception; its ops are frame-local): each rank steps
+on its frames of its rows, the augment parameters drawn for the global
+batch, the BatchNorm statistics, gradients and loss over the grid, and
+under ``--accum k`` its rows and frames of each microbatch (JAX
+``accum_regroup``'s ``P(None, "dp", "sp")``); the sweep's eval forward
+runs on the rank's frames and the row's masks are gathered before the
+threshold and the opening (``EngineBase.sharded_forward``).  Options of
+the JAX engine that are not ported yet are refused with the
+``ROADMAP.md`` item that holds them.
 """
 
 from __future__ import annotations
@@ -175,7 +182,10 @@ class SupervisedEngine(EngineBase):
                                          batch["mask"])
         data, real, gt = (x.to(self.input_dtype) for x in (data, real, gt))
         self.model.eval()
-        pred = to_channel_last(self.model(to_channel_first(data)))
+        # under --sp the rank's frames, the row's masks gathered before
+        # the threshold and the opening
+        pred = to_channel_last(self.sharded_forward(
+            self.model, to_channel_first(data)))
         t_pre = threshold(pred)
         m_pre = video_open(t_pre, self.cfg.morph_plane)
         return bce(pred, gt), gt, pred, t_pre, m_pre, data, real
