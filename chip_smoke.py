@@ -69,12 +69,12 @@ phases, one line each (or a few):
 13. AnoGAN and GANomaly (the last two families): a CUDA-vs-CPU step of
     each (``_ano_core`` with z and dropout masks from the CPU,
     ``_ganomaly_core``), then ``cli.trainer.main --model anogan|ganomaly``
-    at b8, T16, 128^2 (their widths are fixed) for 6 steps and a 2-batch
+    at b8, T16, 128^2 (their widths are fixed) for 6 steps and a one-batch
     sweep: finite losses and scores, the best ``*_netG.pth``/``*_netD.pth``
     pair loaded back with strict=True, one augment launch per step, one
     opening launch per AnoGAN sweep batch (none in GANomaly's frame-level
     sweep), step median, clips/s and peak memory;
-14. device scoring: one full-width two-batch sweep of each family with
+14. device scoring: one full-width one-batch sweep of each family with
     and without ``--device_scoring``, from the same seed: roc/pr/f1
     within 1e-5 and the same best checkpoint, and the time of
     ``score_and_checkpoint`` on each path (GANomaly's frame-level ROC
@@ -100,7 +100,7 @@ phases, one line each (or a few):
 18. tensorboard: one short trainer run with the logger on; says whether a
     writer existed, and then finds its event file.  The other trainer
     phases pass ``--no-tensorboard``.
-19. accum: ``cli.trainer.main --accum k`` at the reference size, 4 steps
+19. accum: ``cli.trainer.main --accum k`` at the reference size, 3 steps
     and a one-batch sweep each: MyGAN float32 and bf16 at k 2 and 4 (b8),
     bf16 ``--batchsize 32 --accum 4``, clstm float32 k 2; one augment
     launch per step, 3 k fused-flow launches per MyGAN step, k x 98 conv
@@ -116,7 +116,7 @@ phases, one line each (or a few):
 21. evaluate: ``cli.export_torch`` of a 2-step MyGAN run's ``latest.pt``
     (the pair loads strict=True), then ``cli.evaluate_models`` on that G
     and the seed-0 clstm, c2plus1d and xception files over clips held in
-    memory (b4, T16, 128^2): AUC, EER, F1 and seconds per model, each
+    memory (b2, T16, 128^2): AUC, EER, F1 and seconds per model, each
     within 1e-4 of the same call on the CPU, no opening launch;
 22. host-only: with ``import cv2`` made to fail, ``--host_flow`` exits when
     the engine is built, naming cv2; where cv2 imports, a 2-step
@@ -144,7 +144,7 @@ phases, one line each (or a few):
     against two plain float32 runs (within 4 x their spread).
 26. dp: ``cli.trainer.main --dp 0`` at the reference width on the
     default command line (bf16) resolves to the one card and says so;
-    then ``tools/dp_equivalence.py`` ranks: one NCCL rank runs 3 float32
+    then ``tools/dp_equivalence.py`` ranks: one NCCL rank runs 2 float32
     MyGAN steps on the dp code path (synced BatchNorms, the synced flow
     stretch, the sliced draws, the gradient and metric all-reduces), two
     gloo ranks on this one card run MyGAN and clstm at b8 (4 per rank),
@@ -197,7 +197,20 @@ phases, one line each (or a few):
     the gate.  The states are held by sketches (65536 elements a
     tensor) and no best checkpoint is written: a card call may write 45
     GiB, and whole states of full-width Xception (203M parameters) pass
-    it.
+    it;
+31. sp-ae (``phase_sp_ae``): two gloo ranks on the card run ``--sp 2``
+    at b8 nfr 16 128^2 for c2plus1d (float32, bf16) and MyGAN in bf16
+    with ``--ae`` and with ``--remat`` (its sp 1 references the ``sp``
+    phase's nfr 16 bf16 runs: the same function), and in float32 with
+    ``--host_flow`` (where cv2 imports), 2 steps and a one-batch sweep
+    each, held as the sp-families runs are, with the frame-axis
+    exchanges per step by kind; c2plus1d's shard-local BatchNorm and the
+    AutoEncoder's zero halos, in float32 and bf16, must fail the gate.
+
+The gloo ranks of the dp, parallel and sp phases start once, before the
+dp phase, and run each phase's cases in turn (``gloo_ranks``;
+``tools/dp_equivalence.Standing``): they import, join their group and
+reach the card once, not once a phase.
 
 bfloat16, the JAX package's and the trainer's default compute dtype, runs
 beside float32: the conv kernel's bf16 form at the nine launches of a
@@ -233,7 +246,9 @@ and the int8 serve + infer path) starts with the launch counts of the
 kernels set to 0 and reads them after; the same counters hold the int8
 GEMM's calls (``int8_matmul``: cuBLASLt, no kernel of the port), printed
 on the phases' lines and not on the kernels line.  ``--slice-only``
-runs the build and phases 29-30 alone and prints no result line.  Then come one JSON line of kernel results
+runs the build and phases 29-31 alone and prints no result line.  A
+``[phase-seconds]`` line gives the seconds of every phase function by
+its name and short arguments.  Then come one JSON line of kernel results
 and, last, ``{"ok": true, "device": {...}}``.  Per kernel the JSON line
 holds its time (``ms``), its plain version's (``plain_ms``), the time of
 one PyTorch call that computes the same function where there is one
@@ -267,6 +282,7 @@ import base64
 import collections
 import contextlib
 import copy
+import functools
 import gc
 import io
 import json
@@ -317,7 +333,11 @@ SUPERVISED_RUNS = {"clstm": (8, []), "c2plus1d": (4, []),
 AE_STEPS = 3
 # the AnoGAN and GANomaly training runs: steps per dtype, sweep batches
 FAMILIES = ("anogan", "ganomaly")
-FAMILY_STEPS, FAMILY_SWEEP = 6, 2
+# (a one-batch sweep: AnoGAN's host ROC over 2^21 continuous scores a
+# batch took ~10 s of each 27 s run with two)
+FAMILY_STEPS, FAMILY_SWEEP = 6, 1
+# the device-scoring phase's sweep batches (AnoGAN's as above)
+SCORING_SWEEP = 1
 
 
 def say(phase: str, msg: str) -> None:
@@ -1854,7 +1874,7 @@ def phase_family_train(tmp: Path, model: str,
 
 
 # --device_scoring: the families, each at the reference width with a
-# two-batch sweep (model -> extra flags)
+# one-batch sweep (model -> extra flags)
 SCORED = {"anogan": [], "mygan": ["--ngf", "32", "--ndf", "32",
                                   "--flow_scale", "0.5"],
           "clstm": [], "c2plus1d": [], "xception": ["--xwidth", "1.0"],
@@ -1878,7 +1898,8 @@ def phase_device_scoring(tmp: Path) -> None:
                 ["--model", model, "--batchsize", str(BATCH), "--nfr",
                  str(NFR), "--isize", str(ISIZE), "--compute_dtype",
                  "float32", "--synthetic_data", "1",
-                 "--synthetic_test_batches", "2", "--device", "cuda",
+                 "--synthetic_test_batches", str(SCORING_SWEEP),
+                 "--device", "cuda",
                  "--no-tensorboard", "--result_root", str(root), *extra,
                  *(["--device_scoring"] if flag else [])])
             score = eng.score_and_checkpoint
@@ -1913,8 +1934,8 @@ def phase_device_scoring(tmp: Path) -> None:
                  f"{ms[False]:.1f} ms (host)" if model != "ganomaly" else
                  "frame-level ROC on the host either way")
         diff = max(abs(a - b) for a, b in zip(host, dev))
-        say("device-scoring", f"{model} b{BATCH} T{NFR} {ISIZE}^2, 2-batch "
-                              f"sweep: device {dev} vs host {host}, max "
+        say("device-scoring", f"{model} b{BATCH} T{NFR} {ISIZE}^2, "
+                              f"{SCORING_SWEEP}-batch sweep: device {dev} vs host {host}, max "
                               f"diff {diff:.3g}; saved {saved[True]} on "
                               f"both; {spent}")
 
@@ -2279,7 +2300,8 @@ def _recorded_engine(model: str, root: Path, device, steps: int,
     return engine, losses
 
 
-RESUME_STEPS, RESUME_STOP = 6, 3
+# (the script's time: 6 and 3 before the sp-ae phase came)
+RESUME_STEPS, RESUME_STOP = 4, 2
 
 
 def phase_resume(tmp: Path, device) -> None:
@@ -2499,7 +2521,8 @@ REMAT_RUNS = (
     ("remat", ["--remat"]),
     ("remat-dconv1,uconv1", ["--remat", "--remat_blocks", "dconv1,uconv1"]),
 )
-SHORT_STEPS = 4
+# (the script's time: 4 before the sp-ae phase came)
+SHORT_STEPS = 3
 # the clstm conv kernel's launches per microbatch of a train step: forward
 # 3 x (1 + T), dx for all but the first layer's input half and each
 # layer's first hidden half
@@ -2725,14 +2748,15 @@ def phase_remat(tmp: Path, device, base: dict) -> dict:
     return out
 
 
-EVAL_BATCH = 4
+# (the CPU forwards took 21 of the phase's 29 s at 4 clips)
+EVAL_BATCH = 2
 
 
 def phase_evaluate(tmp: Path, device, paths: dict) -> dict:
     """``cli.export_torch`` of a short MyGAN run's ``latest.pt`` (the pair
     loads strict=True), then ``cli.evaluate_models`` on that G and the
     seed-0 clstm, c2plus1d and xception files, over clips held in memory
-    (b4, T16, 128^2; no cv2 to decode with here): raw sigmoid scores, so
+    (b2, T16, 128^2; no cv2 to decode with here): raw sigmoid scores, so
     no opening launch; per model AUC, EER, F1 and seconds, each against
     the same call on the CPU within 1e-4."""
     from vfd_gan_tpu_torch.cli import evaluate_models, export_torch
@@ -3288,8 +3312,40 @@ def phase_int8_disc(tmp: Path) -> dict:
     return runs
 
 
-# the dp phases: train steps per run
+# the dp phases: train steps per run.  3, not the 2 of the parallel and sp
+# phases: ``_dp_close`` holds the dp path, which rounds otherwise than its
+# reference, against the spread of two runs of that reference, and after
+# 2 MyGAN steps two plain runs lie 3.0e-6 to 5.8e-6 apart while the dp
+# path lies 4.9e-5 to 5.5e-5 from them (8.7 to 16.5 x the spread, K is
+# 10); after 3 the spread grows to 1.0e-5 to 1.8e-5 and the dp path lies
+# 3.5 to 6.1 x it.  The third step costs about a second of the phase's
+# minute (rank start-up and the references take the rest).
 DP_STEPS = 3
+# the two gloo ranks of the several-rank phases, where they stand
+# (``gloo_ranks``): started once and given each phase's cases in turn
+GLOO: list = []
+
+
+@contextlib.contextmanager
+def gloo_ranks(tmp: Path):
+    """Two gloo ranks on this card for the block (``tools/dp_equivalence.
+    Standing``): the dp, parallel and sp phases' cases run on them, so
+    that the ranks import, join their group and reach the card once, not
+    once a phase."""
+    from vfd_gan_tpu_torch.tools import dp_equivalence as eq
+
+    with eq.Standing(tmp / "gloo_ranks") as ranks:
+        GLOO.append(ranks)
+        try:
+            yield
+        finally:
+            GLOO.clear()
+
+
+def _gloo(cases: list, out: Path, timeout: float) -> None:
+    """``cases`` on the standing gloo ranks (inside ``gloo_ranks``)."""
+    check(bool(GLOO), "the several-rank phases run inside gloo_ranks")
+    GLOO[0].run(cases, out, timeout=timeout)
 
 
 def _dp_case(name: str, model: str, dp: int, **kw) -> dict:
@@ -3380,9 +3436,8 @@ def phase_dp(tmp: Path) -> dict:
             _dp_case("clstm.nccl1", "clstm", 2),
             _dp_case("clstm.nccl1.again", "clstm", 2)],
            nccl, world=1, backend="nccl", timeout=300)
-    eq.run([_dp_case("mygan.gloo2", "mygan", 2),
-            _dp_case("clstm.gloo2", "clstm", 2)],
-           gloo, world=2, backend="gloo", timeout=300)
+    _gloo([_dp_case("mygan.gloo2", "mygan", 2),
+           _dp_case("clstm.gloo2", "clstm", 2)], gloo, timeout=300)
 
     def load(root, name):
         return torch.load(root / name, weights_only=False)
@@ -3426,7 +3481,8 @@ def phase_dp(tmp: Path) -> dict:
                   for k, v in rank1[what]["params"].items()),
               f"{what}: both ranks hold the same parameters bit for bit")
     timed = {"nccl1": load(nccl, "mygan.nccl1.timed.rank0.pt")}
-    say("dp", "MyGAN float32 b8 step median ms (steps 2-3): plain "
+    say("dp", f"MyGAN float32 b8 step median ms (steps 2-{DP_STEPS}): "
+              "plain "
               f"{_median_ms(plain['mygan'][0]):.1f} / "
               f"{_median_ms(plain['mygan'][1]):.1f}, dp path on one NCCL "
               f"rank {_median_ms(runs['mygan nccl1'][0]):.1f}, 2 gloo ranks "
@@ -3572,7 +3628,7 @@ def phase_parallel(tmp: Path, paths: dict) -> dict:
                   dict(kind="flow", name="host_flow.flow", host=True,
                        video=str(tmp / "par_video.npy"), streams=2,
                        device="cuda")]
-    eq.run(cases, gloo, world=2, backend="gloo", timeout=PAR_JOIN_S)
+    _gloo(cases, gloo, timeout=PAR_JOIN_S)
 
     def load(name, rank=0):
         return torch.load(gloo / f"{name}.rank{rank}.pt", weights_only=False)
@@ -3777,7 +3833,9 @@ def phase_sp(tmp: Path, card: str) -> dict:
     (the device synchronised around it).  A b8 x 2-stream mask video's
     flow at sp 2: every fused kernel call on the halo'd fields against its
     plain version, and the plain path's flow bit-equal to sp 1's.
-    Returns the kernels' launches by run (each rank's)."""
+    Returns the kernels' launches by run (each rank's) and the sp 1
+    references by run (``phase_sp_ae``'s ``--remat`` run shares nfr 16
+    bf16's)."""
     from vfd_gan_tpu_torch.parallel.verify import K
     from vfd_gan_tpu_torch.tools import dp_equivalence as eq
 
@@ -3806,7 +3864,7 @@ def phase_sp(tmp: Path, card: str) -> dict:
                    plain_path=True, device="cuda")]
     gloo = tmp / "sp_gloo"
     t1 = time.perf_counter()
-    eq.run(cases, gloo, world=2, backend="gloo", timeout=SP_JOIN_S)
+    _gloo(cases, gloo, timeout=SP_JOIN_S)
     t_ranks = time.perf_counter() - t1
 
     def load(name, rank=0):
@@ -3903,7 +3961,7 @@ def phase_sp(tmp: Path, card: str) -> dict:
               f"{biggest:.3g} px; the plain path's flow bit-equal to sp 1's")
     say("sp", f"{card}: sp 1 references {t_refs:.1f} s, gloo ranks "
               f"{t_ranks:.1f} s, phase {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, refs
 
 
 # the reading of the gate that the bf16 zero-halo control met by 1.8x in
@@ -4005,6 +4063,22 @@ SPF_REFS_ONLY = ("xception moe4 f32",)
 # control runs in float32
 SPF_CONTROLS = (("xception f32", "bn_sp"), ("xception bf16", "bn_sp"),
                 ("xception moe4 f32", "moe"))
+# the sp-ae phase: c2plus1d and MyGAN's --ae, --remat and --host_flow
+# at the reference width, b8 128^2 nfr 16, SPF_STEPS steps and a
+# one-batch sweep each (the --remat run's sp 1 references: the sp
+# phase's nfr 16 bf16 runs, where it ran first)
+SPA_REMAT = "mygan remat bf16"
+SPA_RUNS = (
+    ("c2plus1d f32", "c2plus1d", "float32", [], {}),
+    ("c2plus1d bf16", "c2plus1d", "bfloat16", [], {}),
+    ("mygan ae bf16", "mygan", "bfloat16", ["--ae"], {}),
+    (SPA_REMAT, "mygan", "bfloat16", ["--remat"], {}),
+    ("mygan host_flow f32", "mygan", "float32", ["--host_flow"], {}),
+)
+# the controls that must fail the gate: c2plus1d's BatchNorm over the
+# shard and the AutoEncoder's zero halos, in float32 and bf16
+SPA_CONTROLS = tuple((tag, op) for tag in ("c2plus1d f32", "c2plus1d bf16")
+                     for op in ("bn_sp", "halo"))
 
 
 def _kept_apart(got, ref) -> float:
@@ -4038,10 +4112,11 @@ def _routing_gate(what: str, ranks: list, ref: dict, again: dict,
                   f"{past:.3g} x the limit")
 
 
-def _spf_case(tag: str, sp: int, **kw) -> dict:
-    """A ``tools/dp_equivalence.py`` case of the ``SPF_RUNS`` run ``tag``
-    over ``sp`` frame shards (1: in this process)."""
-    _, model, dtype, extra, settings = next(r for r in SPF_RUNS
+def _spf_case(tag: str, sp: int, runs=SPF_RUNS, **kw) -> dict:
+    """A ``tools/dp_equivalence.py`` case of the run ``tag`` of ``runs``
+    (``SPF_RUNS``, ``SPA_RUNS``) over ``sp`` frame shards (1: in this
+    process)."""
+    _, model, dtype, extra, settings = next(r for r in runs
                                             if r[0] == tag)
     widths = ["--ngf", "32", "--ndf", "32", "--flow_scale", "0.5"] \
         if model == "mygan" else []
@@ -4064,38 +4139,75 @@ def phase_sp_families(tmp: Path, card: str) -> dict:
     MyGAN ngf = ndf = 32, flow_scale 0.5), ``SPF_STEPS`` steps and a
     one-batch sweep each (MyGAN's option runs a sweep after step 1 too:
     it fills the gt-flow cache, and under ``--ref_mode_quirks`` it moves
-    G's and D's statistics and the dropout generator before step 2).
-    Each run is held within ``parallel/verify.py``'s K (10) x the spread
-    of two one-process sp 1 runs (the plain run and its two-pass
-    BatchNorm twin) in its parameters and running statistics, the first
-    step's gradient and running statistics (``_gate``) and its sweeps'
-    scores; both ranks hold one replica bit for bit; every augment,
-    opening and fused-flow call on a rank's own inputs is bit-equal to
-    its plain version (the opening also on blobs of the gathered masks'
-    shape); each rank's launches.  The shard-local BatchNorm control
+    G's and D's statistics and the dropout generator before step 2),
+    held as ``_sp_runs`` holds them.  The shard-local BatchNorm control
     (Xception, float32 and bf16) and the per-shard MoE slots must fail
     the gate.  Returns the kernels' launches by run (each rank's)."""
+    return _sp_runs(tmp, card, "sp-families", SPF_RUNS, SPF_CONTROLS,
+                    SPF_REFS_ONLY)
+
+
+def phase_sp_ae(tmp: Path, card: str, shared: dict | None = None) -> dict:
+    """``--sp 2`` for c2plus1d and MyGAN's ``--ae``, ``--remat`` and
+    ``--host_flow`` (where cv2 imports): two gloo ranks on this one card
+    at the reference width (b8, 128^2, nfr 16; MyGAN ngf = ndf = 32,
+    flow_scale 0.5), ``SPF_STEPS`` steps and a one-batch sweep each, held
+    as ``_sp_runs`` holds them.  The ``--remat`` run takes the ``sp``
+    phase's nfr 16 bf16 sp 1 runs as its references where ``shared`` has
+    them (the same seed, steps and sweep: remat is the same function).
+    c2plus1d's shard-local BatchNorm and the AutoEncoder's zero halos,
+    in float32 and bf16, must fail the gate.  Returns the kernels'
+    launches by run (each rank's)."""
+    try:
+        import cv2  # noqa: F401
+        runs = SPA_RUNS
+    except ImportError:
+        say("sp-ae", f"{card}: cv2 does not import: no --host_flow run")
+        runs = tuple(r for r in SPA_RUNS if "--host_flow" not in r[3])
+    refs = {SPA_REMAT: shared["nfr16 bfloat16"]} \
+        if shared and "nfr16 bfloat16" in shared else {}
+    return _sp_runs(tmp, card, "sp-ae", runs, SPA_CONTROLS, (), refs)
+
+
+def _sp_runs(tmp: Path, card: str, phase: str, table, controls,
+             refs_only=(), refs: dict | None = None) -> dict:
+    """The runs of ``table`` at sp 2 on two gloo ranks on this one card,
+    each held within ``parallel/verify.py``'s K (10) x the spread of two
+    one-process sp 1 runs (the plain run and its two-pass BatchNorm
+    twin; given in ``refs``, else run here) in its parameters and
+    running statistics, the first step's gradient and running statistics
+    (``_gate``) and its sweeps' scores; both ranks hold one replica bit
+    for bit; every augment, opening and fused-flow call on a rank's own
+    inputs is bit-equal to its plain version (the fused flow within
+    ``FUSED_PX``; the opening also on blobs of the gathered masks'
+    shape); each rank's launches, step ms and peak MiB beside sp 1's, and
+    exchanges per step by kind.  Each of ``controls`` (run, the reduction
+    left local) must fail the gate.  Returns the kernels' launches by run
+    (each rank's)."""
     from vfd_gan_tpu_torch.tools import dp_equivalence as eq
 
     t0 = time.perf_counter()
-    refs = {}
-    for tag, *_ in SPF_RUNS:
+    refs = dict(refs or {})
+    for tag, *_ in table:
+        if tag in refs:
+            continue
         refs[tag] = tuple(
-            eq.run_train(_spf_case(tag, 1, name=_spf_case(tag, 1)["name"]
-                                   + f".{i}", **kw), tmp / "spf_ref",
+            eq.run_train(_spf_case(tag, 1, table, name=_spf_case(
+                tag, 1, table)["name"] + f".{i}", **kw), tmp / "spf_ref",
                          solo=True)
             for i, kw in ((1, {}), (2, {"arith": "dp"})))
         gc.collect()
         torch.cuda.empty_cache()
     t_refs = time.perf_counter() - t0
-    runs = [r for r in SPF_RUNS if r[0] not in SPF_REFS_ONLY]
-    cases = [_spf_case(tag, 2, hold_kernels=True) for tag, *_ in runs]
-    cases += [_spf_case(tag, 2, name=_spf_case(tag, 2)["name"] + f".{op}",
-                        local_ops=[op], sweep=False)
-              for tag, op in SPF_CONTROLS]
-    gloo = tmp / "spf_gloo"
+    runs = [r for r in table if r[0] not in refs_only]
+    cases = [_spf_case(tag, 2, table, hold_kernels=True)
+             for tag, *_ in runs]
+    cases += [_spf_case(tag, 2, table, name=_spf_case(tag, 2, table)["name"]
+                        + f".{op}", local_ops=[op], sweep=False)
+              for tag, op in controls]
+    gloo = tmp / f"{phase}_gloo"
     t1 = time.perf_counter()
-    eq.run(cases, gloo, world=2, backend="gloo", timeout=SP_JOIN_S)
+    _gloo(cases, gloo, timeout=SP_JOIN_S)
     t_ranks = time.perf_counter() - t1
 
     def load(name, rank=0):
@@ -4103,38 +4215,42 @@ def phase_sp_families(tmp: Path, card: str) -> dict:
 
     launches = {}
     for tag, model, *_ in runs:
-        case = _spf_case(tag, 2)
+        case = _spf_case(tag, 2, table)
         sweeps = 1 + len(case.get("sweep_at", ()))
         got, other = load(case["name"]), load(case["name"], 1)
         check(got["digest"] == other["digest"],
-              f"spf {tag}: both ranks hold the same state bit for bit")
+              f"{phase} {tag}: both ranks hold the same state bit for bit")
         micro = 2 if "--accum" in case["argv"] else 1
+        # MyGAN's flow on the card (not on the host, --host_flow)
+        fused = model == "mygan" and "--host_flow" not in case["argv"]
         for r, res in enumerate((got, other)):
             check(all(np.isfinite(v) for step in res["losses"]
-                      for v in step.values()), f"spf {tag}: finite losses")
+                      for v in step.values()),
+                  f"{phase} {tag}: finite losses")
             counts = res["launches"]
             sweep = {k: res["sweep_launches"].get(k, 0)
                      + res["mid_sweep_launches"].get(k, 0)
                      for k in res["sweep_launches"]}
             check(counts["augment_gather"] == SPF_STEPS,
-                  f"spf {tag}: the augment kernel once per step: {counts}")
-            flows = 3 * micro * SPF_STEPS if model == "mygan" else 0
+                  f"{phase} {tag}: the augment kernel once per step: "
+                  f"{counts}")
+            flows = 3 * micro * SPF_STEPS if fused else 0
             check(counts["flow_fused"] == flows,
-                  f"spf {tag}: the fused flow kernel {flows} times in "
+                  f"{phase} {tag}: the fused flow kernel {flows} times in "
                   f"{SPF_STEPS} steps: {counts}")
             openings = 0 if model == "ganomaly" else sweeps
             check(sweep["morphology_open"] == openings,
-                  f"spf {tag}: the opening once per sweep batch "
+                  f"{phase} {tag}: the opening once per sweep batch "
                   f"({openings}): {sweep}")
             total = {k: counts.get(k, 0) + sweep.get(k, 0)
                      for k in set(counts) | set(sweep)}
-            launches[f"sp-families {tag}" + (" rank1" if r else "")] = total
+            launches[f"{phase} {tag}" + (" rank1" if r else "")] = total
             held = res["kernel_vs_plain"]
             want = {"augment_gather": SPF_STEPS,
                     "morphology_open": openings,
                     "morphology_open_blobs": openings,
                     "flow_fused": flows + (sweep["flow_fused"]
-                                           if model == "mygan" else 0)}
+                                           if fused else 0)}
             for name, calls in want.items():
                 # the fused solver within FUSED_PX of its plain version
                 # (bit-equal but for one call of 24 at 1.04e-6 px,
@@ -4142,17 +4258,16 @@ def phase_sp_families(tmp: Path, card: str) -> dict:
                 tol = FUSED_PX if name == "flow_fused" else 0.0
                 check(len(held.get(name, ())) == calls
                       and all(c[0] <= tol for c in held.get(name, ())),
-                      f"spf {tag} rank {r}: {name} within {tol:g} of its "
-                      f"plain version on each of its {calls} call(s) on "
-                      f"the rank's inputs: {held.get(name)}")
+                      f"{phase} {tag} rank {r}: {name} within {tol:g} of "
+                      f"its plain version on each of its {calls} call(s) "
+                      f"on the rank's inputs: {held.get(name)}")
             if openings:
                 blobs = held["morphology_open_blobs"][0]
                 check(0.05 < blobs[3] < 0.95,
-                      f"spf {tag}: the blobs' opening neither empty nor "
-                      f"full: {blobs}")
+                      f"{phase} {tag}: the blobs' opening neither empty "
+                      f"nor full: {blobs}")
         ref, again = refs[tag]
-        say("sp-families", f"{card}: {tag} sp 2 "
-            + _gate(tag, got, ref, again))
+        say(phase, f"{card}: {tag} sp 2 " + _gate(tag, got, ref, again))
         scores = [*got["sweeps"], got["scores"]]
         # GANomaly's frame-level ROC is held through its frames' scores
         frames = zip(got["frame_scores"], ref["frame_scores"],
@@ -4161,11 +4276,11 @@ def phase_sp_families(tmp: Path, card: str) -> dict:
         for i, (mine, want_s, again_s, by) in enumerate(zip(
                 scores, [*ref["sweeps"], ref["scores"]],
                 [*again["sweeps"], again["scores"]], frames, strict=True)):
-            say("sp-families", f"{card}: {tag} sweep {i + 1}: "
+            say(phase, f"{card}: {tag} sweep {i + 1}: "
                 + _scores_close({"scores": mine}, {"scores": want_s},
                                 {"scores": again_s}, by))
         held = got["kernel_vs_plain"]
-        say("sp-families", f"{card}: {tag}: bit-equal to their plain "
+        say(phase, f"{card}: {tag}: bit-equal to their plain "
             f"versions on each rank's inputs: the augment kernel on "
             f"{held['augment_gather'][0][1]} uint8 frames"
             + (f", the opening on the sweep's "
@@ -4180,34 +4295,32 @@ def phase_sp_families(tmp: Path, card: str) -> dict:
                f" within {FUSED_PX:g} px ("
                f"{sum(c[0] > 0 for c in held['flow_fused'])} not bit-equal,"
                f" max {max(c[0] for c in held['flow_fused']):.3g} px)"
-               if model == "mygan" else ""))
+               if fused else ""))
         extra = ""
         if "--moe_experts" in case["argv"]:
-            say("sp-families", f"{card}: {tag} " + _routing_gate(
+            say(phase, f"{card}: {tag} " + _routing_gate(
                 tag, [got, other], ref, again)[1])
             extra = (f"; MoE dropped fraction per step sp 2 "
                      f"{got['moe_dropped']} (sp 1 {ref['moe_dropped']}), "
                      f"the sweep's eval forward {got['sweep_moe_dropped']} "
                      f"(sp 1 {ref['sweep_moe_dropped']})")
-        say("sp-families", f"{card}: {tag}: step median ms sp 1 "
-                           f"{_median_ms(ref):.1f} (two-pass BatchNorms "
-                           f"{_median_ms(again):.1f}), sp 2 (2 gloo ranks "
-                           f"on one card) {_median_ms(got):.1f} / "
-                           f"{_median_ms(other):.1f} "
-                           f"({_median_ms(got) / _median_ms(ref):.2f}x); "
-                           f"peak MiB sp 1 "
-                           f"{ref.get('peak_mib', math.nan):.0f}, sp 2 per "
-                           f"rank {got.get('peak_mib', math.nan):.0f}; "
-                           f"sweep ms sp 1 {ref['sweep_ms']:.1f}, sp 2 "
-                           f"{got['sweep_ms']:.1f}; launches per rank "
-                           f"(steps + sweeps) "
-                           f"{json.dumps(launches[f'sp-families {tag}'])}"
-                           + extra)
+        say(phase, f"{card}: {tag}: step median ms sp 1 "
+                   f"{_median_ms(ref):.1f} (two-pass BatchNorms "
+                   f"{_median_ms(again):.1f}), sp 2 (2 gloo ranks on one "
+                   f"card) {_median_ms(got):.1f} / {_median_ms(other):.1f} "
+                   f"({_median_ms(got) / _median_ms(ref):.2f}x); peak MiB "
+                   f"sp 1 {ref.get('peak_mib', math.nan):.0f}, sp 2 per "
+                   f"rank {got.get('peak_mib', math.nan):.0f} / "
+                   f"{other.get('peak_mib', math.nan):.0f}; sweep ms sp 1 "
+                   f"{ref['sweep_ms']:.1f}, sp 2 {got['sweep_ms']:.1f}; "
+                   f"exchanges per step {_per_step(got['sp_counts'])}; "
+                   f"launches per rank (steps + sweeps) "
+                   f"{json.dumps(launches[f'{phase} {tag}'])}" + extra)
     kinds = ("params", "buffers", "first_exp_avg", "first_buffers",
              "exp_avg")
-    for tag, op in SPF_CONTROLS:
+    for tag, op in controls:
         ref, again = refs[tag]
-        name = _spf_case(tag, 2)["name"] + f".{op}"
+        name = _spf_case(tag, 2, table)["name"] + f".{op}"
         control = load(name)
         past, lines = _past_limit(control, ref, again, kinds)
         if op == "moe":
@@ -4215,12 +4328,11 @@ def phase_sp_families(tmp: Path, card: str) -> dict:
                 tag, [control, load(name, 1)], ref, again, control=True)
             lines.append(line)
         check(max(past.values()) > 1,
-              f"spf {tag}: the {op} control fails the gate that the sp 2 "
-              f"run passes: {lines}")
-        say("sp-families", f"{card}: {tag} {op} control " + "; ".join(lines))
-    say("sp-families", f"{card}: sp 1 references {t_refs:.1f} s, gloo "
-                       f"ranks {t_ranks:.1f} s, phase "
-                       f"{time.perf_counter() - t0:.1f} s")
+              f"{phase} {tag}: the {op} control fails the gate that the "
+              f"sp 2 run passes: {lines}")
+        say(phase, f"{card}: {tag} {op} control " + "; ".join(lines))
+    say(phase, f"{card}: sp 1 references {t_refs:.1f} s, gloo ranks "
+               f"{t_ranks:.1f} s, phase {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -4328,21 +4440,67 @@ def run_new_phases(tmp: Path, device, paths: dict, base: dict) -> dict:
     return runs
 
 
-def slice_only(name: str, card: str) -> None:
-    """``--slice-only``: the build and the ``--sp`` phases alone (``sp``,
-    ``sp-families``), for a short call while they are worked on; prints
-    no result line."""
-    with tempfile.TemporaryDirectory() as tmp:
-        runs = phase_sp(Path(tmp), card)
+def run_sp_phases(tmp: Path, card: str) -> dict:
+    """The ``--sp`` phases (``sp``, ``sp-families``, ``sp-ae``); returns
+    the kernels' launches by run."""
+    runs, refs = phase_sp(tmp, card)
+    for phase in (phase_sp_families, functools.partial(phase_sp_ae,
+                                                       shared=refs)):
         gc.collect()
         torch.cuda.empty_cache()
-        runs.update(phase_sp_families(Path(tmp), card))
+        runs.update(phase(tmp, card))
+    return runs
+
+
+def slice_only(name: str, card: str) -> None:
+    """``--slice-only``: the build and the ``--sp`` phases alone (``sp``,
+    ``sp-families``, ``sp-ae``), for a short call while they are worked
+    on; prints no result line."""
+    with tempfile.TemporaryDirectory() as tmp, gloo_ranks(Path(tmp)):
+        runs = run_sp_phases(Path(tmp), card)
+    _say_seconds()
     say("slice-only", f"{name}: launches by run {json.dumps(runs)}; no "
                       "result line (the full run prints it)")
 
 
+# seconds by phase function and its short arguments: [calls, s]
+PHASE_SECONDS: dict = {}
+
+
+def _clocked(fn):
+    """``fn`` (a ``phase_*`` function) with its seconds added to
+    ``PHASE_SECONDS`` under its name and its short arguments (a model, a
+    dtype: the runs one phase function makes apart)."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        words = [str(a) for a in (*args, *kwargs.values())
+                 if a is None or isinstance(a, (bool, int))
+                 or isinstance(a, str) and " " not in a]
+        key = " ".join([fn.__name__[len("phase_"):], *words])
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            entry = PHASE_SECONDS.setdefault(key, [0, 0.0])
+            entry[0] += 1
+            entry[1] += time.perf_counter() - t0
+    return run
+
+
+def _say_seconds() -> None:
+    """The seconds of every phase function run, by name and arguments
+    (a phase called inside another counts in both)."""
+    say("phase-seconds", "; ".join(
+        f"{k} {s:.1f}" + (f" ({n} calls)" if n > 1 else "")
+        for k, (n, s) in PHASE_SECONDS.items()))
+
+
 def main() -> None:
     start = time.perf_counter()
+    # every phase times itself (``_say_seconds``)
+    for fn_name, fn in list(globals().items()):
+        if fn_name.startswith("phase_") and callable(fn):
+            globals()[fn_name] = _clocked(fn)
     name, card = phase_device()
     import_port()
     from vfd_gan_tpu_torch.utils.runtime import resolve_device
@@ -4482,13 +4640,11 @@ def main() -> None:
                                          bf16_forward_ms))
         gc.collect()
         torch.cuda.empty_cache()
-        new_runs.update(run_dp_phases(Path(tmp), paths))
-        gc.collect()
-        torch.cuda.empty_cache()
-        new_runs.update(phase_sp(Path(tmp), card))
-        gc.collect()
-        torch.cuda.empty_cache()
-        new_runs.update(phase_sp_families(Path(tmp), card))
+        with gloo_ranks(Path(tmp)):
+            new_runs.update(run_dp_phases(Path(tmp), paths))
+            gc.collect()
+            torch.cuda.empty_cache()
+            new_runs.update(run_sp_phases(Path(tmp), card))
     # launches: each kernel's count on the main path that runs it (MyGAN's
     # trainer for the fused and opening kernels, its --flow_impl
     # two_kernel step for warp and refine, the clstm trainer for the
@@ -4532,6 +4688,7 @@ def main() -> None:
         say("flow", f"{k} times x launches over one step ({per_step[k]:g} "
                     f"launches): kernel {results[k]['step_ms_sum']:.4f} ms, "
                     f"bound {results[k]['step_bound_ms_sum']:.4f} ms")
+    _say_seconds()
     say("done", f"all phases in {time.perf_counter() - start:.1f} s")
     # the kernels on the AnoGAN and GANomaly paths and on the --accum,
     # --remat and evaluate paths (each its own run, counts set to 0 before

@@ -48,12 +48,13 @@ groups take ~35 s alone and several times that in the tier).
   ``g/err_g_adv_s``, where JAX's float32 is the one off, is held to the
   port's float64 sp 2 step within the gate's rtol.
 * the trainer's ``--dp 2 --sp 2`` command (rank 0 alone writes), the
-  refusals: ``--sp`` for c2plus1d, AnoGAN and clstm (ROADMAP queue 1
-  item 13b), with ``--tp`` or ``--moe_shards`` (item 13), with each MyGAN
-  option it does not run yet (item 13c), and on ``cuda`` past the visible
-  cards.  Xception, GANomaly and MyGAN's ``--accum``, ``--int8_disc``,
-  ``--cache_gt_flow`` and ``--ref_mode_quirks`` under ``--sp``:
-  ``tests/test_torch_port_sp_families.py``.
+  refusals: ``--sp`` for AnoGAN and clstm (ROADMAP queue 1 item 13b),
+  with ``--tp`` or ``--moe_shards`` (item 13), and on ``cuda`` past the
+  visible cards.  Xception, GANomaly and MyGAN's ``--accum``,
+  ``--int8_disc``, ``--cache_gt_flow`` and ``--ref_mode_quirks`` under
+  ``--sp``: ``tests/test_torch_port_sp_families.py``; c2plus1d and
+  MyGAN's ``--ae``, ``--remat`` and ``--host_flow``:
+  ``tests/test_torch_port_sp_ae.py``.
 """
 
 import os
@@ -582,9 +583,9 @@ def test_trainer_dp2_sp2_runs_and_rank0_alone_writes(tmp_path, capfd):
 
 
 # the families --sp does not run yet (Xception and GANomaly run since:
-# tests/test_torch_port_sp_families.py)
+# tests/test_torch_port_sp_families.py; c2plus1d:
+# tests/test_torch_port_sp_ae.py)
 _FAMILY = {"clstm": ["--nfr", "8", "--isize", "16"],
-           "c2plus1d": ["--nfr", "16", "--isize", "16"],
            "anogan": ["--nfr", "8", "--isize", "16"]}
 
 
@@ -605,18 +606,6 @@ def test_sp_with_tp_or_moe_shards_is_refused_with_item_13(tmp_path, extra):
         trainer.main(["--model", "mygan", "--nfr", "16", "--isize", "64",
                       "--sp", "2", *_CLI, *extra, "--result_root",
                       str(tmp_path)])
-
-
-# --accum, --int8_disc, --cache_gt_flow and --ref_mode_quirks run under
-# --sp since (tests/test_torch_port_sp_families.py)
-@pytest.mark.parametrize("option", [["--remat"], ["--host_flow"], ["--ae"]],
-                         ids=lambda v: v[0][2:])
-def test_sp_refuses_the_mygan_options_it_does_not_run(tmp_path, option):
-    with pytest.raises(SystemExit, match=rf"--sp with {option[0]}: .*"
-                                         r"queue 1 item 13c"):
-        trainer.main(["--model", "mygan", "--nfr", "16", "--isize", "64",
-                      "--batchsize", "2", "--sp", "2", *_CLI, *option,
-                      "--result_root", str(tmp_path)])
 
 
 def test_sp_on_cuda_must_fit_the_visible_cards():

@@ -20,6 +20,9 @@ NCDHW ``(B, C, T, H, W)`` input.  Submodule names are the reference's, so
   ``QConv3d``, the int8 straight-through ``Conv3d`` of ``--int8_disc``.
 * ``dropout``: flax ``nn.Dropout``'s function with masks drawn from a
   ``torch.Generator``.
+* ``frame_shards``, ``upsample2x_sp``: the ``--sp`` nets' (MyGAN's,
+  the AutoEncoder's) binding to their ``SeqParallel`` and x2 upsample of
+  a rank's frames.
 
 Compute dtype, as the JAX modules' ``dtype`` field sets it (bfloat16 is
 the trainer's default): parameters and running statistics stay float32;
@@ -39,6 +42,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vfd_gan_tpu_torch.ops.convs import r2plus1d_mid_channels
+from vfd_gan_tpu_torch.ops.resize import _resize_axis
 from vfd_gan_tpu_torch.quant.qdisc import qconv3d
 from vfd_gan_tpu_torch.utils.init import bn_scale_, dcgan_normal_, torch_default_
 
@@ -341,6 +345,26 @@ def dropout(y: torch.Tensor, rate: float, training: bool,
                           device=draw).to(y.device) >= rate
     return torch.where(keep, y / (1.0 - rate),
                        torch.zeros((), dtype=y.dtype, device=y.device))
+
+
+def frame_shards(module: nn.Module):
+    """The ``SeqParallel`` that ``module`` shards its frames over
+    (``--sp``), or None: unbound, or its ``on`` off."""
+    sp = module.sp
+    return sp if sp is not None and sp.on else None
+
+
+def upsample2x_sp(x: torch.Tensor, sp) -> torch.Tensor:
+    """x2 over (T, H, W) of this shard's NCDHW frames: T on the global
+    grid (``sp.upsample2x_t``), H and W local, as ``ops/resize.
+    upsample_ncdhw`` computes them in ``x``'s dtype."""
+    y = sp.upsample2x_t(x)
+    t, h, w = y.shape[2:]
+    if y.dtype in (torch.float32, torch.float64):
+        # T kept (its weights are exactly 1 and 0)
+        return F.interpolate(y, size=(t, 2 * h, 2 * w), mode="trilinear",
+                             align_corners=True)
+    return _resize_axis(_resize_axis(y, 3, 2 * h, True), 4, 2 * w, True)
 
 
 class TorchLinear(nn.Linear):

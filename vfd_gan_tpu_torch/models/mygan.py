@@ -16,7 +16,8 @@ recomputes the blocks' activations in the backward pass instead of keeping
 them, all blocks or those named in ``remat_blocks`` (``--remat_blocks``; a
 name that is no block matches nothing), as ``nn.remat`` does in the JAX
 Generator; the output, the gradients and every BatchNorm buffer are the
-plain Generator's.
+plain Generator's (under ``--sp`` too: a block is recomputed in the
+segment it ran in, ``rematerialized``).
 
 ``DualDisc`` (reference NetD, models/mygannet.py:200-213) scores a pair of
 NCDHW videos: ``SpatialDisc`` the RGB mask video (6 spatial-only
@@ -59,7 +60,6 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from vfd_gan_tpu_torch.models.layers import (
@@ -69,21 +69,32 @@ from vfd_gan_tpu_torch.models.layers import (
     TorchLinear,
     dropout,
     float32_or_wider,
+    frame_shards,
+    upsample2x_sp,
 )
 from vfd_gan_tpu_torch.ops.convs import avg_pool_ncdhw
-from vfd_gan_tpu_torch.ops.resize import _resize_axis, upsample_ncdhw
+from vfd_gan_tpu_torch.ops.resize import upsample_ncdhw
 from vfd_gan_tpu_torch.utils.init import dcgan_normal_
 
 
-def rematerialized(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def rematerialized(block: nn.Module, x: torch.Tensor,
+                   sp=None) -> torch.Tensor:
     """``block(x)`` with its activations recomputed in the backward pass
     (``torch.utils.checkpoint``, non-reentrant) instead of kept.  The
     recomputation runs the block in train mode a second time, and a
     train-mode BatchNorm would then move its running statistics and
     ``num_batches_tracked`` again, which JAX's ``nn.remat`` does not do:
     the block's buffers are put back as the forward left them.  The blocks
-    draw no random numbers (dropout lies between them)."""
+    draw no random numbers (dropout lies between them).
+
+    Under ``--sp`` (``sp``, the ``SeqParallel`` the block shards over) the
+    recomputation runs during the backward, outside the segment that the
+    forward ran in: it re-enters the forward's ``on`` and ``replicated``,
+    so that a block that ran on gathered frames is recomputed on them,
+    with the forward's collectives (the halo exchanges and BatchNorm sums
+    again, on every rank in the same order)."""
     forward_done = False
+    segment = None if sp is None else (sp.on, sp.replicated)
 
     def run(x):
         nonlocal forward_done
@@ -91,11 +102,16 @@ def rematerialized(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
             forward_done = True
             return block(x)
         kept = [b.clone() for b in block.buffers()]
+        ambient = None if sp is None else (sp.on, sp.replicated)
         try:
+            if sp is not None:
+                sp.on, sp.replicated = segment
             return block(x)
         finally:
             # also when the recomputation stops early, once it has made
             # what the backward needs
+            if sp is not None:
+                sp.on, sp.replicated = ambient
             with torch.no_grad():
                 for b, k in zip(block.buffers(), kept):
                     b.copy_(k)
@@ -151,14 +167,14 @@ class Generator(nn.Module):
         """The conv block ``name`` on ``x``, rematerialized where
         ``remat`` names it and a backward pass will follow."""
         if name in self.remat and torch.is_grad_enabled():
-            return rematerialized(getattr(self, name), x)
+            return rematerialized(getattr(self, name), x, frame_shards(self))
         return getattr(self, name)(x)
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """Mask video ``(B, 1, T, H, W)``; ``generator`` draws the dropout
         masks of a train-mode forward."""
-        sp = _shards(self)
+        sp = frame_shards(self)
         if sp is not None:
             return self._forward_sp(x, sp, generator)
         blk = self.block
@@ -191,7 +207,7 @@ class Generator(nn.Module):
 
         def up(h, sharded, to_sharded):
             if sharded:
-                return _upsample2x_sp(h, sp)
+                return upsample2x_sp(h, sp)
             h = upsample_ncdhw(h)
             return sp.split(h) if to_sharded else h
 
@@ -216,26 +232,6 @@ class Generator(nn.Module):
         # the 3x3x3 head: one halo frame a side, SAME over H and W
         return torch.sigmoid(float32_or_wider(
             self.conv_last.valid_t(sp.halo(y, 1))))
-
-
-def _shards(module: nn.Module):
-    """The ``SeqParallel`` that ``module`` shards its frames over
-    (``--sp``), or None: unbound, or its ``on`` off."""
-    sp = module.sp
-    return sp if sp is not None and sp.on else None
-
-
-def _upsample2x_sp(x: torch.Tensor, sp) -> torch.Tensor:
-    """x2 over (T, H, W) of this shard's NCDHW frames: T on the global
-    grid (``sp.upsample2x_t``), H and W local, as ``ops/resize.
-    upsample_ncdhw`` computes them in ``x``'s dtype."""
-    y = sp.upsample2x_t(x)
-    t, h, w = y.shape[2:]
-    if y.dtype in (torch.float32, torch.float64):
-        # T kept (its weights are exactly 1 and 0)
-        return F.interpolate(y, size=(t, 2 * h, 2 * w), mode="trilinear",
-                             align_corners=True)
-    return _resize_axis(_resize_axis(y, 3, 2 * h, True), 4, 2 * w, True)
 
 
 def _temporal_mean_sp(x: torch.Tensor, sp) -> torch.Tensor:
@@ -270,7 +266,7 @@ class SpatialDisc(nn.Module):
         for i in range(6):
             x = avg_pool_ncdhw(getattr(self, f"dconv{i + 1}")(x), (1, 2, 2))
         features = x                                 # (B, C, T, s, s)
-        sp = _shards(self)
+        sp = frame_shards(self)
         if sp is None:
             x = avg_pool_ncdhw(x, (x.shape[2], 1, 1), 1)   # global temporal
         else:
@@ -298,7 +294,7 @@ class TemporalDisc(nn.Module):
         self.linear = TorchLinear(widths[-1] * (nfr // 8), 1, **kw)
 
     def forward(self, x: torch.Tensor):
-        sp = _shards(self)
+        sp = frame_shards(self)
         if sp is None:
             for i in range(3):
                 x = avg_pool_ncdhw(getattr(self, f"dconv{i + 1}")(x),

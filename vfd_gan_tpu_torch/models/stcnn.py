@@ -18,6 +18,21 @@ the masks come from the ``torch.Generator`` passed to ``forward``.
 ``dtype`` is the compute dtype of ``models/layers.py`` (the first block's
 spatial conv and residual projection take the float32 clip; the head
 casts to float32 before the sigmoid).
+
+Under ``--sp`` (``parallel.mesh.SeqParallel`` bound as ``sp``) the
+AutoEncoder takes this rank's frames, as MyGAN's Generator does
+(``models/mygan.py``): each block runs in ``sp.segment`` of its input's
+sharding, so that its BatchNorms take the grid's statistics (or, on
+gathered frames, those of the shard's dp peers); its (3,1,1) and
+(3,3,3) convs take one halo frame a side; a down block's pool by 2
+stays local while the shard holds an even number of frames, else the
+frames are gathered and the coarser levels run replicated; an up block's
+x2 upsample takes T on the global grid (``sp.upsample2x_t``), or on
+gathered frames is split again where its skip (or the head) is sharded;
+the residual path's dropout keeps the rank's frames of the global mask.
+At nfr 16 the shards of sp 2 hold 8, 4, 2 and 1 frames at the four down
+blocks' inputs, so ``down_sep4`` gathers before its pool and the
+bottleneck and ``up_sep1`` run replicated; at sp 4, ``down_sep3``.
 """
 
 from __future__ import annotations
@@ -30,7 +45,9 @@ from vfd_gan_tpu_torch.models.layers import (
     VideoBatchNorm,
     dropout,
     float32_or_wider,
+    frame_shards,
     make_conv3d,
+    upsample2x_sp,
 )
 from vfd_gan_tpu_torch.ops.convs import avg_pool_ncdhw
 from vfd_gan_tpu_torch.ops.resize import upsample_ncdhw
@@ -78,11 +95,50 @@ class C2Plus1dBlock(nn.Module):
             residual = self.conv(upsample_ncdhw(residual)).to(x.dtype)
         return self.conv_last(torch.cat([y, residual], 1))
 
+    def forward_sp(self, x: torch.Tensor, sharded: bool, sp,
+                   generator: torch.Generator | None = None,
+                   to_sharded: bool = True) -> tuple[torch.Tensor, bool]:
+        """``forward`` under ``--sp``: ``x`` this rank's frames
+        (``sharded``) or the gathered frames every sp peer holds; returns
+        the output and whether it is sharded (a down block gathers where
+        its pool cannot stay local, an up block on gathered frames splits
+        its upsampled frames where ``to_sharded``)."""
+        with sp.segment(sharded):
+            y = F.relu(self.bn1(self.spaceconv(x)))
+            y = self.pointwise.valid_t(sp.halo(y, 1)) if sharded \
+                else self.pointwise(y)
+            y = F.relu(self.bn2(y))
+        if self.down_samp:
+            residual = self.conv(x)
+            if sharded and y.shape[2] % 2:
+                y, residual, sharded = sp.gather(y), sp.gather(residual), \
+                    False
+            y = avg_pool_ncdhw(y, 2)
+            residual = avg_pool_ncdhw(residual, 2).to(x.dtype)
+        else:
+            residual = dropout(x, self.drop_rate, self.training, generator,
+                               self.dp, frame_dim=2 if sharded else None)
+            if sharded:
+                y, residual = (upsample2x_sp(h, sp) for h in (y, residual))
+            else:
+                y, residual = upsample_ncdhw(y), upsample_ncdhw(residual)
+                if to_sharded:
+                    y, residual, sharded = sp.split(y), sp.split(residual), \
+                        True
+            residual = self.conv(residual).to(x.dtype)
+        y = torch.cat([y, residual], 1)
+        if sharded:
+            return self.conv_last.valid_t(sp.halo(y, 1)), True
+        return self.conv_last(y), False
+
 
 class AutoEncoder(nn.Module):
     """4-down / 4-up residual (2+1)D autoencoder with skip concats
     (reference mystcnn.py:52-88); ``(B, 3, T, H, W)`` -> ``(B, 1, T, H,
     W)``."""
+
+    # a parallel.mesh.SeqParallel (--sp): x is this rank's frames
+    sp = None
 
     def __init__(self, *, drop_rate: float = 0.25,
                  dtype: torch.dtype = torch.float32, device=None,
@@ -108,6 +164,9 @@ class AutoEncoder(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         g = generator
+        sp = frame_shards(self)
+        if sp is not None:
+            return self._forward_sp(x, sp, g)
         d1 = self.down_sep1(x)
         d2 = self.down_sep2(d1)
         d3 = self.down_sep3(d2)
@@ -117,3 +176,25 @@ class AutoEncoder(nn.Module):
         y = self.up_sep3(torch.cat([y, d2], 1), g)
         y = self.up_sep4(torch.cat([y, d1], 1), g)
         return torch.sigmoid(float32_or_wider(self.conv_last(y)))
+
+    def _forward_sp(self, x: torch.Tensor, sp,
+                    generator: torch.Generator | None) -> torch.Tensor:
+        """``forward`` on this rank's frames ``x`` (``--sp``)."""
+        h, sharded = x, True
+        skips = []
+        for i in range(1, 5):
+            h, sharded = getattr(self, f"down_sep{i}").forward_sp(
+                h, sharded, sp)
+            skips.append((h, sharded))
+        y, y_sharded = skips.pop()
+        # each up block's output meets the skip below it (the last: the
+        # head, on this rank's frames)
+        for i, (skip, skip_sharded) in enumerate(
+                [*reversed(skips), (None, True)]):
+            y, y_sharded = getattr(self, f"up_sep{i + 1}").forward_sp(
+                y, y_sharded, sp, generator, skip_sharded)
+            if skip is not None:
+                y = torch.cat([y, skip], 1)
+        # the 3x3x3 head: one halo frame a side, SAME over H and W
+        return torch.sigmoid(float32_or_wider(
+            self.conv_last.valid_t(sp.halo(y, 1))))

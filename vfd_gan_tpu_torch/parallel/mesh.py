@@ -154,7 +154,10 @@ class DataParallel:
     ``"stretch"``; ``synced``); under ``--sp`` also ``"bn_sp"`` (the
     BatchNorm statistics of the sharded segments over the rank's frames
     alone), ``"stretch_grid"`` (the stretch's MAX over the whole grid,
-    which mixes frames) and ``"halo"`` (``SeqParallel``: zero halos).
+    which mixes frames), ``"halo"`` (``SeqParallel``: zero halos) and
+    ``"dropout_sp"`` (each shard draws a mask of its own frames' shape,
+    the same on every shard, as a dropout that passes no ``frame_dim``
+    would).
 
     ``sp``: the rank's ``SeqParallel`` on a ``(dp, sp)`` grid (``None``
     without one).  Then ``rank`` and ``world`` place the rows, ``group``
@@ -280,6 +283,8 @@ class DataParallel:
         if not self.active:
             return torch.rand(shape, generator=generator,
                               device=draw).to(device)
+        if "dropout_sp" in self.local_ops:        # the control
+            frame_dim = None
         n = shape[0]
         full_shape = [self.world * n, *shape[1:]]
         if frame_dim is not None and self.sp is not None:

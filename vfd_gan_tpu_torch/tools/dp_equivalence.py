@@ -3,9 +3,14 @@
     python -m vfd_gan_tpu_torch.tools.dp_equivalence --cases cases.json \\
         --out DIR
 
+    python -m vfd_gan_tpu_torch.tools.dp_equivalence --queue QDIR
+
 Started as the ranks of one group by ``run`` (``parallel/mesh.launch``),
 or alone: every rank runs the cases of ``cases.json`` (a list of dicts)
-in order and writes ``DIR/{name}.rank{r}.pt``.  A case is one of
+in order and writes ``DIR/{name}.rank{r}.pt``.  With ``--queue`` the
+ranks stand (``Standing``): they run one batch of cases after another,
+each as ``--cases`` runs its list, until told to stop, so that they start
+and reach the card once for many batches.  A case is one of
 
 * ``{"name", "kind": "train", "argv": [...], "steps": n, "float64": bool,
   "bn_stats": str, "flow": "standin" | "real", "sweep": bool, "dp": 1 or
@@ -78,10 +83,17 @@ in order and writes ``DIR/{name}.rank{r}.pt``.  A case is one of
 
 ``--sp``: a train case's ``argv`` with ``--sp N`` runs on the group as a
 ``(dp, sp)`` grid (``dp`` 2 in the case: in the group), and its result
-holds the frame axis's exchanges per step (``sp_counts``); its
-``local_ops`` may name the sp controls (``"halo"``, ``"bn_sp"``,
-``"stretch_grid"``); a flow case with ``"sp": N`` takes this rank's rows
-and frames; a gan_core case its frames of the given batch and flows.
+holds the frame axis's exchanges per step (``sp_counts``, kept beside
+the distances); its ``local_ops`` may name the sp controls (``"halo"``,
+``"bn_sp"``, ``"stretch_grid"``, ``"dropout_sp"``); a flow case with
+``"sp": N`` takes this rank's rows and frames; a gan_core case its
+frames of the given batch and flows; an sp_generator case with
+``"model": "ae"`` runs the AutoEncoder (``--ae``, c2plus1d) instead of
+the Generator.  A train case's ``"ref"`` may be a list: the distances to
+the first reference, and ``distances_to`` each of them; with
+``"as_ref": true`` a case in the group is a reference too (rank 0's
+whole state, ``DIR/{name}.ref.pt``), as the plain sp 2 run is the
+``--remat`` runs'.
 """
 
 from __future__ import annotations
@@ -92,7 +104,9 @@ import copy
 import hashlib
 import json
 import os
+import signal
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -704,16 +718,19 @@ def run_temporal(case: dict) -> dict:
 
 
 def run_sp_generator(case: dict) -> dict:
-    """``generator_forward_sp`` of the Generator (``case["ngf"]``) loaded
+    """``generator_forward_sp`` of the Generator (``case["ngf"]``; the
+    AutoEncoder with ``"model": "ae"``) loaded
     from ``case["state"]`` on this rank's frames of the clip ``case["x"]``
     (npy, ``(B, T, H, W, 3)``), in float32 and in float64 (``mask64``),
     the whole group one sp row; rank 0 also runs the unsharded eval
     Generator (``alone``, ``alone64``)."""
     from vfd_gan_tpu_torch.models.mygan import Generator
+    from vfd_gan_tpu_torch.models.stcnn import AutoEncoder
     from vfd_gan_tpu_torch.parallel.sp_generator import generator_forward_sp
 
     sp = _sp_row("cpu")
-    netg = Generator(case["ngf"])
+    netg = AutoEncoder() if case.get("model") == "ae" \
+        else Generator(case["ngf"])
     netg.load_state_dict(torch.load(case["state"]), strict=True)
     # the unsharded reference: a Generator that is never bound to sp
     whole = copy.deepcopy(netg).eval()
@@ -834,19 +851,27 @@ def run_cases(cases: list[dict], out: Path) -> None:
             print(f"[dp_equivalence] rank {dp.rank}: {case['name']} "
                   f"{time.perf_counter() - start:.1f} s", flush=True)
             continue
+        if case.get("as_ref") and dp.rank == 0:
+            torch.save(result, out / f"{case['name']}.ref.pt")
         if "ref" in case:
             short = {"digest": _digest(result),
                      **{k: result[k] for k in ("scores", "saved", "held",
                                                "hand_offs", "sweeps",
                                                "frame_scores",
-                                               "moe_dropped")
+                                               "moe_dropped", "sp_counts")
                         if k in result}}
             if dp.rank == 0:
                 # the reference was written before this case began: every
                 # rank finished it before it joined this case's first
-                # collective
-                short["distances"] = distances(
-                    result, torch.load(out / f"{case['ref']}.ref.pt"))
+                # collective (an "as_ref" case of the group: before the
+                # barrier that starts this one)
+                refs = case["ref"] if isinstance(case["ref"], list) \
+                    else [case["ref"]]
+                short["distances_to"] = {
+                    ref: distances(result,
+                                   torch.load(out / f"{ref}.ref.pt"))
+                    for ref in refs}
+                short["distances"] = short["distances_to"][refs[0]]
             result = short
         torch.save(result, out / f"{case['name']}.rank{dp.rank}.pt")
         print(f"[dp_equivalence] rank {dp.rank}: {case['name']} "
@@ -868,22 +893,125 @@ def run(cases: list[dict], out: str | os.PathLike, world: int = 2,
            timeout=timeout, log=log, on_spawn=on_spawn)
 
 
+class Standing:
+    """Two gloo ranks that start once and run batches of cases, one after
+    another, each as ``run`` runs its list: the ranks import, join their
+    group and reach the card once for all the batches.  They wait in
+    ``root/queue`` for the next batch and leave at ``close`` (or the
+    block's end, as a context manager).  A rank that fails stops the
+    other and the batch raises; so does a batch past its join timeout,
+    which kills the ranks."""
+
+    world = 2
+
+    def __init__(self, root: str | os.PathLike) -> None:
+        self.queue = Path(root) / "queue"
+        self.queue.mkdir(parents=True, exist_ok=True)
+        self.batches = 0
+        self.pids: list[int] = []
+        self.error: BaseException | None = None
+
+        def ranks():
+            try:
+                launch(ENTRY, ["--queue", str(self.queue)], self.world,
+                       "gloo", on_spawn=self.pids.extend)
+            except BaseException as e:       # read by the waiting batch
+                self.error = e
+
+        self.thread = threading.Thread(target=ranks, daemon=True)
+        self.thread.start()
+
+    def run(self, cases: list[dict], out: str | os.PathLike,
+            timeout: float = 120.0) -> None:
+        """``cases`` run by the ranks, their results in ``out``, as
+        ``run`` gives them; raises if a rank fails or ``timeout`` seconds
+        pass before every rank has run them."""
+        out = Path(out)
+        out.mkdir(parents=True, exist_ok=True)
+        self.batches += 1
+        batch = self.queue / f"batch{self.batches}.json"
+        spec = batch.with_suffix(".part")
+        spec.write_text(json.dumps({"cases": cases, "out": str(out)}))
+        spec.rename(batch)                   # whole when a rank sees it
+        done = [self.queue / f"batch{self.batches}.rank{r}.done"
+                for r in range(self.world)]
+        start = time.monotonic()
+        while not all(d.exists() for d in done):
+            if not self.thread.is_alive():
+                raise RuntimeError(f"the standing ranks stopped in batch "
+                                   f"{self.batches}: {self.error}")
+            if time.monotonic() - start > timeout:
+                self._kill()
+                raise RuntimeError(f"batch {self.batches} of the standing "
+                                   f"ranks passed its {timeout:g} s join "
+                                   f"timeout; the ranks were killed")
+            time.sleep(0.05)
+
+    def close(self) -> None:
+        """The ranks told to leave, and waited for (killed after 60 s)."""
+        (self.queue / "stop").write_text("")
+        self.thread.join(60.0)
+        if self.thread.is_alive():
+            self._kill()
+            self.thread.join()
+
+    def _kill(self) -> None:
+        for pid in self.pids:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+
+    def __enter__(self) -> "Standing":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def _stand(queue: Path, rank: int) -> None:
+    """A standing rank: each batch of ``queue`` in turn through
+    ``run_cases``, a mark that this rank ran it, until ``queue/stop`` (or
+    until the process that started the ranks is gone)."""
+    parent, n = os.getppid(), 0
+    while True:
+        n += 1
+        batch = queue / f"batch{n}.json"
+        while not batch.exists():
+            if (queue / "stop").exists() or os.getppid() != parent:
+                return
+            time.sleep(0.05)
+        spec = json.loads(batch.read_text())
+        run_cases(spec["cases"], Path(spec["out"]))
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()         # the next batch's models
+        (queue / f"batch{n}.rank{rank}.done").write_text("")
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--cases", required=True)
-    p.add_argument("--out", required=True)
+    p.add_argument("--cases")
+    p.add_argument("--out")
+    p.add_argument("--queue")
     args = p.parse_args(argv)
-    cases = json.loads(Path(args.cases).read_text())
+    if (args.queue is None) == (args.cases is None or args.out is None):
+        p.error("give --cases and --out, or --queue")
     torch.set_num_threads(1)
     started = rank_env()
     if started is None:
-        run_cases(cases, Path(args.out))
+        if args.queue is not None:
+            p.error("--queue: for ranks that Standing starts")
+        run_cases(json.loads(Path(args.cases).read_text()), Path(args.out))
         return
     rank, world, init_method, backend = started
     if backend == "nccl":
         rank_device(torch.device("cuda"), rank)   # before the group forms
     with rank_group(rank, world, init_method, backend, timeout_s=90.0):
-        run_cases(cases, Path(args.out))
+        if args.queue is not None:
+            _stand(Path(args.queue), rank)
+        else:
+            run_cases(json.loads(Path(args.cases).read_text()),
+                      Path(args.out))
 
 
 if __name__ == "__main__":

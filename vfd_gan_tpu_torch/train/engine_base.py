@@ -35,7 +35,8 @@
   means over the ranks; a stop signal on any rank parks every rank at the
   same step (an all-reduced MAX of the flag); ``--resume`` loads on every
   rank.
-* ``--sp N`` (MyGAN, Xception, GANomaly; ``parallel/mesh.SpGrid``): the
+* ``--sp N`` (MyGAN, Xception, GANomaly, c2plus1d;
+  ``parallel/mesh.SpGrid``): the
   ranks form a ``dp x sp`` grid; the engine's ``dp`` places its rows and
   reduces over the whole grid, its ``dp.sp`` places its frames, and the
   train iterator gives this rank its rows' frames (``frames``).  The nets
@@ -88,22 +89,15 @@ from vfd_gan_tpu_torch.train.checkpoints import (
 
 
 # JAX-engine options the port does not run yet, all of them several-card
-# ones: (is it set?, ROADMAP item).  --sp runs for MyGAN, Xception and
-# GANomaly.
-SP_FAMILIES = ("mygan", "xception", "ganomaly")
+# ones: (is it set?, ROADMAP item).  --sp runs for MyGAN (with every
+# option), Xception, GANomaly and c2plus1d.
+SP_FAMILIES = ("mygan", "xception", "ganomaly", "c2plus1d")
 UNPORTED = {
     "moe_shards": (lambda c: c.moe_shards > 1,
                    "queue 1 item 13 (parallelism)"),
     "tp": (lambda c: c.tp > 1, "queue 1 item 13 (parallelism)"),
     "sp": (lambda c: c.sp > 1 and c.model not in SP_FAMILIES,
-           "queue 1 item 13b (--sp for c2plus1d, anogan and clstm)"),
-}
-
-# MyGAN's options that --sp does not run yet: (is it set?)
-SP_UNPORTED = {
-    "remat": lambda c: c.remat,
-    "host_flow": lambda c: c.host_flow,
-    "ae": lambda c: c.ae,
+           "queue 1 item 13b (--sp for anogan and clstm)"),
 }
 
 
@@ -116,16 +110,11 @@ def refuse_unported(cfg) -> None:
                              f"yet (ROADMAP.md {item}); use the JAX "
                              "trainer (python trainer.py)")
     if cfg.sp > 1 and cfg.model == "mygan":
-        for flag, is_set in SP_UNPORTED.items():
-            if is_set(cfg):
-                raise SystemExit(
-                    f"--sp with --{flag}: not ported to vfd_gan_tpu_torch "
-                    "yet (ROADMAP.md queue 1 item 13c, MyGAN's options "
-                    "under --sp); use the JAX trainer (python trainer.py)")
         if cfg.nfr // cfg.sp < 2:
-            # JAX asks only that sp divide nfr; MyGAN's flow pairs frames
-            # (Xception's and GANomaly's ops are frame-local and run at
-            # one frame a shard)
+            # JAX asks only that sp divide nfr; MyGAN's flow pairs frames,
+            # with G or with --ae (Xception's and GANomaly's ops are
+            # frame-local, and c2plus1d gathers where its pool runs out
+            # of frames: they run at one frame a shard)
             raise SystemExit(
                 f"--sp {cfg.sp}: a MyGAN shard of nfr / sp = "
                 f"{cfg.nfr // cfg.sp} frame; the port's flow needs 2 frames "

@@ -59,7 +59,11 @@ Under it ``--accum k`` steps each microbatch's rows on the rank's frames
 the sweep runs whole on every rank but for G's eval forward, so the
 ``--cache_gt_flow`` cache and ``--ref_mode_quirks``' train-mode G (whole
 on every rank, its dropout drawn from the engine's generator, which
-every rank holds alike) are sp 1's.
+every rank holds alike) are sp 1's.  ``--ae``'s AutoEncoder shards its
+frames as G does (``models/stcnn.py``); ``--remat`` recomputes each
+block in the segment it ran in (``models/mygan.rematerialized``);
+``--host_flow`` takes its extrema over the shard's dp peers and the next
+shard's first gray frame (``train/host_flow.py``).
 """
 
 from __future__ import annotations
