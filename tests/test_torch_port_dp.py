@@ -44,7 +44,7 @@ fails the tests and is killed, and no rank outlives the module.
   correlations' bfloat16 operands round on either side of a boundary).
 * the trainer's ``--dp 2`` command (rank 0 alone writes; SIGTERM parks
   both ranks at one step), a failing rank and a hung rank, the refusals
-  that name ROADMAP queue 1 item 13 (``--sp``, ``--tp``, ``--moe_shards``)
+  that name ROADMAP queue 1 item 13 (``--tp``, ``--moe_shards``)
   and the commands it held until they were ported (``--dp 2`` with
   ``--moe_experts``, ``--int8_disc`` and ``--host_flow``; ``--pp 2``),
   ``auto_dp`` and the rank rows.
@@ -368,7 +368,7 @@ def test_sigterm_parks_every_rank_at_one_step(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--sp", "2"], ["--tp", "2"],
+    ["--tp", "2"],
     ["--model", "xception", "--moe_experts", "2", "--moe_shards", "2"],
 ], ids=lambda v: "_".join(v))
 def test_trainer_refuses_with_queue_1_item_13(tmp_path, extra):

@@ -48,13 +48,14 @@ groups take ~35 s alone and several times that in the tier).
   ``g/err_g_adv_s``, where JAX's float32 is the one off, is held to the
   port's float64 sp 2 step within the gate's rtol.
 * the trainer's ``--dp 2 --sp 2`` command (rank 0 alone writes), the
-  refusals: ``--sp`` for AnoGAN and clstm (ROADMAP queue 1 item 13b),
-  with ``--tp`` or ``--moe_shards`` (item 13), and on ``cuda`` past the
-  visible cards.  Xception, GANomaly and MyGAN's ``--accum``,
-  ``--int8_disc``, ``--cache_gt_flow`` and ``--ref_mode_quirks`` under
-  ``--sp``: ``tests/test_torch_port_sp_families.py``; c2plus1d and
-  MyGAN's ``--ae``, ``--remat`` and ``--host_flow``:
-  ``tests/test_torch_port_sp_ae.py``.
+  refusals: ``--sp`` with ``--tp`` or ``--moe_shards`` (ROADMAP queue 1
+  item 13), and on ``cuda`` past the visible cards.  Xception, GANomaly
+  and MyGAN's ``--accum``, ``--int8_disc``, ``--cache_gt_flow`` and
+  ``--ref_mode_quirks`` under ``--sp``:
+  ``tests/test_torch_port_sp_families.py``; c2plus1d and MyGAN's
+  ``--ae``, ``--remat`` and ``--host_flow``:
+  ``tests/test_torch_port_sp_ae.py``; AnoGAN and clstm:
+  ``tests/test_torch_port_sp_anogan_clstm.py``.
 """
 
 import os
@@ -580,21 +581,6 @@ def test_trainer_dp2_sp2_runs_and_rank0_alone_writes(tmp_path, capfd):
                .splitlines()) == 1
     assert list((tmp_path / "mygan").rglob("*_netG.pth"))
     assert set(_children()) <= before
-
-
-# the families --sp does not run yet (Xception and GANomaly run since:
-# tests/test_torch_port_sp_families.py; c2plus1d:
-# tests/test_torch_port_sp_ae.py)
-_FAMILY = {"clstm": ["--nfr", "8", "--isize", "16"],
-           "anogan": ["--nfr", "8", "--isize", "16"]}
-
-
-@pytest.mark.parametrize("family", list(_FAMILY))
-def test_sp_for_the_other_families_is_refused_with_item_13b(tmp_path,
-                                                            family):
-    with pytest.raises(SystemExit, match=r"queue 1 item 13b \(--sp"):
-        trainer.main(["--model", family, *_FAMILY[family], "--sp", "2",
-                      *_CLI, "--result_root", str(tmp_path)])
 
 
 @pytest.mark.parametrize("extra", [

@@ -44,8 +44,7 @@ tmp dir and writing to a log file of its own.
   gate against JAX's step on a ``{"dp": 1, "sp": 2}`` mesh, with JAX's
   sp 1 step as the yardstick (augment draws given, dropout off).
 * the trainer's ``--model c2plus1d --sp 2`` command (rank 0 alone
-  writes); ``--sp`` for AnoGAN and clstm stays refused
-  (``tests/test_torch_port_sp.py``).
+  writes).
 """
 
 import flax.linen as fnn

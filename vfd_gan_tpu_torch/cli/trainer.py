@@ -33,14 +33,14 @@ fails.  N is resolved as in the JAX trainer: on ``cuda`` capped at the
 visible cards (``--dp 0``: all of them) and shrunk to a divisor of the
 microbatch; on the CPU it is the number of processes.
 
-``--sp N`` (MyGAN with every option, Xception, GANomaly, c2plus1d)
-shards each clip's frames over N ranks (``parallel/temporal.py``,
+``--sp N`` (every family; MyGAN with every option) shards each clip's
+frames over N ranks (``parallel/temporal.py``,
 ``parallel/sp_generator.py``; Xception's and GANomaly's ops are
-frame-local): the command starts ``dp x N`` ranks, rank ``d N + k``
-holding rows ``d`` and frames ``k`` of each batch (on ``cuda`` one card
-each: ``dp N`` must fit the visible cards; on ``--device cpu``
-processes).  A MyGAN shard of one frame is refused under it, and so is
-``--sp`` for AnoGAN and clstm.
+frame-local, the ConvLSTM's recurrence is chained along the ranks):
+the command starts ``dp x N`` ranks, rank ``d N + k`` holding rows
+``d`` and frames ``k`` of each batch (on ``cuda`` one card each: ``dp
+N`` must fit the visible cards; on ``--device cpu`` processes).  A
+MyGAN shard of one frame is refused under it.
 
 ``--pp N [--pp_micro M]`` (Xception) pipelines the eight middle blocks
 over N stages (``parallel/pp_xception.py``, GPipe with M microbatches,

@@ -22,6 +22,20 @@ Submodule names and indices are the reference's Sequential ones
 The parameter-free slots of the reference's Sequentials (Dropout, ReLU,
 LeakyReLU, AvgPool) are computed in ``forward``.
 
+Under ``--sp`` (``parallel.mesh.SeqParallel`` bound as ``sp``) both nets
+run on this rank's frames.  G's seed Linear and ``BatchNorm1d`` run
+replicated on the row's peers (the row shares ``z``), and its seed volume
+of nfr/8 frames splits over the row once the shards hold whole frames
+(at once at sp 2 and nfr 16; at sp 4 after the first stage).  A stride-2
+transposed conv's output frames ``[2a, 2b)`` read input frames ``a .. b``:
+a right halo of one frame, zeros past the last shard, which add nothing
+(``ConvTranspose3d.valid_t``); the stride-1 one and every 3x3x3 conv take
+one halo frame a side, and the dropout keeps the rank's frames of the
+global mask.  D's convs take one halo frame a side, its pools are local
+while a shard holds an even count (else the frames are gathered first),
+and its pooled block is gathered before the flatten, so the Linear reads
+the whole clip's features and every peer holds every clip's score.
+
 ``dtype`` is the compute dtype of ``models/layers.py``.  As in JAX: the
 Linear runs in ``dtype``; a transposed conv's biased sum is read by the
 conv after it in ``dtype``, and so is the discriminator's first conv of a
@@ -31,6 +45,8 @@ float32 before the sigmoid.  Dropout masks come from the
 """
 
 from __future__ import annotations
+
+from contextlib import nullcontext
 
 import torch
 import torch.nn as nn
@@ -43,6 +59,7 @@ from vfd_gan_tpu_torch.models.layers import (
     VideoBatchNorm,
     dropout,
     float32_or_wider,
+    frame_shards,
     make_conv3d,
 )
 from vfd_gan_tpu_torch.ops.convs import avg_pool_ncdhw
@@ -70,6 +87,8 @@ class AnoGenerator(nn.Module):
 
     # a parallel.mesh.DataParallel: dropout draws the global batch's masks
     dp = None
+    # a parallel.mesh.SeqParallel (--sp): the output is this rank's frames
+    sp = None
 
     def __init__(self, nfr: int = 16, isize: int = 128, *,
                  drop_rate: float = 0.25, dtype: torch.dtype = torch.float32,
@@ -104,34 +123,60 @@ class AnoGenerator(nn.Module):
             **shifted(stage(64, 3, 2, 1))})
 
     def _up(self, layer: nn.ModuleDict, i: int, x: torch.Tensor,
-            generator) -> torch.Tensor:
+            generator, sp) -> torch.Tensor:
         """Dropout, then the transposed conv at slot ``i + 1`` and the conv
         at ``i + 2``; the transposed conv's biased sum is read in the
-        stage input's dtype."""
-        x = dropout(x, self.drop_rate, self.training, generator, self.dp)
-        y = layer[str(i + 1)](x).to(x.dtype)
-        return layer[str(i + 2)](y)
+        stage input's dtype.  With ``sp`` on this rank's frames: the
+        dropout keeps them of the global mask, a stride-2 transposed conv
+        takes a right halo of one frame, the stride-1 one and the conv
+        after it one halo frame a side."""
+        x = dropout(x, self.drop_rate, self.training, generator, self.dp,
+                    frame_dim=None if sp is None else 2)
+        tconv, conv = layer[str(i + 1)], layer[str(i + 2)]
+        if sp is None:
+            return conv(tconv(x).to(x.dtype))
+        left = int(tconv.stride[0] == 1)
+        y = tconv.valid_t(sp.halo(x, 1, left=bool(left)), left, x.shape[2])
+        return conv.valid_t(sp.halo(y.to(x.dtype), 1))
 
     def forward(self, z: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        """Video ``(B, 3, T, H, W)`` in (0, 1) from ``z (B, 100)``;
-        ``generator`` draws the dropout masks of a train-mode forward."""
-        g = generator
-        x = F.relu(self.layer1["1"](self.layer1["0"](z)))
-        x = x.view(z.shape[0], *self.seed_shape)
-        x = F.leaky_relu(self.layer2["3"](self._up(self.layer2, 0, x, g)),
-                         0.01)
-        x = F.leaky_relu(self.layer2["8"](self._up(self.layer2, 5, x, g)),
-                         0.01)
-        x = F.leaky_relu(self.layer3["3"](self._up(self.layer3, 0, x, g)),
-                         0.01)
-        return torch.sigmoid(float32_or_wider(self._up(self.layer3, 5, x, g)))
+        """Video ``(B, 3, T, H, W)`` in (0, 1) from ``z (B, 100)``, under
+        ``--sp`` this rank's frames; ``generator`` draws the dropout masks
+        of a train-mode forward."""
+        sp = frame_shards(self)
+        sharded = False
+
+        def shard(x):
+            # split the replicated frames once each shard gets whole ones
+            nonlocal sharded
+            if sp is not None and not sharded and x.shape[2] % sp.size == 0:
+                x, sharded = sp.split(x), True
+            return x
+
+        def segment():
+            return nullcontext() if sp is None else sp.segment(sharded)
+
+        with segment():
+            x = F.relu(self.layer1["1"](self.layer1["0"](z)))
+        x = shard(x.view(z.shape[0], *self.seed_shape))
+        for layer, i, bn in ((self.layer2, 0, "3"), (self.layer2, 5, "8"),
+                             (self.layer3, 0, "3"), (self.layer3, 5, None)):
+            x = shard(self._up(layer, i, x, generator,
+                               sp if sharded else None))
+            if bn is not None:
+                with segment():
+                    x = F.leaky_relu(layer[bn](x), 0.01)
+        return torch.sigmoid(float32_or_wider(x))
 
 
 class AnoDiscriminator(nn.Module):
     """Video discriminator (reference NetD, anogan.py:81-119).  The Linear
     input size follows the clip geometry, so it takes ``nfr`` and
     ``isize``."""
+
+    # a parallel.mesh.SeqParallel (--sp): x is this rank's frames
+    sp = None
 
     def __init__(self, nfr: int = 16, isize: int = 128, *,
                  dtype: torch.dtype = torch.float32, device=None,
@@ -155,13 +200,35 @@ class AnoDiscriminator(nn.Module):
 
     def forward(self, x: torch.Tensor):
         l1, l2 = self.layer1, self.layer2
-        x = F.leaky_relu(l1["1"](l1["0"](x)), 0.01)
-        x = l1["4"](l1["3"](x).to(x.dtype))
+        sp = frame_shards(self)
+        sharded = sp is not None
+
+        def conv(c, h):
+            # a 3x3x3 conv: one halo frame a side on a rank's frames
+            return c.valid_t(sp.halo(h, 1)) if sharded else c(h)
+
+        def bn(m, h):
+            if sp is None:
+                return m(h)
+            with sp.segment(sharded):
+                return m(h)
+
+        def pool(h):
+            nonlocal sharded
+            if sharded and h.shape[2] % 2:
+                h, sharded = sp.gather(h), False
+            return avg_pool_ncdhw(h, 2)
+
+        x = F.leaky_relu(bn(l1["1"], conv(l1["0"], x)), 0.01)
+        x = conv(l1["4"], conv(l1["3"], x).to(x.dtype))
         # the reference's nn.LeakyReLU(64): slope 64 (anogan.py:91)
-        x = avg_pool_ncdhw(F.leaky_relu(l1["5"](x), 64.0), 2)
-        x = l2["1"](l2["0"](x).to(x.dtype))
-        x = avg_pool_ncdhw(F.leaky_relu(l2["2"](x), 0.01), 2)
-        x = avg_pool_ncdhw(F.leaky_relu(l2["6"](l2["5"](x)), 0.01), 2)
+        x = pool(F.leaky_relu(bn(l1["5"], x), 64.0))
+        x = conv(l2["1"], conv(l2["0"], x).to(x.dtype))
+        x = pool(F.leaky_relu(bn(l2["2"], x), 0.01))
+        x = pool(F.leaky_relu(bn(l2["6"], conv(l2["5"], x)), 0.01))
+        if sharded:
+            # the Linear reads the whole clip's (C, T, H, W) features
+            x = sp.gather(x)
         features = x.flatten(1)
         score = torch.sigmoid(float32_or_wider(self.fc["0"](features)))
         return score[:, 0], features

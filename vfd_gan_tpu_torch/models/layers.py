@@ -21,8 +21,8 @@ NCDHW ``(B, C, T, H, W)`` input.  Submodule names are the reference's, so
 * ``dropout``: flax ``nn.Dropout``'s function with masks drawn from a
   ``torch.Generator``.
 * ``frame_shards``, ``upsample2x_sp``: the ``--sp`` nets' (MyGAN's,
-  the AutoEncoder's) binding to their ``SeqParallel`` and x2 upsample of
-  a rank's frames.
+  the AutoEncoder's, AnoGAN's, the ConvLSTM's) binding to their
+  ``SeqParallel`` and x2 upsample of a rank's frames.
 
 Compute dtype, as the JAX modules' ``dtype`` field sets it (bfloat16 is
 the trainer's default): parameters and running statistics stay float32;
@@ -193,6 +193,21 @@ class ConvTranspose3d(_InputDtypeConv, nn.ConvTranspose3d):
     def _conv(self, x, weight, bias):
         return F.conv_transpose3d(x, weight, bias, self.stride, self.padding,
                                   self.output_padding)
+
+    def valid_t(self, x: torch.Tensor, left: int, frames: int
+                ) -> torch.Tensor:
+        """This shard's ``stride * frames`` output frames of the
+        transposed conv of a frame-sharded block (``--sp``): ``x`` holds
+        the shard's ``frames`` frames after ``left`` halo frames, and
+        behind them the halo frames that its outputs read (output frame o
+        reads input frames (o + padding - k) / stride, k < 3).  The conv
+        runs with no padding and no output padding over T (its own over H
+        and W), and the shard's frames are cut from its output."""
+        s, p = self.stride[0], self.padding[0]
+        pad, out_pad = (0, *self.padding[1:]), (0, *self.output_padding[1:])
+        y = self._in_dtype(x, lambda x, w, b: F.conv_transpose3d(
+            x, w, b, self.stride, pad, out_pad))
+        return y.narrow(2, p + s * left, s * frames)
 
 
 class ConvTranspose2d(_InputDtypeConv, nn.ConvTranspose2d):

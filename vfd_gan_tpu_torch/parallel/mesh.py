@@ -154,10 +154,11 @@ class DataParallel:
     ``"stretch"``; ``synced``); under ``--sp`` also ``"bn_sp"`` (the
     BatchNorm statistics of the sharded segments over the rank's frames
     alone), ``"stretch_grid"`` (the stretch's MAX over the whole grid,
-    which mixes frames), ``"halo"`` (``SeqParallel``: zero halos) and
-    ``"dropout_sp"`` (each shard draws a mask of its own frames' shape,
-    the same on every shard, as a dropout that passes no ``frame_dim``
-    would).
+    which mixes frames), ``"halo"`` (``SeqParallel``: zero halos),
+    ``"carry"`` (``SeqParallel``: each shard starts the ConvLSTM's
+    recurrence from zeros, as if alone) and ``"dropout_sp"`` (each shard
+    draws a mask of its own frames' shape, the same on every shard, as a
+    dropout that passes no ``frame_dim`` would).
 
     ``sp``: the rank's ``SeqParallel`` on a ``(dp, sp)`` grid (``None``
     without one).  Then ``rank`` and ``world`` place the rows, ``group``
@@ -404,14 +405,15 @@ class SeqParallel:
 
     The modules that shard frames are bound to it (``DataParallel.bind``:
     their ``sp``) and call the frame axis's operations through it:
-    ``halo``, ``upsample2x_t``, ``gather``, ``split`` and ``sum``
-    (``parallel/temporal.py``).
+    ``halo``, ``upsample2x_t``, ``gather``, ``split``, ``sum``,
+    ``carry_in`` and ``carry_out`` (``parallel/temporal.py``).
 
     ``on``: the nets shard their frames (off in the test sweep, whose nets
     take whole clips, but for ``generator_forward_sp``).  ``replicated``:
     a segment of a net runs on the gathered frames, the same on every sp
-    peer (``segment``).  ``local_ops``: ``{"halo"}``, the control whose
-    halos are zeros, each shard padded as if alone.  ``counts``: the
+    peer (``segment``).  ``local_ops``: the controls ``"halo"`` (zero
+    halos, each shard padded as if alone) and ``"carry"`` (each shard's
+    recurrence started from zeros).  ``counts``: the
     exchanges made by kind, ``[calls, ms]``; with ``timed`` the device is
     synchronised around each one and the ms are summed."""
 
@@ -464,6 +466,16 @@ class SeqParallel:
         """This shard's frames of a clip every peer holds whole."""
         size = x.shape[dim] // self.size
         return x.narrow(dim, self.index * size, size)
+
+    def carry_in(self, anchor: torch.Tensor, state: torch.Tensor):
+        """``(anchor, the state this shard's recurrence starts from)``,
+        handed on by the shard before (``temporal.carry_in``)."""
+        return temporal.carry_in(anchor, state, self)
+
+    def carry_out(self, state: torch.Tensor) -> torch.Tensor:
+        """This shard's last state handed to the shard after, returned
+        for use in its place (``temporal.carry_out``)."""
+        return temporal.carry_out(state, self)
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over the sp peers of the row; its backward is

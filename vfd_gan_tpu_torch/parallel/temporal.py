@@ -22,10 +22,16 @@ equal to the rank's frames of the unsharded op.
 * ``gather_frames`` (every shard's frames on every peer; backward: the
   peers' gradients summed, this shard's part kept): what a net needs
   where a level's frames run out (``models/mygan.py``).
+* ``carry_in`` and ``carry_out``: a recurrence chained along the row
+  (``models/convlstm.py``).  Shard k takes the state that shard k-1
+  carried out of its last frame (zeros on shard 0), runs its frames and
+  hands its last state to shard k+1; in the backward the state's
+  gradient passes the other way, from the last shard to the first.
 
 The nets call these through the ``SeqParallel`` they are bound to
-(``sp.halo``, ``sp.upsample2x_t``, ``sp.gather``; with ``sp.split`` and
-``sp.sum``), so ``models/`` and ``ops/`` import nothing of this package.
+(``sp.halo``, ``sp.upsample2x_t``, ``sp.gather``, ``sp.carry_in``,
+``sp.carry_out``; with ``sp.split`` and ``sp.sum``), so ``models/`` and
+``ops/`` import nothing of this package.
 
 Every hand-off is a ``broadcast`` in the two-rank group of a neighbour
 pair (``SeqParallel.prev_group``/``next_group``) or in the row's sp group:
@@ -256,3 +262,74 @@ def gather_frames(block: torch.Tensor, sp: SeqParallel,
     backward sums the peers' gradients and keeps this shard's frames (each
     peer's loss reads the whole)."""
     return _Gather.apply(block, sp, dim)
+
+
+class _CarryIn(torch.autograd.Function):
+    """Shard k (> 0) receives the state of shard k-1; its backward sends
+    the state's gradient back.  ``anchor`` (the layer's input gates, which
+    every step reads) passes through unchanged: it ties the node into the
+    graph, and since its gradient is whole only once every step's backward
+    has run, the gradient leaves for shard k-1 before anything upstream
+    of the layer (a BatchNorm's all-reduce over the grid) runs."""
+
+    @staticmethod
+    def forward(ctx, anchor, sp, shape):
+        ctx.sp = sp
+        state = _buffer(shape, anchor)
+        with sp.count("carry"):
+            dist.broadcast(state, sp.ranks[sp.index - 1],
+                           group=sp.prev_group)
+        return anchor.view_as(anchor), state
+
+    @staticmethod
+    def backward(ctx, g_anchor, g_state):
+        sp = ctx.sp
+        with sp.count("carry_grad"):
+            dist.broadcast(_sent(g_state), sp.ranks[sp.index],
+                           group=sp.prev_group)
+        return g_anchor, None, None
+
+
+class _CarryOut(torch.autograd.Function):
+    """Shard k (< size - 1) sends its last state to shard k+1 and returns
+    it unchanged; its backward receives the gradient of what it sent and
+    adds it to the state's own."""
+
+    @staticmethod
+    def forward(ctx, state, sp):
+        ctx.sp = sp
+        with sp.count("carry"):
+            dist.broadcast(_sent(state), sp.ranks[sp.index],
+                           group=sp.next_group)
+        return state.view_as(state)
+
+    @staticmethod
+    def backward(ctx, grad):
+        sp = ctx.sp
+        got = _buffer(grad.shape, grad)
+        with sp.count("carry_grad"):
+            dist.broadcast(got, sp.ranks[sp.index + 1], group=sp.next_group)
+        return grad + got, None
+
+
+def carry_in(anchor: torch.Tensor, state: torch.Tensor,
+             sp: SeqParallel) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(anchor, the state this shard's recurrence starts from)``: the
+    state that shard k-1 carried out (``carry_out``), or ``state`` (its
+    zeros) on shard 0 and under the ``"carry"`` control, where every
+    shard starts as if alone.  Use the returned ``anchor`` (the tensor
+    that every step reads) in place of the given one: its node sends the
+    state's gradient back to shard k-1 in the backward."""
+    if sp.index == 0 or "carry" in sp.local_ops:
+        return anchor, state
+    return _CarryIn.apply(anchor, sp, tuple(state.shape))
+
+
+def carry_out(state: torch.Tensor, sp: SeqParallel) -> torch.Tensor:
+    """``state`` (this shard's last) handed to shard k+1; returns it, to
+    be used in its place: the node that receives its gradient from shard
+    k+1 must stay on the path to the loss, or shard k+1 would wait in
+    its send for ever."""
+    if sp.index == sp.size - 1 or "carry" in sp.local_ops:
+        return state
+    return _CarryOut.apply(state, sp)

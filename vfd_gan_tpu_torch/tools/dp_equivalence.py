@@ -54,9 +54,9 @@ and reach the card once for many batches.  A case is one of
   ``no_pth``: the sweeps' best checkpoints recorded by head (``saved``),
   not written (the card's full-width cases, to keep what a run writes
   small).  ``hold_kernels``: every call of the augment gather's, the
-  opening's and the fused flow solver's kernels, in the steps and the
-  sweeps, held against its plain version on the same inputs
-  (``_held_kernels``; the result's ``kernel_vs_plain``).
+  opening's, the fused flow solver's and the 3x3 conv's kernels, in the
+  steps and the sweeps, held against its plain version on the same
+  inputs (``_held_kernels``; the result's ``kernel_vs_plain``).
 * ``{"name", "kind": "gan_core", "argv", "state": path, "data": path,
   "gt": path, "flows": path, "float64": bool}``: one MyGAN ``_gan_core``
   step from the given state dicts on this rank's rows of the given global
@@ -73,20 +73,24 @@ and reach the card once for many batches.  A case is one of
   "batch": path, "draws": path}``: one supervised or GANomaly step of a
   ``--pp`` or ``--sp`` command line from the given state dict, on this
   rank's part of the given global batch with the given augment draws and
-  dropout off (``run_step_core``).
+  dropout off (``run_step_core``); AnoGAN's also with the given ``"z"``
+  (npy) of the global batch.
 * ``{"name", "kind": "handoff", "n_micro"}``: the GPipe schedule of a
   toy block a stage, whose outputs are channels-last (``run_handoff``).
 * ``{"name", "kind": "temporal", "inputs": path}``: the frame-axis ops of
   ``parallel/temporal.py`` on this rank's frames, the group one sp row
   (``run_temporal``); ``{"name", "kind": "sp_generator", "ngf", "state",
-  "x"}``: ``generator_forward_sp`` likewise (``run_sp_generator``).
+  "x"}``: ``generator_forward_sp`` likewise (``run_sp_generator``);
+  ``{"name", "kind": "sp_nets", "model": "anogan" | "clstm", "state",
+  "x", "z"}``: AnoGAN's G and D, or the ConvLSTM, in eval mode on this
+  rank's frames (``run_sp_nets``).
 
 ``--sp``: a train case's ``argv`` with ``--sp N`` runs on the group as a
 ``(dp, sp)`` grid (``dp`` 2 in the case: in the group), and its result
 holds the frame axis's exchanges per step (``sp_counts``, kept beside
 the distances); its ``local_ops`` may name the sp controls (``"halo"``,
-``"bn_sp"``, ``"stretch_grid"``, ``"dropout_sp"``); a flow case with
-``"sp": N`` takes this rank's rows and frames; a gan_core case its
+``"bn_sp"``, ``"stretch_grid"``, ``"dropout_sp"``, ``"carry"``); a flow
+case with ``"sp": N`` takes this rank's rows and frames; a gan_core case its
 frames of the given batch and flows; an sp_generator case with
 ``"model": "ae"`` runs the AutoEncoder (``--ae``, c2plus1d) instead of
 the Generator.  A train case's ``"ref"`` may be a list: the distances to
@@ -480,25 +484,61 @@ def _blobs(shape, device) -> torch.Tensor:
         0, 2, 3, 4, 1)
 
 
+def conv3x3_reading(got: torch.Tensor, want: torch.Tensor,
+                    x: torch.Tensor, w: torch.Tensor) -> tuple:
+    """A 3x3 conv kernel's output against its plain version on the same
+    ``x`` and ``w`` (the weights convolved by), by the conv3x3 phases'
+    criteria: float32 ``|got - want| <= 1e-5 + 1e-5 |want|`` (the reading:
+    the largest ratio of the two sides, <= 1 passes); bfloat16 at least
+    99% of the elements equal and every one within one ulp beyond the
+    float32 sums' spread (``spatial_conv.conv_sum_slack``; the reading:
+    ulps beyond it, <= 1 passes).  Returns ``(reading, passes, equal
+    share)``."""
+    from vfd_gan_tpu_torch.ops import spatial_conv
+
+    equal = float((got == want).float().mean())
+    if got.dtype == torch.bfloat16:
+        ulps = float(spatial_conv.bf16_ulps(
+            got, want, spatial_conv.conv_sum_slack(x, w)).max())
+        return ulps, ulps <= 1.0 and equal >= 0.99, equal
+    g, wt = got.double(), want.double()
+    ratio = float(((g - wt).abs() / (1e-5 + 1e-5 * wt.abs())).max())
+    return ratio, ratio <= 1.0, equal
+
+
 @contextlib.contextmanager
 def _held_kernels(record: dict):
     """A block in which every call of the augment gather
     (``ops/augment.augment_gather``, on a CUDA batch its kernel), of the
     opening (``ops/morphology.morphology_open``, on a CUDA video its
-    kernel) and of the fused flow solver (``ops/flow.flow_refine_fused``,
-    on CUDA fields its kernel; under ``--sp`` the rank's halo'd fields) is
-    also computed by the plain version on the same inputs:
+    kernel), of the fused flow solver (``ops/flow.flow_refine_fused``, on
+    CUDA fields its kernel; under ``--sp`` the rank's halo'd fields) and
+    of the 3x3 conv (``ops/spatial_conv.conv3x3_forward``, forward and dx,
+    on CUDA frames its kernel; the ConvLSTM's gates on the rank's frames)
+    is also computed by the plain version on the same inputs:
     ``record[name]`` gets each call's largest absolute difference and
-    input shape (and for the opening its input's and output's fill); each
-    opening is also held on ``_blobs`` of its input's shape and layout
+    input shape (for the opening its input's and output's fill; for the
+    conv ``conv3x3_reading`` with its shape and dtype); each opening is
+    also held on ``_blobs`` of its input's shape and layout
     (``morphology_open_blobs``).  The kernel's output on the path's input
     is the one returned, and only its launch is counted."""
-    from vfd_gan_tpu_torch.ops import augment, morphology
+    from vfd_gan_tpu_torch.ops import augment, morphology, spatial_conv
     from vfd_gan_tpu_torch.ops import flow as flow_mod
     from vfd_gan_tpu_torch.ops.flow_fused import flow_refine_fused_plain
 
     gather, opening = augment.augment_gather, morphology.morphology_open
     fused = flow_mod.flow_refine_fused
+    conv = spatial_conv.conv3x3_forward
+
+    def held_conv(x, w, flip=False):
+        out = conv(x, w, flip)
+        k = w.flip(0, 1).transpose(2, 3) if flip else w
+        want = spatial_conv.conv3x3_plain(x, k)
+        reading, ok, equal = conv3x3_reading(out, want, x, k)
+        record.setdefault("conv3x3", []).append(
+            (reading, ok, equal, tuple(x.shape), k.shape[-1],
+             str(x.dtype).replace("torch.", "")))
+        return out
 
     def held_fused(p1, p2, flow, winsize, iterations):
         out = fused(p1, p2, flow, winsize, iterations)
@@ -545,12 +585,14 @@ def _held_kernels(record: dict):
     augment.augment_gather = held_gather
     morphology.morphology_open = held_opening
     flow_mod.flow_refine_fused = held_fused
+    spatial_conv.conv3x3_forward = held_conv
     try:
         yield
     finally:
         augment.augment_gather = gather
         morphology.morphology_open = opening
         flow_mod.flow_refine_fused = fused
+        spatial_conv.conv3x3_forward = conv
 
 
 def run_gan_core(case: dict, root: Path) -> dict:
@@ -748,6 +790,61 @@ def run_sp_generator(case: dict) -> dict:
     return out
 
 
+def run_sp_nets(case: dict) -> dict:
+    """AnoGAN's G and D (``"model": "anogan"``, ``case["state"]`` a
+    ``{"netG", "netD"}`` of state dicts, G fed the z ``case["z"]`` (npy,
+    ``(B, 100)``), D the clip ``case["x"]`` (npy, ``(B, T, H, W, 3)``))
+    or the ConvLSTM (``"clstm"``, on the clip) in eval mode on this
+    rank's frames, the whole group one sp row, in float32 and in float64
+    (``*64``): G's frames (``fake``), D's scores and features, the
+    ConvLSTM's mask frames; rank 0 also the unsharded nets' (``alone*``).
+    """
+    from vfd_gan_tpu_torch.models.anogan import (
+        AnoDiscriminator,
+        AnoGenerator,
+    )
+    from vfd_gan_tpu_torch.models.convlstm import ConvLSTMModel
+
+    dp = sp_grid(dist.get_world_size()).data_parallel("cpu")
+    sp = dp.sp
+    x = torch.from_numpy(np.load(case["x"])).permute(0, 4, 1, 2, 3)
+    t, s = x.shape[2], x.shape[3]
+    state = torch.load(case["state"])
+    if case["model"] == "anogan":
+        nets = {"netG": AnoGenerator(t, s), "netD": AnoDiscriminator(t, s)}
+    else:
+        nets = {"clstm": ConvLSTMModel()}
+    for name, net in nets.items():
+        net.load_state_dict(state if len(nets) == 1 else state[name],
+                            strict=True)
+    # the unsharded references: nets never bound to sp
+    whole = {k: copy.deepcopy(v).eval() for k, v in nets.items()}
+    for net in nets.values():
+        dp.bind(net.eval())
+    z = torch.from_numpy(np.load(case["z"])) if "z" in case else None
+
+    def run(nets, clip, z):
+        if "clstm" in nets:
+            return {"mask": nets["clstm"](clip)}
+        score, feat = nets["netD"](clip)
+        return {"fake": nets["netG"](z), "score": score, "features": feat}
+
+    out = {}
+    with torch.no_grad():
+        for tag, dtype in (("", torch.float32), ("64", torch.float64)):
+            for net in (*nets.values(), *whole.values()):
+                net.to(dtype)
+            clip = x.to(dtype)
+            zd = None if z is None else z.to(dtype)
+            mine = run(nets, clip[:, :, sp.frame_slice(t)], zd)
+            out.update({f"{k}{tag}": v for k, v in mine.items()})
+            if sp.index == 0:
+                out.update({f"alone_{k}{tag}": v
+                            for k, v in run(whole, clip, zd).items()})
+    out["counts"] = {k: v[0] for k, v in sp.counts.items()}
+    return out
+
+
 def run_step_core(case: dict, root: Path) -> dict:
     """One train step of a supervised or GANomaly command line (``--pp``,
     ``--sp``) from the given state dict (a net's, or ``{net: state
@@ -787,6 +884,9 @@ def run_step_core(case: dict, root: Path) -> dict:
                  torch.from_numpy(draws["crop"]).long(),
                  torch.from_numpy(draws["pick"]))
         module.sample_clip_params = lambda *a, **k: given
+        if "z" in case:
+            z = torch.from_numpy(np.load(case["z"]))
+            engine._draw_z = lambda b: z
         dp = engine.dp
         if dp.active:
             batch = {k: v[dp.rows(v.shape[0], engine.micro)]
@@ -844,6 +944,8 @@ def run_cases(cases: list[dict], out: Path) -> None:
             result = run_temporal(case)
         elif kind == "sp_generator":
             result = run_sp_generator(case)
+        elif kind == "sp_nets":
+            result = run_sp_nets(case)
         else:
             result = run_flow(case, dp)
         if solo:

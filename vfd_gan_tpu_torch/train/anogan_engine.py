@@ -28,6 +28,16 @@ train step:
 * A best model is a ``{roc|pr}_ep{NNNN}_net{G,D}.pth`` pair with the
   reference's ``state_dict`` keys.
 
+``--sp N``: each rank steps on its frames of its rows, with its rows'
+z (the same on the row's peers).  G makes the rank's frames and D reads
+them; D gathers its pooled block over the row before its Linear, so
+every peer holds every clip's score and the losses are the row's; the
+BatchNorm statistics and the gradients are the grid's
+(``models/anogan.py``).  The sweep runs G, D and ``predict_forgery``
+(its extrema are per frame) on the rank's frames and gathers the row's
+fakes and heat maps before the threshold and the opening
+(``EngineBase.sharded_forward``).
+
 The nets compute in ``--compute_dtype`` (bfloat16 by default, float32
 parameters and Adam state; ``models/layers.py``); G's video, D's score
 and the losses are float32.
@@ -116,8 +126,7 @@ class AnoGanEngine(EngineBase):
         data, real, gt = augment_clips(params, batch["data"], batch["real"],
                                        batch["mask"], cfg.isize)
         real = real.to(self.input_dtype)
-        z, = self._mine((torch.randn((self._global(b), Z_DIM),
-                                     generator=self.rng, device=self.device),))
+        z, = self._mine((self._draw_z(self._global(b)),))
         z = z.to(self.input_dtype)
         metrics, fake = self._ano_core(real, z, self.rng,
                                        not self.stuck_in_eval)
@@ -126,6 +135,12 @@ class AnoGanEngine(EngineBase):
                      "pred": predict_forgery(fake, real)} \
             if self.panel_step else None
         return metrics
+
+    def _draw_z(self, b: int) -> torch.Tensor:
+        """z ~ N(0, 1) of a train step's global batch of ``b`` rows, from
+        the engine's generator (every rank draws them all)."""
+        return torch.randn((b, Z_DIM), generator=self.rng,
+                           device=self.device)
 
     def _ano_core(self, real: torch.Tensor, z: torch.Tensor,
                   drop_gen: torch.Generator | None = None,
@@ -197,11 +212,19 @@ class AnoGanEngine(EngineBase):
                         device=self.device).to(self.input_dtype)
         self.netg.eval()
         self.netd.eval()
-        fake = self.netg(z)
-        s_real, _ = self.netd(to_channel_first(real))
-        s_fake, _ = self.netd(fake)
-        fake = to_channel_last(fake)
-        pred = predict_forgery(fake, real)
+        scores = {}
+
+        def forward(real_frames):
+            fake = self.netg(z)
+            scores["real"], _ = self.netd(to_channel_first(real_frames))
+            scores["fake"], _ = self.netd(fake)
+            fake = to_channel_last(fake)
+            return fake, predict_forgery(fake, real_frames)
+
+        # under --sp the rank's frames, the row's fakes and heat maps
+        # gathered before the threshold and the opening
+        fake, pred = self.sharded_forward(forward, real, dim=1)
+        s_real, s_fake = scores["real"], scores["fake"]
         t_pre = threshold(pred)
         m_pre = video_open(t_pre, self.cfg.morph_plane)
         metrics = {"d/err_d/test": bce(s_real, ones) + bce(s_fake, zeros),

@@ -35,8 +35,7 @@
   means over the ranks; a stop signal on any rank parks every rank at the
   same step (an all-reduced MAX of the flag); ``--resume`` loads on every
   rank.
-* ``--sp N`` (MyGAN, Xception, GANomaly, c2plus1d;
-  ``parallel/mesh.SpGrid``): the
+* ``--sp N`` (every family; ``parallel/mesh.SpGrid``): the
   ranks form a ``dp x sp`` grid; the engine's ``dp`` places its rows and
   reduces over the whole grid, its ``dp.sp`` places its frames, and the
   train iterator gives this rank its rows' frames (``frames``).  The nets
@@ -88,16 +87,13 @@ from vfd_gan_tpu_torch.train.checkpoints import (
 )
 
 
-# JAX-engine options the port does not run yet, all of them several-card
-# ones: (is it set?, ROADMAP item).  --sp runs for MyGAN (with every
-# option), Xception, GANomaly and c2plus1d.
-SP_FAMILIES = ("mygan", "xception", "ganomaly", "c2plus1d")
+# JAX-engine options the port does not run yet, both several-card ones:
+# (is it set?, ROADMAP item).  --sp runs for all six families (MyGAN with
+# every option; a MyGAN shard of one frame is refused below).
 UNPORTED = {
     "moe_shards": (lambda c: c.moe_shards > 1,
                    "queue 1 item 13 (parallelism)"),
     "tp": (lambda c: c.tp > 1, "queue 1 item 13 (parallelism)"),
-    "sp": (lambda c: c.sp > 1 and c.model not in SP_FAMILIES,
-           "queue 1 item 13b (--sp for anogan and clstm)"),
 }
 
 

@@ -35,8 +35,9 @@ Under ``--ref_mode_quirks`` the reference's stuck-in-eval latch holds: its
 (lib/train_stcnn.py:143), so from step ``freq + 1`` on the model trains
 without dropout and normalises by frozen BatchNorm running statistics
 (gradients still flow).  ``--sp N`` (Xception, whose ops are
-frame-local, and c2plus1d, whose AutoEncoder exchanges halos and gathers
-its coarse levels, ``models/stcnn.py``): each rank steps on its frames
+frame-local; c2plus1d, whose AutoEncoder exchanges halos and gathers
+its coarse levels, ``models/stcnn.py``; clstm, whose recurrence is
+chained along the row, ``models/convlstm.py``): each rank steps on its frames
 of its rows, the augment parameters drawn for the global
 batch, the BatchNorm statistics, gradients and loss over the grid, and
 under ``--accum k`` its rows and frames of each microbatch (JAX
