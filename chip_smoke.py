@@ -70,12 +70,16 @@ phases, one line each (or a few):
     each (``_ano_core`` with z and dropout masks from the CPU,
     ``_ganomaly_core``), then ``cli.trainer.main --model anogan|ganomaly``
     at b8, T16, 128^2 (their widths are fixed) for 4 steps and a one-batch
-    sweep: finite losses and scores, the best ``*_netG.pth``/``*_netD.pth``
+    sweep (AnoGAN's float32 sweep scored on the card, ``--device_scoring``;
+    its bf16 sweep on the host): finite losses and scores, the best
+    ``*_netG.pth``/``*_netD.pth``
     pair loaded back with strict=True, one augment launch per step, one
     opening launch per AnoGAN sweep batch (none in GANomaly's frame-level
     sweep), step median, clips/s and peak memory;
 14. device scoring: one full-width one-batch sweep of each family with
-    and without ``--device_scoring``, from the same seed: roc/pr/f1
+    and without ``--device_scoring``, on one engine a family (the same
+    weights, clips and AnoGAN z: its iterator and generator set back
+    between the two): roc/pr/f1
     within 1e-5 and the same best checkpoint, and the time of
     ``score_and_checkpoint`` on each path (GANomaly's frame-level ROC
     stays on the host, as in the JAX engine);
@@ -116,8 +120,12 @@ phases, one line each (or a few):
 21. evaluate: ``cli.export_torch`` of a 2-step MyGAN run's ``latest.pt``
     (the pair loads strict=True), then ``cli.evaluate_models`` on that G
     and the seed-0 clstm, c2plus1d and xception files over clips held in
-    memory (b2, T16, 128^2): AUC, EER, F1 and seconds per model, each
-    within 1e-4 of the same call on the CPU, no opening launch;
+    memory (b2, T16, 128^2): AUC, EER, F1 and seconds per model, the
+    card's scores within 1e-4 of the same call's on the CPU and each
+    metric within the bound those scores imply (the share of pairs or
+    pixels that a move of that size can reorder or flip: an EER on
+    near-tied scores moves by a tie group), no opening launch; MyGAN's
+    card scores moved by 2e-4, the control, refused;
 22. host-only: with ``import cv2`` made to fail, ``--host_flow`` exits when
     the engine is built, naming cv2; where cv2 imports, a 2-step
     ``--host_flow`` MyGAN run (no flow kernel) and ``cli.frames`` on a
@@ -220,9 +228,25 @@ phases, one line each (or a few):
     ulp beyond the sums' spread) and launched as many times as predicted
     per rank; AnoGAN's zero halos and clstm's recurrence started from
     zeros on every shard (``"carry"``), in float32 and bf16, must fail
-    the gate.
+    the gate;
+33. ep (``phase_ep``): two gloo ranks on the card run full-width
+    Xception ``--moe_experts 4 --moe_shards 2`` (each rank 2 experts and
+    their Adam state) at b8 nfr 16 128^2, capacity 0.5, float32 and
+    bf16, 2 steps and a one-batch sweep each, held as the sp-families
+    runs are against the sp-families phase's two one-process runs of the
+    same command line (parameters, running statistics, the first step's
+    gradient and running statistics, the sweep's scores, the first step's
+    kept set); both ranks' whole states (experts gathered) and their
+    trunk parameters after each step bit-equal; each rank's expert
+    parameters and Adam moments half the one-process run's; every augment
+    and opening call bit-equal; the bf16 run's ep exchanges timed; then
+    the MoE layer alone (full width, the run's 8192 tokens) over the two
+    ranks against the one-process layer, float32 and bf16: its output and
+    gradients within 3 x the dtype's own rounding, and the four layer
+    controls (the dispatch's backward unsummed, the combine's summed, the
+    router's input summed, the count table over the world) refused.
 
-The gloo ranks of the dp, parallel and sp phases start once, before the
+The gloo ranks of the dp, parallel, sp and ep phases start once, before the
 dp phase, and run each phase's cases in turn (``gloo_ranks``;
 ``tools/dp_equivalence.Standing``): they import, join their group and
 reach the card once, not once a phase.  The sp phases' controls run one
@@ -263,7 +287,7 @@ and the int8 serve + infer path) starts with the launch counts of the
 kernels set to 0 and reads them after; the same counters hold the int8
 GEMM's calls (``int8_matmul``: cuBLASLt, no kernel of the port), printed
 on the phases' lines and not on the kernels line.  ``--slice-only``
-runs the build and phases 29-32 alone and prints no result line;
+runs the build and phases 29-33 alone and prints no result line;
 ``--int8-study`` the build and the int8 site check of phase 24 on 12
 seeded clips of each family, and prints no result line.  A
 ``[phase-seconds]`` line gives the seconds of every phase function by
@@ -1839,6 +1863,13 @@ def phase_family_train(tmp: Path, model: str,
 
     ano = model == "anogan"
     flags, label = _dtype_flags(dtype)
+    # AnoGAN's float32 sweep is scored on the card: the host's ROC, PR and
+    # F1 of its ~2M distinct raw scores take 11-13 s a sweep on the H100
+    # machine's CPU; its bf16 run and the device-scoring phase hold the
+    # host path
+    if ano and dtype == "float32":
+        flags = [*flags, "--device_scoring"]
+        label += ", --device_scoring"
     root = tmp / f"runs_{model}_{dtype or 'default'}"
     argv = ["--model", model, "--batchsize", str(BATCH), "--nfr", str(NFR),
             "--isize", str(ISIZE), *flags,
@@ -1910,46 +1941,59 @@ SCORED = {"anogan": [], "mygan": ["--ngf", "32", "--ndf", "32",
 def phase_device_scoring(tmp: Path) -> None:
     """One full-width test sweep of each family with and without
     ``--device_scoring`` from the same seed (the same weights, test clips
-    and AnoGAN z): roc/pr/f1 within 1e-5 and the same best checkpoint
-    written.  GANomaly's frame-level sweep stays on the host either way,
-    as in the JAX engine.  The time of ``score_and_checkpoint`` (the
-    scoring and the checkpoint rule) on each path is printed."""
+    and AnoGAN z: one engine a family, its test iterator and generator
+    set back between the two sweeps): roc/pr/f1 within 1e-5 and the same
+    best checkpoint written.  GANomaly's frame-level sweep stays on the
+    host either way, as in the JAX engine.  The time of
+    ``score_and_checkpoint`` (the scoring and the checkpoint rule) on
+    each path is printed."""
     from vfd_gan_tpu_torch.cli.trainer import build_engine
 
     for model, extra in SCORED.items():
         results, saved, ms = {}, {}, {}
+        root = tmp / f"scoring_{model}"
+        eng = build_engine(
+            ["--model", model, "--batchsize", str(BATCH), "--nfr",
+             str(NFR), "--isize", str(ISIZE), "--compute_dtype",
+             "float32", "--synthetic_data", "1",
+             "--synthetic_test_batches", str(SCORING_SWEEP),
+             "--device", "cuda", "--no-tensorboard", "--result_root",
+             str(root), *extra])
+        score = eng.score_and_checkpoint
+        spent = []
+
+        def timed(*a, score=score, spent=spent):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = score(*a)
+            spent.append(1e3 * (time.perf_counter() - t0))
+            return out
+
+        eng.score_and_checkpoint = timed
+        rng = eng.rng.get_state()
         for flag in (False, True):
-            root = tmp / f"scoring_{model}_{flag}"
-            eng = build_engine(
-                ["--model", model, "--batchsize", str(BATCH), "--nfr",
-                 str(NFR), "--isize", str(ISIZE), "--compute_dtype",
-                 "float32", "--synthetic_data", "1",
-                 "--synthetic_test_batches", str(SCORING_SWEEP),
-                 "--device", "cuda",
-                 "--no-tensorboard", "--result_root", str(root), *extra,
-                 *(["--device_scoring"] if flag else [])])
-            score = eng.score_and_checkpoint
-            spent = []
-
-            def timed(*a, score=score, spent=spent):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out = score(*a)
-                spent.append(1e3 * (time.perf_counter() - t0))
-                return out
-
-            eng.score_and_checkpoint = timed
+            # the same sweep: its clips (the iterator's pass), AnoGAN's z
+            # (the generator), and the best scores it is judged against
+            eng.cfg.device_scoring = flag
+            eng.test_iter.epoch = 0
+            eng.rng.set_state(rng)
+            eng.best_roc = eng.best_pr = 0.0
+            eng.scores.clear()
+            spent.clear()
             out = eng.test()
             results[flag] = out if isinstance(out, tuple) else (out,)
             ms[flag] = spent[0] if spent else float("nan")
-            saved[flag] = sorted(p.name for p in root.rglob("*.pth"))
+            written = sorted(root.rglob("*.pth"))
+            saved[flag] = [p.name for p in written]
+            for p in written:
+                p.unlink()
             check(("score/eer" in eng.scores) == (flag and model
                                                   != "ganomaly"),
                   f"{model}: the EER comes with device scoring")
-            eng.close()
-            del eng
-            gc.collect()
-            torch.cuda.empty_cache()
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
         host, dev = results[False], results[True]
         check(all(np.isfinite(dev)) and all(
             abs(a - b) <= 1e-5 for a, b in zip(host, dev)),
@@ -2784,6 +2828,87 @@ def phase_remat(tmp: Path, device, base: dict) -> dict:
 
 # (the CPU forwards took 21 of the phase's 29 s at 4 clips)
 EVAL_BATCH = 2
+# the evaluate phase holds the card's scores to the CPU's within this
+# (as infer does), and each metric by the bound those scores imply
+EVAL_SCORE_TOL = 1e-4
+# float64 rounding of the curves' sums and brentq's tolerance (2e-12)
+# in the metrics' bounds
+EVAL_SLACK = 1e-11
+# the control's move of the card's scores (positives up, negatives down)
+EVAL_CONTROL_MOVE = 2e-4
+
+
+def _metric_bounds(labels: np.ndarray, scores: np.ndarray,
+                   moved: float) -> dict:
+    """How far each metric of ``cli.evaluate_models`` may move when every
+    score moves by at most ``moved`` (``scores``: one device's, as
+    scored).  AUC (the Mann-Whitney share of (positive, negative) pairs in
+    order, ties counting half): the share of pairs whose scores lie
+    within 2 ``moved``, the only pairs that can change order.  EER (where
+    the interpolated ROC crosses FPR = FNR, between the curve points of
+    thresholds a >= b): the curve points of thresholds a + ``moved`` and b
+    - ``moved`` still bracket the crossing, so it moves by at most the
+    share of negatives, and of positives, scored within [b - 2 ``moved``,
+    a + 2 ``moved``]: the smaller of the two.  F1 at 0.20: its extremes
+    over every pixel within ``moved`` of 0.20 flipping either way."""
+    from vfd_gan_tpu_torch.eval.metrics import roc_curve
+
+    pos = labels == 1
+    s_pos = np.sort(scores[pos].astype(np.float64))
+    s_neg = np.sort(scores[~pos].astype(np.float64))
+    n_pos, n_neg = len(s_pos), len(s_neg)
+    w = 2 * moved
+    near = (np.searchsorted(s_neg, s_pos + w, side="right")
+            - np.searchsorted(s_neg, s_pos - w, side="left")).sum()
+    fpr, tpr, thr = roc_curve(labels, scores)
+    # the first curve point past the crossing (the first is (0, 0), at an
+    # infinite threshold: above every score)
+    i = int(np.argmax(1.0 - fpr - tpr <= 0))
+    top = thr[i - 1] if np.isfinite(thr[i - 1]) else float(scores.max())
+    lo, hi = thr[i] - w, top + w
+
+    def within(sorted_scores):
+        return (np.searchsorted(sorted_scores, hi, side="right")
+                - np.searchsorted(sorted_scores, lo, side="left"))
+
+    eer = min(within(s_neg) / n_neg, within(s_pos) / n_pos)
+    pred = scores >= 0.20
+    unsure = np.abs(scores.astype(np.float64) - 0.20) <= moved
+    tp, fp = int((pos & pred).sum()), int((~pos & pred).sum())
+    up_p, down_p = int((pos & unsure & ~pred).sum()), int(
+        (pos & unsure & pred).sum())
+    up_n, down_n = int((~pos & unsure & ~pred).sum()), int(
+        (~pos & unsure & pred).sum())
+
+    def f1(tp_, fp_):
+        d = 2 * tp_ + fp_ + (n_pos - tp_)
+        return 2 * tp_ / d if d > 0 else 0.0
+
+    base = f1(tp, fp)
+    f1_bound = max(f1(tp + up_p, fp - down_n) - base,
+                   base - f1(tp - down_p, fp + up_n))
+    return {"auc": float(near) / (n_pos * n_neg), "eer": float(eer),
+            "f1": float(f1_bound)}
+
+
+def _evaluate_reading(name: str, labels: np.ndarray, card: np.ndarray,
+                      cpu: np.ndarray, got: dict, want: dict) -> tuple:
+    """The card's ``evaluate_models`` results against the CPU's: the
+    scores within ``EVAL_SCORE_TOL``, each metric within the bound that
+    the scores' largest move implies (``_metric_bounds`` of the CPU's
+    scores, plus ``EVAL_SLACK``).  Returns (passes, the line that says
+    each reading beside its bound)."""
+    moved = float(np.abs(card.astype(np.float64)
+                         - cpu.astype(np.float64)).max())
+    bounds = _metric_bounds(labels, cpu, moved)
+    ok = moved <= EVAL_SCORE_TOL
+    parts = [f"scores max |d| {moved:.3g} (<= {EVAL_SCORE_TOL:g})"]
+    for key in ("auc", "eer", "f1"):
+        d = abs(got[key] - want[key])
+        ok = ok and np.isfinite(got[key]) and d <= bounds[key] + EVAL_SLACK
+        parts.append(f"{key} {got[key]:.6f} (CPU {want[key]:.6f}, |d| "
+                     f"{d:.3g} <= bound {bounds[key]:.3g})")
+    return ok, f"{name}: " + ", ".join(parts)
 
 
 def phase_evaluate(tmp: Path, device, paths: dict) -> dict:
@@ -2791,9 +2916,13 @@ def phase_evaluate(tmp: Path, device, paths: dict) -> dict:
     loads strict=True), then ``cli.evaluate_models`` on that G and the
     seed-0 clstm, c2plus1d and xception files, over clips held in memory
     (b2, T16, 128^2; no cv2 to decode with here): raw sigmoid scores, so
-    no opening launch; per model AUC, EER, F1 and seconds, each against
-    the same call on the CPU within 1e-4."""
+    no opening launch; per model AUC, EER, F1 and seconds, the card's
+    against the same call on the CPU: the scores within 1e-4 and each
+    metric within the bound those scores imply (``_evaluate_reading``;
+    on near-tied scores an EER moves by a tie group); the card's scores
+    moved by 2e-4, the control, must be refused."""
     from vfd_gan_tpu_torch.cli import evaluate_models, export_torch
+    from vfd_gan_tpu_torch.eval.metrics import evaluate, roc_auc_with_eer
     from vfd_gan_tpu_torch.models.mygan import DualDisc, Generator
     from vfd_gan_tpu_torch.utils.checkpoint import load_state_dict
 
@@ -2814,39 +2943,67 @@ def phase_evaluate(tmp: Path, device, paths: dict) -> dict:
     clips = MemoryClips(EVAL_BATCH, NFR, ISIZE, seed=12)
     batch = {k: np.stack([clips[i][j] for i in range(EVAL_BATCH)])
              for j, k in enumerate(("data", "real", "mask"))}
-    lines, counts_by = [], {}
-    for ckpt in (g_pth, paths["clstm"], paths["c2plus1d"],
-                 paths["xception"]):
-        _reset_counts()                          # the evaluate path starts
-        t0 = time.perf_counter()
-        got = evaluate_models.evaluate_checkpoints(
-            [str(ckpt)], [batch], "roc", str(tmp / "eval_cuda"), device)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        counts = _counts()                       # ... and ends
-        t0 = time.perf_counter()
-        want = evaluate_models.evaluate_checkpoints(
-            [str(ckpt)], [batch], "roc", str(tmp / "eval_cpu"),
-            torch.device("cpu"))
-        cpu_secs = time.perf_counter() - t0
-        (name, r), = got.items()
-        check(list(want) == [name], f"{ckpt.name}: one model, {name}")
-        for key in ("auc", "eer", "f1"):
-            check(np.isfinite(r[key]) and abs(r[key] - want[name][key])
-                  <= 1e-4, f"{name} {key}: cuda {r[key]} vs cpu "
-                           f"{want[name][key]}")
-        check(counts["morphology_open"] == 0,
-              f"{name}: raw scores, no opening: {counts}")
-        counts_by[name] = counts
-        lines.append(f"{name} ({ckpt.name}): AUC {r['auc']:.6f} EER "
-                     f"{r['eer']:.6f} F1 {r['f1']:.6f} in {secs:.2f} s "
-                     f"(CPU {cpu_secs:.2f} s, within 1e-4)")
+    predict = evaluate_models.predict_batches
+    scored = []
+
+    def recorded(model, batches):
+        # the labels and scores each call scored (its own metrics' input)
+        out = predict(model, batches)
+        scored.append(out)
+        return out
+
+    lines, counts_by, held = [], {}, []
+    evaluate_models.predict_batches = recorded
+    try:
+        for ckpt in (g_pth, paths["clstm"], paths["c2plus1d"],
+                     paths["xception"]):
+            _reset_counts()                      # the evaluate path starts
+            t0 = time.perf_counter()
+            got = evaluate_models.evaluate_checkpoints(
+                [str(ckpt)], [batch], "roc", str(tmp / "eval_cuda"), device)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = _counts()                   # ... and ends
+            t0 = time.perf_counter()
+            want = evaluate_models.evaluate_checkpoints(
+                [str(ckpt)], [batch], "roc", str(tmp / "eval_cpu"),
+                torch.device("cpu"))
+            cpu_secs = time.perf_counter() - t0
+            (name, r), = got.items()
+            check(list(want) == [name], f"{ckpt.name}: one model, {name}")
+            (labels, card), (cpu_labels, cpu) = scored[-2:]
+            check(np.array_equal(labels, cpu_labels),
+                  f"{name}: the same labels on both devices")
+            ok, line = _evaluate_reading(name, labels, card, cpu, r,
+                                         want[name])
+            check(ok, line)
+            held.append((labels, card, cpu, want[name]))
+            check(counts["morphology_open"] == 0,
+                  f"{name}: raw scores, no opening: {counts}")
+            counts_by[name] = counts
+            lines.append(f"{line} in {secs:.2f} s (CPU {cpu_secs:.2f} s)")
+    finally:
+        evaluate_models.predict_batches = predict
+    # the control: MyGAN's card scores moved past 1e-4 (positives up,
+    # negatives down), scored as evaluate_models scores them
+    labels, card, cpu, want = held[0]
+    moved = card + np.where(labels == 1, EVAL_CONTROL_MOVE,
+                            -EVAL_CONTROL_MOVE).astype(card.dtype)
+    area, eer, _, _ = roc_auc_with_eer(labels, moved)
+    refused, control_line = _evaluate_reading(
+        "control", labels, moved, cpu,
+        {"auc": area, "eer": eer,
+         "f1": evaluate(labels, moved, metric="f1_score")}, want)
+    check(not refused, f"the evaluate check refuses scores moved by "
+                       f"{EVAL_CONTROL_MOVE:g}: {control_line}")
     check(counts_by["ConvLSTM"]["conv3x3"] > 0,
           "the ConvLSTM's forward launched the conv3x3 kernel")
     say("evaluate", f"export_torch {latest.name} -> {g_pth.name}, "
                     f"{d_pth.name} (strict loads); evaluate_models, "
-                    f"b{EVAL_BATCH} T{NFR} {ISIZE}^2 clips in memory: "
-                    + "; ".join(lines))
+                    f"b{EVAL_BATCH} T{NFR} {ISIZE}^2 clips in memory, the "
+                    "card against the CPU: " + "; ".join(lines)
+                    + f"; refused: MyGAN's card scores moved by "
+                      f"{EVAL_CONTROL_MOVE:g} ({control_line})")
     return counts_by
 
 
@@ -4272,7 +4429,8 @@ def _spf_case(tag: str, sp: int, runs=SPF_RUNS, **kw) -> dict:
             **settings, **kw}
 
 
-def phase_sp_families(tmp: Path, card: str) -> dict:
+def phase_sp_families(tmp: Path, card: str,
+                      shared: dict | None = None) -> dict:
     """``--sp 2`` for Xception and GANomaly, and MyGAN's ``--accum``,
     ``--int8_disc``, ``--cache_gt_flow`` and ``--ref_mode_quirks`` under
     it: two gloo ranks on this one card at the reference width (b8,
@@ -4283,9 +4441,11 @@ def phase_sp_families(tmp: Path, card: str) -> dict:
     G's and D's statistics and the dropout generator before step 2),
     held as ``_sp_runs`` holds them.  The shard-local BatchNorm control
     (Xception, float32 and bf16) and the per-shard MoE slots must fail
-    the gate.  Returns the kernels' launches by run (each rank's)."""
+    the gate.  Returns the kernels' launches by run (each rank's); its sp 1
+    references go into ``shared`` (the ep phase holds its runs to the
+    MoE ones)."""
     return _sp_runs(tmp, card, "sp-families", SPF_RUNS, SPF_CONTROLS,
-                    SPF_REFS_ONLY)
+                    SPF_REFS_ONLY, shared=shared)
 
 
 def phase_sp_ae(tmp: Path, card: str, shared: dict | None = None) -> dict:
@@ -4325,7 +4485,8 @@ def phase_sp_anogan_clstm(tmp: Path, card: str) -> dict:
 
 
 def _sp_runs(tmp: Path, card: str, phase: str, table, controls,
-             refs_only=(), refs: dict | None = None) -> dict:
+             refs_only=(), refs: dict | None = None,
+             shared: dict | None = None) -> dict:
     """The runs of ``table`` at sp 2 on two gloo ranks on this one card,
     each held within ``parallel/verify.py``'s K (10) x the spread of two
     one-process sp 1 runs (the plain run and its two-pass BatchNorm
@@ -4340,7 +4501,7 @@ def _sp_runs(tmp: Path, card: str, phase: str, table, controls,
     and peak MiB beside sp 1's, and exchanges per step by kind.  Each of
     ``controls`` (run, the reduction left local; ``CONTROL_STEPS`` steps,
     its ``CONTROL_KINDS`` readings) must fail the gate.  Returns the kernels' launches by run
-    (each rank's)."""
+    (each rank's); the sp 1 references go into ``shared`` where given."""
     from vfd_gan_tpu_torch.tools import dp_equivalence as eq
 
     t0 = time.perf_counter()
@@ -4356,6 +4517,8 @@ def _sp_runs(tmp: Path, card: str, phase: str, table, controls,
         gc.collect()
         torch.cuda.empty_cache()
     t_refs = time.perf_counter() - t0
+    if shared is not None:
+        shared.update(refs)
     runs = [r for r in table if r[0] not in refs_only]
     cases = [_spf_case(tag, 2, table, hold_kernels=True)
              for tag, *_ in runs]
@@ -4521,6 +4684,235 @@ def _conv_calls_line(calls: list) -> str:
             f"share min {min(c[2] for c in calls):.4f}")
 
 
+# the ep phase: full-width Xception --moe_experts 4 --moe_shards 2 at the
+# reference size (b8, T16, 128^2), capacity SPF_MOE_CAPACITY, float32 and
+# bf16, SPF_STEPS steps and a one-batch sweep each on the two gloo ranks;
+# its one-process references are the sp-families phase's "xception moe4"
+# runs (their command line but for --moe_shards: the same function).
+# The bf16 run times each ep exchange (the device synchronised around it)
+EP_RUNS = ("xception moe4 f32", "xception moe4 bf16")
+EP_SHARDS = 2
+
+
+# the MoE layer alone on the card (``tools/dp_equivalence.run_moe_layer``):
+# full-width Xception's block (728 channels, 4 experts, capacity
+# SPF_MOE_CAPACITY) on the b8 T16 8^2 tokens of a 128^2 clip, over the
+# two gloo ranks, against the one-process block; each of
+# EP_LAYER_CONTROLS must fail its reading in float32 and bf16.  The
+# controls are read here and not by the step's gate: full-width
+# Xception's first gradient parts by 18.7% (float32) and 140% (bf16)
+# between the two one-process references' BatchNorm arithmetics alone,
+# so the gate's limit there is 10x that, and no error confined to the
+# MoE layer's backward reaches it (H100 80GB HBM3, 700 W: each of the
+# five ep controls run as a step read 0.10-0.13x in float32 and bf16; the
+# wrong count table, a forward error, 64.6x in float32 by the kept set
+# and 0.60x in bf16; PERF.md)
+EP_LAYER = dict(kind="moe_layer", channels=728, experts=MOE_EXPERTS,
+                shape=[BATCH, NFR, ISIZE // 16, ISIZE // 16],
+                capacity=SPF_MOE_CAPACITY, device="cuda")
+EP_LAYER_CONTROLS = ("ep_dispatch", "ep_combine", "ep_router", "ep_table")
+EP_LAYER_KINDS = ("out", "x_grad", "router_grad", "experts_grad")
+# the ep layer and the one-process layer are two roundings of one
+# function in one dtype: each lies about the dtype's own rounding from
+# it (the one-process layer's distance from the float64 layer), so they
+# lie within about twice that of each other; 3 leaves the ep layer's
+# rounding half again as large
+EP_LAYER_FACTOR = 3.0
+
+
+def _layer_reading(got: dict, alone: dict, exact: dict) -> tuple:
+    """The ep layer's readings against the one-process layer in its dtype:
+    per kind (the block's output, its part of the input's gradient, the
+    router's and the experts' gradients) the relative L2 distance over
+    ``EP_LAYER_FACTOR`` x the dtype's own rounding of the one-process
+    layer (its distance from the float64 layer on the same routing);
+    returns ({kind: that ratio}, the line that says them)."""
+    def rel(a, b):
+        a, b = a.double().flatten(), b.double().flatten()
+        return float((a - b).norm() / b.norm())
+
+    past, parts = {}, []
+    for kind in EP_LAYER_KINDS:
+        d, own = rel(got[kind], alone[kind]), rel(alone[kind], exact[kind])
+        past[kind] = d / (EP_LAYER_FACTOR * own)
+        parts.append(f"{kind} {d:.3g} (its own rounding {own:.3g}: "
+                     f"{past[kind]:.3g} x the limit)")
+    return past, ", ".join(parts)
+
+
+def _ep_case(tag: str, **kw) -> dict:
+    """A ``tools/dp_equivalence.py`` case of the sp-families run ``tag``
+    with its experts over ``EP_SHARDS`` ranks (the gloo ranks' group)."""
+    case = _spf_case(tag, 1)
+    return {**case, "name": f"ep.{tag.replace(' ', '_')}.ep{EP_SHARDS}",
+            "argv": [*case["argv"], "--moe_shards", str(EP_SHARDS)],
+            "dp": 2, **kw}
+
+
+def phase_ep(tmp: Path, card: str, refs: dict) -> dict:
+    """``--moe_shards 2``: two gloo ranks on this one card, each holding 2
+    of full-width Xception's 4 experts and their Adam state (``EP_RUNS``),
+    held as ``_sp_runs`` holds the sp runs, against the two one-process
+    runs of the same command line in ``refs`` (the sp-families phase's):
+    parameters and running statistics, the first
+    step's gradient and running statistics (``_gate``), the sweep's
+    scores, the first step's kept set (``_routing_gate``); both ranks'
+    whole states (experts gathered) bit for bit, their trunk parameters
+    after each step too; each rank's expert parameter and Adam elements
+    half the one-process run's; every augment and opening call bit-equal
+    to its plain version, launched once a step and once a sweep batch.
+    Then the MoE layer alone (``EP_LAYER``) over the two ranks against
+    the one-process layer on the same tokens, in float32 and bf16, within
+    ``EP_LAYER_FACTOR`` x the dtype's own rounding, and each of
+    ``EP_LAYER_CONTROLS`` refused.  Returns the kernels' launches by run
+    (each rank's)."""
+    from vfd_gan_tpu_torch.train.state import relative_distances
+
+    t0 = time.perf_counter()
+    timed = EP_RUNS[1]
+    cases = [_ep_case(tag, hold_kernels=True,
+                      time_collectives=tag == timed) for tag in EP_RUNS]
+    layers = [(dtype, op) for dtype in ("float32", "bfloat16")
+              for op in (None, *EP_LAYER_CONTROLS)]
+    cases += [dict(EP_LAYER, name=f"ep.layer.{dtype}.{op or 'ep2'}",
+                   dtype=dtype, local_ops=[op] if op else [])
+              for dtype, op in layers]
+    gloo = tmp / "ep_gloo"
+    t1 = time.perf_counter()
+    _gloo(cases, gloo, timeout=SP_JOIN_S)
+    t_ranks = time.perf_counter() - t1
+
+    def load(name, rank=0):
+        return torch.load(gloo / f"{name}.rank{rank}.pt", weights_only=False)
+
+    launches = {}
+    for tag in EP_RUNS:
+        name = _ep_case(tag)["name"]
+        got, other = load(name), load(name, 1)
+        ref, again = refs[tag]
+        check(got["digest"] == other["digest"],
+              f"ep {tag}: both ranks hold the whole state (experts "
+              f"gathered) bit for bit")
+        check(got["trunk_digests"] == other["trunk_digests"]
+              and len(got["trunk_digests"]) == SPF_STEPS,
+              f"ep {tag}: the replicas' trunk parameters bit-equal after "
+              f"each step")
+        check(torch.equal(got["first_routing"]["kept"],
+                          other["first_routing"]["kept"]),
+              f"ep {tag}: the replicas keep the same tokens")
+        whole = ref["expert_elements"]
+        for r, res in enumerate((got, other)):
+            check(all(np.isfinite(v) for step in res["losses"]
+                      for v in step.values()), f"ep {tag}: finite losses")
+            held_elements = res["expert_elements"]
+            check(held_elements["router"] == whole["router"]
+                  and all(EP_SHARDS * held_elements[k] == whole[k] > 0
+                          for k in ("params", "exp_avg", "exp_avg_sq")),
+                  f"ep {tag} rank {r}: 1/{EP_SHARDS} of the expert "
+                  f"elements and Adam moments, the router whole: "
+                  f"{held_elements} of {whole}")
+            counts, sweep = res["launches"], res["sweep_launches"]
+            check(counts["augment_gather"] == SPF_STEPS
+                  and sweep["morphology_open"] == 1,
+                  f"ep {tag}: the augment kernel once per step, the "
+                  f"opening once per sweep batch: {counts}, {sweep}")
+            total = {k: counts.get(k, 0) + sweep.get(k, 0)
+                     for k in set(counts) | set(sweep)}
+            launches[f"ep {tag}" + (" rank1" if r else "")] = total
+            held = res["kernel_vs_plain"]
+            for kernel, calls in (("augment_gather", SPF_STEPS),
+                                  ("morphology_open", 1),
+                                  ("morphology_open_blobs", 1)):
+                check(len(held.get(kernel, ())) == calls
+                      and all(c[0] == 0 for c in held[kernel]),
+                      f"ep {tag} rank {r}: {kernel} bit-equal to its plain "
+                      f"version on each of its {calls} call(s): "
+                      f"{held.get(kernel)}")
+        say("ep", f"{card}: {tag} ep {EP_SHARDS} " + _gate(tag, got, ref,
+                                                          again))
+        say("ep", f"{card}: {tag} " + _scores_close(
+            {"scores": got["scores"]}, {"scores": ref["scores"]},
+            {"scores": again["scores"]}).replace("sp 2", f"ep {EP_SHARDS}")
+            .replace("sp 1", "one process"))
+        say("ep", f"{card}: {tag} " + _routing_gate(
+            tag, [got], ref, again)[1].replace("sp 1", "one process"))
+        twin = "; ".join(
+            f"{kind} median {d[0]:.3g}, whole {d[1]:.3g}"
+            for kind in ("params", "first_exp_avg", "first_buffers")
+            for d in [relative_distances(GATE_KINDS[kind](got),
+                                         GATE_KINDS[kind](again))])
+        say("ep", f"{card}: {tag}: from the one-process run in the same "
+                  f"(two-pass BatchNorm) arithmetic: {twin}")
+        held = got["kernel_vs_plain"]
+        mib = [4 * res["expert_elements"][k] / 2 ** 20
+               for res in (got, ref) for k in ("params", "exp_avg")]
+        exchanges = ", ".join(
+            f"{k} {n:g}" + (f" ({ms:.2f} ms)" if tag == timed else "")
+            for k, (n, ms) in sorted(got["ep_counts"].items()))
+        say("ep", f"{card}: {tag}: per rank the expert parameters "
+                  f"{mib[0]:.2f} MiB and each Adam moment {mib[1]:.2f} MiB "
+                  f"(float32; one process {mib[2]:.2f} and {mib[3]:.2f}); "
+                  f"peak MiB one process {ref.get('peak_mib', math.nan):.0f}"
+                  f", ep {EP_SHARDS} per rank "
+                  f"{got.get('peak_mib', math.nan):.0f} / "
+                  f"{other.get('peak_mib', math.nan):.0f}; the augment "
+                  f"kernel on {held['augment_gather'][0][1]} uint8 frames "
+                  f"and the opening on the sweep's "
+                  f"{held['morphology_open'][0][1]} masks (on blobs "
+                  f"{held['morphology_open_blobs'][0][2]:.4f} -> "
+                  f"{held['morphology_open_blobs'][0][3]:.4f}) bit-equal to "
+                  f"their plain versions on each rank")
+        step = (" (every ep exchange and collective timed, the device "
+                "synchronised around each)" if tag == timed else "")
+        say("ep", f"{card}: {tag}: step median ms one process "
+                  f"{_median_ms(ref):.1f} (two-pass BatchNorms "
+                  f"{_median_ms(again):.1f}), ep {EP_SHARDS} (2 gloo ranks "
+                  f"on one card: gloo's host copies, nothing of NCCL across "
+                  f"cards){step} {_median_ms(got):.1f} / "
+                  f"{_median_ms(other):.1f} "
+                  f"({_median_ms(got) / _median_ms(ref):.2f}x); sweep ms "
+                  f"one process {ref['sweep_ms']:.1f}, ep {EP_SHARDS} "
+                  f"{got['sweep_ms']:.1f}; ep exchanges per step "
+                  f"{exchanges}; MoE dropped fraction per step "
+                  f"{got['moe_dropped']} (one process {ref['moe_dropped']})"
+                  + (f"; collectives per step {_collectives(got)}"
+                     if tag == timed else "")
+                  + f"; launches per rank (steps + sweep) "
+                    f"{json.dumps(launches[f'ep {tag}'])}")
+    for dtype, op in layers:
+        got = load(f"ep.layer.{dtype}.{op or 'ep2'}")
+        alone, exact = got["alone"], got["alone64"]
+        past, line = _layer_reading(got, alone, exact)
+        if op is None:
+            other = load(f"ep.layer.{dtype}.ep2", 1)
+            check(max(past.values()) <= 1
+                  and torch.equal(got["kept"], alone["kept"])
+                  and all(torch.equal(got[k], other[k])
+                          for k in EP_LAYER_KINDS),
+                  f"ep layer {dtype}: the ep 2 block within "
+                  f"{EP_LAYER_FACTOR:g} x the dtype's own rounding of the "
+                  f"one-process block, the same kept set, "
+                  f"both ranks alike: {line}")
+            say("ep", f"{card}: the MoE layer alone, {dtype}, "
+                      f"{EP_LAYER['channels']} channels, "
+                      f"{EP_LAYER['experts']} experts, "
+                      f"{math.prod(EP_LAYER['shape'])} tokens, ep 2 "
+                      f"against one process: {line}; kept "
+                      f"{float(got['kept'].float().mean()):.4f} of the "
+                      f"tokens, as one process; exchanges "
+                      f"{json.dumps(got['ep_counts'])}")
+            continue
+        check(max(past.values()) > 1,
+              f"ep layer {dtype}: the {op} control fails the layer reading "
+              f"that the ep 2 block passes: {line}")
+        say("ep", f"{card}: the MoE layer alone, {dtype}, {op} control: "
+                  f"{line}; refused by {max(past.values()):.3g}x")
+    say("ep", f"{card}: gloo ranks {t_ranks:.1f} s, phase "
+              f"{time.perf_counter() - t0:.1f} s (the one-process references: "
+              f"the sp-families phase's)")
+    return launches
+
+
 def _host_forms(plain: bool):
     """The dataset's host runtime: the library (``plain`` False) or the
     Python forms, for the block."""
@@ -4627,11 +5019,15 @@ def run_new_phases(tmp: Path, device, paths: dict, base: dict) -> dict:
 
 def run_sp_phases(tmp: Path, card: str) -> dict:
     """The ``--sp`` phases (``sp``, ``sp-families``, ``sp-ae``,
-    ``sp-anogan-clstm``); returns the kernels' launches by run."""
+    ``sp-anogan-clstm``) and the ``--moe_shards`` phase (``ep``, held to
+    the sp-families phase's MoE references); returns the kernels'
+    launches by run."""
     runs, refs = phase_sp(tmp, card)
-    for phase in (phase_sp_families, functools.partial(phase_sp_ae,
-                                                       shared=refs),
-                  phase_sp_anogan_clstm):
+    spf_refs: dict = {}
+    for phase in (functools.partial(phase_sp_families, shared=spf_refs),
+                  functools.partial(phase_sp_ae, shared=refs),
+                  phase_sp_anogan_clstm,
+                  functools.partial(phase_ep, refs=spf_refs)):
         gc.collect()
         torch.cuda.empty_cache()
         runs.update(phase(tmp, card))
@@ -4639,9 +5035,10 @@ def run_sp_phases(tmp: Path, card: str) -> dict:
 
 
 def slice_only(name: str, card: str) -> None:
-    """``--slice-only``: the build and the ``--sp`` phases alone (``sp``,
-    ``sp-families``, ``sp-ae``, ``sp-anogan-clstm``), for a short call
-    while they are worked on; prints no result line."""
+    """``--slice-only``: the build and the several-rank phases of the
+    ``--sp`` and ``--moe_shards`` slices alone (``sp``, ``sp-families``,
+    ``sp-ae``, ``sp-anogan-clstm``, ``ep``), for a short call while they
+    are worked on; prints no result line."""
     with tempfile.TemporaryDirectory() as tmp, gloo_ranks(Path(tmp)):
         runs = run_sp_phases(Path(tmp), card)
     _say_seconds()

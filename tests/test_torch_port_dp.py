@@ -43,8 +43,9 @@ fails the tests and is killed, and no rank outlives the module.
   is one float32 ulp apart where XLA fuses a multiply-add, and the
   correlations' bfloat16 operands round on either side of a boundary).
 * the trainer's ``--dp 2`` command (rank 0 alone writes; SIGTERM parks
-  both ranks at one step), a failing rank and a hung rank, the refusals
-  that name ROADMAP queue 1 item 13 (``--tp``, ``--moe_shards``)
+  both ranks at one step), a failing rank and a hung rank, the refusal
+  that names ROADMAP queue 1 item 13 (``--tp``; ``--moe_shards`` since
+  ported: its engine built in one process holds the option)
   and the commands it held until they were ported (``--dp 2`` with
   ``--moe_experts``, ``--int8_disc`` and ``--host_flow``; ``--pp 2``),
   ``auto_dp`` and the rank rows.
@@ -369,11 +370,23 @@ def test_sigterm_parks_every_rank_at_one_step(tmp_path):
 
 @pytest.mark.parametrize("extra", [
     ["--tp", "2"],
+    # ported since: the engine is built and holds the option (the id is
+    # the refusal case's); built in one process, it holds every expert
+    # (the command starts an ep group, tests/test_torch_port_ep.py)
     ["--model", "xception", "--moe_experts", "2", "--moe_shards", "2"],
 ], ids=lambda v: "_".join(v))
 def test_trainer_refuses_with_queue_1_item_13(tmp_path, extra):
+    argv = _CLI + extra + ["--result_root", str(tmp_path)]
+    if "--moe_shards" in extra:
+        engine = trainer.build_engine(argv)
+        try:
+            assert engine.cfg.moe_shards == 2 and engine.experts is None
+            assert engine.model.moe.experts_w1.shape[0] == 2
+        finally:
+            engine.close()
+        return
     with pytest.raises(SystemExit, match="queue 1 item 13"):
-        trainer.main(_CLI + extra + ["--result_root", str(tmp_path)])
+        trainer.main(argv)
 
 
 _SMALL = {"xception": ["--xwidth", "0.0625", "--isize", "32"],

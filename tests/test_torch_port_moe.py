@@ -41,7 +41,9 @@ Xception against the JAX package's on the CPU (one device, no mesh).
     ``tests/test_torch_port_accum.py`` holds accumulated steps;
   - a port run's ``weights/latest.pt`` loads through ``cli.infer._load``
     ``strict=True`` with its MoE block.
-* ``--moe_shards 2`` is refused citing the parallelism item.
+* ``--moe_shards 2`` (refused until it was ported): built in one process,
+  the engine holds the option and every expert
+  (``tests/test_torch_port_ep.py`` runs it over ranks).
 """
 
 import dataclasses
@@ -438,7 +440,15 @@ def test_latest_pt_of_a_moe_run_loads_through_infer(tmp_path):
 
 
 def test_moe_shards_is_refused_as_parallelism(tmp_path):
-    with pytest.raises(SystemExit, match="item 13 \\(parallelism\\)"):
-        trainer.main(["--model", "xception", "--moe_experts", "4",
-                      "--moe_shards", "2", "--synthetic_data", "2",
-                      "--device", "cpu", "--result_root", str(tmp_path)])
+    """Ported since: the engine is built and holds the option (the name is
+    the refusal test's).  Built in one process it holds the 4 experts;
+    the command starts an ep group (``tests/test_torch_port_ep.py``)."""
+    engine = trainer.build_engine([
+        "--model", "xception", "--xwidth", str(XWIDTH), "--moe_experts",
+        "4", "--moe_shards", "2", "--synthetic_data", "2", "--device",
+        "cpu", "--no-tensorboard", "--result_root", str(tmp_path)])
+    try:
+        assert engine.cfg.moe_shards == 2 and engine.experts is None
+        assert engine.model.moe.experts_w1.shape[0] == 4
+    finally:
+        engine.close()

@@ -48,8 +48,9 @@ groups take ~35 s alone and several times that in the tier).
   ``g/err_g_adv_s``, where JAX's float32 is the one off, is held to the
   port's float64 sp 2 step within the gate's rtol.
 * the trainer's ``--dp 2 --sp 2`` command (rank 0 alone writes), the
-  refusals: ``--sp`` with ``--tp`` or ``--moe_shards`` (ROADMAP queue 1
-  item 13), and on ``cuda`` past the visible cards.  Xception, GANomaly
+  refusals: ``--sp`` with ``--tp`` (ROADMAP queue 1 item 13; with
+  ``--moe_shards``, since ported, its engine built in one process holds
+  both options), and on ``cuda`` past the visible cards.  Xception, GANomaly
   and MyGAN's ``--accum``, ``--int8_disc``, ``--cache_gt_flow`` and
   ``--ref_mode_quirks`` under ``--sp``:
   ``tests/test_torch_port_sp_families.py``; c2plus1d and MyGAN's
@@ -588,10 +589,22 @@ def test_trainer_dp2_sp2_runs_and_rank0_alone_writes(tmp_path, capfd):
                     "--moe_shards", "2", "--xwidth", "0.0625"]],
     ids=["tp", "moe_shards"])
 def test_sp_with_tp_or_moe_shards_is_refused_with_item_13(tmp_path, extra):
+    argv = ["--model", "mygan", "--nfr", "16", "--isize", "64", "--sp", "2",
+            *_CLI, *extra, "--result_root", str(tmp_path)]
+    if "--moe_shards" in extra:
+        # ported since: the engine is built and holds the option (the id
+        # is the refusal case's); built in one process, it holds every
+        # expert (the command starts sp x ep ranks,
+        # tests/test_torch_port_ep.py)
+        engine = trainer.build_engine(argv)
+        try:
+            assert (engine.cfg.sp, engine.cfg.moe_shards) == (2, 2)
+            assert engine.model.moe.experts_w1.shape[0] == 2
+        finally:
+            engine.close()
+        return
     with pytest.raises(SystemExit, match=r"queue 1 item 13 \(parallelism"):
-        trainer.main(["--model", "mygan", "--nfr", "16", "--isize", "64",
-                      "--sp", "2", *_CLI, *extra, "--result_root",
-                      str(tmp_path)])
+        trainer.main(argv)
 
 
 def test_sp_on_cuda_must_fit_the_visible_cards():

@@ -187,8 +187,13 @@ def test_trainer_runs_each_family_and_writes_loadable_pth(tmp_path, capsys,
     # microbatch (the command starts a rank a stage)
     pytest.param(["--model", "xception", "--pp", "2"], None,
                  id="--model_xception_--pp_2-parallelism"),
-    (["--model", "xception", "--moe_experts", "2", "--moe_shards", "2"],
-     "parallelism"),
+    # ported since: the engine is built and holds the option (the id is
+    # the refusal case's); built in one process, it holds every expert
+    # (the command starts an ep group)
+    pytest.param(["--model", "xception", "--moe_experts", "2",
+                  "--moe_shards", "2"], None,
+                 id="--model_xception_--moe_experts_2_--moe_shards_2-"
+                    "parallelism"),
     # ported since: the engine is built and holds the option (the id is
     # the refusal case's)
     pytest.param(["--model", "clstm", "--accum", "2"], None,
@@ -218,6 +223,9 @@ def test_trainer_refuses_what_the_supervised_port_does_not_run(
             assert engine.pipe.grid is None
             assert engine.pipe.gpipe.n_micro == 2
             assert len(engine.pipe.owned) == 8
+        elif "--moe_shards" in extra:
+            assert engine.cfg.moe_shards == 2 and engine.experts is None
+            assert engine.model.moe.experts_w1.shape[0] == 2
         elif "--moe_experts" in extra:
             assert engine.model.moe.router.shape == (
                 engine.model.block11.rep[1].conv1.weight.shape[0], 2)

@@ -546,10 +546,11 @@ def test_unported_lost_exactly_the_five_ported_options():
     """Left: what needs several devices (--int8_disc and --moe_experts
     with one shard are ported since; --dp since, and since with the three
     options whose dp needs a global reduction of its own; --pp since;
-    --sp for MyGAN since, and for every family since)."""
+    --sp for MyGAN since, and for every family since; --moe_shards
+    since)."""
     from vfd_gan_tpu_torch.train.engine_base import UNPORTED
 
-    assert set(UNPORTED) == {"tp", "moe_shards"}
+    assert set(UNPORTED) == {"tp"}
 
 
 def test_trainer_needs_a_card_for_cuda(tmp_path):

@@ -25,6 +25,13 @@ axis; under ``--sp`` its input is the rank's frames of its rows, and in
 the ``--sp`` test sweep (``dp`` inactive, each rank of a row its frames
 of the whole batch) it routes over the row.  ``routing`` keeps the last
 forward's slots and kept flags.
+
+Under ``--moe_shards N`` the block holds the rank's experts alone:
+``experts_w1/b1/w2/b2`` are ``(E/N, ...)``, rows ``[j E/N, (j+1) E/N)``
+of the canonical tensors, the router whole.  The initialiser draws the
+whole ``(E, ...)`` tensors from the passed generator and the engine keeps
+the slice (``parallel.moe.ExpertShards``), so the weights do not depend
+on N; its ``whole`` gathers them for a checkpoint.
 """
 
 from __future__ import annotations
@@ -64,6 +71,12 @@ class MoEMlp(nn.Module):
         # the last forward's routing: each token's slot and kept flag,
         # (B, T, H, W)
         self.routing: dict = {}
+
+    def expert_params(self) -> list:
+        """The expert-stacked parameters (leading axis: the experts this
+        block holds), split over ``--moe_shards``."""
+        return [self.experts_w1, self.experts_b1, self.experts_w2,
+                self.experts_b2]
 
     def _experts(self, h: torch.Tensor) -> torch.Tensor:
         d = h.dtype

@@ -41,6 +41,16 @@ the rows' place (``rank`` d of ``world`` dp) and reduces over the whole
 grid (BatchNorm statistics, gradients, metrics: ``size`` dp sp ranks);
 its ``SeqParallel`` (``sp``) is the rank's place in its row, with the
 groups of the frame axis (``parallel/temporal.py``).
+
+Under ``--moe_shards N`` (``make_mesh``'s ``ep`` axis, innermost: the
+``(dp, sp, ep)`` grid, rank ``(d sp + k) N + j``) the N ranks of one
+``(d, k)`` are replicas: the same rows and frames, the same draws, the
+same replicated parameters; rank ``j`` holds experts ``[j E/N, (j+1)
+E/N)`` of the MoE block and their Adam state (``ExpertParallel``,
+``parallel/moe.py``).  Its ``DataParallel`` reduces over ``group``, the
+``dp sp`` ranks of replica ``j`` (each element once: BatchNorm
+statistics, the MoE counts, metrics, the expert gradients), and averages
+the replicated gradients over the whole world (``mean_grads``).
 """
 
 from __future__ import annotations
@@ -80,11 +90,13 @@ def resolve_dp(cfg, device_type: str) -> int:
     """``--dp`` as the JAX engine resolves it: dp divides the microbatch
     (``batchsize // accum``; under ``--pp`` the GPipe microbatch).  On
     ``cuda`` the request is capped at the visible cards left after the
-    ``--pp`` stages or the ``--sp`` shards (``make_mesh``: ``dp sp``
-    must fit the devices) and ``--dp 0`` means all of them; on the CPU
-    the request is the number of processes to start (``--dp 0``: one)."""
+    ``--pp`` stages, the ``--sp`` shards and the ``--moe_shards``
+    replicas (``make_mesh``: ``dp sp ep`` must fit the devices) and
+    ``--dp 0`` means all of them; on the CPU the request is the number of
+    processes to start (``--dp 0``: one)."""
     pp = max(1, cfg.pp)
     sp = max(1, cfg.sp)
+    ep = max(1, cfg.moe_shards)
     micro = cfg.n_pp_micro if pp > 1 else max(1, cfg.accum)
     if device_type == "cuda":
         cards = max(1, torch.cuda.device_count())
@@ -94,13 +106,19 @@ def resolve_dp(cfg, device_type: str) -> int:
         if sp > cards:
             raise SystemExit(f"--sp {sp}: {sp} frame shards need {sp} "
                              f"cards, {cards} visible")
-        n = cards // (pp * sp)
+        if sp * ep > cards:
+            raise SystemExit(f"--moe_shards {ep}: {ep} expert shards need "
+                             f"{sp * ep} cards ({ep} per frame shard), "
+                             f"{cards} visible")
+        n = cards // (pp * sp * ep)
     else:
         n = max(1, cfg.dp)
     dp = auto_dp(cfg.batchsize // micro, cfg.dp, n)
     if device_type == "cuda" or dp != max(1, cfg.dp):
         per = (f" per stage of --pp {pp}" if pp > 1 else
                f" per shard of --sp {sp}" if sp > 1 else "")
+        if ep > 1:
+            per += f" per expert group of --moe_shards {ep}"
         print(f" >> --dp {cfg.dp} -> dp {dp} ({n} {device_type} "
               f"device(s){per}, microbatch {cfg.batchsize // micro})",
               flush=True)
@@ -158,12 +176,19 @@ class DataParallel:
     ``"carry"`` (``SeqParallel``: each shard starts the ConvLSTM's
     recurrence from zeros, as if alone) and ``"dropout_sp"`` (each shard
     draws a mask of its own frames' shape, the same on every shard, as a
-    dropout that passes no ``frame_dim`` would).
+    dropout that passes no ``frame_dim`` would); under ``--moe_shards``
+    ``"ep_combine"`` (the MoE combine's backward summed over the ep
+    group), ``"ep_dispatch"`` (the dispatch's backward not summed),
+    ``"ep_router"`` (the router's input summed too), ``"ep_table"`` (the
+    MoE count table over the whole world) and ``"ep_grads"`` (the expert
+    gradients in the world's flattened all-reduce).
 
     ``sp``: the rank's ``SeqParallel`` on a ``(dp, sp)`` grid (``None``
     without one).  Then ``rank`` and ``world`` place the rows, ``group``
     (None) is the whole grid, and ``size``, dp sp ranks, divides the
-    gradients' and metrics' sums."""
+    gradients' and metrics' sums.  ``expert``: the rank's
+    ``ExpertParallel`` on a ``(dp, sp, ep)`` grid (``None`` without one);
+    then ``group`` is its replica's ``dp sp`` ranks (``peers_group``)."""
 
     def __init__(self, rank: int = 0, world: int = 1, grouped: bool = False,
                  device: torch.device | str = "cpu",
@@ -183,6 +208,7 @@ class DataParallel:
         # on all of them at once)
         self.forward_micro = 1
         self.sp = None
+        self.expert = None
         self._on = True
 
     @classmethod
@@ -335,21 +361,27 @@ class DataParallel:
                             if group is _OWN_GROUP else group)
         return x
 
-    def mean_grads(self, module: torch.nn.Module) -> None:
+    def mean_grads(self, module: torch.nn.Module, sharded=()) -> None:
         """Every ``.grad`` of ``module`` replaced by its mean over the
-        ranks: one all-reduce of the gradients flattened."""
+        ranks: one all-reduce of the gradients flattened.  Under
+        ``--moe_shards`` (``expert``) the replicated parameters' over the
+        whole world (the replicas' means bit-equal, so their parameters
+        stay so), and those of ``sharded`` (the rank's experts, which no
+        other replica holds) apart, over ``group`` alone: one flattened
+        all-reduce would add expert j's gradients to expert j''s."""
         if not self.active:
             return
-        grads = [p.grad for p in module.parameters() if p.grad is not None]
-        if not grads:
-            return
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat, group=self.group)
-        flat.div_(self.size)
-        offset = 0
-        for g in grads:
-            g.copy_(flat[offset:offset + g.numel()].view_as(g))
-            offset += g.numel()
+        ep = self.expert
+        if ep is None or "ep_grads" in self.local_ops:
+            # (the control: the experts in the world's all-reduce)
+            sharded = ()
+        own = {id(p) for p in sharded}
+        params = [p for p in module.parameters() if p.grad is not None]
+        _mean_flat([p.grad for p in params if id(p) not in own],
+                   None if ep is not None else self.group,
+                   self.size * (ep.size if ep is not None else 1))
+        _mean_flat([p.grad for p in params if id(p) in own], self.group,
+                   self.size)
 
     def mean_metrics(self, metrics: dict) -> dict:
         """The step's 0-dim metrics averaged over the ranks (each a mean
@@ -373,6 +405,20 @@ class DataParallel:
         return bool(t.item() > 0)
 
 
+def _mean_flat(grads: list, group, size: int) -> None:
+    """``grads`` replaced in place by their sums over ``group`` over
+    ``size``, one all-reduce of them flattened."""
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat.div_(size)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
 # -- one process alone inside a group ----------------------------------------
 
 _ALONE = False
@@ -391,9 +437,36 @@ def alone():
         _ALONE = was
 
 
-# -- the (dp, sp) grid of --sp ----------------------------------------------
+# -- the (dp, sp, ep) grid of --sp and --moe_shards --------------------------
 
-class SeqParallel:
+class _Counted:
+    """A rank's place on an axis whose exchanges are counted by kind in
+    ``counts`` (``[calls, ms]``); with ``timed`` the device is
+    synchronised around each one and the ms are summed."""
+
+    def __init__(self, device: torch.device | str = "cpu"):
+        self.device = torch.device(device)
+        self.timed = False
+        self.counts: dict[str, list] = {}
+
+    @contextlib.contextmanager
+    def count(self, kind: str):
+        """One exchange of ``kind``, counted (and timed with ``timed``)."""
+        if self.timed and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self.timed and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            entry = self.counts.setdefault(kind, [0, 0.0])
+            entry[0] += 1
+            if self.timed:
+                entry[1] += 1e3 * (time.perf_counter() - t0)
+
+
+class SeqParallel(_Counted):
     """One rank's place on the frame axis of a ``(dp, sp)`` grid: shard
     ``index`` of ``size``, holding frames ``[index T/size, (index+1)
     T/size)`` of its rows.  Its groups: ``group``, the sp peers of its dp
@@ -420,16 +493,14 @@ class SeqParallel:
     def __init__(self, index: int, size: int, group, ranks: list[int],
                  prev_group=None, next_group=None, peers_group=None,
                  device: torch.device | str = "cpu"):
+        super().__init__(device)
         self.index, self.size = index, size
         self.group, self.ranks = group, list(ranks)
         self.prev_group, self.next_group = prev_group, next_group
         self.peers_group = peers_group
-        self.device = torch.device(device)
         self.on = True
         self.replicated = False
         self.local_ops: frozenset = frozenset()
-        self.timed = False
-        self.counts: dict[str, list] = {}
 
     def frame_slice(self, frames: int) -> slice:
         """This shard's frames of a clip of ``frames``."""
@@ -502,77 +573,119 @@ class SeqParallel:
         finally:
             self.on = was
 
-    @contextlib.contextmanager
-    def count(self, kind: str):
-        """One exchange of ``kind``, counted (and timed with ``timed``)."""
-        if self.timed and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.timed and self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            entry = self.counts.setdefault(kind, [0, 0.0])
-            entry[0] += 1
-            if self.timed:
-                entry[1] += 1e3 * (time.perf_counter() - t0)
+
+
+class ExpertParallel(_Counted):
+    """One rank's place on the expert axis of a ``(dp, sp, ep)`` grid
+    (``--moe_shards N``): replica ``index`` of ``size`` of its ``(d,
+    k)``, holding experts ``[index E/size, (index+1) E/size)`` of the MoE
+    block.  ``group``: the ``size`` replicas (global ranks ``ranks``, in
+    replica order), over which the MoE layer's routing is broadcast, its
+    dispatched tokens' gradients summed and its expert outputs combined
+    (``parallel/moe.py``; ``counts``: ``"route"``, ``"dispatch"``,
+    ``"combine"``); ``peers_group``: the ``dp sp`` ranks of replica
+    ``index`` (each element of the global batch once)."""
+
+    def __init__(self, index: int, size: int, group, ranks: list[int],
+                 peers_group=None, device: torch.device | str = "cpu"):
+        super().__init__(device)
+        self.index, self.size = index, size
+        self.group, self.ranks = group, list(ranks)
+        self.peers_group = peers_group
+
+    def experts(self, n_experts: int) -> slice:
+        """The rank's experts of ``n_experts``."""
+        if n_experts % self.size:
+            raise ValueError(f"{n_experts} experts do not split over "
+                             f"moe_shards={self.size}")
+        n = n_experts // self.size
+        return slice(self.index * n, (self.index + 1) * n)
 
 
 class SpGrid:
-    """This process's place in the ``(dp, sp)`` grid of the process
-    group: dp outer, sp inner (JAX ``make_mesh``'s axis order), rank ``d
-    sp + k``.  Every rank builds every subgroup, in one order
-    (``dist.new_group`` is a collective of the whole group); ``sp_grid``
-    makes one per process and sp size."""
+    """This process's place in the ``(dp, sp, ep)`` grid of the process
+    group: dp outer, then sp, ep inner (JAX ``make_mesh``'s axis order),
+    rank ``(d sp + k) ep + j``.  Every rank builds every subgroup, in one
+    order (``dist.new_group`` is a collective of the whole group);
+    ``sp_grid`` makes one per process, sp and ep size."""
 
-    def __init__(self, sp: int):
+    def __init__(self, sp: int, ep: int = 1):
         self.rank = dist.get_rank()
         world = dist.get_world_size()
-        if world % sp:
+        if world % (sp * ep):
             raise ValueError(f"{world} ranks do not split into sp={sp} "
-                             "frame shards")
-        self.sp, self.dp = sp, world // sp
-        self.dp_index, self.sp_index = self.rank // sp, self.rank % sp
+                             f"frame shards x ep={ep} expert shards")
+        self.sp, self.ep, self.dp = sp, ep, world // (sp * ep)
+        self.dp_index, rest = divmod(self.rank, sp * ep)
+        self.sp_index, self.ep_index = divmod(rest, ep)
         self.peers_group = self.row_group = None
         self.prev_group = self.next_group = None
-        for k in range(sp):
-            g = dist.new_group([d * sp + k for d in range(self.dp)])
-            if k == self.sp_index:
-                self.peers_group = g
-        for d in range(self.dp):
-            g = dist.new_group([d * sp + k for k in range(sp)])
-            if d == self.dp_index:
-                self.row_group = g
-            for k in range(sp - 1):
-                g = dist.new_group([d * sp + k, d * sp + k + 1])
-                if d == self.dp_index and k == self.sp_index:
-                    self.next_group = g
-                if d == self.dp_index and k + 1 == self.sp_index:
-                    self.prev_group = g
+        self.ep_group = self.replica_group = None
+
+        def at(d, k, j=None):
+            return (d * sp + k) * ep + (self.ep_index if j is None else j)
+
+        # the frame axis, within the rank's replica (every replica's
+        # groups built, in one order, on every rank)
+        for j in range(ep) if sp > 1 else ():
+            for k in range(sp):
+                g = dist.new_group([at(d, k, j) for d in range(self.dp)])
+                if (k, j) == (self.sp_index, self.ep_index):
+                    self.peers_group = g
+            for d in range(self.dp):
+                g = dist.new_group([at(d, k, j) for k in range(sp)])
+                mine = (d, j) == (self.dp_index, self.ep_index)
+                if mine:
+                    self.row_group = g
+                for k in range(sp - 1):
+                    g = dist.new_group([at(d, k, j), at(d, k + 1, j)])
+                    if mine and k == self.sp_index:
+                        self.next_group = g
+                    if mine and k + 1 == self.sp_index:
+                        self.prev_group = g
+        # the expert axis: each (d, k)'s replicas, and each replica's
+        # dp sp ranks
+        for d in range(self.dp) if ep > 1 else ():
+            for k in range(sp):
+                g = dist.new_group([at(d, k, j) for j in range(ep)])
+                if (d, k) == (self.dp_index, self.sp_index):
+                    self.ep_group = g
+        for j in range(ep) if ep > 1 else ():
+            g = dist.new_group([at(d, k, j) for d in range(self.dp)
+                                for k in range(sp)])
+            if j == self.ep_index:
+                self.replica_group = g
+        self._at = at
 
     def data_parallel(self, device) -> DataParallel:
-        """This rank's ``DataParallel``: its rows' place, the whole grid
-        to reduce over, rank 0 of the grid writing, and its
-        ``SeqParallel``."""
+        """This rank's ``DataParallel``: its rows' place, its replica's
+        grid to reduce over (the whole grid without ``ep``), rank 0 of
+        the grid writing, its ``SeqParallel`` (sp > 1) and its
+        ``ExpertParallel`` (ep > 1)."""
         dp = DataParallel(self.dp_index, self.dp, True, device,
-                          writes=self.rank == 0)
-        dp.sp = SeqParallel(
-            self.sp_index, self.sp, self.row_group,
-            [self.dp_index * self.sp + k for k in range(self.sp)],
-            self.prev_group, self.next_group, self.peers_group, device)
+                          group=self.replica_group, writes=self.rank == 0)
+        if self.sp > 1:
+            dp.sp = SeqParallel(
+                self.sp_index, self.sp, self.row_group,
+                [self._at(self.dp_index, k) for k in range(self.sp)],
+                self.prev_group, self.next_group, self.peers_group, device)
+        if self.ep > 1:
+            dp.expert = ExpertParallel(
+                self.ep_index, self.ep, self.ep_group,
+                [self._at(self.dp_index, self.sp_index, j)
+                 for j in range(self.ep)], self.replica_group, device)
         return dp
 
 
 _SP_GRIDS: dict = {}
 
 
-def sp_grid(sp: int) -> SpGrid:
-    """This process's grid for ``sp`` frame shards (made once per process
-    group)."""
-    key = (sp, id(dist.group.WORLD))
+def sp_grid(sp: int, ep: int = 1) -> SpGrid:
+    """This process's grid for ``sp`` frame shards and ``ep`` expert
+    shards (made once per process group)."""
+    key = (sp, ep, id(dist.group.WORLD))
     if key not in _SP_GRIDS:
-        _SP_GRIDS[key] = SpGrid(sp)
+        _SP_GRIDS[key] = SpGrid(sp, ep)
     return _SP_GRIDS[key]
 
 

@@ -16,8 +16,7 @@ The JAX layer dispatches with one-hot ``(T, E, C)`` tensors and two
 einsums.  Each token has one nonzero term in them, so a gather and a
 scatter by slot compute the same function bit for bit (and the same
 gradients), without the ``2 T^2`` elements of the one-hot tensors at
-cf = 2: here the buffers are ``(E, C, D)``.  Several devices (the
-``ep`` mesh axis, ``--moe_shards > 1``) are not ported.
+cf = 2: here the buffers are ``(E, C, D)``.
 
 Under ``--dp`` and ``--sp`` (an active ``parallel.mesh.DataParallel``,
 and its ``SeqParallel``) the layer is the global one, as GSPMD makes
@@ -35,13 +34,38 @@ fractions and mean probabilities and the dropped fraction are global means
 rank runs its own kept tokens.  In the ``--sp`` test sweep (every rank the
 whole batch, the row's ranks each their frames, ``dp`` not active) the
 table is the row's, summed over the row's shards (``SeqParallel.sum``).
+
+Under ``--moe_shards N`` (the ``ep`` axis: ``DataParallel.expert``, an
+``ExpertParallel``) the N replicas of a ``(d, k)`` hold the same tokens
+and rank j experts ``[j E/N, (j+1) E/N)`` alone (JAX's ``P("ep")`` on the
+stacked expert leaves and the dispatched ``(E, C, D)`` blocks).  The
+count table and the global sums run over the rank's replica
+(``DataParallel.group``), so that each token counts once.  The routing is
+decided once per ep group: its first rank's choice is broadcast (each
+rank still reads its gate from its own probabilities), so that a
+near-tie that two replicas' trunks break apart cannot send a token to two
+experts or to none.  Each rank runs its experts on its own kept tokens,
+which pass ``_EpDispatch`` (the identity, whose backward sums the
+gradient over the ep group: each token's expert-path gradient lives on
+one rank; the router's input does not pass it, its gradient being every
+replica's already), and writes their outputs into a zero ``(E, rows,
+D_out)`` buffer that ``_EpCombine`` sums over the ep group (the other
+terms are exact zeros, so the forward is ep 1's bit for bit; its backward
+is the identity: every replica's loss is the replicated loss).  The test
+sweep (``DataParallel.local``) keeps the experts sharded and the combine
+on: a rank never runs its experts alone.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 
 import torch
+import torch.distributed as dist
+
+from vfd_gan_tpu_torch.parallel.mesh import _AllReduceSum
 
 
 def capacity(n_tokens: int, n_experts: int, capacity_factor: float) -> int:
@@ -55,10 +79,14 @@ class _Place:
     ``shards`` of each row's frames, and ``total``, the sum over the
     ranks that hold the rest (differentiable)."""
 
-    def __init__(self, rows, n_rows: int, shard: int, shards: int, total):
+    def __init__(self, rows, n_rows: int, shard: int, shards: int, total,
+                 count=None):
         self.rows, self.n_rows = rows, n_rows
         self.shard, self.shards = shard, shards
         self.total = total
+        # the count table's sum (``total``'s but for the "ep_table"
+        # control)
+        self.count = total if count is None else count
 
 
 def _place(dp, n_local_rows: int) -> _Place | None:
@@ -71,8 +99,13 @@ def _place(dp, n_local_rows: int) -> _Place | None:
     shard, shards = (sp.index, sp.size) if sp is not None else (0, 1)
     if dp.active:
         n = n_local_rows * dp.world
+        count = None
+        if "ep_table" in dp.local_ops:
+            # the control: the table over the whole world, each token
+            # counted once per replica
+            count = functools.partial(dp.all_reduce_sum, group=None)
         return _Place(dp.rows(n, dp.forward_micro), n, shard, shards,
-                      dp.all_reduce_sum)
+                      dp.all_reduce_sum, count)
     if sp is not None:
         # the sweep: every rank holds every row, the row's shards split
         # its frames
@@ -82,7 +115,7 @@ def _place(dp, n_local_rows: int) -> _Place | None:
 
 
 def route(logits: torch.Tensor, c: int, choice=None,
-          place: _Place | None = None):
+          place: _Place | None = None, ep=None):
     """Top-1 routing of ``(T, E)`` logits with capacity ``c``: ``(probs
     (T, E) float32 (float64 in a float64 run), choice (T,), slot (T,),
     kept (T,) bool, local (T,), counts (E,))``.  A token's slot is its
@@ -90,11 +123,16 @@ def route(logits: torch.Tensor, c: int, choice=None,
     among every rank's tokens in the global order (the rank's ``T`` tokens
     are ``len(place.rows)`` rows of equal blocks); ``local``: its arrival
     index among this rank's tokens; ``counts``: the tokens that chose each
-    expert, over the ranks.  ``choice`` replaces the argmax where given."""
+    expert, over the ranks.  ``choice`` replaces the argmax where given;
+    else under ``ep`` (an ``ExpertParallel``) the argmax of the ep
+    group's first rank is every replica's."""
     probs = torch.softmax(logits if logits.dtype == torch.float64
                           else logits.float(), dim=-1)
     if choice is None:
         choice = torch.argmax(probs, dim=-1)
+        if ep is not None:
+            with ep.count("route"):
+                dist.broadcast(choice, ep.ranks[0], group=ep.group)
     e = probs.shape[-1]
     onehot = torch.nn.functional.one_hot(choice, e)
     arrival = torch.cumsum(onehot, dim=0)
@@ -107,7 +145,7 @@ def route(logits: torch.Tensor, c: int, choice=None,
     arrival = torch.cumsum(per_row, dim=1)
     table = counts.new_zeros((place.n_rows, place.shards, e))
     table[place.rows.to(table.device), place.shard] = arrival[:, -1]
-    table = place.total(table)
+    table = place.count(table)
     # the tokens before each row (every shard's) and, in its row, before
     # this shard
     row_sums = table.sum(dim=1)
@@ -116,6 +154,66 @@ def route(logits: torch.Tensor, c: int, choice=None,
     arrival = arrival + before[place.rows.to(table.device)][:, None]
     slot = (arrival.view(-1, e) * onehot - 1).amax(dim=-1)
     return probs, choice, slot, slot < c, local, row_sums.sum(dim=0)
+
+
+class _EpDispatch(torch.autograd.Function):
+    """The identity on the tokens a rank dispatches to its experts; its
+    backward sums the gradient over the ep group, where each token's
+    expert-path gradient lives on the rank that holds its expert."""
+
+    @staticmethod
+    def forward(ctx, x, ep):
+        ctx.ep = ep
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.detach().contiguous().clone()
+        with ctx.ep.count("dispatch"):
+            dist.all_reduce(g, group=ctx.ep.group)
+        return g, None
+
+
+class _EpCombine(torch.autograd.Function):
+    """The sum over the ep group of the ranks' expert outputs, each in
+    its own experts' rows of a zero buffer; its backward is the identity
+    (every replica's loss reads the same sum, and a rank's experts are
+    differentiated by its own)."""
+
+    @staticmethod
+    def forward(ctx, y, ep):
+        out = y.detach().contiguous().clone()
+        with ep.count("combine"):
+            dist.all_reduce(out, group=ep.group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _expert_shard(expert_fn, x, choice, kept, local, rows: int, e: int,
+                  ep, local_ops) -> torch.Tensor:
+    """``(E, rows, D_out)``: the rank's experts (``ep.experts(e)``) run on
+    its kept tokens of theirs, every other expert's outputs from the ep
+    group's other ranks (``_EpCombine``); the controls ``"ep_dispatch"``
+    (no sum in the dispatch's backward) and ``"ep_combine"`` (the
+    combine's backward summed over the ep group)."""
+    mine = ep.experts(e)
+    n = mine.stop - mine.start
+    own = kept & (choice >= mine.start) & (choice < mine.stop)
+    tokens = x if "ep_dispatch" in local_ops \
+        else _EpDispatch.apply(x, ep)
+    row = (choice - mine.start) * rows + local.clamp(0, rows - 1)
+    h = x.new_zeros((n * rows, x.shape[1])).index_copy(0, row[own],
+                                                       tokens[own])
+    y_mine = expert_fn(h.view(n, rows, -1))
+    pad = y_mine.new_zeros((1, *y_mine.shape[1:]))
+    y = torch.cat([pad.expand(mine.start, -1, -1), y_mine,
+                   pad.expand(e - mine.stop, -1, -1)])
+    if "ep_combine" in local_ops:
+        return _AllReduceSum.apply(y, ep.group)
+    return _EpCombine.apply(y, ep)
 
 
 def moe_apply(expert_fn, router_w: torch.Tensor, x: torch.Tensor, *,
@@ -132,7 +230,10 @@ def moe_apply(expert_fn, router_w: torch.Tensor, x: torch.Tensor, *,
     ``parallel.mesh.DataParallel``; when active (or under ``--sp`` in the
     sweep), ``x`` is this rank's part of the global token axis: ``rows``
     batch rows of ``T / rows`` tokens each (each row's tokens of the
-    rank's frames), and the layer is the global one.
+    rank's frames), and the layer is the global one.  With
+    ``dp.expert`` (``--moe_shards``) ``expert_fn`` runs the rank's
+    experts alone, ``(E/N, C, D) -> (E/N, C, D_out)``, and the outputs are
+    combined over the ep group.
     ``record``: a dict that gets the tokens' ``slot`` and ``kept``.
 
     Returns ``(y (T, D_out), aux)`` with ``aux = {"load_balance_loss",
@@ -140,13 +241,19 @@ def moe_apply(expert_fn, router_w: torch.Tensor, x: torch.Tensor, *,
     t, d = x.shape
     e = router_w.shape[-1]
     place = _place(dp, rows)
+    ep = dp.expert if dp is not None else None
     n = t                                       # the global token count
     if place is not None:
         n = t // len(place.rows) * place.n_rows * place.shards
     c = capacity(n, e, capacity_factor)
-    logits = x.to(torch.promote_types(x.dtype, router_w.dtype)) @ router_w
+    routed = x
+    if ep is not None and "ep_router" in dp.local_ops:
+        # the control: the router's input summed over the ep group too
+        routed = _EpDispatch.apply(x, ep)
+    logits = routed.to(torch.promote_types(x.dtype, router_w.dtype)) \
+        @ router_w
     probs, choice, slot, kept, local, counts = route(logits, c, choice,
-                                                     place)
+                                                     place, ep)
     if record is not None:
         record.update(slot=slot.detach(), kept=kept.detach())
     gate = probs.gather(1, choice[:, None])[:, 0]
@@ -159,8 +266,12 @@ def moe_apply(expert_fn, router_w: torch.Tensor, x: torch.Tensor, *,
     # gives it
     rows = min(c, t) if place is not None else c
     row = choice * rows + local.clamp(0, rows - 1)
-    h = x.new_zeros((e * rows, d)).index_copy(0, row[kept], x[kept])
-    y_e = expert_fn(h.view(e, rows, d))
+    if ep is None:
+        h = x.new_zeros((e * rows, d)).index_copy(0, row[kept], x[kept])
+        y_e = expert_fn(h.view(e, rows, d))
+    else:
+        y_e = _expert_shard(expert_fn, x, choice, kept, local, rows, e,
+                            ep, dp.local_ops)
     y = y_e.reshape(e * rows, -1)[row] * kept[:, None].to(x.dtype)
     y = y * gate[:, None].to(x.dtype)
 
@@ -177,3 +288,67 @@ def moe_apply(expert_fn, router_w: torch.Tensor, x: torch.Tensor, *,
     aux = {"load_balance_loss": e * torch.sum(frac * (sums[:e] / n)),
            "dropped_frac": 1.0 - sums[e] / n}
     return y, aux
+
+
+# Adam's per-element state of a parameter, split with it
+_MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
+class ExpertShards:
+    """An MoE block's experts split over the ep group (``--moe_shards``;
+    JAX ``state_shardings``' ``P("ep")`` on the ``experts_*`` leaves and
+    their Adam moments): the rank holds its own (``ep.experts``) between
+    the blocks of ``whole``, which gathers every expert and its moments
+    on every rank of the group (a save, a resume, a state read; each
+    rank of the group enters it at the same point), as
+    ``parallel/pp_xception.py``'s ``whole`` gathers the stages' blocks."""
+
+    def __init__(self, block: torch.nn.Module, ep):
+        self.ep = ep
+        self.n_experts = block.router.shape[1]
+        self.mine = ep.experts(self.n_experts)
+        self.params = block.expert_params()
+
+    def release(self, optimizer: torch.optim.Optimizer | None = None):
+        """Keep the rank's experts of each expert leaf and of its Adam
+        moments (a no-op on what is already sliced)."""
+        for p in self.params:
+            if p.shape[0] != self.n_experts:
+                continue
+            p.data = p.data[self.mine].clone()
+            state = optimizer.state.get(p, {}) if optimizer else {}
+            for k in _MOMENTS:
+                if k in state:
+                    state[k] = state[k][self.mine].clone()
+
+    @contextlib.contextmanager
+    def whole(self, optimizer: torch.optim.Optimizer):
+        """Every expert and its Adam moments on this rank for the block
+        (one all-reduce of the group's slices, each in its rows of a zero
+        buffer, in float64: exact), the rank's own kept after it."""
+        slots = []                  # (owner, key, the rank's slice)
+        for p in self.params:
+            slots.append((p, None, p.data))
+            state = optimizer.state.get(p, {})
+            slots += [(state, k, state[k]) for k in _MOMENTS if k in state]
+        fulls = []
+        for _, _, t in slots:
+            full = t.new_zeros((self.n_experts, *t.shape[1:]),
+                               dtype=torch.float64)
+            full[self.mine] = t
+            fulls.append(full)
+        flat = torch.cat([f.reshape(-1) for f in fulls])
+        dist.all_reduce(flat, group=self.ep.group)
+        offset = 0
+        for (owner, key, t), full in zip(slots, fulls):
+            whole = flat[offset:offset + full.numel()].view(full.shape)
+            offset += full.numel()
+            whole = whole.to(t.dtype)
+            if key is None:
+                owner.data = whole
+            else:
+                owner[key] = whole
+        try:
+            yield
+        finally:
+            self.release(optimizer)

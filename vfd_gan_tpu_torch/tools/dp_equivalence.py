@@ -33,14 +33,17 @@ and reach the card once for many batches.  A case is one of
   (``_standin_flow``), so float64 runs compare to round-off (the flow's
   bfloat16 operand contract does not); ``"own+field"``: the engine's own
   flow (``--host_flow``'s cv2 flow) plus the field.  ``local_ops``: the
-  controls of ``--moe_experts``, ``--int8_disc`` and ``--host_flow``
-  (``DataParallel.local_ops``); ``moe_capacity``: the MoE layer's
-  capacity factor (low enough, tokens drop; each step's dropped fraction
-  is in the result); ``arith: "dp"``: the reference computes in the dp
+  controls of ``--moe_experts``, ``--moe_shards``, ``--int8_disc`` and
+  ``--host_flow`` (``DataParallel.local_ops``); ``moe_capacity``: the
+  MoE layer's capacity factor (low enough, tokens drop; each step's
+  dropped fraction is in the result); ``arith: "dp"``: the reference computes in the dp
   path's BatchNorm arithmetic (``OneProcess``).  Under ``--pp`` the ranks
   form the ``dp x pp`` grid of the whole group, and a reference runs the
   chain per microbatch in one process.  ``save``: the train state after
-  the steps written there (rank 0), as ``latest.pt`` is.
+  the steps written there (rank 0), as ``latest.pt`` is; ``resume``: a
+  saved train state restored before the steps, once the nets are in the
+  case's precision (``--resume`` in ``argv`` restores it in float32),
+  the steps taking the batches after its cursor.
   ``first_grads``: Adam's first moments after the first step
   (``first_exp_avg``: ``1 - beta1`` times the gradient of the first step,
   taken at the weights every run starts from), and the running
@@ -84,6 +87,10 @@ and reach the card once for many batches.  A case is one of
   ``{"name", "kind": "sp_nets", "model": "anogan" | "clstm", "state",
   "x", "z"}``: AnoGAN's G and D, or the ConvLSTM, in eval mode on this
   rank's frames (``run_sp_nets``).
+* ``{"name", "kind": "moe_layer", "channels", "experts", "shape",
+  "capacity", "dtype", "local_ops"}``: the MoE block alone, its experts
+  over the whole group as one ep group, forward and backward on seeded
+  tokens, against the one-process block on rank 0 (``run_moe_layer``).
 
 ``--sp``: a train case's ``argv`` with ``--sp N`` runs on the group as a
 ``(dp, sp)`` grid (``dp`` 2 in the case: in the group), and its result
@@ -185,6 +192,33 @@ def _sketch(t: torch.Tensor, n: int) -> torch.Tensor:
     return t.flatten()[where.to(t.device)]
 
 
+def _trunk_digest(engine) -> str:
+    """A hash of every parameter but the rank's experts
+    (``engine.experts``), bit for bit."""
+    own = {id(p) for p in engine.experts.params}
+    h = hashlib.sha256()
+    for name, net in engine._nets().items():
+        for k, p in net.module.named_parameters():
+            if id(p) not in own:
+                h.update(f"{name}.{k}".encode())
+                h.update(p.detach().cpu().contiguous().view(torch.uint8)
+                         .numpy().tobytes())
+    return h.hexdigest()
+
+
+def _expert_elements(engine, moe) -> dict:
+    """The elements of the MoE block's expert leaves and of their Adam
+    moments that this rank holds, by kind, and of its router."""
+    state = engine.net.optimizer.state
+    out = {"params": 0, "exp_avg": 0, "exp_avg_sq": 0,
+           "router": moe.router.numel()}
+    for p in moe.expert_params():
+        out["params"] += p.numel()
+        for k in ("exp_avg", "exp_avg_sq"):
+            out[k] += state[p][k].numel() if k in state.get(p, {}) else 0
+    return out
+
+
 def _digest(result: dict) -> str:
     """A hash of a state's every tensor, bit for bit."""
     h = hashlib.sha256()
@@ -246,7 +280,7 @@ class OneProcess(DataParallel):
     def all_reduce_max_(self, x, group=None):
         return x
 
-    def mean_grads(self, module) -> None:
+    def mean_grads(self, module, sharded=()) -> None:
         pass
 
     def mean_metrics(self, metrics: dict) -> dict:
@@ -338,14 +372,24 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
             engine.dp.local_ops = frozenset(case["local_ops"])
             if engine.dp.sp is not None:
                 engine.dp.sp.local_ops = engine.dp.local_ops
-        sp = engine.dp.sp
-        if sp is not None:
-            sp.timed = bool(case.get("time_collectives"))
+        sp, ep = engine.dp.sp, engine.dp.expert
+        for axis in (sp, ep):
+            if axis is not None:
+                axis.timed = bool(case.get("time_collectives"))
         moe = getattr(getattr(engine, "model", None), "moe", None)
         if "moe_capacity" in case:
             moe.capacity_factor = case["moe_capacity"]
         if case.get("float64"):
             engine.to_float64()
+        if "resume" in case:
+            # a saved train state restored in the case's precision, as
+            # --resume restores it (every expert of --moe_shards loaded,
+            # the rank's kept)
+            with engine._whole_state():
+                engine.restore_into(case["resume"], engine._nets())
+            # the loop's cursor: the steps take the batches after it
+            engine.train_iter.epoch = engine.epoch
+            engine.train_iter.skip_batches = engine.batch_in_epoch
         if case.get("flow") in ("standin", "own+field"):
             engine._flow = _standin_flow(engine, case["flow"] == "standin")
         losses, step_ms, collectives, dropped = [], [], {}, []
@@ -360,7 +404,7 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
             # the best checkpoints' names are recorded, not written
             saved_heads = []
             engine._save_weights = saved_heads.append
-        held, sweeps, swept, frame_scores = {}, [], {}, []
+        held, sweeps, swept, frame_scores, trunk = {}, [], {}, [], []
         sweep_at = set(case.get("sweep_at", ()))
         holding = (lambda: _held_kernels(held)) \
             if case.get("hold_kernels") else contextlib.nullcontext
@@ -368,16 +412,22 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
             for _, batch in zip(range(case["steps"]), batches):
                 t0 = time.perf_counter()
                 engine.global_step += 1
+                engine.batch_in_epoch += 1
                 metrics = engine._train_step_impl(batch)
                 engine._sync()
                 step_ms.append(1e3 * (time.perf_counter() - t0))
                 metrics = engine.dp.mean_metrics(metrics)
                 losses.append({k: float(v) for k, v in metrics.items()})
+                if engine.experts is not None:
+                    # the ep group's replicas: one trunk, bit for bit
+                    trunk.append(_trunk_digest(engine))
                 if case.get("first_grads") and len(losses) == 1:
                     # Adam's first moment after one step: (1 - beta1)
                     # times the first gradient, from the same weights; and
                     # the running statistics that step's forward moved
-                    first_state = _state(engine, sample)
+                    # (under --moe_shards every expert gathered)
+                    with engine._whole_state():
+                        first_state = _state(engine, sample)
                     first = first_state["exp_avg"]
                     first_buffers = first_state["buffers"]
                 if moe is not None:
@@ -406,7 +456,12 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
                     # did between the steps (a state read, a sweep) is
                     # not timed in another's step
                     dist.barrier()
-        # under --pp every stage's blocks, gathered while read
+        if moe is not None:
+            # the expert leaves' and their Adam moments' elements this
+            # rank holds (under --moe_shards its experts alone)
+            out_held = _expert_elements(engine, moe)
+        # under --pp every stage's blocks, gathered while read (under
+        # --moe_shards every expert)
         with engine._whole_state():
             out = _state(engine, sample)
             if sample and not solo:
@@ -414,11 +469,13 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
                 out["digest"] = _digest(_state(engine))
             if "save" in case and engine.dp.writes:
                 save_checkpoint(case["save"], engine._ckpt_tree())
-        if sp is not None:
-            # the frame axis's exchanges per step: [calls, ms]
-            out["sp_counts"] = {k: [n / len(step_ms), ms / len(step_ms)]
-                                for k, (n, ms) in sp.counts.items()}
-            sp.counts.clear()
+        for key, axis in (("sp_counts", sp), ("ep_counts", ep)):
+            if axis is not None and step_ms:
+                # the frame or expert axis's exchanges per step: [calls,
+                # ms]
+                out[key] = {k: [n / len(step_ms), ms / len(step_ms)]
+                            for k, (n, ms) in axis.counts.items()}
+                axis.counts.clear()
         counted = launches.counts()
         out.update(losses=losses, rng=engine.rng.get_state(), sweeps=sweeps,
                    frame_scores=frame_scores,
@@ -432,6 +489,10 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
             out["peak_mib"] = torch.cuda.max_memory_allocated(
                 engine.device) / 2 ** 20
         pipe = getattr(engine, "pipe", None)
+        if moe is not None:
+            out["expert_elements"] = out_held
+        if trunk:
+            out["trunk_digests"] = trunk
         if pipe is not None:
             out["hand_offs"] = pipe.gpipe.hand_offs
             # the parameter elements this rank holds between gathers
@@ -446,9 +507,10 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
             engine._sync()
             out["sweep_ms"] = 1e3 * (time.perf_counter() - t0)
             out["sweep_launches"] = launches.counts()
-            if sp is not None:
-                out["sweep_sp_counts"] = {k: list(v)
-                                          for k, v in sp.counts.items()}
+            for key, axis in (("sweep_sp_counts", sp),
+                              ("sweep_ep_counts", ep)):
+                if axis is not None:
+                    out[key] = {k: list(v) for k, v in axis.counts.items()}
             out["scores"] = {k: float(v) for k, v in engine.scores.items()}
             frame_scores.append(_frame_scores(engine))
             if moe is not None:
@@ -845,6 +907,79 @@ def run_sp_nets(case: dict) -> dict:
     return out
 
 
+def run_moe_layer(case: dict) -> dict:
+    """The MoE block alone (``models/moe_block.MoEMlp``: ``case["channels"]``
+    C, ``case["experts"]`` E at capacity factor ``case["capacity"]``,
+    ``case["dtype"]`` tokens; weights from ``torch.Generator(0)``) on a
+    seeded ``(B, C, T, H, W)`` input (``case["shape"]``: B, T, H, W) with
+    a seeded upstream gradient, forward and backward, its experts over the
+    whole group as one ep group (``--moe_shards`` world; ``local_ops``:
+    the ep controls): the block's part of the output and of the input's
+    gradient (the residual's identity taken out), the router's and the
+    (gathered) experts' gradients, and the kept set.  Rank 0 also runs
+    the one-process block on the same tokens in the same dtype
+    (``alone``) and in float64 with the one-process float32 routing
+    (``alone64``: the layer's own rounding)."""
+    from vfd_gan_tpu_torch.models.moe_block import MoEMlp
+    from vfd_gan_tpu_torch.parallel.moe import ExpertShards
+
+    device = torch.device(case.get("device", "cpu"))
+    dp = sp_grid(1, dist.get_world_size()).data_parallel(device)
+    dp.local_ops = frozenset(case.get("local_ops", ()))
+    c, e = case["channels"], case["experts"]
+    b, t, h, w = case["shape"]
+    dtype = getattr(torch, case.get("dtype", "float32"))
+    x = torch.randn((b, c, t, h, w), generator=torch.Generator()
+                    .manual_seed(1)).to(device)
+    up = torch.randn((b, c, t, h, w), generator=torch.Generator()
+                     .manual_seed(2)).to(device)
+
+    def block(kind=dtype):
+        return MoEMlp(c, e, capacity_factor=case["capacity"], dtype=kind,
+                      generator=torch.Generator().manual_seed(0)).to(device)
+
+    def run(moe, inputs, wrt, gather=None):
+        inputs = inputs.detach().requires_grad_(True)
+        y = moe(inputs)
+        (y.to(wrt.dtype) * wrt).sum().backward()
+        experts = [p.grad for p in moe.expert_params()]
+        if gather is not None:
+            experts = [_gathered(g, gather) for g in experts]
+        # the block's own parts of its output and of its input's gradient
+        # (the residual's identity taken out, in float64)
+        return {"out": y.detach().double() - inputs.detach().double(),
+                "x_grad": inputs.grad.double() - wrt.double(),
+                "router_grad": moe.router.grad,
+                "experts_grad": torch.cat([g.flatten() for g in experts]),
+                "kept": moe.routing["kept"]}
+
+    mine = block()
+    shards = ExpertShards(mine, dp.expert)
+    shards.release()
+    dp.bind(mine)
+    out = {k: v.cpu() for k, v in run(mine, x, up, shards).items()}
+    out["ep_counts"] = {k: v[0] for k, v in dp.expert.counts.items()}
+    if dp.rank == 0 and dp.expert.index == 0:
+        whole = block()
+        out["alone"] = {k: v.cpu() for k, v in run(whole, x, up).items()}
+        tokens = x.permute(0, 2, 3, 4, 1).reshape(-1, c).to(dtype)
+        logits = tokens.to(torch.float32) @ whole.router.detach()
+        exact = block(torch.float64).double()
+        exact.choice = torch.argmax(torch.softmax(logits, -1), -1)
+        out["alone64"] = {k: v.cpu() for k, v in run(
+            exact, x.double(), up.double()).items()}
+    return out
+
+
+def _gathered(grad: torch.Tensor, shards) -> torch.Tensor:
+    """Every expert's gradient from the ranks of ``shards``' ep group,
+    each in its rows of a zero buffer, summed."""
+    full = grad.new_zeros((shards.n_experts, *grad.shape[1:]))
+    full[shards.mine] = grad
+    dist.all_reduce(full, group=shards.ep.group)
+    return full
+
+
 def run_step_core(case: dict, root: Path) -> dict:
     """One train step of a supervised or GANomaly command line (``--pp``,
     ``--sp``) from the given state dict (a net's, or ``{net: state
@@ -946,6 +1081,8 @@ def run_cases(cases: list[dict], out: Path) -> None:
             result = run_sp_generator(case)
         elif kind == "sp_nets":
             result = run_sp_nets(case)
+        elif kind == "moe_layer":
+            result = run_moe_layer(case)
         else:
             result = run_flow(case, dp)
         if solo:
@@ -960,7 +1097,11 @@ def run_cases(cases: list[dict], out: Path) -> None:
                      **{k: result[k] for k in ("scores", "saved", "held",
                                                "hand_offs", "sweeps",
                                                "frame_scores",
-                                               "moe_dropped", "sp_counts")
+                                               "moe_dropped", "sp_counts",
+                                               "ep_counts",
+                                               "expert_elements",
+                                               "trunk_digests",
+                                               "first_routing")
                         if k in result}}
             if dp.rank == 0:
                 # the reference was written before this case began: every

@@ -44,6 +44,12 @@
   takes the rank's frames and gathers the row's
   (``parallel/sp_generator.generator_forward_sp`` for MyGAN's G,
   ``sharded_forward`` for the others).
+* ``--moe_shards N`` (Xception's MoE block; ``parallel/mesh.SpGrid``'s
+  ep axis, ``parallel/moe.py``): the ranks form a ``dp x sp x ep``
+  grid; the N replicas of a ``(d, k)`` take the same rows and frames and
+  draws, the engine's ``dp`` reduces over its replica's ``dp sp`` ranks,
+  and each rank holds its experts alone (``experts``; gathered by
+  ``_whole_state`` for a checkpoint).
 * ``--pp N`` (Xception; ``parallel/pp_xception.py``): the ranks form a
   ``dp x pp`` grid (``parallel/pipeline.stage_grid``); the engine's
   ``dp`` is its stage's dp subgroup, rank 0 of the whole group writes,
@@ -87,12 +93,11 @@ from vfd_gan_tpu_torch.train.checkpoints import (
 )
 
 
-# JAX-engine options the port does not run yet, both several-card ones:
-# (is it set?, ROADMAP item).  --sp runs for all six families (MyGAN with
-# every option; a MyGAN shard of one frame is refused below).
+# JAX-engine options the port does not run yet, a several-card one: (is
+# it set?, ROADMAP item).  --sp runs for all six families (MyGAN with
+# every option; a MyGAN shard of one frame is refused below), and
+# --moe_shards for Xception's MoE block.
 UNPORTED = {
-    "moe_shards": (lambda c: c.moe_shards > 1,
-                   "queue 1 item 13 (parallelism)"),
     "tp": (lambda c: c.tp > 1, "queue 1 item 13 (parallelism)"),
 }
 
@@ -169,8 +174,11 @@ class EngineBase:
         # under --pp its stage's dp subgroup of the dp x pp grid
         self.dp = DataParallel.current(device)
         self.grid = None
-        if cfg.sp > 1 and self.dp.grouped:
-            self.dp = sp_grid(cfg.sp).data_parallel(device)
+        if (cfg.sp > 1 or cfg.moe_shards > 1) and self.dp.grouped:
+            self.dp = sp_grid(cfg.sp, cfg.moe_shards).data_parallel(device)
+        # --moe_shards: the MoE block's experts split over the ep group
+        # (parallel/moe.ExpertShards; the supervised engine's)
+        self.experts = None
         if cfg.pp > 1 and self.dp.grouped:
             self.grid = stage_grid(cfg.pp)
             self.dp = DataParallel(self.grid.dp_index, self.grid.dp_size,
@@ -256,10 +264,12 @@ class EngineBase:
         return sp.gather(out, dim)
 
     def _step_done(self, *nets) -> None:
-        """Average the nets' gradients over the ranks, then step each
-        net's optimizer."""
+        """Average the nets' gradients over the ranks (under
+        ``--moe_shards`` the rank's experts over its replica alone), then
+        step each net's optimizer."""
+        sharded = self.experts.params if self.experts is not None else ()
         for net in nets:
-            self.dp.mean_grads(net.module)
+            self.dp.mean_grads(net.module, sharded)
             net.optimizer.step()
 
     @contextlib.contextmanager

@@ -43,12 +43,22 @@ batch, the BatchNorm statistics, gradients and loss over the grid, and
 under ``--accum k`` its rows and frames of each microbatch (JAX
 ``accum_regroup``'s ``P(None, "dp", "sp")``); the sweep's eval forward
 runs on the rank's frames and the row's masks are gathered before the
-threshold and the opening (``EngineBase.sharded_forward``).  Options of
+threshold and the opening (``EngineBase.sharded_forward``).
+``--moe_shards N`` (with ``--moe_experts``, alone or with ``--dp``,
+``--sp``, ``--accum``, ``--ref_mode_quirks``): the N replicas of each
+rank's rows and frames hold E/N experts each and their Adam state
+(``parallel/moe.ExpertShards``, kept before the optimizer is made); the
+step's and the sweep's MoE layer dispatch to them and combine over the ep
+group (``parallel/moe.py``); ``latest.pt`` and the best ``.pth`` hold
+every expert (``_whole_state``), and a resume loads the whole state and
+keeps the rank's experts, whatever N wrote it.  Options of
 the JAX engine that are not ported yet are refused with the
 ``ROADMAP.md`` item that holds them.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -66,6 +76,7 @@ from vfd_gan_tpu_torch.ops.image import (
 )
 from vfd_gan_tpu_torch.ops.losses import bce
 from vfd_gan_tpu_torch.ops.morphology import video_open
+from vfd_gan_tpu_torch.parallel.moe import ExpertShards
 from vfd_gan_tpu_torch.parallel.pp_xception import XceptionPipeline
 from vfd_gan_tpu_torch.parallel.prefetch import to_device
 from vfd_gan_tpu_torch.train.checkpoints import save_pth
@@ -77,11 +88,15 @@ class SupervisedEngine(EngineBase):
     def __init__(self, cfg, train_iter, test_iter, *, device: torch.device):
         super().__init__(cfg, train_iter, test_iter, device=device, gan=False)
         init = torch.Generator().manual_seed(cfg.seed)
-        self.net = NetState.create(
-            build_mask_model(cfg.model, cfg,
-                             dtype=DTYPES[cfg.compute_dtype],
-                             generator=init).to(device),
-            cfg.lr, cfg.beta1)
+        model = build_mask_model(cfg.model, cfg,
+                                 dtype=DTYPES[cfg.compute_dtype],
+                                 generator=init).to(device)
+        if self.dp.expert is not None:
+            # --moe_shards: the rank's experts kept before the optimizer
+            # is made, so Adam's moments exist for them alone
+            self.experts = ExpertShards(model.moe, self.dp.expert)
+            self.experts.release()
+        self.net = NetState.create(model, cfg.lr, cfg.beta1)
         # augmentation draws and dropout masks
         self.rng = torch.Generator(device=device).manual_seed(cfg.seed + 1)
         # the tensors of the last train step's panels (a panel step only)
@@ -92,7 +107,11 @@ class SupervisedEngine(EngineBase):
                                      cfg.n_pp_micro) if cfg.pp > 1 else None
         self._bind_dp()
         if cfg.resume:
-            self.restore_into(cfg.resume, self._nets())
+            # (under --moe_shards the whole state loaded, the rank's
+            # experts kept)
+            with self._whole_state() if self.pipe is None \
+                    else contextlib.nullcontext():
+                self.restore_into(cfg.resume, self._nets())
             print(f"\n Loaded pretrained weights from {cfg.resume}\n")
         if self.pipe is not None:
             # the other stages' blocks leave this rank (loaded whole first)
@@ -194,12 +213,18 @@ class SupervisedEngine(EngineBase):
         return bce(pred, gt), gt, pred, t_pre, m_pre, data, real
 
     def _whole_state(self):
-        if self.pipe is None:
-            return super()._whole_state()
-        return self.pipe.whole(self.net.optimizer)
+        if self.pipe is not None:
+            return self.pipe.whole(self.net.optimizer)
+        if self.experts is not None:
+            return self.experts.whole(self.net.optimizer)
+        return super()._whole_state()
 
     def test(self) -> tuple[float, float, float]:
-        # the sweep and a best checkpoint see every stage's blocks
+        # the sweep and a best checkpoint see every stage's blocks; under
+        # --moe_shards the sweep runs with the experts sharded, and a best
+        # checkpoint gathers them (_save_weights)
+        if self.pipe is None:
+            return self._test()
         with self._whole_state():
             return self._test()
 
@@ -226,8 +251,13 @@ class SupervisedEngine(EngineBase):
         return roc, pr, f1
 
     def _save_weights(self, head: str) -> None:
-        if not self._writes:
-            return
-        best = self.best_roc if head == "roc" else self.best_pr
-        name = f"{head}-{best:.4f}_step{self.global_step:04d}"
-        save_pth(self.weight_path(name + ".pth"), self.model, self.epoch)
+        # every rank of an ep group gathers the experts (each takes the
+        # same decision from the same scores); the writing rank writes
+        with self.experts.whole(self.net.optimizer) \
+                if self.experts is not None else contextlib.nullcontext():
+            if not self._writes:
+                return
+            best = self.best_roc if head == "roc" else self.best_pr
+            name = f"{head}-{best:.4f}_step{self.global_step:04d}"
+            save_pth(self.weight_path(name + ".pth"), self.model,
+                     self.epoch)
