@@ -245,8 +245,24 @@ phases, one line each (or a few):
     gradients within 3 x the dtype's own rounding, and the four layer
     controls (the dispatch's backward unsummed, the combine's summed, the
     router's input summed, the count table over the world) refused.
+34. tp (``phase_tp``): two gloo ranks on the card run full-width MyGAN
+    ``--tp 2`` (each rank its channel slice of every leaf that JAX's
+    ``param_spec`` splits, and of its Adam moments; the convs whose
+    output channels split run on the rank's slice and gather it) at b8
+    nfr 16 128^2, float32 and bf16, 2 steps and a one-batch sweep each,
+    held as the ep runs are against the sp phase's two one-process nfr
+    16 runs; both ranks' whole states bit-equal; each rank's parameter
+    and Adam elements the computed share of the split set; every
+    augment and opening call bit-equal and every fused flow call within
+    1e-3 px of its plain version; the bf16 run's tp exchanges timed; the
+    copy-in's backward left unsummed, a step in float32 and bf16, must
+    fail the gate or the block reading; then G's dconv5 alone (its
+    921-wide spatial conv whole, its temporal conv split) over the two
+    ranks against the one-process block, float32 and bf16, within 3 x
+    the dtype's own rounding, and the copy-in and gather controls
+    refused.
 
-The gloo ranks of the dp, parallel, sp and ep phases start once, before the
+The gloo ranks of the dp, parallel, sp, ep and tp phases start once, before the
 dp phase, and run each phase's cases in turn (``gloo_ranks``;
 ``tools/dp_equivalence.Standing``): they import, join their group and
 reach the card once, not once a phase.  The sp phases' controls run one
@@ -287,7 +303,7 @@ and the int8 serve + infer path) starts with the launch counts of the
 kernels set to 0 and reads them after; the same counters hold the int8
 GEMM's calls (``int8_matmul``: cuBLASLt, no kernel of the port), printed
 on the phases' lines and not on the kernels line.  ``--slice-only``
-runs the build and phases 29-33 alone and prints no result line;
+runs the build and phases 29-34 alone and prints no result line;
 ``--int8-study`` the build and the int8 site check of phase 24 on 12
 seeded clips of each family, and prints no result line.  A
 ``[phase-seconds]`` line gives the seconds of every phase function by
@@ -314,8 +330,9 @@ launches summed over one step of their path (``step_ms_sum``,
 other runs (``launches_on``: AnoGAN and GANomaly for the augment and
 opening kernels; every ``--accum``, ``--remat``, ``--host_flow``,
 evaluate, ``--moe_experts``, int8 serve and ``--int8_disc`` run, and
-each rank of the ``--dp`` and ``--sp`` runs).  Any failure raises: the script exits non-zero and
-prints no last line.  It does the same without a card, and outside a
+each rank of the ``--dp``, ``--sp``, ``--moe_shards`` and ``--tp``
+runs).  Any failure raises: the script exits non-zero and prints no last
+line.  It does the same without a card, and outside a
 checkout of the repo.
 """
 
@@ -4913,6 +4930,248 @@ def phase_ep(tmp: Path, card: str, refs: dict) -> dict:
     return launches
 
 
+# the tp phase: full-width MyGAN --tp 2 at the reference size (b8, T16,
+# 128^2, ngf = ndf = 32, flow_scale 0.5), float32 and bf16, SP_STEPS
+# steps and a one-batch sweep each on the two gloo ranks (each holding
+# channel slice t of every leaf JAX's param_spec splits); its
+# one-process references are the sp phase's nfr 16 runs (their command
+# line but for --tp: the same function).  The bf16 run times each tp
+# exchange (the device synchronised around it)
+TP_RUNS = ("float32", "bfloat16")
+TP_SHARDS = 2
+# the copy-in's backward left unsummed, run as a step (CONTROL_STEPS, its
+# CONTROL_KINDS readings) and read by the block alone (TP_BLOCK)
+TP_CONTROL = "tp_copy"
+# G's dconv5 alone at full width (its 921-wide spatial conv whole, its
+# 512-wide temporal conv split: the gradient that reaches its input is
+# whole from the one and partial from the other) on the b8 T16 8^2 input
+# of a 128^2 clip, over the two gloo ranks, against the one-process block
+# (``tools/dp_equivalence.run_tp_block``), float32 and bf16; each of
+# TP_BLOCK_CONTROLS must fail its reading
+TP_BLOCK = dict(kind="tp_block", cin=256, cout=512,
+                shape=[BATCH, NFR, ISIZE // 16, ISIZE // 16], device="cuda")
+TP_BLOCK_CONTROLS = ("tp_copy", "tp_gather")
+TP_BLOCK_KINDS = ("out", "x_grad", "grads")
+
+
+def _tp_case(dtype: str, **kw) -> dict:
+    """The sp phase's nfr 16 ``dtype`` case with every conv's output
+    channels over ``TP_SHARDS`` ranks (the gloo ranks' group)."""
+    case = _sp_case(f"tp{TP_SHARDS}.{dtype}", NFR, dtype, 1)
+    return {**case, "argv": [*case["argv"], "--tp", str(TP_SHARDS)],
+            "dp": 2, **kw}
+
+
+def _tp_share() -> tuple[dict, dict]:
+    """The parameter elements a rank holds at tp ``TP_SHARDS`` (each
+    tensor ``parallel/tensor.py`` splits at ``1 / TP_SHARDS``, the rest
+    whole) and the whole nets', by net, from full-width G and D built on
+    the CPU."""
+    from vfd_gan_tpu_torch.models.mygan import DualDisc, Generator
+    from vfd_gan_tpu_torch.parallel.tensor import held_elements
+
+    share, whole = {}, {}
+    for net, module in (("netG", Generator(32)),
+                        ("netD", DualDisc(32, NFR, ISIZE))):
+        share[net] = held_elements(module, TP_SHARDS, buffers=False)
+        whole[net] = held_elements(module, 1, buffers=False)
+    return share, whole
+
+
+def _block_reading(got: dict) -> tuple:
+    """The tp block's readings against the one-process block in its
+    dtype, as ``_layer_reading`` reads the MoE layer's (``TP_BLOCK_KINDS``
+    over ``EP_LAYER_FACTOR`` x the dtype's own rounding)."""
+    def rel(a, b):
+        a, b = a.double().flatten(), b.double().flatten()
+        return float((a - b).norm() / b.norm())
+
+    alone, exact = got["alone"], got["alone64"]
+    past, parts = {}, []
+    for kind in TP_BLOCK_KINDS:
+        d, own = rel(got[kind], alone[kind]), rel(alone[kind], exact[kind])
+        past[kind] = d / (EP_LAYER_FACTOR * own)
+        parts.append(f"{kind} {d:.3g} (its own rounding {own:.3g}: "
+                     f"{past[kind]:.3g} x the limit)")
+    return past, ", ".join(parts)
+
+
+def phase_tp(tmp: Path, card: str, refs: dict) -> dict:
+    """``--tp 2``: two gloo ranks on this one card, each holding its
+    channel slice of every leaf of full-width MyGAN that JAX's
+    ``param_spec`` splits and of its Adam moments (``TP_RUNS``), held as
+    ``phase_sp`` holds its runs against the two one-process nfr 16 runs
+    in ``refs`` (the sp phase's): parameters and running statistics, the
+    first step's gradient and running statistics (``_gate``), the sweep's
+    scores; both ranks' whole states bit for bit; each rank's parameter
+    and Adam elements the computed share; every augment and opening call
+    bit-equal to its plain version and every fused flow call within
+    ``FUSED_PX`` of it, launched once a step, 3 times a step and once a
+    sweep batch.  The ``TP_CONTROL`` step in float32 and bf16 must fail
+    the gate or the block reading; then G's dconv5 alone (``TP_BLOCK``)
+    over the two ranks against the one-process block, float32 and bf16,
+    within ``EP_LAYER_FACTOR`` x the dtype's own rounding, each of
+    ``TP_BLOCK_CONTROLS`` refused.  Returns the kernels' launches by run
+    (each rank's)."""
+    t0 = time.perf_counter()
+    timed = TP_RUNS[1]
+    cases = [_tp_case(dtype, hold_kernels=True,
+                      time_collectives=dtype == timed) for dtype in TP_RUNS]
+    cases += [_tp_case(dtype, name=f"tp{TP_SHARDS}.{dtype}.{TP_CONTROL}",
+                       local_ops=[TP_CONTROL], sweep=False,
+                       steps=CONTROL_STEPS) for dtype in TP_RUNS]
+    blocks = [(dtype, op) for dtype in TP_RUNS
+              for op in (None, *TP_BLOCK_CONTROLS)]
+    cases += [dict(TP_BLOCK, name=f"tp.block.{dtype}.{op or 'tp2'}",
+                   dtype=dtype, local_ops=[op] if op else [])
+              for dtype, op in blocks]
+    gloo = tmp / "tp_gloo"
+    t1 = time.perf_counter()
+    _gloo(cases, gloo, timeout=SP_JOIN_S)
+    t_ranks = time.perf_counter() - t1
+
+    def load(name, rank=0):
+        return torch.load(gloo / f"{name}.rank{rank}.pt", weights_only=False)
+
+    share, whole = _tp_share()
+    launches, block_past = {}, {}
+    for dtype, op in blocks:
+        got = load(f"tp.block.{dtype}.{op or 'tp2'}")
+        past, line = _block_reading(got)
+        if op is None:
+            # rank 1 against rank 0's one-process block: each rank runs
+            # the whole spatial conv's backward itself (cuDNN's dgrad and
+            # wgrad need not repeat bit for bit), the gathered output is
+            # one all-reduce's on both
+            other = load(f"tp.block.{dtype}.tp2", 1)
+            past1, line1 = _block_reading(
+                {**other, "alone": got["alone"], "alone64": got["alone64"]})
+            check(max(*past.values(), *past1.values()) <= 1
+                  and torch.equal(got["out"], other["out"]),
+                  f"tp block {dtype}: each rank's tp 2 block within "
+                  f"{EP_LAYER_FACTOR:g} x the dtype's own rounding of the "
+                  f"one-process block, the output bit-equal on both: "
+                  f"{line}; rank 1 {line1}")
+            say("tp", f"{card}: G's dconv5 alone, {dtype}, "
+                      f"{TP_BLOCK['cin']} -> {TP_BLOCK['cout']} channels on "
+                      f"({BATCH}, {TP_BLOCK['cin']}, "
+                      f"{', '.join(map(str, TP_BLOCK['shape'][1:]))}), "
+                      f"{got['split']} tensors split, tp 2 against one "
+                      f"process: {line}; exchanges "
+                      f"{json.dumps(got['tp_counts'])}")
+            continue
+        block_past[dtype, op] = max(past.values())
+        check(block_past[dtype, op] > 1,
+              f"tp block {dtype}: the {op} control fails the block reading "
+              f"that the tp 2 block passes: {line}")
+        say("tp", f"{card}: G's dconv5 alone, {dtype}, {op} control: "
+                  f"{line}; refused by {block_past[dtype, op]:.3g}x")
+    for dtype in TP_RUNS:
+        tag = f"nfr{NFR} {dtype}"
+        name = f"tp{TP_SHARDS}.{dtype}"
+        got, other = load(name), load(name, 1)
+        ref, again = refs[tag]
+        check(got["digest"] == other["digest"],
+              f"tp {dtype}: both ranks hold the whole state (slices "
+              f"gathered) bit for bit")
+        for r, res in enumerate((got, other)):
+            check(all(np.isfinite(v) for step in res["losses"]
+                      for v in step.values()), f"tp {dtype}: finite losses")
+            held_elements = res["tp_elements"]
+            rank_share = sum(share.values())
+            check(all(held_elements[k] == rank_share
+                      for k in ("params", "exp_avg", "exp_avg_sq"))
+                  and ref["tp_elements"]["params"] == sum(whole.values()),
+                  f"tp {dtype} rank {r}: the parameter and Adam elements "
+                  f"of the split set at 1/{TP_SHARDS} and the rest whole, "
+                  f"{rank_share}: {held_elements}")
+            counts, sweep = res["launches"], res["sweep_launches"]
+            check(counts["augment_gather"] == SP_STEPS
+                  and counts["flow_fused"] == 3 * SP_STEPS
+                  and sweep["morphology_open"] == 1,
+                  f"tp {dtype}: the augment kernel once per step, the fused "
+                  f"flow 3 times per step, the opening once per sweep "
+                  f"batch: {counts}, {sweep}")
+            total = {k: counts.get(k, 0) + sweep.get(k, 0)
+                     for k in set(counts) | set(sweep)}
+            launches[f"tp {dtype}" + (" rank1" if r else "")] = total
+            held = res["kernel_vs_plain"]
+            for kernel, calls in (
+                    ("augment_gather", SP_STEPS),
+                    ("flow_fused", 3 * SP_STEPS + sweep.get("flow_fused", 0)),
+                    ("morphology_open", 1), ("morphology_open_blobs", 1)):
+                tol = FUSED_PX if kernel == "flow_fused" else 0.0
+                check(len(held.get(kernel, ())) == calls
+                      and all(c[0] <= tol for c in held[kernel]),
+                      f"tp {dtype} rank {r}: {kernel} within {tol:g} of its "
+                      f"plain version on each of its {calls} call(s): "
+                      f"{held.get(kernel)}")
+            blobs = held["morphology_open_blobs"][0]
+            check(0.05 < blobs[3] < 0.95, f"tp {dtype}: the blobs' opening "
+                                          f"neither empty nor full: {blobs}")
+        say("tp", f"{card}: {tag} tp {TP_SHARDS} "
+            + _gate(tag, got, ref, again))
+        say("tp", f"{card}: {tag} " + _scores_close(
+            got, ref, again).replace("sp 2", f"tp {TP_SHARDS}")
+            .replace("sp 1", "one process"))
+        held = got["kernel_vs_plain"]
+        fused = held["flow_fused"]
+        say("tp", f"{card}: {tag}: on each rank the augment kernel on "
+                  f"{held['augment_gather'][0][1]} uint8 frames and the "
+                  f"opening on the sweep's {held['morphology_open'][0][1]} "
+                  f"masks (on blobs {held['morphology_open_blobs'][0][2]:.4f}"
+                  f" -> {held['morphology_open_blobs'][0][3]:.4f}) bit-equal "
+                  f"to their plain versions, the fused flow on {len(fused)} "
+                  f"calls' fields {sorted({c[1] for c in fused})} within "
+                  f"{FUSED_PX:g} px ({sum(c[0] > 0 for c in fused)} not "
+                  f"bit-equal, max {max(c[0] for c in fused):.3g} px)")
+        mib = {k: 4 * v / 2 ** 20 for k, v in got["tp_elements"].items()}
+        computed = 4 * rank_share / 2 ** 20
+        alone_mib = 4 * sum(whole.values()) / 2 ** 20
+        nets = ", ".join(f"{net} {share[net] / whole[net]:.1%}"
+                         for net in share)
+        say("tp", f"{card}: {tag}: per rank the parameters {mib['params']:.2f}"
+                  f" MiB and each Adam moment {mib['exp_avg']:.2f} MiB "
+                  f"(float32; the computed share {computed:.2f} MiB, one "
+                  f"process {alone_mib:.2f}; by net {nets}); peak MiB one "
+                  f"process "
+                  f"{ref.get('peak_mib', math.nan):.0f}, tp {TP_SHARDS} per "
+                  f"rank {got.get('peak_mib', math.nan):.0f} / "
+                  f"{other.get('peak_mib', math.nan):.0f}")
+        exchanges = ", ".join(
+            f"{k} {n:g}" + (f" ({ms:.2f} ms)" if dtype == timed else "")
+            for k, (n, ms) in sorted(got["tp_counts"].items()))
+        step = (" (every tp exchange timed, the device synchronised around "
+                "each)" if dtype == timed else "")
+        say("tp", f"{card}: {tag}: step median ms one process "
+                  f"{_median_ms(ref):.1f} (two-pass BatchNorms "
+                  f"{_median_ms(again):.1f}), tp {TP_SHARDS} (2 gloo ranks "
+                  f"on one card: gloo's host copies, nothing of NCCL across "
+                  f"cards){step} {_median_ms(got):.1f} / "
+                  f"{_median_ms(other):.1f} "
+                  f"({_median_ms(got) / _median_ms(ref):.2f}x); sweep ms "
+                  f"one process {ref['sweep_ms']:.1f}, tp {TP_SHARDS} "
+                  f"{got['sweep_ms']:.1f}; tp exchanges per step "
+                  f"{exchanges}; launches per rank (steps + sweep) "
+                  f"{json.dumps(launches[f'tp {dtype}'])}")
+    for dtype in TP_RUNS:
+        tag = f"nfr{NFR} {dtype}"
+        ref, again = refs[tag]
+        control = load(f"tp{TP_SHARDS}.{dtype}.{TP_CONTROL}")
+        past, lines = _past_limit(control, ref, again, CONTROL_KINDS)
+        past["block"] = block_past[dtype, TP_CONTROL]
+        lines.append(f"G's dconv5 alone {past['block']:.3g} x the limit")
+        check(max(past.values()) > 1,
+              f"tp {tag}: the {TP_CONTROL} control fails the gate or the "
+              f"block reading that the tp 2 run passes: {lines}")
+        say("tp", f"{card}: {tag} {TP_CONTROL} control " + "; ".join(lines)
+            + f"; refused by {max(past.values()):.3g}x")
+    say("tp", f"{card}: gloo ranks {t_ranks:.1f} s, phase "
+              f"{time.perf_counter() - t0:.1f} s (the one-process references: "
+              f"the sp phase's)")
+    return launches
+
+
 def _host_forms(plain: bool):
     """The dataset's host runtime: the library (``plain`` False) or the
     Python forms, for the block."""
@@ -5019,15 +5278,17 @@ def run_new_phases(tmp: Path, device, paths: dict, base: dict) -> dict:
 
 def run_sp_phases(tmp: Path, card: str) -> dict:
     """The ``--sp`` phases (``sp``, ``sp-families``, ``sp-ae``,
-    ``sp-anogan-clstm``) and the ``--moe_shards`` phase (``ep``, held to
-    the sp-families phase's MoE references); returns the kernels'
-    launches by run."""
+    ``sp-anogan-clstm``), the ``--moe_shards`` phase (``ep``, held to
+    the sp-families phase's MoE references) and the ``--tp`` phase
+    (``tp``, held to the sp phase's nfr 16 references); returns the
+    kernels' launches by run."""
     runs, refs = phase_sp(tmp, card)
     spf_refs: dict = {}
     for phase in (functools.partial(phase_sp_families, shared=spf_refs),
                   functools.partial(phase_sp_ae, shared=refs),
                   phase_sp_anogan_clstm,
-                  functools.partial(phase_ep, refs=spf_refs)):
+                  functools.partial(phase_ep, refs=spf_refs),
+                  functools.partial(phase_tp, refs=refs)):
         gc.collect()
         torch.cuda.empty_cache()
         runs.update(phase(tmp, card))
@@ -5036,9 +5297,9 @@ def run_sp_phases(tmp: Path, card: str) -> dict:
 
 def slice_only(name: str, card: str) -> None:
     """``--slice-only``: the build and the several-rank phases of the
-    ``--sp`` and ``--moe_shards`` slices alone (``sp``, ``sp-families``,
-    ``sp-ae``, ``sp-anogan-clstm``, ``ep``), for a short call while they
-    are worked on; prints no result line."""
+    ``--sp``, ``--moe_shards`` and ``--tp`` slices alone (``sp``,
+    ``sp-families``, ``sp-ae``, ``sp-anogan-clstm``, ``ep``, ``tp``), for
+    a short call while they are worked on; prints no result line."""
     with tempfile.TemporaryDirectory() as tmp, gloo_ranks(Path(tmp)):
         runs = run_sp_phases(Path(tmp), card)
     _say_seconds()

@@ -47,10 +47,10 @@ groups take ~35 s alone and several times that in the tier).
   a ``{"dp": 1, "sp": 2}`` mesh, calibrated by JAX's own sp 1 step;
   ``g/err_g_adv_s``, where JAX's float32 is the one off, is held to the
   port's float64 sp 2 step within the gate's rtol.
-* the trainer's ``--dp 2 --sp 2`` command (rank 0 alone writes), the
-  refusals: ``--sp`` with ``--tp`` (ROADMAP queue 1 item 13; with
-  ``--moe_shards``, since ported, its engine built in one process holds
-  both options), and on ``cuda`` past the visible cards.  Xception, GANomaly
+* the trainer's ``--dp 2 --sp 2`` command (rank 0 alone writes); ``--sp``
+  with ``--tp`` and with ``--moe_shards``, refused once and since
+  ported (an engine built in one process holds both options); the
+  refusal on ``cuda`` past the visible cards.  Xception, GANomaly
   and MyGAN's ``--accum``, ``--int8_disc``, ``--cache_gt_flow`` and
   ``--ref_mode_quirks`` under ``--sp``:
   ``tests/test_torch_port_sp_families.py``; c2plus1d and MyGAN's
@@ -591,20 +591,22 @@ def test_trainer_dp2_sp2_runs_and_rank0_alone_writes(tmp_path, capfd):
 def test_sp_with_tp_or_moe_shards_is_refused_with_item_13(tmp_path, extra):
     argv = ["--model", "mygan", "--nfr", "16", "--isize", "64", "--sp", "2",
             *_CLI, *extra, "--result_root", str(tmp_path)]
-    if "--moe_shards" in extra:
-        # ported since: the engine is built and holds the option (the id
-        # is the refusal case's); built in one process, it holds every
-        # expert (the command starts sp x ep ranks,
-        # tests/test_torch_port_ep.py)
-        engine = trainer.build_engine(argv)
-        try:
+    # both ported since: the engine is built and holds the options (the
+    # ids are the refusal cases'); built in one process, it holds every
+    # expert and every channel (the command starts sp x ep or sp x tp
+    # ranks, tests/test_torch_port_ep.py, tests/test_torch_port_tp.py)
+    engine = trainer.build_engine(argv)
+    try:
+        if "--moe_shards" in extra:
             assert (engine.cfg.sp, engine.cfg.moe_shards) == (2, 2)
             assert engine.model.moe.experts_w1.shape[0] == 2
-        finally:
-            engine.close()
-        return
-    with pytest.raises(SystemExit, match=r"queue 1 item 13 \(parallelism"):
-        trainer.main(argv)
+        else:
+            assert (engine.cfg.sp, engine.cfg.tp) == (2, 2)
+            assert engine.tp_shards is None
+            assert engine.netg.dconv1.conv.temporal_conv.weight.shape[0] \
+                == 32
+    finally:
+        engine.close()
 
 
 def test_sp_on_cuda_must_fit_the_visible_cards():

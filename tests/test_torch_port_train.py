@@ -547,10 +547,15 @@ def test_unported_lost_exactly_the_five_ported_options():
     with one shard are ported since; --dp since, and since with the three
     options whose dp needs a global reduction of its own; --pp since;
     --sp for MyGAN since, and for every family since; --moe_shards
-    since)."""
+    since; --tp for MyGAN without its options since)."""
+    from vfd_gan_tpu_torch.config import parse_args
     from vfd_gan_tpu_torch.train.engine_base import UNPORTED
 
     assert set(UNPORTED) == {"tp"}
+    unported, _ = UNPORTED["tp"]
+    assert unported(parse_args(["--model", "mygan", "--tp", "2"])) is None
+    assert unported(parse_args(["--model", "xception", "--tp", "2"])) \
+        == "--model xception"
 
 
 def test_trainer_needs_a_card_for_cuda(tmp_path):

@@ -151,9 +151,9 @@ def build_engine(argv, rank: int | None = None):
 
 def launch_ranks(argv, dp: int, backend: str,
                  timeout: float | None = None, pp: int = 1,
-                 sp: int = 1, ep: int = 1) -> None:
-    """``argv``'s training as ``dp x pp`` (or ``dp x sp x ep``) ranks of
-    one group over
+                 sp: int = 1, ep: int = 1, tp: int = 1) -> None:
+    """``argv``'s training as ``dp x pp`` (or ``dp x sp x tp x ep``)
+    ranks of one group over
     ``backend`` (``"nccl"`` or ``"gloo"``; gloo also runs several ranks
     on one card), each a ``python -m vfd_gan_tpu_torch.cli.trainer``
     process; raises if a rank fails or ``timeout`` seconds pass.  The
@@ -161,7 +161,7 @@ def launch_ranks(argv, dp: int, backend: str,
     that hangs makes its peers' next collective fail after the group's
     timeout (``parallel/mesh.rank_group``), which stops every rank."""
     launch("vfd_gan_tpu_torch.cli.trainer", [*argv, "--dp", str(dp)],
-           dp * pp * sp * ep, backend, timeout=timeout)
+           dp * pp * sp * tp * ep, backend, timeout=timeout)
 
 
 def _train(engine):
@@ -189,13 +189,15 @@ def main(argv=None):
     cfg, device_name, _ = parse(argv)
     kind = resolve_device(device_name).type
     dp = resolve_dp(cfg, kind)
-    if dp * cfg.pp * cfg.sp * cfg.moe_shards > 1:
+    if dp * cfg.pp * cfg.sp * cfg.tp * cfg.moe_shards > 1:
         try:
             launch_ranks(argv, dp, "nccl" if kind == "cuda" else "gloo",
-                         pp=cfg.pp, sp=cfg.sp, ep=cfg.moe_shards)
+                         pp=cfg.pp, sp=cfg.sp, ep=cfg.moe_shards,
+                         tp=cfg.tp)
         except RuntimeError as e:
             what = f"--dp {dp}" + (f" --pp {cfg.pp}" if cfg.pp > 1 else "") \
                 + (f" --sp {cfg.sp}" if cfg.sp > 1 else "") \
+                + (f" --tp {cfg.tp}" if cfg.tp > 1 else "") \
                 + (f" --moe_shards {cfg.moe_shards}"
                    if cfg.moe_shards > 1 else "")
             raise SystemExit(f"{what}: {e}") from None

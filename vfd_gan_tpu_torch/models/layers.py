@@ -24,6 +24,15 @@ NCDHW ``(B, C, T, H, W)`` input.  Submodule names are the reference's, so
   the AutoEncoder's, AnoGAN's, the ConvLSTM's) binding to their
   ``SeqParallel`` and x2 upsample of a rank's frames.
 
+Under ``--tp`` (a ``parallel.mesh.TensorParallel`` bound as ``tp``:
+``STConv``, the two conv blocks, ``TorchLinear``) a conv, and a Linear,
+whose output channels split holds the rank's slice of its weight and bias
+(``parallel/tensor.TpShards``), and so does the BatchNorm after it;
+each such segment runs column-parallel (``parallel/tensor.column``):
+``STConv`` gathers after its ``relu(bn(spatial))``, the blocks after
+their outer BatchNorm and LeakyReLU, so every tensor between segments is
+whole on every tp rank.
+
 Compute dtype, as the JAX modules' ``dtype`` field sets it (bfloat16 is
 the trainer's default): parameters and running statistics stay float32;
 every conv and pool runs in its input's dtype (so a net's first conv, fed
@@ -43,6 +52,7 @@ import torch.nn.functional as F
 
 from vfd_gan_tpu_torch.ops.convs import r2plus1d_mid_channels
 from vfd_gan_tpu_torch.ops.resize import _resize_axis
+from vfd_gan_tpu_torch.parallel import tensor
 from vfd_gan_tpu_torch.quant.qdisc import qconv3d
 from vfd_gan_tpu_torch.utils.init import bn_scale_, dcgan_normal_, torch_default_
 
@@ -278,9 +288,15 @@ class STConv(nn.Module):
     Bound to a ``parallel.mesh.SeqParallel`` (``sp``, ``--sp``) in a
     sharded segment, the input is this rank's frames: the spatial conv is
     frame-local, and the temporal conv runs VALID over T on the block
-    padded with ``pt`` halo frames a side (``sp.halo``)."""
+    padded with ``pt`` halo frames a side (``sp.halo``).  Bound to a
+    ``parallel.mesh.TensorParallel`` (``tp``, ``--tp``), each of the two
+    convs whose output channels split runs on the rank's slice: the
+    spatial one with its BatchNorm and ReLU, gathered before the temporal
+    conv; the temporal one gathered by ``forward``, or left to the block
+    around it (``sliced``)."""
 
     sp = None
+    tp = None
 
     def __init__(self, cin: int, cout: int,
                  kernel_size: Sequence[int] = (3, 3, 3),
@@ -299,16 +315,39 @@ class STConv(nn.Module):
                                          quant=quant, **kw_)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn(self.spatial_conv(x)))
+        y = self.sliced(x)
+        if tensor.split(self.tp, self.temporal_conv.out_channels):
+            return tensor.gather(y, self.tp)
+        return y
+
+    def sliced(self, x: torch.Tensor) -> torch.Tensor:
+        """The temporal conv's output, under ``--tp`` the rank's channel
+        slice where its output channels split (else whole)."""
+        y = tensor.column(self.tp, self.spatial_conv.out_channels, x,
+                          lambda x: F.relu(self.bn(self.spatial_conv(x))))
+        if tensor.split(self.tp, self.temporal_conv.out_channels):
+            y = tensor.copy_in(y, self.tp)
         pt = self.temporal_conv.padding[0]
         if self.sp is None or not self.sp.sharded or not pt:
             return self.temporal_conv(y)
         return self.temporal_conv.valid_t(self.sp.halo(y, pt))
 
 
+def _block(block: nn.Module, x: torch.Tensor, slope: float) -> torch.Tensor:
+    """A conv block's ``leaky_relu(bn(conv(x)), slope)``; under ``--tp``
+    on the rank's channel slice where the temporal conv's outputs split,
+    gathered after the activation."""
+    y = F.leaky_relu(block.bn(block.conv.sliced(x)), negative_slope=slope)
+    if tensor.split(block.tp, block.bn.num_features):
+        return tensor.gather(y, block.tp)
+    return y
+
+
 class GenConvBlock(nn.Module):
     """STConv -> BN -> LeakyReLU(0.2): the generator's conv block
     (models/mygannet.py:13-28, 3x3x3 with SAME padding)."""
+
+    tp = None
 
     def __init__(self, cin: int, cout: int, *,
                  dtype: torch.dtype = torch.float32, device=None,
@@ -319,12 +358,14 @@ class GenConvBlock(nn.Module):
         self.bn = VideoBatchNorm(cout, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.leaky_relu(self.bn(self.conv(x)), negative_slope=0.2)
+        return _block(self, x, 0.2)
 
 
 class DiscConvBlock(nn.Module):
     """STConv -> BN -> LeakyReLU(0.01): the discriminator's conv block
     (models/mygannet.py:104-116; note the default slope, not 0.2)."""
+
+    tp = None
 
     def __init__(self, cin: int, cout: int, kernel_size: Sequence[int],
                  padding: Sequence[int], *,
@@ -337,7 +378,7 @@ class DiscConvBlock(nn.Module):
         self.bn = VideoBatchNorm(cout, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.leaky_relu(self.bn(self.conv(x)), negative_slope=0.01)
+        return _block(self, x, 0.01)
 
 
 def dropout(y: torch.Tensor, rate: float, training: bool,
@@ -385,7 +426,10 @@ def upsample2x_sp(x: torch.Tensor, sp) -> torch.Tensor:
 class TorchLinear(nn.Linear):
     """``nn.Linear`` with PyTorch's default init drawn from ``generator``,
     run in ``dtype``: input, weight and bias cast to it, as flax ``Dense``
-    with ``dtype`` and float32 parameters does."""
+    with ``dtype`` and float32 parameters does.  Under ``--tp`` (``tp``)
+    column-parallel where its output features split."""
+
+    tp = None
 
     def __init__(self, fan_in: int, features: int, *,
                  dtype: torch.dtype = torch.float32, device=None,
@@ -397,6 +441,9 @@ class TorchLinear(nn.Linear):
             torch_default_(self.bias, fan_in, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return tensor.column(self.tp, self.out_features, x, self._linear)
+
+    def _linear(self, x: torch.Tensor) -> torch.Tensor:
         d = self.dtype
         if d == torch.float32:
             return super().forward(x)

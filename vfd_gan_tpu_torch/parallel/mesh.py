@@ -51,6 +51,17 @@ E/N)`` of the MoE block and their Adam state (``ExpertParallel``,
 ``dp sp`` ranks of replica ``j`` (each element once: BatchNorm
 statistics, the MoE counts, metrics, the expert gradients), and averages
 the replicated gradients over the whole world (``mean_grads``).
+
+Under ``--tp N`` (``make_mesh``'s ``tp`` axis, between sp and ep: the
+``(dp, sp, tp, ep)`` grid, rank ``((d sp + k) N + t) ep + j``) the N
+ranks of one ``(d, k, j)`` hold the same rows and frames and make the
+same draws; rank ``t`` holds channel slice ``t`` of every leaf that
+``parallel/tensor.py`` splits (JAX ``param_spec``), and the nets gather
+each split conv's output over the tp group (``TensorParallel``).  Its
+``DataParallel`` reduces over ``group``, the ``dp sp`` ranks of slice
+``t`` (BatchNorm sums, metrics, the split leaves' gradients: a reduction
+over the whole grid would add slice t's sums to slice t''s), and
+averages the whole leaves' gradients over the world, as under ``ep``.
 """
 
 from __future__ import annotations
@@ -91,11 +102,13 @@ def resolve_dp(cfg, device_type: str) -> int:
     (``batchsize // accum``; under ``--pp`` the GPipe microbatch).  On
     ``cuda`` the request is capped at the visible cards left after the
     ``--pp`` stages, the ``--sp`` shards and the ``--moe_shards``
-    replicas (``make_mesh``: ``dp sp ep`` must fit the devices) and
-    ``--dp 0`` means all of them; on the CPU the request is the number of
-    processes to start (``--dp 0``: one)."""
+    replicas and the ``--tp`` channel shards (``make_mesh``: ``dp sp tp
+    ep`` must fit the devices) and ``--dp 0`` means all of them; on the
+    CPU the request is the number of processes to start (``--dp 0``:
+    one)."""
     pp = max(1, cfg.pp)
     sp = max(1, cfg.sp)
+    tp = max(1, cfg.tp)
     ep = max(1, cfg.moe_shards)
     micro = cfg.n_pp_micro if pp > 1 else max(1, cfg.accum)
     if device_type == "cuda":
@@ -106,17 +119,23 @@ def resolve_dp(cfg, device_type: str) -> int:
         if sp > cards:
             raise SystemExit(f"--sp {sp}: {sp} frame shards need {sp} "
                              f"cards, {cards} visible")
-        if sp * ep > cards:
-            raise SystemExit(f"--moe_shards {ep}: {ep} expert shards need "
-                             f"{sp * ep} cards ({ep} per frame shard), "
+        if sp * tp > cards:
+            raise SystemExit(f"--tp {tp}: {tp} channel shards need "
+                             f"{sp * tp} cards ({tp} per frame shard), "
                              f"{cards} visible")
-        n = cards // (pp * sp * ep)
+        if sp * tp * ep > cards:
+            raise SystemExit(f"--moe_shards {ep}: {ep} expert shards need "
+                             f"{sp * tp * ep} cards ({ep} per frame and "
+                             f"channel shard), {cards} visible")
+        n = cards // (pp * sp * tp * ep)
     else:
         n = max(1, cfg.dp)
     dp = auto_dp(cfg.batchsize // micro, cfg.dp, n)
     if device_type == "cuda" or dp != max(1, cfg.dp):
         per = (f" per stage of --pp {pp}" if pp > 1 else
                f" per shard of --sp {sp}" if sp > 1 else "")
+        if tp > 1:
+            per += f" per channel group of --tp {tp}"
         if ep > 1:
             per += f" per expert group of --moe_shards {ep}"
         print(f" >> --dp {cfg.dp} -> dp {dp} ({n} {device_type} "
@@ -181,14 +200,22 @@ class DataParallel:
     group), ``"ep_dispatch"`` (the dispatch's backward not summed),
     ``"ep_router"`` (the router's input summed too), ``"ep_table"`` (the
     MoE count table over the whole world) and ``"ep_grads"`` (the expert
-    gradients in the world's flattened all-reduce).
+    gradients in the world's flattened all-reduce); under ``--tp``
+    ``"tp_bn"`` (the BatchNorm sums over the whole grid, which adds
+    channel slice t's sums to slice t''s), ``"tp_mean"`` (the split
+    leaves' gradients in the world's flattened all-reduce) and, read by
+    ``TensorParallel``, ``"tp_copy"`` (the copy-in's backward not summed)
+    and ``"tp_gather"`` (the gather's backward summed).
 
     ``sp``: the rank's ``SeqParallel`` on a ``(dp, sp)`` grid (``None``
     without one).  Then ``rank`` and ``world`` place the rows, ``group``
     (None) is the whole grid, and ``size``, dp sp ranks, divides the
     gradients' and metrics' sums.  ``expert``: the rank's
     ``ExpertParallel`` on a ``(dp, sp, ep)`` grid (``None`` without one);
-    then ``group`` is its replica's ``dp sp`` ranks (``peers_group``)."""
+    then ``group`` is its replica's ``dp sp`` ranks (``peers_group``).
+    ``tp``: the rank's ``TensorParallel`` on a ``(dp, sp, tp, ep)`` grid
+    (``None`` without one); then ``group`` is the ``dp sp`` ranks of its
+    channel slice (and expert replica)."""
 
     def __init__(self, rank: int = 0, world: int = 1, grouped: bool = False,
                  device: torch.device | str = "cpu",
@@ -209,6 +236,7 @@ class DataParallel:
         self.forward_micro = 1
         self.sp = None
         self.expert = None
+        self.tp = None
         self._on = True
 
     @classmethod
@@ -267,13 +295,17 @@ class DataParallel:
 
     def bind(self, module: torch.nn.Module) -> torch.nn.Module:
         """Point every submodule with a ``dp`` attribute (BatchNorms,
-        dropout) at this group, and every one with an ``sp`` attribute
-        (the modules that shard frames) at its ``SeqParallel``."""
+        dropout) at this group, every one with an ``sp`` attribute (the
+        modules that shard frames) at its ``SeqParallel`` and every one
+        with a ``tp`` attribute (the modules that split channels) at its
+        ``TensorParallel``."""
         for m in module.modules():
             if hasattr(m, "dp"):
                 m.dp = self
             if hasattr(m, "sp"):
                 m.sp = self.sp
+            if hasattr(m, "tp"):
+                m.tp = self.tp
         return module
 
     # -- the rank's rows of the global batch -------------------------------
@@ -340,11 +372,15 @@ class DataParallel:
         on the sp peers (``SeqParallel.replicated``: each holds all of
         its rows' frames) over the dp peers of the rank's shard, so that
         each element counts once (and with the ``"bn_sp"`` control in
-        every segment)."""
+        every segment).  Under ``--tp`` over the ranks of the rank's
+        channel slice (``group``; the ``"tp_bn"`` control: the whole
+        grid)."""
         group = self.group
         if self.sp is not None and (self.sp.replicated
                                     or "bn_sp" in self.local_ops):
             group = self.sp.peers_group
+        if self.tp is not None and "tp_bn" in self.local_ops:
+            group = None
         if self.bn_stats == "forward" and self.active:
             local = x.detach()
             total = local.clone()
@@ -361,25 +397,35 @@ class DataParallel:
                             if group is _OWN_GROUP else group)
         return x
 
+    @property
+    def replicas(self) -> int:
+        """The ranks that hold the same rows and frames: the ``--tp``
+        channel shards times the ``--moe_shards`` expert shards."""
+        return (self.expert.size if self.expert is not None else 1) \
+            * (self.tp.size if self.tp is not None else 1)
+
     def mean_grads(self, module: torch.nn.Module, sharded=()) -> None:
         """Every ``.grad`` of ``module`` replaced by its mean over the
         ranks: one all-reduce of the gradients flattened.  Under
-        ``--moe_shards`` (``expert``) the replicated parameters' over the
-        whole world (the replicas' means bit-equal, so their parameters
-        stay so), and those of ``sharded`` (the rank's experts, which no
-        other replica holds) apart, over ``group`` alone: one flattened
-        all-reduce would add expert j's gradients to expert j''s."""
+        ``--moe_shards`` and ``--tp`` (``replicas`` > 1) the replicated
+        parameters' over the whole world (the replicas' means bit-equal,
+        so their parameters stay so), and those of ``sharded`` (the rank's
+        experts and channel slices, which no other replica holds) apart,
+        over ``group`` alone: one flattened all-reduce would add expert
+        j's gradients to expert j''s, channel slice t's to slice t''s."""
         if not self.active:
             return
-        ep = self.expert
-        if ep is None or "ep_grads" in self.local_ops:
-            # (the control: the experts in the world's all-reduce)
+        replicas = self.replicas
+        controls = {"ep_grads", "tp_mean"} & self.local_ops
+        if replicas == 1 or controls:
+            # (the controls: the experts, or the channel slices, in the
+            # world's all-reduce)
             sharded = ()
         own = {id(p) for p in sharded}
         params = [p for p in module.parameters() if p.grad is not None]
         _mean_flat([p.grad for p in params if id(p) not in own],
-                   None if ep is not None else self.group,
-                   self.size * (ep.size if ep is not None else 1))
+                   None if replicas > 1 else self.group,
+                   self.size * replicas)
         _mean_flat([p.grad for p in params if id(p) in own], self.group,
                    self.size)
 
@@ -437,7 +483,7 @@ def alone():
         _ALONE = was
 
 
-# -- the (dp, sp, ep) grid of --sp and --moe_shards --------------------------
+# -- the (dp, sp, tp, ep) grid of --sp, --tp and --moe_shards ---------------
 
 class _Counted:
     """A rank's place on an axis whose exchanges are counted by kind in
@@ -602,90 +648,137 @@ class ExpertParallel(_Counted):
         return slice(self.index * n, (self.index + 1) * n)
 
 
-class SpGrid:
-    """This process's place in the ``(dp, sp, ep)`` grid of the process
-    group: dp outer, then sp, ep inner (JAX ``make_mesh``'s axis order),
-    rank ``(d sp + k) ep + j``.  Every rank builds every subgroup, in one
-    order (``dist.new_group`` is a collective of the whole group);
-    ``sp_grid`` makes one per process, sp and ep size."""
+class TensorParallel(_Counted):
+    """One rank's place on the channel axis of a ``(dp, sp, tp, ep)``
+    grid (``--tp N``): shard ``index`` of ``size`` of its ``(d, k, j)``,
+    holding channel slice ``index`` of every leaf that
+    ``parallel/tensor.py`` splits.  ``group``: the ``size`` ranks of the
+    ``(d, k, j)`` (global ranks ``ranks``, in shard order), over which a
+    split conv's input gradient is summed and its output gathered
+    (``counts``: ``"copy"``, ``"gather"``); ``peers_group``: the ``dp
+    sp`` ranks of slice ``index`` (each element of the global batch
+    once).  ``local_ops``: the controls ``"tp_copy"`` (the copy-in's
+    backward not summed) and ``"tp_gather"`` (the gather's backward
+    summed over the group)."""
 
-    def __init__(self, sp: int, ep: int = 1):
+    def __init__(self, index: int, size: int, group, ranks: list[int],
+                 peers_group=None, device: torch.device | str = "cpu"):
+        super().__init__(device)
+        self.index, self.size = index, size
+        self.group, self.ranks = group, list(ranks)
+        self.peers_group = peers_group
+        self.local_ops: frozenset = frozenset()
+
+
+class SpGrid:
+    """This process's place in the ``(dp, sp, tp, ep)`` grid of the
+    process group: dp outer, then sp, then tp, ep inner (JAX
+    ``make_mesh``'s axis order), rank ``((d sp + k) tp + t) ep + j``.
+    Every rank builds every subgroup, in one order (``dist.new_group`` is
+    a collective of the whole group); ``sp_grid`` makes one per process,
+    sp, ep and tp size."""
+
+    def __init__(self, sp: int, ep: int = 1, tp: int = 1):
         self.rank = dist.get_rank()
         world = dist.get_world_size()
-        if world % (sp * ep):
+        if world % (sp * tp * ep):
             raise ValueError(f"{world} ranks do not split into sp={sp} "
-                             f"frame shards x ep={ep} expert shards")
-        self.sp, self.ep, self.dp = sp, ep, world // (sp * ep)
-        self.dp_index, rest = divmod(self.rank, sp * ep)
-        self.sp_index, self.ep_index = divmod(rest, ep)
+                             f"frame shards x tp={tp} channel shards x "
+                             f"ep={ep} expert shards")
+        self.sp, self.tp, self.ep = sp, tp, ep
+        self.dp = world // (sp * tp * ep)
+        self.dp_index, rest = divmod(self.rank, sp * tp * ep)
+        self.sp_index, rest = divmod(rest, tp * ep)
+        self.tp_index, self.ep_index = divmod(rest, ep)
         self.peers_group = self.row_group = None
         self.prev_group = self.next_group = None
-        self.ep_group = self.replica_group = None
+        self.ep_group = self.tp_group = self.replica_group = None
 
-        def at(d, k, j=None):
-            return (d * sp + k) * ep + (self.ep_index if j is None else j)
+        def at(d, k, t=None, j=None):
+            t = self.tp_index if t is None else t
+            j = self.ep_index if j is None else j
+            return ((d * sp + k) * tp + t) * ep + j
 
-        # the frame axis, within the rank's replica (every replica's
-        # groups built, in one order, on every rank)
-        for j in range(ep) if sp > 1 else ():
+        # the replicas of one (d, k): each (t, j) in turn
+        places = [(t, j) for t in range(tp) for j in range(ep)]
+        mine = (self.tp_index, self.ep_index)
+        # the frame axis, within each replica (every replica's groups
+        # built, in one order, on every rank)
+        for t, j in places if sp > 1 else ():
             for k in range(sp):
-                g = dist.new_group([at(d, k, j) for d in range(self.dp)])
-                if (k, j) == (self.sp_index, self.ep_index):
+                g = dist.new_group([at(d, k, t, j) for d in range(self.dp)])
+                if (k, t, j) == (self.sp_index, *mine):
                     self.peers_group = g
             for d in range(self.dp):
-                g = dist.new_group([at(d, k, j) for k in range(sp)])
-                mine = (d, j) == (self.dp_index, self.ep_index)
-                if mine:
+                g = dist.new_group([at(d, k, t, j) for k in range(sp)])
+                row = (d, t, j) == (self.dp_index, *mine)
+                if row:
                     self.row_group = g
                 for k in range(sp - 1):
-                    g = dist.new_group([at(d, k, j), at(d, k + 1, j)])
-                    if mine and k == self.sp_index:
+                    g = dist.new_group([at(d, k, t, j), at(d, k + 1, t, j)])
+                    if row and k == self.sp_index:
                         self.next_group = g
-                    if mine and k + 1 == self.sp_index:
+                    if row and k + 1 == self.sp_index:
                         self.prev_group = g
-        # the expert axis: each (d, k)'s replicas, and each replica's
-        # dp sp ranks
+        here = (self.dp_index, self.sp_index)
+        # the channel axis: each (d, k, j)'s tp ranks
+        for d in range(self.dp) if tp > 1 else ():
+            for k in range(sp):
+                for j in range(ep):
+                    g = dist.new_group([at(d, k, t, j) for t in range(tp)])
+                    if (d, k, j) == (*here, self.ep_index):
+                        self.tp_group = g
+        # the expert axis: each (d, k, t)'s replicas
         for d in range(self.dp) if ep > 1 else ():
             for k in range(sp):
-                g = dist.new_group([at(d, k, j) for j in range(ep)])
-                if (d, k) == (self.dp_index, self.sp_index):
-                    self.ep_group = g
-        for j in range(ep) if ep > 1 else ():
-            g = dist.new_group([at(d, k, j) for d in range(self.dp)
+                for t in range(tp):
+                    g = dist.new_group([at(d, k, t, j) for j in range(ep)])
+                    if (d, k, t) == (*here, self.tp_index):
+                        self.ep_group = g
+        # each replica's dp sp ranks
+        for t, j in places if len(places) > 1 else ():
+            g = dist.new_group([at(d, k, t, j) for d in range(self.dp)
                                 for k in range(sp)])
-            if j == self.ep_index:
+            if (t, j) == mine:
                 self.replica_group = g
         self._at = at
 
     def data_parallel(self, device) -> DataParallel:
         """This rank's ``DataParallel``: its rows' place, its replica's
-        grid to reduce over (the whole grid without ``ep``), rank 0 of
-        the grid writing, its ``SeqParallel`` (sp > 1) and its
-        ``ExpertParallel`` (ep > 1)."""
+        grid to reduce over (the whole grid without ``tp`` or ``ep``),
+        rank 0 of the grid writing, its ``SeqParallel`` (sp > 1), its
+        ``TensorParallel`` (tp > 1) and its ``ExpertParallel`` (ep >
+        1)."""
         dp = DataParallel(self.dp_index, self.dp, True, device,
                           group=self.replica_group, writes=self.rank == 0)
+        d, k = self.dp_index, self.sp_index
         if self.sp > 1:
             dp.sp = SeqParallel(
-                self.sp_index, self.sp, self.row_group,
-                [self._at(self.dp_index, k) for k in range(self.sp)],
+                k, self.sp, self.row_group,
+                [self._at(d, i) for i in range(self.sp)],
                 self.prev_group, self.next_group, self.peers_group, device)
+        if self.tp > 1:
+            dp.tp = TensorParallel(
+                self.tp_index, self.tp, self.tp_group,
+                [self._at(d, k, t) for t in range(self.tp)],
+                self.replica_group, device)
         if self.ep > 1:
             dp.expert = ExpertParallel(
                 self.ep_index, self.ep, self.ep_group,
-                [self._at(self.dp_index, self.sp_index, j)
-                 for j in range(self.ep)], self.replica_group, device)
+                [self._at(d, k, j=j) for j in range(self.ep)],
+                self.replica_group, device)
         return dp
 
 
 _SP_GRIDS: dict = {}
 
 
-def sp_grid(sp: int, ep: int = 1) -> SpGrid:
-    """This process's grid for ``sp`` frame shards and ``ep`` expert
-    shards (made once per process group)."""
-    key = (sp, ep, id(dist.group.WORLD))
+def sp_grid(sp: int, ep: int = 1, tp: int = 1) -> SpGrid:
+    """This process's grid for ``sp`` frame shards, ``ep`` expert shards
+    and ``tp`` channel shards (made once per process group)."""
+    key = (sp, ep, tp, id(dist.group.WORLD))
     if key not in _SP_GRIDS:
-        _SP_GRIDS[key] = SpGrid(sp, ep)
+        _SP_GRIDS[key] = SpGrid(sp, ep, tp)
     return _SP_GRIDS[key]
 
 

@@ -23,8 +23,10 @@ and reach the card once for many batches.  A case is one of
   ``DIR/{name}.ref.pt``.  A case with ``"ref"`` (a reference listed
   before it) is measured against it on rank 0: for each of those kinds
   the relative L2 distance of the whole set of tensors and the largest
-  of any one tensor (``distances``); every rank writes a digest of its
-  state, so the ranks' replicas can be held equal.  ``float64``: the
+  of any one tensor (``distances``; a ``"ref"`` may be the path of
+  another group's reference, without ``.ref.pt``: it is waited for);
+  every rank writes a digest of its state, so the ranks' replicas can be
+  held equal.  ``float64``: the
   nets, their optimizer state and the batch in float64
   (``EngineBase.to_float64``).  ``bn_stats``: ``"local"`` or
   ``"forward"``, the controls that must miss (``DataParallel``).  ``flow:
@@ -64,7 +66,8 @@ and reach the card once for many batches.  A case is one of
   "gt": path, "flows": path, "float64": bool}``: one MyGAN ``_gan_core``
   step from the given state dicts on this rank's rows of the given global
   batch, with dropout off and this rank's rows of the given flows (both
-  streams) in place of the flow (``float64``: nets, state and inputs).
+  streams) in place of the flow (``float64``: nets, state and inputs);
+  the state after it whole (under ``--tp`` the slices gathered).
 * ``{"name", "kind": "flow", "video": path, "streams": s, "host":
   bool}``: this rank's rows of each stream of a global video through
   ``minmax_stretch`` and ``video_to_flow_rgb`` (``host``: through
@@ -91,6 +94,19 @@ and reach the card once for many batches.  A case is one of
   "capacity", "dtype", "local_ops"}``: the MoE block alone, its experts
   over the whole group as one ep group, forward and backward on seeded
   tokens, against the one-process block on rank 0 (``run_moe_layer``).
+* ``{"name", "kind": "tp_block", "cin", "cout", "shape", "dtype",
+  "local_ops"}``: MyGAN's ``GenConvBlock`` alone, column-parallel over
+  the whole group as one tp group, forward and backward on a seeded
+  input, against the one-process block on rank 0 (``run_tp_block``).
+
+``--tp``: a train case's ``argv`` with ``--tp N`` runs on the group as a
+``(dp, sp, tp)`` grid; its result holds the channel axis's exchanges per
+step (``tp_counts``: the copy-ins' gradient sums and the gathers) and
+the elements the rank holds (``tp_elements``: parameters and running
+statistics, each Adam moment), and its ``local_ops`` may name the tp
+controls (``"tp_bn"``, ``"tp_copy"``, ``"tp_gather"``, ``"tp_mean"``);
+its references are the same command line in one process
+(``OneProcess``: tp 1, every tensor whole).
 
 ``--sp``: a train case's ``argv`` with ``--sp N`` runs on the group as a
 ``(dp, sp)`` grid (``dp`` 2 in the case: in the group), and its result
@@ -204,6 +220,23 @@ def _trunk_digest(engine) -> str:
                 h.update(p.detach().cpu().contiguous().view(torch.uint8)
                          .numpy().tobytes())
     return h.hexdigest()
+
+
+def _tp_elements(engine) -> dict:
+    """The elements of every net's parameters and running statistics
+    (``state``), parameters alone and each Adam moment that this rank
+    holds (under ``--tp`` its channel slices)."""
+    out = {"state": 0, "params": 0, "exp_avg": 0, "exp_avg_sq": 0}
+    for net in engine._nets().values():
+        for p in net.module.parameters():
+            out["params"] += p.numel()
+            state = net.optimizer.state.get(p, {})
+            for k in ("exp_avg", "exp_avg_sq"):
+                out[k] += state[k].numel() if k in state else 0
+        out["state"] += sum(t.numel() for t in (*net.module.parameters(),
+                                                *net.module.buffers())
+                            if t.dim() >= 1)
+    return out
 
 
 def _expert_elements(engine, moe) -> dict:
@@ -370,10 +403,11 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
         engine.dp.bn_stats = case.get("bn_stats", "global")
         if "local_ops" in case:
             engine.dp.local_ops = frozenset(case["local_ops"])
-            if engine.dp.sp is not None:
-                engine.dp.sp.local_ops = engine.dp.local_ops
-        sp, ep = engine.dp.sp, engine.dp.expert
-        for axis in (sp, ep):
+            for axis in (engine.dp.sp, engine.dp.tp):
+                if axis is not None:
+                    axis.local_ops = engine.dp.local_ops
+        sp, ep, tp = engine.dp.sp, engine.dp.expert, engine.dp.tp
+        for axis in (sp, ep, tp):
             if axis is not None:
                 axis.timed = bool(case.get("time_collectives"))
         moe = getattr(getattr(engine, "model", None), "moe", None)
@@ -460,6 +494,8 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
             # the expert leaves' and their Adam moments' elements this
             # rank holds (under --moe_shards its experts alone)
             out_held = _expert_elements(engine, moe)
+        # the state's elements this rank holds (under --tp its slices)
+        tp_held = _tp_elements(engine)
         # under --pp every stage's blocks, gathered while read (under
         # --moe_shards every expert)
         with engine._whole_state():
@@ -469,7 +505,8 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
                 out["digest"] = _digest(_state(engine))
             if "save" in case and engine.dp.writes:
                 save_checkpoint(case["save"], engine._ckpt_tree())
-        for key, axis in (("sp_counts", sp), ("ep_counts", ep)):
+        for key, axis in (("sp_counts", sp), ("ep_counts", ep),
+                          ("tp_counts", tp)):
             if axis is not None and step_ms:
                 # the frame or expert axis's exchanges per step: [calls,
                 # ms]
@@ -489,6 +526,7 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
             out["peak_mib"] = torch.cuda.max_memory_allocated(
                 engine.device) / 2 ** 20
         pipe = getattr(engine, "pipe", None)
+        out["tp_elements"] = tp_held
         if moe is not None:
             out["expert_elements"] = out_held
         if trunk:
@@ -508,7 +546,8 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
             out["sweep_ms"] = 1e3 * (time.perf_counter() - t0)
             out["sweep_launches"] = launches.counts()
             for key, axis in (("sweep_sp_counts", sp),
-                              ("sweep_ep_counts", ep)):
+                              ("sweep_ep_counts", ep),
+                              ("sweep_tp_counts", tp)):
                 if axis is not None:
                     out[key] = {k: list(v) for k, v in axis.counts.items()}
             out["scores"] = {k: float(v) for k, v in engine.scores.items()}
@@ -663,8 +702,10 @@ def run_gan_core(case: dict, root: Path) -> dict:
          "--result_root", str(root / case["name"])])
     try:
         state = torch.load(case["state"])
-        engine.netg.load_state_dict(state["netG"], strict=True)
-        engine.netd.load_state_dict(state["netD"], strict=True)
+        # (under --tp loaded whole, the rank's channel slices kept)
+        with engine._whole_state():
+            engine.netg.load_state_dict(state["netG"], strict=True)
+            engine.netd.load_state_dict(state["netD"], strict=True)
         engine.netg.drop_rate = 0.0
         data, gt, flows = (torch.from_numpy(np.load(case[k]))
                            for k in ("data", "gt", "flows"))
@@ -681,8 +722,9 @@ def run_gan_core(case: dict, root: Path) -> dict:
             data, gt, local = (x.double() for x in (data, gt, local))
         engine._flow = lambda video, streams=1: local
         metrics = engine.dp.mean_metrics(engine._gan_core(data, gt))
-        return {**_state(engine),
-                "metrics": {k: float(v) for k, v in metrics.items()}}
+        with engine._whole_state():
+            return {**_state(engine),
+                    "metrics": {k: float(v) for k, v in metrics.items()}}
     finally:
         engine.close()
 
@@ -971,6 +1013,77 @@ def run_moe_layer(case: dict) -> dict:
     return out
 
 
+def run_tp_block(case: dict) -> dict:
+    """MyGAN's conv block alone (``models/layers.GenConvBlock``:
+    ``case["cin"]`` -> ``case["cout"]`` channels, ``case["dtype"]``
+    compute, weights from ``torch.Generator(0)``, train mode) on a seeded
+    ``(B, cin, T, H, W)`` input (``case["shape"]``: B, T, H, W) with a
+    seeded upstream gradient, forward and backward, its convs' output
+    channels split over the whole group as one tp group (``--tp`` world;
+    ``local_ops``: the tp controls ``"tp_copy"``, ``"tp_gather"``): the
+    block's output, its input's gradient and every parameter's gradient
+    (the split ones gathered whole).  Rank 0 also runs the one-process
+    block on the same input in the same dtype (``alone``) and in float64
+    (``alone64``: the block's own rounding), both in the grid's two-pass
+    BatchNorm arithmetic (``OneProcess``)."""
+    from vfd_gan_tpu_torch.models.layers import GenConvBlock
+    from vfd_gan_tpu_torch.parallel.tensor import TpShards
+    from vfd_gan_tpu_torch.utils.runtime import resolve_device
+
+    # (TF32 off, as the trainer's engines run)
+    device = resolve_device(case.get("device", "cpu"))
+    dp = sp_grid(1, tp=dist.get_world_size()).data_parallel(device)
+    dp.tp.local_ops = dp.local_ops = frozenset(case.get("local_ops", ()))
+    b, t, h, w = case["shape"]
+    dtype = getattr(torch, case.get("dtype", "float32"))
+    # the block's input in its compute dtype, as the net's BatchNorms
+    # hand it on; the upstream gradient in float64, rounded by the cast
+    x = torch.randn((b, case["cin"], t, h, w), generator=torch.Generator()
+                    .manual_seed(1)).to(device, dtype)
+    up = torch.randn((b, case["cout"], t, h, w), dtype=torch.float64,
+                     generator=torch.Generator().manual_seed(2)).to(device)
+    block0 = GenConvBlock(case["cin"], case["cout"], dtype=dtype,
+                          generator=torch.Generator().manual_seed(0))
+
+    def run(block, inputs, grid, shards=None):
+        block = grid.bind(block.to(device))
+        inputs = inputs.detach().requires_grad_(True)
+        y = block(inputs)
+        (y.double() * up).sum().backward()
+        split = {id(p) for p in shards.params} if shards else set()
+
+        def whole(g):
+            # a split parameter's gradient whole: each rank's in its rows
+            # of a zero buffer, summed over the group
+            n = g.shape[0]
+            full = g.new_zeros((n * grid.tp.size, *g.shape[1:]))
+            full[grid.tp.index * n:(grid.tp.index + 1) * n] = g
+            dist.all_reduce(full, group=grid.tp.group)
+            return full
+
+        grads = [whole(p.grad) if id(p) in split else p.grad
+                 for p in block.parameters()]
+        return {"out": y.detach().double().cpu(),
+                "x_grad": inputs.grad.double().cpu(),
+                "grads": torch.cat([g.double().flatten().cpu()
+                                    for g in grads])}
+
+    mine = copy.deepcopy(block0)
+    shards = TpShards([mine], dp.tp)
+    shards.release()
+    out = run(mine, x, dp, shards)
+    out["tp_counts"] = {k: v[0] for k, v in dp.tp.counts.items()}
+    out["split"] = len(shards.params)
+    if dp.rank == 0:
+        out["alone"] = run(copy.deepcopy(block0), x, OneProcess(device))
+        exact = copy.deepcopy(block0).double()
+        for m in exact.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                m.dtype = torch.float64
+        out["alone64"] = run(exact, x.double(), OneProcess(device))
+    return out
+
+
 def _gathered(grad: torch.Tensor, shards) -> torch.Tensor:
     """Every expert's gradient from the ranks of ``shards``' ep group,
     each in its rows of a zero buffer, summed."""
@@ -1055,6 +1168,28 @@ def run_step_core(case: dict, root: Path) -> dict:
         engine.close()
 
 
+def _save_reference(result: dict, path: Path) -> None:
+    """A reference written whole before its name appears (another
+    group's ranks may be waiting for it, ``_reference``)."""
+    part = path.with_suffix(".part")
+    torch.save(result, part)
+    os.replace(part, path)
+
+
+def _reference(path: Path, timeout: float = 300.0) -> dict:
+    """The reference at ``path``: one of this group's, written before the
+    case began, or another group's (a ``"ref"`` given as the path of a
+    reference in that group's directory, without ``.ref.pt``), waited for
+    up to ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while not path.exists():
+        if time.monotonic() > deadline:
+            raise FileNotFoundError(f"no reference {path} after "
+                                    f"{timeout:g} s")
+        time.sleep(0.1)
+    return torch.load(path)
+
+
 def run_cases(cases: list[dict], out: Path) -> None:
     dp = DataParallel.current()
     for i, case in enumerate(cases):
@@ -1083,22 +1218,26 @@ def run_cases(cases: list[dict], out: Path) -> None:
             result = run_sp_nets(case)
         elif kind == "moe_layer":
             result = run_moe_layer(case)
+        elif kind == "tp_block":
+            result = run_tp_block(case)
         else:
             result = run_flow(case, dp)
         if solo:
-            torch.save(result, out / f"{case['name']}.ref.pt")
+            _save_reference(result, out / f"{case['name']}.ref.pt")
             print(f"[dp_equivalence] rank {dp.rank}: {case['name']} "
                   f"{time.perf_counter() - start:.1f} s", flush=True)
             continue
         if case.get("as_ref") and dp.rank == 0:
-            torch.save(result, out / f"{case['name']}.ref.pt")
+            _save_reference(result, out / f"{case['name']}.ref.pt")
         if "ref" in case:
             short = {"digest": _digest(result),
                      **{k: result[k] for k in ("scores", "saved", "held",
                                                "hand_offs", "sweeps",
                                                "frame_scores",
                                                "moe_dropped", "sp_counts",
-                                               "ep_counts",
+                                               "ep_counts", "tp_counts",
+                                               "sweep_tp_counts",
+                                               "tp_elements",
                                                "expert_elements",
                                                "trunk_digests",
                                                "first_routing")
@@ -1111,8 +1250,7 @@ def run_cases(cases: list[dict], out: Path) -> None:
                 refs = case["ref"] if isinstance(case["ref"], list) \
                     else [case["ref"]]
                 short["distances_to"] = {
-                    ref: distances(result,
-                                   torch.load(out / f"{ref}.ref.pt"))
+                    ref: distances(result, _reference(out / f"{ref}.ref.pt"))
                     for ref in refs}
                 short["distances"] = short["distances_to"][refs[0]]
             result = short

@@ -50,6 +50,13 @@
   draws, the engine's ``dp`` reduces over its replica's ``dp sp`` ranks,
   and each rank holds its experts alone (``experts``; gathered by
   ``_whole_state`` for a checkpoint).
+* ``--tp N`` (MyGAN; ``parallel/mesh.SpGrid``'s tp axis,
+  ``parallel/tensor.py``): the ranks form a ``dp x sp x tp`` grid; the N
+  ranks of a ``(d, k)`` take the same rows, frames and draws, the
+  engine's ``dp`` reduces over the ``dp sp`` ranks of its channel slice,
+  and each rank holds its slice of every leaf that JAX's ``param_spec``
+  shards (``tp_shards``; gathered by ``_whole_state`` for a checkpoint,
+  a best ``.pth`` or a resume).
 * ``--pp N`` (Xception; ``parallel/pp_xception.py``): the ranks form a
   ``dp x pp`` grid (``parallel/pipeline.stage_grid``); the engine's
   ``dp`` is its stage's dp subgroup, rank 0 of the whole group writes,
@@ -93,23 +100,45 @@ from vfd_gan_tpu_torch.train.checkpoints import (
 )
 
 
-# JAX-engine options the port does not run yet, a several-card one: (is
-# it set?, ROADMAP item).  --sp runs for all six families (MyGAN with
-# every option; a MyGAN shard of one frame is refused below), and
-# --moe_shards for Xception's MoE block.
+# MyGAN's options that --tp does not take yet (--int8_disc would need
+# each weight's absmax over the tp group)
+TP_UNPORTED_OPTIONS = ("ae", "accum", "remat", "int8_disc", "host_flow",
+                       "cache_gt_flow", "ref_mode_quirks")
+
+
+def _tp_unported(cfg) -> str | None:
+    """What of a ``--tp > 1`` command the port does not run: a family
+    other than MyGAN, or one of MyGAN's ``TP_UNPORTED_OPTIONS``."""
+    if cfg.tp <= 1:
+        return None
+    if cfg.model != "mygan":
+        return f"--model {cfg.model}"
+    for option in TP_UNPORTED_OPTIONS:
+        value = getattr(cfg, option)
+        if value > 1 if option == "accum" else value:
+            return f"--{option}"
+    return None
+
+
+# JAX-engine options the port does not run yet, a several-card one: (what
+# of it is set, or None; ROADMAP item).  --sp runs for all six families
+# (MyGAN with every option; a MyGAN shard of one frame is refused
+# below), --moe_shards for Xception's MoE block, and --tp for MyGAN
+# without the options above.
 UNPORTED = {
-    "tp": (lambda c: c.tp > 1, "queue 1 item 13 (parallelism)"),
+    "tp": (_tp_unported, "queue 1 item 13 (parallelism) tp"),
 }
 
 
 def refuse_unported(cfg) -> None:
     """Exit with the ROADMAP item of the first option set that the port
     does not run."""
-    for flag, (is_set, item) in UNPORTED.items():
-        if is_set(cfg):
-            raise SystemExit(f"--{flag}: not ported to vfd_gan_tpu_torch "
-                             f"yet (ROADMAP.md {item}); use the JAX "
-                             "trainer (python trainer.py)")
+    for flag, (unported, item) in UNPORTED.items():
+        what = unported(cfg)
+        if what:
+            raise SystemExit(f"--{flag} with {what}: not ported to "
+                             f"vfd_gan_tpu_torch yet (ROADMAP.md {item}); "
+                             "use the JAX trainer (python trainer.py)")
     if cfg.sp > 1 and cfg.model == "mygan":
         if cfg.nfr // cfg.sp < 2:
             # JAX asks only that sp divide nfr; MyGAN's flow pairs frames,
@@ -174,11 +203,15 @@ class EngineBase:
         # under --pp its stage's dp subgroup of the dp x pp grid
         self.dp = DataParallel.current(device)
         self.grid = None
-        if (cfg.sp > 1 or cfg.moe_shards > 1) and self.dp.grouped:
-            self.dp = sp_grid(cfg.sp, cfg.moe_shards).data_parallel(device)
+        if (cfg.sp > 1 or cfg.moe_shards > 1 or cfg.tp > 1) \
+                and self.dp.grouped:
+            self.dp = sp_grid(cfg.sp, cfg.moe_shards,
+                              cfg.tp).data_parallel(device)
         # --moe_shards: the MoE block's experts split over the ep group
-        # (parallel/moe.ExpertShards; the supervised engine's)
+        # (parallel/moe.ExpertShards; the supervised engine's); --tp: the
+        # nets' channel slices (parallel/tensor.TpShards; MyGAN's)
         self.experts = None
+        self.tp_shards = None
         if cfg.pp > 1 and self.dp.grouped:
             self.grid = stage_grid(cfg.pp)
             self.dp = DataParallel(self.grid.dp_index, self.grid.dp_size,
@@ -265,9 +298,13 @@ class EngineBase:
 
     def _step_done(self, *nets) -> None:
         """Average the nets' gradients over the ranks (under
-        ``--moe_shards`` the rank's experts over its replica alone), then
-        step each net's optimizer."""
-        sharded = self.experts.params if self.experts is not None else ()
+        ``--moe_shards`` the rank's experts, under ``--tp`` its channel
+        slices, over its replica alone), then step each net's
+        optimizer."""
+        sharded = [*(self.experts.params if self.experts is not None
+                     else ()),
+                   *(self.tp_shards.params if self.tp_shards is not None
+                     else ())]
         for net in nets:
             self.dp.mean_grads(net.module, sharded)
             net.optimizer.step()
@@ -275,9 +312,15 @@ class EngineBase:
     @contextlib.contextmanager
     def _whole_state(self):
         """This rank's train state whole for the block (every rank enters
-        it at the same step; under ``--pp`` the stages' blocks are
-        gathered, and released after it)."""
-        yield
+        it at the same step; under ``--pp`` the stages' blocks, under
+        ``--tp`` the nets' channel slices are gathered, and released after
+        it)."""
+        if self.tp_shards is None:
+            yield
+            return
+        with self.tp_shards.whole([net.optimizer
+                                   for net in self._nets().values()]):
+            yield
 
     def to_float64(self) -> None:
         """Every net, its optimizer state and the train step's batch in
@@ -603,13 +646,15 @@ class EngineBase:
     def _save_weights(self, head: str) -> None:
         """A best model as the reference's GAN engines save it: one
         ``{head}_ep{NNNN}_{net}.pth`` per net (``netG``, ``netD``); the
-        writing rank alone."""
-        if not self._writes:
-            return
-        for net, state in self._nets().items():
-            save_pth(self.weight_path(
-                best_ckpt_name(head, self.epoch, net) + ".pth"),
-                state.module, self.epoch)
+        writing rank alone (under ``--tp`` every rank gathers the channel
+        slices: each takes the same decision from the same scores)."""
+        with self._whole_state():
+            if not self._writes:
+                return
+            for net, state in self._nets().items():
+                save_pth(self.weight_path(
+                    best_ckpt_name(head, self.epoch, net) + ".pth"),
+                    state.module, self.epoch)
 
     def weight_path(self, name: str) -> str:
         return os.path.join(self.dirs.weights, name)

@@ -64,6 +64,18 @@ frames as G does (``models/stcnn.py``); ``--remat`` recomputes each
 block in the segment it ran in (``models/mygan.rematerialized``);
 ``--host_flow`` takes its extrema over the shard's dp peers and the next
 shard's first gray frame (``train/host_flow.py``).
+
+``--tp N`` (``parallel/tensor.py``; alone, with ``--dp`` and with
+``--sp``, without the options ``engine_base.TP_UNPORTED_OPTIONS``): G and
+D are drawn whole from the seed, as at tp 1, and each rank keeps its
+channel slice of every leaf that JAX's ``param_spec`` shards, before any
+Adam state exists (``tp_shards``); the convs whose output channels split
+run on the rank's slice and gather it, the rest whole on every tp rank.
+The augment, the flow, the losses and the sweep's opening run replicated
+on the tp ranks of a ``(d, k)``, from the same draws; the sweep's G runs
+in eval mode with its convs split as in the step.  ``latest.pt`` and the
+best ``.pth`` files hold the whole tensors (``_whole_state``), and a
+resume loads them whole and keeps the rank's slices.
 """
 
 from __future__ import annotations
@@ -93,6 +105,7 @@ from vfd_gan_tpu_torch.ops.losses import bce, l2_loss, weighted_bce
 from vfd_gan_tpu_torch.ops.morphology import video_open
 from vfd_gan_tpu_torch.parallel.prefetch import to_device
 from vfd_gan_tpu_torch.parallel.sp_generator import generator_forward_sp
+from vfd_gan_tpu_torch.parallel.tensor import TpShards
 from vfd_gan_tpu_torch.train.engine_base import (
     EngineBase,
     SweepAccumulator,
@@ -142,10 +155,20 @@ class MyGanEngine(EngineBase):
         self._gt_flow_cache: dict[int, torch.Tensor] = {}
         # the tensors of the last train step's panels (a panel step only)
         self._viz: dict | None = None
+        self._split_channels()
         self._bind_dp()
         if cfg.resume:
-            self.restore_into(cfg.resume, self._nets())
+            # (under --tp the whole state loaded, the rank's slices kept)
+            with self._whole_state():
+                self.restore_into(cfg.resume, self._nets())
             print(f"\n Loaded pretrained G/D weights from {cfg.resume}\n")
+
+    def _split_channels(self) -> None:
+        """Under ``--tp``: keep the rank's channel slices of G's and D's
+        whole tensors (before Adam holds any state)."""
+        if self.dp.tp is not None:
+            self.tp_shards = TpShards([self.netg, self.netd], self.dp.tp)
+            self.tp_shards.release()
 
     def _nets(self) -> dict:
         return {"netG": self.g, "netD": self.d}
@@ -460,5 +483,6 @@ class MyGanEngine(EngineBase):
             DualDisc(cfg.ndf, cfg.nfr, cfg.isize, dtype=self.dtype,
                      quant=cfg.int8_disc,
                      generator=init).to(self.device), cfg.lr, cfg.beta1)
+        self._split_channels()
         self._bind_dp()
         print("Reloading Net d")
