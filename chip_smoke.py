@@ -4519,20 +4519,10 @@ def _sp_runs(tmp: Path, card: str, phase: str, table, controls,
     ``controls`` (run, the reduction left local; ``CONTROL_STEPS`` steps,
     its ``CONTROL_KINDS`` readings) must fail the gate.  Returns the kernels' launches by run
     (each rank's); the sp 1 references go into ``shared`` where given."""
-    from vfd_gan_tpu_torch.tools import dp_equivalence as eq
-
     t0 = time.perf_counter()
     refs = dict(refs or {})
-    for tag, *_ in table:
-        if tag in refs:
-            continue
-        refs[tag] = tuple(
-            eq.run_train(_spf_case(tag, 1, table, name=_spf_case(
-                tag, 1, table)["name"] + f".{i}", **kw), tmp / "spf_ref",
-                         solo=True)
-            for i, kw in ((1, {}), (2, {"arith": "dp"})))
-        gc.collect()
-        torch.cuda.empty_cache()
+    refs.update(spf_references(tmp, [tag for tag, *_ in table
+                                     if tag not in refs], table))
     t_refs = time.perf_counter() - t0
     if shared is not None:
         shared.update(refs)
@@ -5172,6 +5162,235 @@ def phase_tp(tmp: Path, card: str, refs: dict) -> dict:
     return launches
 
 
+# the tp-families phase: full-width Xception (--xwidth 1.0; float32,
+# bf16, and bf16 --moe_experts 4 at capacity SPF_MOE_CAPACITY) and
+# GANomaly (float32, bf16) at --tp 2 on the two gloo ranks, at the
+# reference size (b8, T16, 128^2), SPF_STEPS steps and a one-batch sweep
+# each; the one-process references are the sp-families phase's runs of
+# the same tags (their command line but for --tp: the same function).
+# The bf16 Xception run times each tp exchange (the device synchronised
+# around it)
+TPF_RUNS = ("xception f32", "xception bf16", "xception moe4 bf16",
+            "ganomaly f32", "ganomaly bf16")
+TPF_TIMED = "xception bf16"
+# each module alone over the two gloo ranks against the one-process module
+# (``tools/dp_equivalence.run_tp_block``) at full width on the shapes a
+# b8 T16 128^2 step gives it, in bf16: a middle-flow SepaConv and its
+# BatchNorm (728 -> 728 on the 8^2 frames), the MoE block (728 channels, 4
+# experts, capacity SPF_MOE_CAPACITY, on the same tokens) and a GANomaly
+# decoder stage (the 256 -> 128 stride-2 ConvTranspose2d, its BatchNorm
+# and ReLU on the 128 frames' 16^2 maps); each of TP_BLOCK_CONTROLS must
+# fail its reading by TPF_BLOCK_REFUSED: the step gate cannot be relied
+# on to see them in bf16 (G's unsummed copy-in read 1.98x at step level
+# on an H100, PERF.md).  In float32 the same three modules refused both
+# controls by 270x to 1.2e6x on an H100 (PERF.md); the CPU tests hold
+# them in float32 (tests/test_torch_port_tp_families.py)
+TPF_BLOCKS = {
+    "sepaconv": dict(block="sepaconv", cin=728, cout=728,
+                     shape=[BATCH, NFR, ISIZE // 16, ISIZE // 16]),
+    "moe": dict(block="moe", cin=728, cout=728, experts=MOE_EXPERTS,
+                capacity=SPF_MOE_CAPACITY,
+                shape=[BATCH, NFR, ISIZE // 16, ISIZE // 16]),
+    "deconv2d": dict(block="deconv2d", cin=256, cout=128,
+                     shape=[BATCH * NFR, ISIZE // 8, ISIZE // 8]),
+}
+TPF_BLOCK_REFUSED = 3.0
+
+
+def _tpf_case(tag: str, **kw) -> dict:
+    """The sp-families run ``tag`` with its nets' channels over
+    ``TP_SHARDS`` ranks (the gloo ranks' group)."""
+    case = _spf_case(tag, 1)
+    return {**case, "name": f"tpf.{tag.replace(' ', '_')}.tp{TP_SHARDS}",
+            "argv": [*case["argv"], "--tp", str(TP_SHARDS)], "dp": 2, **kw}
+
+
+# the parameter elements a rank holds at tp TP_SHARDS and the whole nets'
+# (full width: Xception --xwidth 1, GANomaly's G and D at 128^2), counted
+# from JAX's state_shardings rule on the nets' shapes: Xception's all but
+# the head's 289 at 1/2, its MoE block's 4,248,608 too; GANomaly's G
+# 19,181,248 of 38,359,424 and D 5,590,400 of 11,164,416
+# (tests/test_torch_port_tp_families.py pins the same counts)
+TPF_SHARE = {"xception": (101_568_401, 203_136_513),
+             "xception moe": (103_692_705, 207_385_121),
+             "ganomaly": (24_771_648, 49_523_840)}
+
+
+def phase_tp_families(tmp: Path, card: str, refs: dict) -> dict:
+    """``--tp 2`` for Xception (plain and ``--moe_experts 4``) and
+    GANomaly: two gloo ranks on this one card, each holding its channel
+    slice of every leaf that JAX's ``param_spec`` splits and of its Adam
+    moments (``TPF_RUNS``), held as ``_sp_runs`` holds the sp runs
+    against the two one-process runs of the same command line in
+    ``refs`` (the sp-families phase's): parameters and running
+    statistics, the first step's gradient and running statistics
+    (``_gate``), the sweep's scores (GANomaly's through its frames'
+    scores), the MoE run's first kept set; both ranks' whole states bit
+    for bit; each rank's parameter and Adam elements ``TPF_SHARE``'s;
+    every augment and opening call bit-equal to its plain version on the
+    rank's inputs, launched once a step and (Xception) once a sweep
+    batch.  Then each module of ``TPF_BLOCKS`` alone over the two ranks
+    against the one-process module, bf16, within
+    ``EP_LAYER_FACTOR`` x the dtype's own rounding, each of
+    ``TP_BLOCK_CONTROLS`` refused by more than ``TPF_BLOCK_REFUSED`` x.
+    Returns the kernels' launches by run (each rank's)."""
+    t0 = time.perf_counter()
+    cases = [_tpf_case(tag, hold_kernels=True,
+                       time_collectives=tag == TPF_TIMED)
+             for tag in TPF_RUNS]
+    blocks = [(kind, "bfloat16", op) for kind in TPF_BLOCKS
+              for op in (None, *TP_BLOCK_CONTROLS)]
+    cases += [dict(TPF_BLOCKS[kind], kind="tp_block", device="cuda",
+                   name=f"tpf.block.{kind}.{dtype}.{op or 'tp2'}",
+                   dtype=dtype, local_ops=[op] if op else [])
+              for kind, dtype, op in blocks]
+    gloo = tmp / "tpf_gloo"
+    t1 = time.perf_counter()
+    _gloo(cases, gloo, timeout=SP_JOIN_S)
+    t_ranks = time.perf_counter() - t1
+
+    def load(name, rank=0):
+        return torch.load(gloo / f"{name}.rank{rank}.pt", weights_only=False)
+
+    launches = {}
+    for tag in TPF_RUNS:
+        _, model, dtype, extra, _ = next(r for r in SPF_RUNS if r[0] == tag)
+        name = _tpf_case(tag)["name"]
+        got, other = load(name), load(name, 1)
+        ref, again = refs[tag]
+        check(got["digest"] == other["digest"],
+              f"tp-families {tag}: both ranks hold the whole state (slices "
+              f"gathered) bit for bit")
+        share, whole = TPF_SHARE[model + (" moe" if "--moe_experts" in extra
+                                          else "")]
+        openings = 0 if model == "ganomaly" else 1
+        for r, res in enumerate((got, other)):
+            check(all(np.isfinite(v) for step in res["losses"]
+                      for v in step.values()),
+                  f"tp-families {tag}: finite losses")
+            held = res["tp_elements"]
+            check(all(held[k] == share
+                      for k in ("params", "exp_avg", "exp_avg_sq"))
+                  and ref["tp_elements"]["params"] == whole,
+                  f"tp-families {tag} rank {r}: the parameter and Adam "
+                  f"elements of the split set at 1/{TP_SHARDS} and the rest "
+                  f"whole, {share} of {whole}: {held}")
+            counts, sweep = res["launches"], res["sweep_launches"]
+            check(counts["augment_gather"] == SPF_STEPS
+                  and sweep.get("morphology_open", 0) == openings,
+                  f"tp-families {tag}: the augment kernel once per step, "
+                  f"the opening {openings} times a sweep batch: {counts}, "
+                  f"{sweep}")
+            total = {k: counts.get(k, 0) + sweep.get(k, 0)
+                     for k in set(counts) | set(sweep)}
+            launches[f"tp-families {tag}" + (" rank1" if r else "")] = total
+            kept = res["kernel_vs_plain"]
+            for kernel, calls in (("augment_gather", SPF_STEPS),
+                                  ("morphology_open", openings),
+                                  ("morphology_open_blobs", openings)):
+                check(len(kept.get(kernel, ())) == calls
+                      and all(c[0] == 0 for c in kept.get(kernel, ())),
+                      f"tp-families {tag} rank {r}: {kernel} bit-equal to "
+                      f"its plain version on each of its {calls} call(s): "
+                      f"{kept.get(kernel)}")
+        say("tp-families", f"{card}: {tag} tp {TP_SHARDS} "
+            + _gate(tag, got, ref, again))
+        frames = (got["frame_scores"][-1], ref["frame_scores"][-1],
+                  again["frame_scores"][-1]) if model == "ganomaly" else None
+        say("tp-families", f"{card}: {tag} " + _scores_close(
+            {"scores": got["scores"]}, {"scores": ref["scores"]},
+            {"scores": again["scores"]}, frames)
+            .replace("sp 2", f"tp {TP_SHARDS}").replace("sp 1",
+                                                       "one process"))
+        if "--moe_experts" in extra:
+            say("tp-families", f"{card}: {tag} " + _routing_gate(
+                tag, [got], ref, again)[1].replace("sp 1", "one process"))
+        kept = got["kernel_vs_plain"]
+        mib = {k: 4 * v / 2 ** 20 for k, v in got["tp_elements"].items()}
+        exchanges = ", ".join(
+            f"{k} {n:g}" + (f" ({ms:.2f} ms)" if tag == TPF_TIMED else "")
+            for k, (n, ms) in sorted(got["tp_counts"].items()))
+        step = (" (every tp exchange and collective timed, the device "
+                "synchronised around each)" if tag == TPF_TIMED else "")
+        say("tp-families",
+            f"{card}: {tag}: per rank the parameters {mib['params']:.2f} MiB"
+            f" and each Adam moment {mib['exp_avg']:.2f} MiB (float32; "
+            f"{share} of {whole} elements, {share / whole:.1%}); peak MiB "
+            f"one process {ref.get('peak_mib', math.nan):.0f}, tp "
+            f"{TP_SHARDS} per rank {got.get('peak_mib', math.nan):.0f} / "
+            f"{other.get('peak_mib', math.nan):.0f}; on each rank the "
+            f"augment kernel on {kept['augment_gather'][0][1]} uint8 frames"
+            + (f" and the opening on the sweep's "
+               f"{kept['morphology_open'][0][1]} masks (on blobs "
+               f"{kept['morphology_open_blobs'][0][2]:.4f} -> "
+               f"{kept['morphology_open_blobs'][0][3]:.4f})"
+               if openings else "")
+            + " bit-equal to their plain versions")
+        say("tp-families",
+            f"{card}: {tag}: step median ms one process "
+            f"{_median_ms(ref):.1f} (two-pass BatchNorms "
+            f"{_median_ms(again):.1f}), tp {TP_SHARDS} (2 gloo ranks on one "
+            f"card: gloo's host copies, nothing of NCCL across cards){step} "
+            f"{_median_ms(got):.1f} / {_median_ms(other):.1f} "
+            f"({_median_ms(got) / _median_ms(ref):.2f}x); sweep ms one "
+            f"process {ref['sweep_ms']:.1f}, tp {TP_SHARDS} "
+            f"{got['sweep_ms']:.1f}; tp exchanges per step {exchanges}"
+            + (f"; collectives per step {_collectives(got)}"
+               if tag == TPF_TIMED else "")
+            + f"; launches per rank (steps + sweep) "
+              f"{json.dumps(launches[f'tp-families {tag}'])}")
+    for kind, dtype, op in blocks:
+        got = load(f"tpf.block.{kind}.{dtype}.{op or 'tp2'}")
+        past, line = _block_reading(got)
+        what = (f"{kind} alone, {dtype}, {TPF_BLOCKS[kind]['cin']} -> "
+                f"{TPF_BLOCKS[kind]['cout']} channels on "
+                f"{TPF_BLOCKS[kind]['shape']}")
+        if op is None:
+            other = load(f"tpf.block.{kind}.{dtype}.tp2", 1)
+            past1, line1 = _block_reading(
+                {**other, "alone": got["alone"], "alone64": got["alone64"]})
+            check(max(*past.values(), *past1.values()) <= 1
+                  and torch.equal(got["out"], other["out"]),
+                  f"tp-families {what}: each rank within "
+                  f"{EP_LAYER_FACTOR:g} x the dtype's own rounding of the "
+                  f"one-process module, the output bit-equal on both: "
+                  f"{line}; rank 1 {line1}")
+            say("tp-families", f"{card}: {what}, {got['split']} tensors "
+                               f"split, tp 2 against one process: {line}; "
+                               f"exchanges {json.dumps(got['tp_counts'])}")
+            continue
+        refused = max(past.values())
+        check(refused > TPF_BLOCK_REFUSED,
+              f"tp-families {what}: the {op} control fails the module "
+              f"reading that the tp 2 module passes by more than "
+              f"{TPF_BLOCK_REFUSED:g}x: {line}")
+        say("tp-families", f"{card}: {what}, {op} control: {line}; refused "
+                           f"by {refused:.3g}x")
+    say("tp-families", f"{card}: gloo ranks {t_ranks:.1f} s, phase "
+                       f"{time.perf_counter() - t0:.1f} s (the one-process "
+                       f"references: the sp-families phase's)")
+    return launches
+
+
+def spf_references(tmp: Path, tags, table=SPF_RUNS) -> dict:
+    """The two one-process sp 1 references of each run of ``tags`` in
+    ``table``: the plain run and its two-pass BatchNorm twin
+    (``_sp_runs``' references, and the tp-families phase's when it runs
+    without the sp-families phase)."""
+    from vfd_gan_tpu_torch.tools import dp_equivalence as eq
+
+    refs = {}
+    for tag in tags:
+        refs[tag] = tuple(
+            eq.run_train(_spf_case(tag, 1, table, name=_spf_case(
+                tag, 1, table)["name"] + f".{i}", **kw), tmp / "spf_ref",
+                         solo=True)
+            for i, kw in ((1, {}), (2, {"arith": "dp"})))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return refs
+
+
 def _host_forms(plain: bool):
     """The dataset's host runtime: the library (``plain`` False) or the
     Python forms, for the block."""
@@ -5279,8 +5498,9 @@ def run_new_phases(tmp: Path, device, paths: dict, base: dict) -> dict:
 def run_sp_phases(tmp: Path, card: str) -> dict:
     """The ``--sp`` phases (``sp``, ``sp-families``, ``sp-ae``,
     ``sp-anogan-clstm``), the ``--moe_shards`` phase (``ep``, held to
-    the sp-families phase's MoE references) and the ``--tp`` phase
-    (``tp``, held to the sp phase's nfr 16 references); returns the
+    the sp-families phase's MoE references) and the ``--tp`` phases
+    (``tp``, held to the sp phase's nfr 16 references, and
+    ``tp-families``, held to the sp-families phase's); returns the
     kernels' launches by run."""
     runs, refs = phase_sp(tmp, card)
     spf_refs: dict = {}
@@ -5288,20 +5508,28 @@ def run_sp_phases(tmp: Path, card: str) -> dict:
                   functools.partial(phase_sp_ae, shared=refs),
                   phase_sp_anogan_clstm,
                   functools.partial(phase_ep, refs=spf_refs),
-                  functools.partial(phase_tp, refs=refs)):
+                  functools.partial(phase_tp, refs=refs),
+                  functools.partial(phase_tp_families, refs=spf_refs)):
         gc.collect()
         torch.cuda.empty_cache()
         runs.update(phase(tmp, card))
     return runs
 
 
-def slice_only(name: str, card: str) -> None:
+def slice_only(name: str, card: str, phase: str | None = None) -> None:
     """``--slice-only``: the build and the several-rank phases of the
     ``--sp``, ``--moe_shards`` and ``--tp`` slices alone (``sp``,
-    ``sp-families``, ``sp-ae``, ``sp-anogan-clstm``, ``ep``, ``tp``), for
-    a short call while they are worked on; prints no result line."""
+    ``sp-families``, ``sp-ae``, ``sp-anogan-clstm``, ``ep``, ``tp``,
+    ``tp-families``), for a short call while they are worked on; with
+    ``phase`` ``tp-families`` that phase alone, on the sp-families
+    references of its runs (``spf_references``).  Prints no result
+    line."""
     with tempfile.TemporaryDirectory() as tmp, gloo_ranks(Path(tmp)):
-        runs = run_sp_phases(Path(tmp), card)
+        if phase == "tp-families":
+            runs = phase_tp_families(Path(tmp), card, spf_references(
+                Path(tmp), TPF_RUNS))
+        else:
+            runs = run_sp_phases(Path(tmp), card)
     _say_seconds()
     say("slice-only", f"{name}: launches by run {json.dumps(runs)}; no "
                       "result line (the full run prints it)")
@@ -5339,7 +5567,16 @@ def _say_seconds() -> None:
         for k, (n, s) in PHASE_SECONDS.items()))
 
 
+# the command lines the script takes: the whole run, the several-rank
+# phases alone (or the tp-families phase alone), the int8 study
+ARGVS = ([], ["--slice-only"], ["--slice-only", "tp-families"],
+         ["--int8-study"])
+
+
 def main() -> None:
+    if sys.argv[1:] not in ARGVS:
+        raise SystemExit(f"chip_smoke.py: unknown arguments {sys.argv[1:]}; "
+                         f"it takes one of {ARGVS}")
     start = time.perf_counter()
     # every phase times itself (``_say_seconds``)
     for fn_name, fn in list(globals().items()):
@@ -5352,8 +5589,8 @@ def main() -> None:
     device = torch.device("cuda")
     resolve_device("cuda")               # TF32 off, as the entry points do
     phase_build()
-    if sys.argv[1:] == ["--slice-only"]:
-        slice_only(name, card)
+    if sys.argv[1:2] == ["--slice-only"]:
+        slice_only(name, card, *sys.argv[2:])
         return
     if sys.argv[1:] == ["--int8-study"]:
         int8_study(name, card)

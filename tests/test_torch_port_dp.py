@@ -79,6 +79,7 @@ from vfd_gan_tpu_torch.utils.weights import (
     dualdisc_state_dict,
     generator_state_dict,
 )
+from rank_slots import Slots
 from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 BOUND = 1e-9
@@ -188,12 +189,17 @@ class _Ranks:
     test's count began, and its ranks' ``SAVE PATH`` lines then landed in
     that test's captured output)."""
 
-    def __init__(self, root):
+    def __init__(self, root, ranks: int):
         self.root = root
         self.errors = []
         self.threads = []
+        # the module's ranks, claimed before its first group starts and
+        # given back when its last one has ended
+        # (tests/test_torch_port_sp._Ranks)
+        self.slots = Slots(root, ranks)
 
     def start(self, cases) -> None:
+        self.slots.acquire()
         spawned = threading.Event()
         thread = threading.Thread(
             target=self._run, args=(cases, len(self.threads), spawned),
@@ -212,6 +218,7 @@ class _Ranks:
             self.errors.append(e)
         finally:
             spawned.set()
+            self.slots.ended(2)
 
     def join(self) -> None:
         for thread in self.threads:
@@ -219,6 +226,13 @@ class _Ranks:
             assert not thread.is_alive(), "the ranks outlived their join"
         if self.errors:
             raise self.errors[0]
+
+    def close(self) -> None:
+        """The module's end: its groups waited for, its claim given
+        back."""
+        for thread in self.threads:
+            thread.join(JOIN_S + 20)
+        self.slots.release()
 
     def _file(self, name: str) -> Path:
         self.join()
@@ -248,14 +262,14 @@ def jax_gan():
 
 
 @pytest.fixture(scope="module", autouse=True)
-def ranks(tmp_path_factory):
+def ranks(tmp_path_factory, request):
     """Started before the module's first test: the JAX steps and the
     command's runs below proceed while the ranks compute."""
-    group = _Ranks(tmp_path_factory.mktemp("dp"))
+    group = _Ranks(tmp_path_factory.mktemp("dp"), 2 * len(GROUPS))
+    # the claim on the rank slots given back however the module ends
+    request.addfinalizer(group.close)
     group.start(_cases(GROUPS[0]))
     yield group
-    for thread in group.threads:
-        thread.join(JOIN_S + 20)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -380,7 +394,7 @@ def test_trainer_refuses_with_queue_1_item_13(tmp_path, extra):
     if "--moe_shards" in extra:
         engine = trainer.build_engine(argv)
         try:
-            assert engine.cfg.moe_shards == 2 and engine.experts is None
+            assert engine.cfg.moe_shards == 2 and engine.shards is None
             assert engine.model.moe.experts_w1.shape[0] == 2
         finally:
             engine.close()

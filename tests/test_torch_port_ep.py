@@ -42,7 +42,9 @@ b2 step, 16 of 128 at b4: at least half the tokens drop).
   uninterrupted run.
 * the trainer's ``--moe_shards 2`` command (2 ranks, rank 0 alone
   writes); ``--moe_shards 3`` of 4 experts refused, as JAX refuses it;
-  ``--tp 2`` still refused with queue 1 item 13.
+  ``--tp 2`` with ``--moe_shards 2`` taken (tp x ep,
+  ``tests/test_torch_port_tp_families.py``), with c2plus1d still refused
+  with queue 1 item 13.
 """
 
 import flax.linen as fnn
@@ -72,7 +74,7 @@ from vfd_gan_tpu_torch.parallel import verify
 from vfd_gan_tpu_torch.tools import dp_equivalence as eq
 from vfd_gan_tpu_torch.utils.checkpoint import load_state_dict
 from vfd_gan_tpu_torch.utils.weights import xception_state_dict
-from test_torch_port_sp import JOIN_S, _children, _Ranks
+from test_torch_port_sp import _children, _Ranks
 from test_torch_port_sp_families import _recording_moe
 from test_torch_port_threads import one_torch_thread  # noqa: F401
 
@@ -219,17 +221,17 @@ def jax_net():
 
 
 @pytest.fixture(scope="module", autouse=True)
-def ranks(tmp_path_factory, jax_net):
+def ranks(tmp_path_factory, jax_net, request):
     """Started before the module's first test: the JAX steps run while the
     ranks compute."""
-    group = _Ranks(tmp_path_factory.mktemp("ep"))
+    group = _Ranks(tmp_path_factory.mktemp("ep"), 6)
+    # the claim on the rank slots given back however the module ends
+    request.addfinalizer(group.close)
     group.start([*_group_cases(0), *_control_cases(),
                  *_checkpoint_cases(group.root), *_layer_cases()], world=2)
     group.start([_step_case(group.root, jax_net[2]), *_group_cases(1)],
                 world=4)
     yield group
-    for thread in group.threads:
-        thread.join(JOIN_S + 20)
 
 
 # The tests that run JAX come first: the ranks compute meanwhile.
@@ -462,7 +464,7 @@ def test_latest_pt_of_ep2_is_canonical_and_loads_in_one_process(ranks,
         *RUNS["ep2"][1], "--device", "cpu", "--no-tensorboard",
         "--result_root", str(tmp_path), "--resume", str(path)])
     try:
-        assert engine.experts is None       # one process: every expert
+        assert engine.shards is None       # one process: every expert
         for k, v in engine.model.state_dict().items():
             assert torch.equal(v, sd[k]), k
         state = engine.net.optimizer.state
@@ -552,6 +554,16 @@ def test_moe_shards_that_do_not_divide_the_experts_are_refused_as_jax(
 
 
 def test_tp_is_still_refused_with_item_13(tmp_path):
+    """``--tp`` with ``--moe_shards`` runs since (tp x ep,
+    ``tests/test_torch_port_tp_families.py``); item 13 tp still refuses
+    ``--tp`` where the port does not take it yet (c2plus1d)."""
+    from vfd_gan_tpu_torch.config import parse_args
+    from vfd_gan_tpu_torch.train.engine_base import UNPORTED
+
+    unported, _ = UNPORTED["tp"]
+    assert unported(parse_args([*_xception(*EP2), "--tp", "2"])) is None
     with pytest.raises(SystemExit, match=r"queue 1 item 13 \(parallelism"):
-        trainer.main([*_xception(*EP2), "--tp", "2", "--device", "cpu",
+        trainer.main(["--model", "c2plus1d", "--batchsize", "4", "--nfr",
+                      "16", "--isize", "32", "--tp", "2",
+                      "--synthetic_data", "2", "--device", "cpu",
                       "--result_root", str(tmp_path)])

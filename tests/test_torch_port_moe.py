@@ -448,7 +448,7 @@ def test_moe_shards_is_refused_as_parallelism(tmp_path):
         "4", "--moe_shards", "2", "--synthetic_data", "2", "--device",
         "cpu", "--no-tensorboard", "--result_root", str(tmp_path)])
     try:
-        assert engine.cfg.moe_shards == 2 and engine.experts is None
+        assert engine.cfg.moe_shards == 2 and engine.shards is None
         assert engine.model.moe.experts_w1.shape[0] == 4
     finally:
         engine.close()

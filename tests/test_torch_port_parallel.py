@@ -83,6 +83,7 @@ from vfd_gan_tpu_torch.ops.augment import staging_size
 from vfd_gan_tpu_torch.parallel.pipeline import stage_blocks
 from vfd_gan_tpu_torch.tools import dp_equivalence as eq
 from vfd_gan_tpu_torch.utils.weights import xception_state_dict
+from rank_slots import Slots
 from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 try:
@@ -173,14 +174,19 @@ def _resume_cases(root: Path) -> list:
 
 
 class _Ranks:
-    """The module's groups of ranks, each running in the background."""
+    """The module's groups of ranks, each running in the background; the
+    module's ``ranks`` (every group's) claimed from the session's
+    ``rank_slots.Slots`` before its first group starts and given back
+    when its last one has ended (``tests/test_torch_port_sp._Ranks``)."""
 
-    def __init__(self, root):
+    def __init__(self, root, ranks: int):
         self.root = root
         self.errors = []
         self.threads = []
+        self.slots = Slots(root, ranks)
 
     def start(self, cases, world: int) -> None:
+        self.slots.acquire()
         out = self.root / f"group{len(self.threads)}"
         thread = threading.Thread(target=self._run, args=(cases, out, world),
                                   daemon=True)
@@ -192,6 +198,8 @@ class _Ranks:
             eq.run(cases, out, world=world, backend="gloo", timeout=JOIN_S)
         except Exception as e:          # reported by every result()
             self.errors.append(e)
+        finally:
+            self.slots.ended(world)
 
     def join(self) -> None:
         for thread in self.threads:
@@ -199,6 +207,13 @@ class _Ranks:
             assert not thread.is_alive(), "the ranks outlived their join"
         if self.errors:
             raise self.errors[0]
+
+    def close(self) -> None:
+        """The module's end: its groups waited for, its claim given
+        back."""
+        for thread in self.threads:
+            thread.join(JOIN_S + 20)
+        self.slots.release()
 
     def _file(self, name: str) -> Path:
         self.join()
@@ -245,10 +260,12 @@ def jax_init():
 
 
 @pytest.fixture(scope="module", autouse=True)
-def ranks(tmp_path_factory, jax_init):
+def ranks(tmp_path_factory, jax_init, request):
     """Started before the module's first test: the JAX step proceeds
     while the ranks compute."""
-    group = _Ranks(tmp_path_factory.mktemp("parallel"))
+    group = _Ranks(tmp_path_factory.mktemp("parallel"), 6)
+    # the claim on the rank slots given back however the module ends
+    request.addfinalizer(group.close)
     root = group.root
     batch, draws = _step_inputs()
     np.savez(root / "batch.npz", **batch)
@@ -271,8 +288,6 @@ def ranks(tmp_path_factory, jax_init):
     group.start([core, *handoffs(2), *_option_cases(), *host,
                  *_pipe_cases(2), *_resume_cases(root)], world=2)
     yield group
-    for thread in group.threads:
-        thread.join(JOIN_S + 20)
 
 
 def _flow_video() -> np.ndarray:

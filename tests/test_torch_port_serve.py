@@ -480,6 +480,21 @@ def test_load_dispatch_rules(tmp_path):
         infer._load(str(tmp_path / "weights.pth"), cpu)
 
 
+@pytest.mark.parametrize("width", [0.003, 0.01, 0.05, 0.37, 1.0, 1.3])
+def test_xception_width_from_its_checkpoint(width):
+    """infer builds an Xception checkpoint's net at its every width: at
+    multipliers where one ratio alone rounds another width otherwise
+    (0.05) and where the narrow widths are clamped to 1 (0.003, 0.01)."""
+    from vfd_gan_tpu_torch.models.xception3d import Xception3D
+
+    sd = Xception3D(width_mult=width, moe_experts=2,
+                    device="meta").state_dict()
+    model = infer.build_model("xception", sd, torch.device("meta"),
+                              torch.float32)
+    assert {k: v.shape for k, v in model.state_dict().items()} == \
+        {k: v.shape for k, v in sd.items()}
+
+
 def test_infer_main_writes_mask_overlay_scores(tmp_path):
     from vfd_gan_tpu.data.video_io import read_clip, write_video
 

@@ -108,14 +108,18 @@ def _jax_model_and_variables(family):
 @functools.lru_cache(maxsize=None)
 def _pth(family):
     """The family's bridged weights as a reference-format .pth whose name
-    holds the family's substring."""
+    holds the family's substring (removed when the process exits)."""
+    import atexit
+    import shutil
     import tempfile
 
     bridge = FAMILIES[family][0]
     _, variables = _jax_model_and_variables(family)
     sd = {k: torch.from_numpy(np.array(a))
           for k, a in bridge(variables).items()}
-    path = f"{tempfile.mkdtemp()}/roc-0.9000_{family}_step0002.pth"
+    where = tempfile.mkdtemp()
+    atexit.register(shutil.rmtree, where, True)
+    path = f"{where}/roc-0.9000_{family}_step0002.pth"
     torch.save({"epoch": 0, "state_dict": sd}, path)
     return path
 

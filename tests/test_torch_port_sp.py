@@ -87,6 +87,7 @@ from vfd_gan_tpu_torch.utils.weights import (
     dualdisc_state_dict,
     generator_state_dict,
 )
+from rank_slots import Slots
 from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 BOUND = 1e-9
@@ -134,14 +135,20 @@ def _train_cases(world: int) -> list:
 class _Ranks:
     """The module's groups of ranks, each running in the background;
     ``start`` returns once a group's ranks are spawned, and they write to
-    a log file of their own."""
+    a log file of their own.  The module's ``ranks`` (every group's, in
+    all) are claimed from the session's ``rank_slots.Slots`` before its
+    first group starts, so that the groups compute beside a bounded number
+    of other ranks, and are given back when its last group has ended
+    (or at ``close``)."""
 
-    def __init__(self, root):
+    def __init__(self, root, ranks: int):
         self.root = root
         self.errors = []
         self.threads = []
+        self.slots = Slots(root, ranks)
 
     def start(self, cases, world: int) -> None:
+        self.slots.acquire()
         spawned = threading.Event()
         index = len(self.threads)
         thread = threading.Thread(target=self._run,
@@ -161,6 +168,7 @@ class _Ranks:
             self.errors.append(e)
         finally:
             spawned.set()
+            self.slots.ended(world)
 
     def join(self) -> None:
         for thread in self.threads:
@@ -168,6 +176,13 @@ class _Ranks:
             assert not thread.is_alive(), "the ranks outlived their join"
         if self.errors:
             raise self.errors[0]
+
+    def close(self) -> None:
+        """The module's end: its groups waited for, its claim given
+        back."""
+        for thread in self.threads:
+            thread.join(JOIN_S + 20)
+        self.slots.release()
 
     def result(self, group: int, name: str, rank: int = 0) -> dict:
         self.join()
@@ -243,10 +258,12 @@ def _state_file(path: Path, bridge, variables) -> str:
 
 
 @pytest.fixture(scope="module", autouse=True)
-def ranks(tmp_path_factory, jax_gan):
+def ranks(tmp_path_factory, jax_gan, request):
     """Started before the module's first test: the JAX functions and the
     commands below run while the ranks compute."""
-    group = _Ranks(tmp_path_factory.mktemp("sp"))
+    group = _Ranks(tmp_path_factory.mktemp("sp"), 6)
+    # the claim on the rank slots given back however the module ends
+    request.addfinalizer(group.close)
     root = group.root
     inputs = _temporal_inputs()
     for sp in (2, 4):
@@ -283,8 +300,6 @@ def ranks(tmp_path_factory, jax_gan):
              streams=2, sp=2),
         *_train_cases(2)], world=2)
     yield group
-    for thread in group.threads:
-        thread.join(JOIN_S + 20)
 
 
 # The tests that run JAX come first: the ranks compute meanwhile.
@@ -602,7 +617,7 @@ def test_sp_with_tp_or_moe_shards_is_refused_with_item_13(tmp_path, extra):
             assert engine.model.moe.experts_w1.shape[0] == 2
         else:
             assert (engine.cfg.sp, engine.cfg.tp) == (2, 2)
-            assert engine.tp_shards is None
+            assert engine.shards is None
             assert engine.netg.dconv1.conv.temporal_conv.weight.shape[0] \
                 == 32
     finally:

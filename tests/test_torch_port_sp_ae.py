@@ -68,7 +68,7 @@ from vfd_gan_tpu_torch.cli import trainer
 from vfd_gan_tpu_torch.ops.augment import staging_size
 from vfd_gan_tpu_torch.parallel import verify
 from vfd_gan_tpu_torch.utils.weights import autoencoder_state_dict
-from test_torch_port_sp import JOIN_S, _children, _flow_video, _Ranks
+from test_torch_port_sp import _children, _flow_video, _Ranks
 from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 try:
@@ -185,10 +185,12 @@ def _step_batch() -> tuple[dict, dict]:
 
 
 @pytest.fixture(scope="module", autouse=True)
-def ranks(tmp_path_factory, jax_ae):
+def ranks(tmp_path_factory, jax_ae, request):
     """Started before the module's first test: the JAX functions run
     while the ranks compute."""
-    group = _Ranks(tmp_path_factory.mktemp("sp_ae"))
+    group = _Ranks(tmp_path_factory.mktemp("sp_ae"), 8)
+    # the claim on the rank slots given back however the module ends
+    request.addfinalizer(group.close)
     root = group.root
     _, variables, clip = jax_ae
     torch.save({k: torch.from_numpy(np.array(v))
@@ -216,8 +218,6 @@ def ranks(tmp_path_factory, jax_ae):
                 streams=2, sp=2, host=True)] if HAS_CV2 else []),
         *_row_cases(MYGAN_RUNS), *_remat_cases()], world=2)
     yield group
-    for thread in group.threads:
-        thread.join(JOIN_S + 20)
 
 
 # The tests that run JAX come first: the ranks compute meanwhile.

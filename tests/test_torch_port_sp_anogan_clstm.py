@@ -77,7 +77,7 @@ from vfd_gan_tpu_torch.utils.weights import (
     anogan_generator_state_dict,
     convlstm_state_dict,
 )
-from test_torch_port_sp import JOIN_S, _children, _Ranks
+from test_torch_port_sp import _children, _Ranks
 from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 BOUND = 1e-9
@@ -214,10 +214,12 @@ def _save_state(path, state: dict) -> None:
 
 
 @pytest.fixture(scope="module", autouse=True)
-def ranks(tmp_path_factory, jax_nets):
+def ranks(tmp_path_factory, jax_nets, request):
     """Started before the module's first test: the JAX functions run
     while the ranks compute."""
-    group = _Ranks(tmp_path_factory.mktemp("sp_anogan_clstm"))
+    group = _Ranks(tmp_path_factory.mktemp("sp_anogan_clstm"), 8)
+    # the claim on the rank slots given back however the module ends
+    request.addfinalizer(group.close)
     root = group.root
     for t in (16, 8):
         _save_state(root / f"anogan{t}.pt", _anogan_state(jax_nets, t))
@@ -247,8 +249,6 @@ def ranks(tmp_path_factory, jax_nets):
     group.start([cores["anogan"], *_row_cases("anogan")], world=2)
     group.start([cores["clstm"], *_row_cases("clstm")], world=2)
     yield group
-    for thread in group.threads:
-        thread.join(JOIN_S + 20)
 
 
 # The tests that run JAX come first: the ranks compute meanwhile.

@@ -86,7 +86,7 @@ from vfd_gan_tpu_torch.utils.weights import (
     ganomaly_generator_state_dict,
     xception_state_dict,
 )
-from test_torch_port_sp import JOIN_S, _children, _Ranks
+from test_torch_port_sp import _children, _Ranks
 from test_torch_port_threads import one_torch_thread  # noqa: F401
 
 BOUND = 1e-9
@@ -250,16 +250,16 @@ def _step_cases(root, jax_nets) -> list:
 
 
 @pytest.fixture(scope="module", autouse=True)
-def ranks(tmp_path_factory, jax_nets):
+def ranks(tmp_path_factory, jax_nets, request):
     """Started before the module's first test: the JAX steps run while the
     ranks compute."""
-    group = _Ranks(tmp_path_factory.mktemp("sp_families"))
+    group = _Ranks(tmp_path_factory.mktemp("sp_families"), 10)
+    # the claim on the rank slots given back however the module ends
+    request.addfinalizer(group.close)
     group.start(_one_frame_cases(), world=8)
     group.start([*_step_cases(group.root, jax_nets), *_row_cases()],
                 world=2)
     yield group
-    for thread in group.threads:
-        thread.join(JOIN_S + 20)
 
 
 # The tests that run JAX come first: the ranks compute meanwhile.

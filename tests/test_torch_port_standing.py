@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from vfd_gan_tpu_torch.tools import dp_equivalence as eq
+from rank_slots import Slots
 
 JOIN_S = 300.0
 _COMMON = ["--compute_dtype", "float32", "--synthetic_data", "2",
@@ -58,6 +59,10 @@ def runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("standing")
     fresh = [root / f"fresh{i}" for i in range(len(BATCHES))]
     failed = []
+    # the standing pair and a fresh pair a batch, claimed from the
+    # session's rank slots (tests/test_torch_port_sp._Ranks)
+    slots = Slots(root, 2 * (len(BATCHES) + 1))
+    slots.acquire()
 
     def alone(cases, out):
         try:
@@ -68,14 +73,18 @@ def runs(tmp_path_factory):
 
     threads = [threading.Thread(target=alone, args=(cases, out))
                for cases, out in zip(BATCHES, fresh)]
-    for t in threads:
-        t.start()
-    with eq.Standing(root / "ranks") as ranks:
-        for cases in BATCHES:
-            ranks.run(cases, root / "standing", timeout=JOIN_S)
-        pids = list(ranks.pids)
-    for t in threads:
-        t.join()
+    try:
+        for t in threads:
+            t.start()
+        with eq.Standing(root / "ranks") as ranks:
+            for cases in BATCHES:
+                ranks.run(cases, root / "standing", timeout=JOIN_S)
+            pids = list(ranks.pids)
+    finally:
+        for t in threads:
+            if t.is_alive():
+                t.join()
+        slots.release()
     assert not failed, failed
     return root / "standing", fresh, pids
 

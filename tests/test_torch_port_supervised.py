@@ -224,7 +224,7 @@ def test_trainer_refuses_what_the_supervised_port_does_not_run(
             assert engine.pipe.gpipe.n_micro == 2
             assert len(engine.pipe.owned) == 8
         elif "--moe_shards" in extra:
-            assert engine.cfg.moe_shards == 2 and engine.experts is None
+            assert engine.cfg.moe_shards == 2 and engine.shards is None
             assert engine.model.moe.experts_w1.shape[0] == 2
         elif "--moe_experts" in extra:
             assert engine.model.moe.router.shape == (

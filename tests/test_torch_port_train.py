@@ -547,15 +547,17 @@ def test_unported_lost_exactly_the_five_ported_options():
     with one shard are ported since; --dp since, and since with the three
     options whose dp needs a global reduction of its own; --pp since;
     --sp for MyGAN since, and for every family since; --moe_shards
-    since; --tp for MyGAN without its options since)."""
+    since; --tp for MyGAN without its options since, and for Xception and
+    GANomaly since)."""
     from vfd_gan_tpu_torch.config import parse_args
     from vfd_gan_tpu_torch.train.engine_base import UNPORTED
 
     assert set(UNPORTED) == {"tp"}
     unported, _ = UNPORTED["tp"]
-    assert unported(parse_args(["--model", "mygan", "--tp", "2"])) is None
-    assert unported(parse_args(["--model", "xception", "--tp", "2"])) \
-        == "--model xception"
+    for model in ("mygan", "xception", "ganomaly"):
+        assert unported(parse_args(["--model", model, "--tp", "2"])) is None
+    assert unported(parse_args(["--model", "c2plus1d", "--tp", "2"])) \
+        == "--model c2plus1d"
 
 
 def test_trainer_needs_a_card_for_cuda(tmp_path):

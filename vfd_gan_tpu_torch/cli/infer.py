@@ -117,11 +117,10 @@ def build_model(family: str, sd: dict, device: torch.device,
     if family == "c2plus1d":
         return AutoEncoder(**kw)
     if family == "xception":
-        # bn4 normalises the trunk's widest layer, 2048 x width_mult; an
-        # MoE model's router is (C, E)
+        # an MoE model's router is (C, E)
         moe = sd.get("moe.router")
         return Xception3D(sd["conv1.weight"].shape[1],
-                          sd["bn4.weight"].shape[0] / 2048,
+                          Xception3D.width_from_state_dict(sd),
                           moe_experts=0 if moe is None else moe.shape[1],
                           **kw)
     return ConvLSTMModel(**kw)

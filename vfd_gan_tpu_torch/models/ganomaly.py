@@ -17,6 +17,17 @@ conv runs in its input's dtype, so an encoder fed float32 frames runs its
 stem and its first pyramid conv in float32 (no BatchNorm lies between
 them), as in JAX; the rest runs in ``dtype`` from the first BatchNorm on;
 the decoder's tanh and the discriminator's sigmoid are float32.
+
+Under ``--tp`` (a ``parallel.mesh.TensorParallel`` bound as ``tp`` on the
+encoders, the decoder and the discriminator) each conv whose output
+channels split, and the BatchNorm after it, holds the rank's slice
+(``parallel/tensor.StateShards``; a ``ConvTranspose2d`` weight ``(Cin,
+Cout, kh, kw)`` its ``weight[:, rows]``) and runs column-parallel
+(``parallel/tensor.column``): on the rank's slice between ``copy_in``
+and ``gather``, its BatchNorm and activation on the same slice.  The
+100-channel latent splits at tp 2 and 4 and is gathered whole before the
+decoder and the anomaly score; the 3-channel decoder output and the
+1-channel classifier run whole on every rank.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from vfd_gan_tpu_torch.models.layers import (
     FrameBatchNorm,
     float32_or_wider,
 )
+from vfd_gan_tpu_torch.parallel.tensor import column
 from vfd_gan_tpu_torch.utils.init import dcgan_normal_
 
 
@@ -43,6 +55,8 @@ def _init(conv: nn.Module, generator) -> nn.Module:
 class ConvBlock2d(nn.Module):
     """A bias-free (transposed) conv and its BatchNorm."""
 
+    tp = None
+
     def __init__(self, conv: nn.Module, features: int, **bkw):
         super().__init__()
         self.conv = _init(conv, bkw.get("generator"))
@@ -51,11 +65,19 @@ class ConvBlock2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.bn(self.conv(x))
 
+    def activated(self, x: torch.Tensor, act) -> torch.Tensor:
+        """``act(bn(conv(x)))``; under ``--tp`` column-parallel where the
+        conv's output channels split."""
+        return column(self.tp, self.conv.out_channels, x,
+                      lambda x: act(self(x)))
+
 
 class DcganEncoder(nn.Module):
     """Strided 4x4-conv pyramid: isize -> 4, then a 4x4 VALID conv to an
     ``(N, nz, 1, 1)`` latent unless ``add_final_conv`` is off (reference
     Encoder, ganomaly.py:24-76)."""
+
+    tp = None
 
     def __init__(self, isize: int, nz: int, nc: int = 3, ndf: int = 64,
                  n_extra_layers: int = 0, add_final_conv: bool = True, *,
@@ -83,15 +105,21 @@ class DcganEncoder(nn.Module):
             if add_final_conv else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.leaky_relu(self.stem(x), 0.2)
+        tp = self.tp
+        x = column(tp, self.stem.out_channels, x,
+                   lambda x: F.leaky_relu(self.stem(x), 0.2))
         for block in (*self.extra, *self.pyramid):
-            x = F.leaky_relu(block(x), 0.2)
-        return x if self.final is None else self.final(x)
+            x = block.activated(x, lambda y: F.leaky_relu(y, 0.2))
+        if self.final is None:
+            return x
+        return column(tp, self.final.out_channels, x, self.final)
 
 
 class DcganDecoder(nn.Module):
     """Transposed-conv pyramid: ``(N, nz, 1, 1)`` -> ``(N, nc, isize,
     isize)``, float32 tanh output (reference Decoder, ganomaly.py:79-131)."""
+
+    tp = None
 
     def __init__(self, isize: int, nz: int, nc: int = 3, ngf: int = 64,
                  n_extra_layers: int = 0, *,
@@ -122,10 +150,11 @@ class DcganDecoder(nn.Module):
                                            device=device), generator)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.stem(z))
-        for block in (*self.pyramid, *self.extra):
-            x = F.relu(block(x))
-        return torch.tanh(float32_or_wider(self.final(x)))
+        x = z
+        for block in (self.stem, *self.pyramid, *self.extra):
+            x = block.activated(x, F.relu)
+        x = column(self.tp, self.final.out_channels, x, self.final)
+        return torch.tanh(float32_or_wider(x))
 
 
 class GanomalyGenerator(nn.Module):
@@ -155,6 +184,8 @@ class GanomalyDiscriminator(nn.Module):
     returns ``(score (N,), features)`` (reference NetD,
     ganomaly.py:139-158)."""
 
+    tp = None
+
     def __init__(self, isize: int, nc: int = 3, ngf: int = 64,
                  n_extra_layers: int = 0, *,
                  dtype: torch.dtype = torch.float32, device=None,
@@ -168,7 +199,8 @@ class GanomalyDiscriminator(nn.Module):
 
     def forward(self, x: torch.Tensor):
         feat = self.trunk(x)
-        score = torch.sigmoid(float32_or_wider(self.classifier(feat)))
+        score = torch.sigmoid(float32_or_wider(column(
+            self.tp, self.classifier.out_channels, feat, self.classifier)))
         return score.reshape(-1), feat
 
 

@@ -27,7 +27,7 @@ NCDHW ``(B, C, T, H, W)`` input.  Submodule names are the reference's, so
 Under ``--tp`` (a ``parallel.mesh.TensorParallel`` bound as ``tp``:
 ``STConv``, the two conv blocks, ``TorchLinear``) a conv, and a Linear,
 whose output channels split holds the rank's slice of its weight and bias
-(``parallel/tensor.TpShards``), and so does the BatchNorm after it;
+(``parallel/tensor.StateShards``), and so does the BatchNorm after it;
 each such segment runs column-parallel (``parallel/tensor.column``):
 ``STConv`` gathers after its ``relu(bn(spatial))``, the blocks after
 their outer BatchNorm and LeakyReLU, so every tensor between segments is

@@ -33,6 +33,20 @@ the MoE block routes over the global token axis.
 ``front`` (stem and entry blocks), ``middle_blocks`` and ``back`` (exit
 block to head) are the three parts that ``--pp`` runs apart
 (``parallel/pp_xception.py``, JAX ``Xception3D.front``/``back``).
+
+Under ``--tp`` (a ``parallel.mesh.TensorParallel`` bound as ``tp`` on
+``SepaConv``, ``XceptionBlock``, ``DeConvBlock`` and the net) each conv
+whose output channels split holds the rank's slice of its weight, as
+does the BatchNorm after it (``parallel/tensor.StateShards``), and runs
+column-parallel (``parallel/tensor.column``): on the rank's slice
+between ``copy_in`` and ``gather``, with the channel-local ops after it
+on the same slice (a SepaConv's ReLUs, the BatchNorm that follows it in
+a block and the block's strided max pool; the stem's and conv3/conv4's
+BatchNorm and ReLU; a decoder stage's BatchNorm and LeakyReLU).  The
+residual add, the decoder's dropout and upsample, the MoE block's token
+views and the 1-channel head run on whole tensors: the dropout draws
+the whole tensor's mask, as at tp 1 (the ``"tp_dropout"`` control draws
+it on the slice).
 """
 
 from __future__ import annotations
@@ -49,13 +63,25 @@ from vfd_gan_tpu_torch.models.layers import (
 )
 from vfd_gan_tpu_torch.models.moe_block import MoEMlp
 from vfd_gan_tpu_torch.ops.resize import upsample_ncdhw
+from vfd_gan_tpu_torch.parallel.tensor import column
 
 N_MIDDLE_BLOCKS = 8
 _SPATIAL = ((1, 3, 3), (0, 1, 1))
+# the net's eight widths at width_mult 1, each by the state_dict prefix
+# of a BatchNorm that normalises it: the stem's two, the entry blocks'
+# three (the middle's), the exit block's and convs 3 and 4; a width is
+# max(1, round(base * width_mult))
+BASE_WIDTHS = {"bn1": 32, "bn2": 64, "block1.skipbn": 128,
+               "block2.skipbn": 256, "block3.skipbn": 728,
+               "block12.skipbn": 1024, "bn3": 1536, "bn4": 2048}
 
 
 class SepaConv(nn.Module):
-    """(1,3,3) conv -> ReLU -> pointwise conv -> ReLU, both bias-free."""
+    """(1,3,3) conv -> ReLU -> pointwise conv -> ReLU, both bias-free.
+    ``forward``'s ``after``: the channel-local ops that follow it (its
+    BatchNorm, ...), run on the pointwise conv's slice under ``--tp``."""
+
+    tp = None
 
     def __init__(self, cin: int, cout: int, *, device=None,
                  generator: torch.Generator | None = None):
@@ -64,8 +90,14 @@ class SepaConv(nn.Module):
         self.conv1 = make_conv3d(cin, cin, *_SPATIAL, **kw)
         self.pointwise = make_conv3d(cin, cout, (1, 1, 1), **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.relu(self.pointwise(F.relu(self.conv1(x))))
+    def forward(self, x: torch.Tensor, after=None) -> torch.Tensor:
+        x = column(self.tp, self.conv1.out_channels, x,
+                   lambda x: F.relu(self.conv1(x)))
+
+        def tail(x):
+            y = F.relu(self.pointwise(x))
+            return y if after is None else after(y)
+        return column(self.tp, self.pointwise.out_channels, x, tail)
 
 
 class XceptionBlock(nn.Module):
@@ -74,6 +106,8 @@ class XceptionBlock(nn.Module):
     with ``start_with_relu``), then a (1,3,3) max pool for a strided
     block; the skip path is a strided pointwise conv + BN when the width or
     the stride changes."""
+
+    tp = None
 
     def __init__(self, cin: int, cout: int, reps: int, strides: int = 1,
                  start_with_relu: bool = True, grow_first: bool = True, *,
@@ -105,8 +139,31 @@ class XceptionBlock(nn.Module):
             self.skipbn = VideoBatchNorm(cout, **bn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        skip = x if self.skip is None else self.skipbn(self.skip(x))
-        return self.rep(x) + skip
+        skip = x if self.skip is None else column(
+            self.tp, self.skip.out_channels, x,
+            lambda x: self.skipbn(self.skip(x)))
+        return self._rep(x) + skip
+
+    def _rep(self, x: torch.Tensor) -> torch.Tensor:
+        """``rep``, each SepaConv with the BatchNorm after it (and the
+        last one's max pool) as its ``after``."""
+        layers = list(self.rep)
+        i = 0
+        while i < len(layers):
+            layer = layers[i]
+            if not isinstance(layer, SepaConv):
+                x = layer(x)
+                i += 1
+                continue
+            bn = layers[i + 1]
+            pool = layers[i + 2] if i + 2 < len(layers) else None
+            if isinstance(pool, nn.MaxPool3d):
+                x = layer(x, lambda y: pool(bn(y)))
+                i += 3
+            else:
+                x = layer(x, bn)
+                i += 2
+        return x
 
 
 class DeConvBlock(nn.Module):
@@ -115,6 +172,7 @@ class DeConvBlock(nn.Module):
 
     # a parallel.mesh.DataParallel: dropout draws the global batch's masks
     dp = None
+    tp = None
 
     def __init__(self, cin: int, cout: int, *, drop_rate: float = 0.25,
                  dtype: torch.dtype = torch.float32, device=None,
@@ -128,11 +186,23 @@ class DeConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        y = F.leaky_relu(self.bn(self.conv(x)), negative_slope=0.2)
-        # frames on axis 2: under --sp each rank keeps its frames of the
-        # global (B, T) mask
-        y = dropout(y, self.drop_rate, self.training, generator, self.dp,
-                    frame_dim=2)
+        def drop(y):
+            # frames on axis 2: under --sp each rank keeps its frames of
+            # the global (B, T) mask
+            return dropout(y, self.drop_rate, self.training, generator,
+                           self.dp, frame_dim=2)
+
+        # under --tp the mask of the whole tensor, drawn after the gather
+        # (the "tp_dropout" control: drawn on the rank's slice)
+        sliced = self.tp is not None and "tp_dropout" in self.tp.local_ops
+
+        def segment(x):
+            y = F.leaky_relu(self.bn(self.conv(x)), negative_slope=0.2)
+            return drop(y) if sliced else y
+
+        y = column(self.tp, self.conv.out_channels, x, segment)
+        if not sliced:
+            y = drop(y)
         return upsample_ncdhw(y, (1, 2, 2))
 
 
@@ -140,42 +210,60 @@ class Xception3D(nn.Module):
     """The trunk and the upsampling decoder (reference xception.py:92-174);
     ``(B, C, T, H, W)`` -> ``(B, 1, T, H, W)``."""
 
+    tp = None
+
     def __init__(self, in_channels: int = 3, width_mult: float = 1.0, *,
                  drop_rate: float = 0.25, moe_experts: int = 0,
                  moe_capacity: float = 2.0,
                  dtype: torch.dtype = torch.float32, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-
-        def w(c: int) -> int:
-            return max(1, round(c * width_mult))
-
+        c1, c2, e1, e2, mid, ex, c3, c4 = (
+            max(1, round(base * width_mult)) for base in BASE_WIDTHS.values())
         kw = {"device": device, "generator": generator}
         bn = {"dtype": dtype, **kw}
-        self.conv1 = make_conv3d(in_channels, w(32), (1, 3, 3), (0, 1, 1),
+        self.conv1 = make_conv3d(in_channels, c1, (1, 3, 3), (0, 1, 1),
                                  stride=(1, 2, 2), bias=False, **kw)
-        self.bn1 = VideoBatchNorm(w(32), **bn)
-        self.conv2 = make_conv3d(w(32), w(64), *_SPATIAL, bias=False, **kw)
-        self.bn2 = VideoBatchNorm(w(64), **bn)
-        self.block1 = XceptionBlock(w(64), w(128), 2, 2, False, True, **bn)
-        self.block2 = XceptionBlock(w(128), w(256), 2, 2, False, True, **bn)
-        self.block3 = XceptionBlock(w(256), w(728), 2, 2, False, True, **bn)
+        self.bn1 = VideoBatchNorm(c1, **bn)
+        self.conv2 = make_conv3d(c1, c2, *_SPATIAL, bias=False, **kw)
+        self.bn2 = VideoBatchNorm(c2, **bn)
+        self.block1 = XceptionBlock(c2, e1, 2, 2, False, True, **bn)
+        self.block2 = XceptionBlock(e1, e2, 2, 2, False, True, **bn)
+        self.block3 = XceptionBlock(e2, mid, 2, 2, False, True, **bn)
         for i in range(N_MIDDLE_BLOCKS):
             setattr(self, f"block{i + 4}",
-                    XceptionBlock(w(728), w(728), 3, 1, True, True, **bn))
-        self.block12 = XceptionBlock(w(728), w(1024), 2, 1, True, False, **bn)
-        self.conv3 = SepaConv(w(1024), w(1536), **kw)
-        self.bn3 = VideoBatchNorm(w(1536), **bn)
-        self.conv4 = SepaConv(w(1536), w(2048), **kw)
-        self.bn4 = VideoBatchNorm(w(2048), **bn)
-        widths = (w(2048), w(1024), w(256), w(128), w(32))
+                    XceptionBlock(mid, mid, 3, 1, True, True, **bn))
+        self.block12 = XceptionBlock(mid, ex, 2, 1, True, False, **bn)
+        self.conv3 = SepaConv(ex, c3, **kw)
+        self.bn3 = VideoBatchNorm(c3, **bn)
+        self.conv4 = SepaConv(c3, c4, **kw)
+        self.bn4 = VideoBatchNorm(c4, **bn)
+        widths = (c4, ex, e2, e1, c1)
         for i in range(4):
             setattr(self, f"uconv{i + 1}", DeConvBlock(
                 widths[i], widths[i + 1], drop_rate=drop_rate, **bn))
         # with bias: PyTorch's default over the 3x3 taps, as the JAX head's
-        self.conv_last = make_conv3d(w(32), 1, *_SPATIAL, **kw)
-        self.moe = MoEMlp(w(728), moe_experts, capacity_factor=moe_capacity,
+        self.conv_last = make_conv3d(c1, 1, *_SPATIAL, **kw)
+        self.moe = MoEMlp(mid, moe_experts, capacity_factor=moe_capacity,
                           dtype=dtype, **kw) if moe_experts else None
+
+    @staticmethod
+    def width_from_state_dict(sd: dict) -> float:
+        """A ``width_mult`` whose widths are those of the checkpoint
+        ``sd``: the middle of the multipliers that round each width of
+        ``BASE_WIDTHS`` to its BatchNorm's in ``sd`` (a width of 1 takes
+        every multiplier below 1.5 / base: the clamp).  One width's ratio
+        alone can round another width otherwise (at 0.05, 102 / 2048
+        makes conv3 76 wide, not 77)."""
+        lo, hi = 0.0, float("inf")
+        for key, base in BASE_WIDTHS.items():
+            if f"{key}.weight" not in sd:   # (no skip: widths equal)
+                continue
+            n = sd[f"{key}.weight"].shape[0]
+            if n > 1:
+                lo = max(lo, (n - 0.5) / base)
+            hi = min(hi, (n + 0.5) / base)
+        return (lo + hi) / 2
 
     def middle_blocks(self) -> list:
         """The eight identity middle blocks, in order (``--pp`` pipelines
@@ -185,8 +273,10 @@ class Xception3D(nn.Module):
 
     def front(self, x: torch.Tensor) -> torch.Tensor:
         """The stem and the three entry blocks."""
-        x = F.relu(self.bn1(self.conv1(x)))
-        x = F.relu(self.bn2(self.conv2(x)))
+        x = column(self.tp, self.conv1.out_channels, x,
+                   lambda x: F.relu(self.bn1(self.conv1(x))))
+        x = column(self.tp, self.conv2.out_channels, x,
+                   lambda x: F.relu(self.bn2(self.conv2(x))))
         for i in range(1, 4):
             x = getattr(self, f"block{i}")(x)
         return x
@@ -195,8 +285,8 @@ class Xception3D(nn.Module):
              generator: torch.Generator | None = None) -> torch.Tensor:
         """The exit block, convs 3-4, the decoder and the head."""
         x = self.block12(x)
-        x = F.relu(self.bn3(self.conv3(x)))
-        x = F.relu(self.bn4(self.conv4(x)))
+        x = self.conv3(x, lambda y: F.relu(self.bn3(y)))
+        x = self.conv4(x, lambda y: F.relu(self.bn4(y)))
         for i in range(1, 5):
             x = getattr(self, f"uconv{i}")(x, generator)
         return torch.sigmoid(float32_or_wider(self.conv_last(x)))

@@ -204,8 +204,10 @@ class DataParallel:
     ``"tp_bn"`` (the BatchNorm sums over the whole grid, which adds
     channel slice t's sums to slice t''s), ``"tp_mean"`` (the split
     leaves' gradients in the world's flattened all-reduce) and, read by
-    ``TensorParallel``, ``"tp_copy"`` (the copy-in's backward not summed)
-    and ``"tp_gather"`` (the gather's backward summed).
+    ``TensorParallel``, ``"tp_copy"`` (the copy-in's backward not summed),
+    ``"tp_gather"`` (the gather's backward summed), ``"tp_dropout"``
+    (Xception's decoder dropout drawn on the rank's slice) and
+    ``"tp_deconv_dim0"`` (a transposed conv's weight cut on dim 0).
 
     ``sp``: the rank's ``SeqParallel`` on a ``(dp, sp)`` grid (``None``
     without one).  Then ``rank`` and ``world`` place the rows, ``group``
@@ -658,8 +660,9 @@ class TensorParallel(_Counted):
     (``counts``: ``"copy"``, ``"gather"``); ``peers_group``: the ``dp
     sp`` ranks of slice ``index`` (each element of the global batch
     once).  ``local_ops``: the controls ``"tp_copy"`` (the copy-in's
-    backward not summed) and ``"tp_gather"`` (the gather's backward
-    summed over the group)."""
+    backward not summed), ``"tp_gather"`` (the gather's backward summed
+    over the group), ``"tp_dropout"`` (``models/xception3d.DeConvBlock``)
+    and ``"tp_deconv_dim0"`` (``parallel/tensor.StateShards.release``)."""
 
     def __init__(self, index: int, size: int, group, ranks: list[int],
                  peers_group=None, device: torch.device | str = "cpu"):

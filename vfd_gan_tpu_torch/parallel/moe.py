@@ -53,12 +53,12 @@ D_out)`` buffer that ``_EpCombine`` sums over the ep group (the other
 terms are exact zeros, so the forward is ep 1's bit for bit; its backward
 is the identity: every replica's loss is the replicated loss).  The test
 sweep (``DataParallel.local``) keeps the experts sharded and the combine
-on: a rank never runs its experts alone.
+on: a rank never runs its experts alone.  The engines keep the rank's
+experts and their Adam moments (``parallel/tensor.StateShards``).
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import math
 
@@ -216,15 +216,24 @@ def _expert_shard(expert_fn, x, choice, kept, local, rows: int, e: int,
     return _EpCombine.apply(y, ep)
 
 
-def moe_apply(expert_fn, router_w: torch.Tensor, x: torch.Tensor, *,
+def router_logits(router_w: torch.Tensor):
+    """The function of tokens ``x (T, D)`` that gives their ``(T, E)``
+    logits under the router ``router_w (D, E)``: a bfloat16 ``x`` meets
+    the float32 router in float32, as ``jnp`` promotes the product."""
+    return lambda x: x.to(torch.promote_types(x.dtype, router_w.dtype)) \
+        @ router_w
+
+
+def moe_apply(expert_fn, router, x: torch.Tensor, *,
               capacity_factor: float = 1.25, choice=None, dp=None,
               rows: int = 1, record: dict | None = None):
     """Top-1 MoE layer over tokens ``x (T, D)``.
 
     ``expert_fn(h (E, C, D)) -> (E, C, D_out)`` runs every expert on its
-    buffer (empty slots are zero rows); ``router_w (D, E)``.  A bfloat16
-    ``x`` meets the float32 router in float32, as ``jnp`` promotes the
-    product.  ``choice`` (T,), when given, replaces the router's argmax
+    buffer (empty slots are zero rows); ``router``: the router's weight
+    ``(D, E)`` (``router_logits``) or a function of the tokens that gives
+    their ``(T, E)`` logits (under ``--tp`` the rank's columns of the
+    router, gathered: ``models/moe_block.MoEMlp``).  ``choice`` (T,), when given, replaces the router's argmax
     (to hold the layer on one device against another device's routing);
     the gate is still read from this device's probabilities.  ``dp``: a
     ``parallel.mesh.DataParallel``; when active (or under ``--sp`` in the
@@ -239,19 +248,18 @@ def moe_apply(expert_fn, router_w: torch.Tensor, x: torch.Tensor, *,
     Returns ``(y (T, D_out), aux)`` with ``aux = {"load_balance_loss",
     "dropped_frac"}``, both float32 scalars."""
     t, d = x.shape
-    e = router_w.shape[-1]
     place = _place(dp, rows)
     ep = dp.expert if dp is not None else None
     n = t                                       # the global token count
     if place is not None:
         n = t // len(place.rows) * place.n_rows * place.shards
-    c = capacity(n, e, capacity_factor)
     routed = x
     if ep is not None and "ep_router" in dp.local_ops:
         # the control: the router's input summed over the ep group too
         routed = _EpDispatch.apply(x, ep)
-    logits = routed.to(torch.promote_types(x.dtype, router_w.dtype)) \
-        @ router_w
+    logits = (router if callable(router) else router_logits(router))(routed)
+    e = logits.shape[-1]
+    c = capacity(n, e, capacity_factor)
     probs, choice, slot, kept, local, counts = route(logits, c, choice,
                                                      place, ep)
     if record is not None:
@@ -288,67 +296,3 @@ def moe_apply(expert_fn, router_w: torch.Tensor, x: torch.Tensor, *,
     aux = {"load_balance_loss": e * torch.sum(frac * (sums[:e] / n)),
            "dropped_frac": 1.0 - sums[e] / n}
     return y, aux
-
-
-# Adam's per-element state of a parameter, split with it
-_MOMENTS = ("exp_avg", "exp_avg_sq")
-
-
-class ExpertShards:
-    """An MoE block's experts split over the ep group (``--moe_shards``;
-    JAX ``state_shardings``' ``P("ep")`` on the ``experts_*`` leaves and
-    their Adam moments): the rank holds its own (``ep.experts``) between
-    the blocks of ``whole``, which gathers every expert and its moments
-    on every rank of the group (a save, a resume, a state read; each
-    rank of the group enters it at the same point), as
-    ``parallel/pp_xception.py``'s ``whole`` gathers the stages' blocks."""
-
-    def __init__(self, block: torch.nn.Module, ep):
-        self.ep = ep
-        self.n_experts = block.router.shape[1]
-        self.mine = ep.experts(self.n_experts)
-        self.params = block.expert_params()
-
-    def release(self, optimizer: torch.optim.Optimizer | None = None):
-        """Keep the rank's experts of each expert leaf and of its Adam
-        moments (a no-op on what is already sliced)."""
-        for p in self.params:
-            if p.shape[0] != self.n_experts:
-                continue
-            p.data = p.data[self.mine].clone()
-            state = optimizer.state.get(p, {}) if optimizer else {}
-            for k in _MOMENTS:
-                if k in state:
-                    state[k] = state[k][self.mine].clone()
-
-    @contextlib.contextmanager
-    def whole(self, optimizer: torch.optim.Optimizer):
-        """Every expert and its Adam moments on this rank for the block
-        (one all-reduce of the group's slices, each in its rows of a zero
-        buffer, in float64: exact), the rank's own kept after it."""
-        slots = []                  # (owner, key, the rank's slice)
-        for p in self.params:
-            slots.append((p, None, p.data))
-            state = optimizer.state.get(p, {})
-            slots += [(state, k, state[k]) for k in _MOMENTS if k in state]
-        fulls = []
-        for _, _, t in slots:
-            full = t.new_zeros((self.n_experts, *t.shape[1:]),
-                               dtype=torch.float64)
-            full[self.mine] = t
-            fulls.append(full)
-        flat = torch.cat([f.reshape(-1) for f in fulls])
-        dist.all_reduce(flat, group=self.ep.group)
-        offset = 0
-        for (owner, key, t), full in zip(slots, fulls):
-            whole = flat[offset:offset + full.numel()].view(full.shape)
-            offset += full.numel()
-            whole = whole.to(t.dtype)
-            if key is None:
-                owner.data = whole
-            else:
-                owner[key] = whole
-        try:
-            yield
-        finally:
-            self.release(optimizer)

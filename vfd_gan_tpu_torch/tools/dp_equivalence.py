@@ -94,17 +94,21 @@ and reach the card once for many batches.  A case is one of
   "capacity", "dtype", "local_ops"}``: the MoE block alone, its experts
   over the whole group as one ep group, forward and backward on seeded
   tokens, against the one-process block on rank 0 (``run_moe_layer``).
-* ``{"name", "kind": "tp_block", "cin", "cout", "shape", "dtype",
-  "local_ops"}``: MyGAN's ``GenConvBlock`` alone, column-parallel over
-  the whole group as one tp group, forward and backward on a seeded
-  input, against the one-process block on rank 0 (``run_tp_block``).
+* ``{"name", "kind": "tp_block", "block", "cin", "cout", "shape",
+  "dtype", "local_ops"}``: one module alone (MyGAN's ``GenConvBlock``,
+  an Xception SepaConv, the MoE block, a GANomaly decoder stage),
+  column-parallel over the whole group as one tp group, forward and
+  backward on a seeded input, against the one-process module on rank 0
+  (``run_tp_block``).
 
 ``--tp``: a train case's ``argv`` with ``--tp N`` runs on the group as a
 ``(dp, sp, tp)`` grid; its result holds the channel axis's exchanges per
 step (``tp_counts``: the copy-ins' gradient sums and the gathers) and
 the elements the rank holds (``tp_elements``: parameters and running
 statistics, each Adam moment), and its ``local_ops`` may name the tp
-controls (``"tp_bn"``, ``"tp_copy"``, ``"tp_gather"``, ``"tp_mean"``);
+controls (``"tp_bn"``, ``"tp_copy"``, ``"tp_gather"``, ``"tp_mean"``,
+``"tp_dropout"``: Xception's decoder dropout drawn on the slice,
+``"tp_deconv_dim0"``: GANomaly's transposed weights cut on dim 0);
 its references are the same command line in one process
 (``OneProcess``: tp 1, every tensor whole).
 
@@ -209,9 +213,9 @@ def _sketch(t: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _trunk_digest(engine) -> str:
-    """A hash of every parameter but the rank's experts
-    (``engine.experts``), bit for bit."""
-    own = {id(p) for p in engine.experts.params}
+    """A hash of every parameter but the rank's experts and channel
+    slices (``engine.shards``), bit for bit."""
+    own = {id(p) for p in engine.shards.params}
     h = hashlib.sha256()
     for name, net in engine._nets().items():
         for k, p in net.module.named_parameters():
@@ -259,6 +263,34 @@ def _digest(result: dict) -> str:
         for k in sorted(result[kind]):
             h.update(k.encode())
             h.update(result[kind][k].numpy().tobytes())
+    return h.hexdigest()
+
+
+_INTS = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _state_digest(engine) -> str:
+    """A digest of the engine's whole state (``_state``'s tensors), bit
+    for bit, computed where the tensors lie: each tensor's bit patterns
+    summed twice in wrapping int64 arithmetic, plain and weighted by
+    position, and only those sums hashed on the host (a full-width
+    Xception's state is 2.4 GB a rank, slow to copy to the host and hash
+    there)."""
+    h = hashlib.sha256()
+    for net_name, net in engine._nets().items():
+        named = [*net.module.named_parameters(), *net.module.named_buffers()]
+        for k, p in named:
+            st = net.optimizer.state.get(p, {}) \
+                if isinstance(p, torch.nn.Parameter) else {}
+            for kind, t in (("", p), *((m, st[m]) for m in
+                                       ("exp_avg", "exp_avg_sq")
+                                       if m in st)):
+                bits = t.detach().reshape(-1).contiguous().view(
+                    _INTS[t.element_size()]).long()
+                where = torch.arange(bits.numel(), device=bits.device)
+                sums = torch.stack([bits.sum(), (bits * (where % 65521 + 1))
+                                    .sum()]).cpu().tolist()
+                h.update(f"{net_name}.{k}{kind}:{t.dtype}:{sums}".encode())
     return h.hexdigest()
 
 
@@ -406,6 +438,10 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
             for axis in (engine.dp.sp, engine.dp.tp):
                 if axis is not None:
                     axis.local_ops = engine.dp.local_ops
+            if "tp_deconv_dim0" in engine.dp.local_ops:
+                # a control of the slicing itself: the slices cut again
+                with engine._whole_state():
+                    pass
         sp, ep, tp = engine.dp.sp, engine.dp.expert, engine.dp.tp
         for axis in (sp, ep, tp):
             if axis is not None:
@@ -452,7 +488,7 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
                 step_ms.append(1e3 * (time.perf_counter() - t0))
                 metrics = engine.dp.mean_metrics(metrics)
                 losses.append({k: float(v) for k, v in metrics.items()})
-                if engine.experts is not None:
+                if engine.dp.expert is not None:
                     # the ep group's replicas: one trunk, bit for bit
                     trunk.append(_trunk_digest(engine))
                 if case.get("first_grads") and len(losses) == 1:
@@ -502,9 +538,15 @@ def run_train(case: dict, root: Path, solo: bool) -> dict:
             out = _state(engine, sample)
             if sample and not solo:
                 # the whole state's digest (the ranks' replicas held equal)
-                out["digest"] = _digest(_state(engine))
+                out["digest"] = _state_digest(engine)
             if "save" in case and engine.dp.writes:
                 save_checkpoint(case["save"], engine._ckpt_tree())
+        # the buffers that require grad after the state read (none: a
+        # gathered running statistic that did would fail cuDNN's
+        # eval-mode BatchNorm)
+        out["grad_buffers"] = sorted(
+            f"{name}.{k}" for name, net in engine._nets().items()
+            for k, b in net.module.named_buffers() if b.requires_grad)
         for key, axis in (("sp_counts", sp), ("ep_counts", ep),
                           ("tp_counts", tp)):
             if axis is not None and step_ms:
@@ -963,7 +1005,7 @@ def run_moe_layer(case: dict) -> dict:
     (``alone``) and in float64 with the one-process float32 routing
     (``alone64``: the layer's own rounding)."""
     from vfd_gan_tpu_torch.models.moe_block import MoEMlp
-    from vfd_gan_tpu_torch.parallel.moe import ExpertShards
+    from vfd_gan_tpu_torch.parallel.tensor import StateShards
 
     device = torch.device(case.get("device", "cpu"))
     dp = sp_grid(1, dist.get_world_size()).data_parallel(device)
@@ -996,10 +1038,9 @@ def run_moe_layer(case: dict) -> dict:
                 "kept": moe.routing["kept"]}
 
     mine = block()
-    shards = ExpertShards(mine, dp.expert)
-    shards.release()
+    StateShards([mine], ep=dp.expert).release()
     dp.bind(mine)
-    out = {k: v.cpu() for k, v in run(mine, x, up, shards).items()}
+    out = {k: v.cpu() for k, v in run(mine, x, up, dp.expert).items()}
     out["ep_counts"] = {k: v[0] for k, v in dp.expert.counts.items()}
     if dp.rank == 0 and dp.expert.index == 0:
         whole = block()
@@ -1013,83 +1054,147 @@ def run_moe_layer(case: dict) -> dict:
     return out
 
 
+def _tp_module(case: dict, dtype: torch.dtype):
+    """The module of a ``tp_block`` case (weights from
+    ``torch.Generator(0)``), its input's shape and its forward:
+    ``"gen"`` MyGAN's ``GenConvBlock`` (cin -> cout, ``(B, T, H, W)``
+    frames); ``"sepaconv"`` an Xception SepaConv and the BatchNorm after it
+    in a middle block (``sepa(x, bn)``); ``"moe"`` the MoE block
+    (``cin`` channels, ``experts`` at capacity factor ``capacity``);
+    ``"deconv2d"`` a GANomaly decoder stage, a stride-2 4x4
+    ``ConvTranspose2d`` + BatchNorm + ReLU on ``(B, H, W)`` frames.  In
+    float64 the parameters too."""
+    from vfd_gan_tpu_torch.models.ganomaly import ConvBlock2d
+    from vfd_gan_tpu_torch.models.layers import (
+        ConvTranspose2d,
+        GenConvBlock,
+        VideoBatchNorm,
+    )
+    from vfd_gan_tpu_torch.models.moe_block import MoEMlp
+    from vfd_gan_tpu_torch.models.xception3d import SepaConv
+
+    kind, cin, cout = case.get("block", "gen"), case["cin"], case["cout"]
+    init = torch.Generator().manual_seed(0)
+    if kind == "gen":
+        module = forward = GenConvBlock(cin, cout, dtype=dtype,
+                                        generator=init)
+    elif kind == "sepaconv":
+        module = torch.nn.ModuleDict({
+            "sepa": SepaConv(cin, cout, generator=init),
+            "bn": VideoBatchNorm(cout, dtype=dtype, generator=init)})
+
+        def forward(x):
+            return module["sepa"](x, module["bn"])
+    elif kind == "moe":
+        module = forward = MoEMlp(cin, case["experts"],
+                                  capacity_factor=case["capacity"],
+                                  dtype=dtype, generator=init)
+    else:
+        module = ConvBlock2d(ConvTranspose2d(cin, cout, 4, 2, 1, bias=False),
+                             cout, dtype=dtype, generator=init)
+
+        def forward(x):
+            return module.activated(x, F.relu)
+    if dtype == torch.float64:
+        module.double()
+    return module, (case["shape"][0], cin, *case["shape"][1:]), forward
+
+
 def run_tp_block(case: dict) -> dict:
-    """MyGAN's conv block alone (``models/layers.GenConvBlock``:
-    ``case["cin"]`` -> ``case["cout"]`` channels, ``case["dtype"]``
-    compute, weights from ``torch.Generator(0)``, train mode) on a seeded
-    ``(B, cin, T, H, W)`` input (``case["shape"]``: B, T, H, W) with a
-    seeded upstream gradient, forward and backward, its convs' output
-    channels split over the whole group as one tp group (``--tp`` world;
-    ``local_ops``: the tp controls ``"tp_copy"``, ``"tp_gather"``): the
-    block's output, its input's gradient and every parameter's gradient
-    (the split ones gathered whole).  Rank 0 also runs the one-process
-    block on the same input in the same dtype (``alone``) and in float64
-    (``alone64``: the block's own rounding), both in the grid's two-pass
-    BatchNorm arithmetic (``OneProcess``)."""
-    from vfd_gan_tpu_torch.models.layers import GenConvBlock
-    from vfd_gan_tpu_torch.parallel.tensor import TpShards
+    """One module alone (``_tp_module``: ``case["block"]``, ``"gen"`` by
+    default; ``case["dtype"]`` compute, train mode) on a seeded input with
+    a seeded upstream gradient, forward and backward, its leaves split
+    over the whole group as one tp group (``--tp`` world; ``local_ops``:
+    the tp controls ``"tp_copy"``, ``"tp_gather"``): the module's output,
+    its input's gradient and every parameter's gradient (the split ones
+    gathered whole).  Rank 0 also runs the one-process module on the same
+    input in the same dtype (``alone``) and in float64 (``alone64``: the
+    module's own rounding), both in the grid's two-pass BatchNorm
+    arithmetic (``OneProcess``).  The MoE block routes every run by the
+    one-process float32 router's choice (each reads its gate from its own
+    probabilities), so that what is held is the layer's arithmetic, not
+    a near-tie's side."""
+    from vfd_gan_tpu_torch.parallel.tensor import StateShards
     from vfd_gan_tpu_torch.utils.runtime import resolve_device
 
     # (TF32 off, as the trainer's engines run)
     device = resolve_device(case.get("device", "cpu"))
     dp = sp_grid(1, tp=dist.get_world_size()).data_parallel(device)
     dp.tp.local_ops = dp.local_ops = frozenset(case.get("local_ops", ()))
-    b, t, h, w = case["shape"]
     dtype = getattr(torch, case.get("dtype", "float32"))
-    # the block's input in its compute dtype, as the net's BatchNorms
+    module0, in_shape, _ = _tp_module(case, dtype)
+    # the module's input in its compute dtype, as the net's BatchNorms
     # hand it on; the upstream gradient in float64, rounded by the cast
-    x = torch.randn((b, case["cin"], t, h, w), generator=torch.Generator()
+    x = torch.randn(in_shape, generator=torch.Generator()
                     .manual_seed(1)).to(device, dtype)
-    up = torch.randn((b, case["cout"], t, h, w), dtype=torch.float64,
+    kind = case.get("block", "gen")
+    out_shape = list(in_shape)
+    if kind != "moe":
+        out_shape[1] = case["cout"]
+    if kind == "deconv2d":
+        out_shape[2:] = [2 * n for n in in_shape[2:]]
+    up = torch.randn(out_shape, dtype=torch.float64,
                      generator=torch.Generator().manual_seed(2)).to(device)
-    block0 = GenConvBlock(case["cin"], case["cout"], dtype=dtype,
-                          generator=torch.Generator().manual_seed(0))
+    choice = None
+    if kind == "moe":
+        tokens = x.permute(0, *range(2, x.dim()), 1).reshape(-1, in_shape[1])
+        logits = tokens.float() @ module0.router.detach().float().to(device)
+        choice = torch.argmax(torch.softmax(logits, -1), -1)
 
-    def run(block, inputs, grid, shards=None):
-        block = grid.bind(block.to(device))
+    def run(module, forward, inputs, grid, shards=None):
+        module = grid.bind(module.to(device))
+        if choice is not None:
+            module.choice = choice
         inputs = inputs.detach().requires_grad_(True)
-        y = block(inputs)
+        y = forward(inputs)
         (y.double() * up).sum().backward()
-        split = {id(p) for p in shards.params} if shards else set()
+        split = {id(getattr(m, name)): (channels, dim) for m, name,
+                 channels, dim, _ in (shards.tensors if shards else ())}
 
-        def whole(g):
-            # a split parameter's gradient whole: each rank's in its rows
-            # of a zero buffer, summed over the group
-            n = g.shape[0]
-            full = g.new_zeros((n * grid.tp.size, *g.shape[1:]))
-            full[grid.tp.index * n:(grid.tp.index + 1) * n] = g
+        def whole(g, channels, dim):
+            # a split parameter's gradient whole: each rank's in its
+            # channels of a zero buffer, summed over the group
+            shape = list(g.shape)
+            shape[dim] = channels
+            full = g.new_zeros(shape)
+            n = g.shape[dim]
+            full.narrow(dim, grid.tp.index * n, n).copy_(g)
             dist.all_reduce(full, group=grid.tp.group)
             return full
 
-        grads = [whole(p.grad) if id(p) in split else p.grad
-                 for p in block.parameters()]
+        grads = [whole(p.grad, *split[id(p)]) if id(p) in split else p.grad
+                 for p in module.parameters()]
         return {"out": y.detach().double().cpu(),
                 "x_grad": inputs.grad.double().cpu(),
                 "grads": torch.cat([g.double().flatten().cpu()
                                     for g in grads])}
 
-    mine = copy.deepcopy(block0)
-    shards = TpShards([mine], dp.tp)
+    mine, _, forward = _tp_module(case, dtype)
+    shards = StateShards([mine], dp.tp)
     shards.release()
-    out = run(mine, x, dp, shards)
+    out = run(mine, forward, x, dp, shards)
     out["tp_counts"] = {k: v[0] for k, v in dp.tp.counts.items()}
     out["split"] = len(shards.params)
     if dp.rank == 0:
-        out["alone"] = run(copy.deepcopy(block0), x, OneProcess(device))
-        exact = copy.deepcopy(block0).double()
+        alone, _, forward = _tp_module(case, dtype)
+        out["alone"] = run(alone, forward, x, OneProcess(device))
+        exact, _, forward = _tp_module(case, dtype)
+        exact.double()
         for m in exact.modules():
             if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
                 m.dtype = torch.float64
-        out["alone64"] = run(exact, x.double(), OneProcess(device))
+            if hasattr(m, "n_experts"):
+                m.dtype = torch.float64
+        out["alone64"] = run(exact, forward, x.double(), OneProcess(device))
     return out
 
 
-def _gathered(grad: torch.Tensor, shards) -> torch.Tensor:
-    """Every expert's gradient from the ranks of ``shards``' ep group,
+def _gathered(grad: torch.Tensor, ep) -> torch.Tensor:
+    """Every expert's gradient from the ranks of the ep group ``ep``,
     each in its rows of a zero buffer, summed."""
-    full = grad.new_zeros((shards.n_experts, *grad.shape[1:]))
-    full[shards.mine] = grad
-    dist.all_reduce(full, group=shards.ep.group)
+    full = grad.new_zeros((grad.shape[0] * ep.size, *grad.shape[1:]))
+    full[ep.experts(full.shape[0])] = grad
+    dist.all_reduce(full, group=ep.group)
     return full
 
 
@@ -1238,6 +1343,7 @@ def run_cases(cases: list[dict], out: Path) -> None:
                                                "ep_counts", "tp_counts",
                                                "sweep_tp_counts",
                                                "tp_elements",
+                                               "grad_buffers",
                                                "expert_elements",
                                                "trunk_digests",
                                                "first_routing")

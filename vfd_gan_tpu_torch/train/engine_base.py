@@ -48,14 +48,15 @@
   ep axis, ``parallel/moe.py``): the ranks form a ``dp x sp x ep``
   grid; the N replicas of a ``(d, k)`` take the same rows and frames and
   draws, the engine's ``dp`` reduces over its replica's ``dp sp`` ranks,
-  and each rank holds its experts alone (``experts``; gathered by
+  and each rank holds its experts alone (``shards``; gathered by
   ``_whole_state`` for a checkpoint).
-* ``--tp N`` (MyGAN; ``parallel/mesh.SpGrid``'s tp axis,
-  ``parallel/tensor.py``): the ranks form a ``dp x sp x tp`` grid; the N
+* ``--tp N`` (MyGAN, Xception with any option, GANomaly;
+  ``parallel/mesh.SpGrid``'s tp axis, ``parallel/tensor.py``): the ranks
+  form a ``dp x sp x tp (x ep)`` grid; the N
   ranks of a ``(d, k)`` take the same rows, frames and draws, the
   engine's ``dp`` reduces over the ``dp sp`` ranks of its channel slice,
   and each rank holds its slice of every leaf that JAX's ``param_spec``
-  shards (``tp_shards``; gathered by ``_whole_state`` for a checkpoint,
+  shards (``shards``; gathered by ``_whole_state`` for a checkpoint,
   a best ``.pth`` or a resume).
 * ``--pp N`` (Xception; ``parallel/pp_xception.py``): the ranks form a
   ``dp x pp`` grid (``parallel/pipeline.stage_grid``); the engine's
@@ -91,6 +92,7 @@ from vfd_gan_tpu_torch.ops.morphology import video_open
 from vfd_gan_tpu_torch.parallel.mesh import DataParallel, sp_grid
 from vfd_gan_tpu_torch.parallel.pipeline import stage_grid
 from vfd_gan_tpu_torch.parallel.prefetch import device_prefetch
+from vfd_gan_tpu_torch.parallel.tensor import StateShards
 from vfd_gan_tpu_torch.train.checkpoints import (
     AsyncSaver,
     best_ckpt_name,
@@ -104,15 +106,20 @@ from vfd_gan_tpu_torch.train.checkpoints import (
 # each weight's absmax over the tp group)
 TP_UNPORTED_OPTIONS = ("ae", "accum", "remat", "int8_disc", "host_flow",
                        "cache_gt_flow", "ref_mode_quirks")
+# the families that --tp does not take yet (MyGAN, Xception and GANomaly
+# it takes, Xception with every option)
+TP_UNPORTED_FAMILIES = ("c2plus1d", "anogan", "clstm")
 
 
 def _tp_unported(cfg) -> str | None:
-    """What of a ``--tp > 1`` command the port does not run: a family
-    other than MyGAN, or one of MyGAN's ``TP_UNPORTED_OPTIONS``."""
+    """What of a ``--tp > 1`` command the port does not run: a family of
+    ``TP_UNPORTED_FAMILIES``, or one of MyGAN's ``TP_UNPORTED_OPTIONS``."""
     if cfg.tp <= 1:
         return None
-    if cfg.model != "mygan":
+    if cfg.model in TP_UNPORTED_FAMILIES:
         return f"--model {cfg.model}"
+    if cfg.model != "mygan":
+        return None
     for option in TP_UNPORTED_OPTIONS:
         value = getattr(cfg, option)
         if value > 1 if option == "accum" else value:
@@ -124,7 +131,7 @@ def _tp_unported(cfg) -> str | None:
 # of it is set, or None; ROADMAP item).  --sp runs for all six families
 # (MyGAN with every option; a MyGAN shard of one frame is refused
 # below), --moe_shards for Xception's MoE block, and --tp for MyGAN
-# without the options above.
+# without the options above, Xception and GANomaly.
 UNPORTED = {
     "tp": (_tp_unported, "queue 1 item 13 (parallelism) tp"),
 }
@@ -208,10 +215,9 @@ class EngineBase:
             self.dp = sp_grid(cfg.sp, cfg.moe_shards,
                               cfg.tp).data_parallel(device)
         # --moe_shards: the MoE block's experts split over the ep group
-        # (parallel/moe.ExpertShards; the supervised engine's); --tp: the
-        # nets' channel slices (parallel/tensor.TpShards; MyGAN's)
-        self.experts = None
-        self.tp_shards = None
+        # (the supervised engine's); --tp: the nets' channel slices
+        # (parallel/tensor.StateShards; _split_state)
+        self.shards = None
         if cfg.pp > 1 and self.dp.grouped:
             self.grid = stage_grid(cfg.pp)
             self.dp = DataParallel(self.grid.dp_index, self.grid.dp_size,
@@ -296,15 +302,23 @@ class EngineBase:
             return tuple(sp.gather(o, dim) for o in out)
         return sp.gather(out, dim)
 
+    def _split_state(self) -> None:
+        """Under ``--tp`` and ``--moe_shards``: keep the rank's channel
+        slices and experts of the nets' whole tensors (before Adam holds
+        any state)."""
+        if self.dp.tp is None and self.dp.expert is None:
+            return
+        self.shards = StateShards(
+            [net.module for net in self._nets().values()], self.dp.tp,
+            self.dp.expert)
+        self.shards.release()
+
     def _step_done(self, *nets) -> None:
         """Average the nets' gradients over the ranks (under
         ``--moe_shards`` the rank's experts, under ``--tp`` its channel
         slices, over its replica alone), then step each net's
         optimizer."""
-        sharded = [*(self.experts.params if self.experts is not None
-                     else ()),
-                   *(self.tp_shards.params if self.tp_shards is not None
-                     else ())]
+        sharded = self.shards.params if self.shards is not None else ()
         for net in nets:
             self.dp.mean_grads(net.module, sharded)
             net.optimizer.step()
@@ -314,12 +328,10 @@ class EngineBase:
         """This rank's train state whole for the block (every rank enters
         it at the same step; under ``--pp`` the stages' blocks, under
         ``--tp`` the nets' channel slices are gathered, and released after
-        it)."""
-        if self.tp_shards is None:
-            yield
-            return
-        with self.tp_shards.whole([net.optimizer
-                                   for net in self._nets().values()]):
+        it; under ``--moe_shards`` the experts)."""
+        optimizers = [net.optimizer for net in self._nets().values()]
+        with self.shards.whole(optimizers) if self.shards is not None \
+                else contextlib.nullcontext():
             yield
 
     def to_float64(self) -> None:

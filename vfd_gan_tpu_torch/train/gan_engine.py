@@ -69,7 +69,7 @@ shard's first gray frame (``train/host_flow.py``).
 ``--sp``, without the options ``engine_base.TP_UNPORTED_OPTIONS``): G and
 D are drawn whole from the seed, as at tp 1, and each rank keeps its
 channel slice of every leaf that JAX's ``param_spec`` shards, before any
-Adam state exists (``tp_shards``); the convs whose output channels split
+Adam state exists (``shards``); the convs whose output channels split
 run on the rank's slice and gather it, the rest whole on every tp rank.
 The augment, the flow, the losses and the sweep's opening run replicated
 on the tp ranks of a ``(d, k)``, from the same draws; the sweep's G runs
@@ -105,7 +105,6 @@ from vfd_gan_tpu_torch.ops.losses import bce, l2_loss, weighted_bce
 from vfd_gan_tpu_torch.ops.morphology import video_open
 from vfd_gan_tpu_torch.parallel.prefetch import to_device
 from vfd_gan_tpu_torch.parallel.sp_generator import generator_forward_sp
-from vfd_gan_tpu_torch.parallel.tensor import TpShards
 from vfd_gan_tpu_torch.train.engine_base import (
     EngineBase,
     SweepAccumulator,
@@ -155,20 +154,13 @@ class MyGanEngine(EngineBase):
         self._gt_flow_cache: dict[int, torch.Tensor] = {}
         # the tensors of the last train step's panels (a panel step only)
         self._viz: dict | None = None
-        self._split_channels()
+        self._split_state()
         self._bind_dp()
         if cfg.resume:
             # (under --tp the whole state loaded, the rank's slices kept)
             with self._whole_state():
                 self.restore_into(cfg.resume, self._nets())
             print(f"\n Loaded pretrained G/D weights from {cfg.resume}\n")
-
-    def _split_channels(self) -> None:
-        """Under ``--tp``: keep the rank's channel slices of G's and D's
-        whole tensors (before Adam holds any state)."""
-        if self.dp.tp is not None:
-            self.tp_shards = TpShards([self.netg, self.netd], self.dp.tp)
-            self.tp_shards.release()
 
     def _nets(self) -> dict:
         return {"netG": self.g, "netD": self.d}
@@ -483,6 +475,6 @@ class MyGanEngine(EngineBase):
             DualDisc(cfg.ndf, cfg.nfr, cfg.isize, dtype=self.dtype,
                      quant=cfg.int8_disc,
                      generator=init).to(self.device), cfg.lr, cfg.beta1)
-        self._split_channels()
+        self._split_state()
         self._bind_dp()
         print("Reloading Net d")

@@ -28,6 +28,15 @@ BatchNorm statistics summed over the grid give sp 1's step); the sweep
 scores the rank's frames and gathers the row's scores back into ``(B,
 T)`` order before the min-max over the whole sweep.
 
+``--tp N`` (alone, with ``--dp`` and with ``--sp``): G and D are drawn
+whole from the seed, as at tp 1, and each rank keeps its channel slice of
+every leaf that JAX's ``param_spec`` shards before Adam holds state
+(``EngineBase._split_state``); the convs whose output channels split
+run column-parallel (``models/ganomaly.py``), the rest whole on every tp
+rank, and every tp rank scores the whole latents.  A best ``.pth`` pair
+and ``latest.pt`` hold the whole tensors (``_whole_state``), and a resume
+loads them whole and keeps the rank's slices.
+
 The nets compute in ``--compute_dtype`` (bfloat16 by default, float32
 parameters and Adam state): each encoder's first two convs take the
 float32 frames, the latents and the anomaly scores are in the compute
@@ -92,9 +101,12 @@ class GanomalyEngine(EngineBase):
         # the last sweep's frame labels and min-max normalised scores, the
         # inputs of its ROC
         self.frame_scores: dict[str, np.ndarray] | None = None
+        self._split_state()
         self._bind_dp()
         if cfg.resume:
-            self.restore_into(cfg.resume, self._nets())
+            # (under --tp loaded whole, the rank's channel slices kept)
+            with self._whole_state():
+                self.restore_into(cfg.resume, self._nets())
             print(f"\n Loaded pretrained G/D weights from {cfg.resume}\n")
 
     def _nets(self) -> dict:

@@ -47,11 +47,20 @@ threshold and the opening (``EngineBase.sharded_forward``).
 ``--moe_shards N`` (with ``--moe_experts``, alone or with ``--dp``,
 ``--sp``, ``--accum``, ``--ref_mode_quirks``): the N replicas of each
 rank's rows and frames hold E/N experts each and their Adam state
-(``parallel/moe.ExpertShards``, kept before the optimizer is made); the
+(``parallel/tensor.StateShards``, kept before Adam holds state); the
 step's and the sweep's MoE layer dispatch to them and combine over the ep
 group (``parallel/moe.py``); ``latest.pt`` and the best ``.pth`` hold
 every expert (``_whole_state``), and a resume loads the whole state and
-keeps the rank's experts, whatever N wrote it.  Options of
+keeps the rank's experts, whatever N wrote it.  ``--tp N`` (Xception,
+with every option above but ``--pp``, which JAX refuses with it): the
+model is drawn whole from the seed, as at tp 1, and each rank keeps its
+channel slice of every leaf that JAX's ``param_spec`` shards before the
+optimizer holds state (``EngineBase._split_state``; under tp x ep
+the experts are the ep axis's alone), its convs and the MoE block run
+column-parallel (``models/xception3d.py``, ``models/moe_block.py``), the
+augment draws, the dropout masks and the sweep's opening run replicated
+on the tp ranks, and the checkpoints hold the whole tensors
+(``_whole_state``).  Options of
 the JAX engine that are not ported yet are refused with the
 ``ROADMAP.md`` item that holds them.
 """
@@ -76,7 +85,6 @@ from vfd_gan_tpu_torch.ops.image import (
 )
 from vfd_gan_tpu_torch.ops.losses import bce
 from vfd_gan_tpu_torch.ops.morphology import video_open
-from vfd_gan_tpu_torch.parallel.moe import ExpertShards
 from vfd_gan_tpu_torch.parallel.pp_xception import XceptionPipeline
 from vfd_gan_tpu_torch.parallel.prefetch import to_device
 from vfd_gan_tpu_torch.train.checkpoints import save_pth
@@ -91,12 +99,10 @@ class SupervisedEngine(EngineBase):
         model = build_mask_model(cfg.model, cfg,
                                  dtype=DTYPES[cfg.compute_dtype],
                                  generator=init).to(device)
-        if self.dp.expert is not None:
-            # --moe_shards: the rank's experts kept before the optimizer
-            # is made, so Adam's moments exist for them alone
-            self.experts = ExpertShards(model.moe, self.dp.expert)
-            self.experts.release()
         self.net = NetState.create(model, cfg.lr, cfg.beta1)
+        # --moe_shards, --tp: the rank's experts and channel slices kept
+        # before Adam's moments exist
+        self._split_state()
         # augmentation draws and dropout masks
         self.rng = torch.Generator(device=device).manual_seed(cfg.seed + 1)
         # the tensors of the last train step's panels (a panel step only)
@@ -107,8 +113,8 @@ class SupervisedEngine(EngineBase):
                                      cfg.n_pp_micro) if cfg.pp > 1 else None
         self._bind_dp()
         if cfg.resume:
-            # (under --moe_shards the whole state loaded, the rank's
-            # experts kept)
+            # (under --moe_shards and --tp the whole state loaded, the
+            # rank's experts and channel slices kept)
             with self._whole_state() if self.pipe is None \
                     else contextlib.nullcontext():
                 self.restore_into(cfg.resume, self._nets())
@@ -215,8 +221,6 @@ class SupervisedEngine(EngineBase):
     def _whole_state(self):
         if self.pipe is not None:
             return self.pipe.whole(self.net.optimizer)
-        if self.experts is not None:
-            return self.experts.whole(self.net.optimizer)
         return super()._whole_state()
 
     def test(self) -> tuple[float, float, float]:
@@ -251,10 +255,12 @@ class SupervisedEngine(EngineBase):
         return roc, pr, f1
 
     def _save_weights(self, head: str) -> None:
-        # every rank of an ep group gathers the experts (each takes the
-        # same decision from the same scores); the writing rank writes
-        with self.experts.whole(self.net.optimizer) \
-                if self.experts is not None else contextlib.nullcontext():
+        # every rank of an ep or tp group gathers the experts and the
+        # channel slices (each takes the same decision from the same
+        # scores); the writing rank writes (under --pp test() holds every
+        # stage's blocks already)
+        with self._whole_state() if self.pipe is None \
+                else contextlib.nullcontext():
             if not self._writes:
                 return
             best = self.best_roc if head == "roc" else self.best_pr
